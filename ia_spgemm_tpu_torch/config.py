@@ -1,0 +1,46 @@
+"""Framework-wide constants and configuration (PyTorch port).
+
+Same values as ``ia_spgemm_tpu.config``: the class-row padding of the
+width-class planner comes from :func:`bucket_capacity`, so it must agree
+with the JAX package bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+# Format viability guard: a format is rejected when its byte footprint
+# exceeds RATIO x the CSR footprint (reference CPU 50x, GPU 20x).
+SIZE_GUARD_RATIO_CPU: float = 50.0
+SIZE_GUARD_RATIO_GPU: float = 20.0
+
+# Byte sizes of the reference's memory-size formulas (int=4, double=8).
+SIZEOF_INDEX: int = 4
+SIZEOF_VALUE: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class SpGEMMConfig:
+    """The size-guard field of the JAX package's SpGEMMConfig (the other
+    fields serve routes not ported yet)."""
+
+    # Viability guard ratio (reference CPU rule).
+    size_guard_ratio: float = SIZE_GUARD_RATIO_CPU
+
+
+DEFAULT_CONFIG = SpGEMMConfig()
+
+
+def bucket_capacity(n: int, *, enabled: bool = True, minimum: int = 8) -> int:
+    """Round a data-dependent capacity up to the next geometric bucket
+    {8, 10, 12, 14} x 2^e (at most 25% padding, 4 buckets per octave)."""
+    n = int(n)
+    if n <= minimum:
+        return minimum
+    if not enabled:
+        return n
+    base = 1 << max((n - 1).bit_length() - 4, 0)
+    for mant in (8, 10, 12, 14, 16):
+        if mant * base >= n:
+            return mant * base
+    raise AssertionError("unreachable")

@@ -1,0 +1,133 @@
+"""Shared helpers of the PyTorch port's tests: the same scipy matrix into
+both packages, kernel inputs, and the comparisons with their tolerances.
+
+Importing this module imports no jax (``jell`` and ``jax_call_state``
+reach the JAX package only when called), so the card-only tests can use
+it on a machine without jax.
+
+Tolerances: output structure (block pointers, row counts, columns) must
+be identical; values agree within 1e-5 * max(1, max|C|), because
+duplicate products are summed in another order (the port's plain
+versions sum in slot order after a stable sort, its kernels and the JAX
+kernels after an unstable network); against the scipy oracle the JAX
+package's own 1e-4 (tests/test_bitonic.py)."""
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ia_spgemm_tpu_torch.formats import convert as tconvert
+from ia_spgemm_tpu_torch.formats.types import CSR as TCSR
+from ia_spgemm_tpu_torch.ops import bitonic as tbt
+
+VALUE_RTOL = 1e-5
+ORACLE_TOL = 1e-4
+RUN = 8   # sub-run length of the kernel inputs below
+
+
+def jell(a):
+    """JAX-package ELL of a scipy matrix, float32 as the ragged paths
+    need (tests/conftest.py turns x64 on)."""
+    from ia_spgemm_tpu.formats import convert as jconvert
+    from ia_spgemm_tpu.formats.types import CSR as JCSR
+    return jconvert.csr_to_ell(JCSR.from_scipy(a.astype(np.float32)),
+                               check_guard=False)
+
+
+def tell(a, device="cpu"):
+    return tconvert.csr_to_ell(TCSR.from_scipy(a.astype(np.float32),
+                                               device=device),
+                               check_guard=False)
+
+
+def host(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def assert_same(got, want, msg=""):
+    np.testing.assert_array_equal(host(got), host(want), err_msg=msg)
+
+
+def assert_values_close(got, want, msg=""):
+    got, want = host(got), host(want)
+    assert got.shape == want.shape, (msg, got.shape, want.shape)
+    if not want.size:
+        return
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    assert err <= VALUE_RTOL * scale, (msg, err, scale)
+
+
+def assert_kernel_outputs_match(got, want):
+    """(col, val, nnz) triples: structure exact, values within tolerance."""
+    (c1, v1, n1), (c2, v2, n2) = got, want
+    assert_same(n1, n2, "nnz")
+    assert_same(c1, c2, "col")
+    assert_values_close(v1, v2, "val")
+
+
+def check_oracle(a, b, C):
+    want = (a.astype(np.float64) @ b.astype(np.float64)).tocsr()
+    d = abs(C.to_scipy() - want)
+    err = d.max() if d.nnz else 0.0
+    assert err < ORACLE_TOL * max(1.0, abs(want).max()), err
+    assert int(C.nnz) == want.nnz
+
+
+def jax_call_state(call):
+    """The arrays a JAX multiclass_planned callable closes over (idxs,
+    extra = per-class fragments + AVT [+ src_full, blk_ptr] + table)."""
+    return dict(zip(call.__code__.co_freevars,
+                    (c.cell_contents for c in call.__closure__)))
+
+
+def kernel_operands(ka, m, seed):
+    """Port ELLs of A (m x 300; up to `ka` entries per row, every 9th row
+    empty) and B (300 x 300; 0..RUN entries per row, sorted columns)."""
+    rng = np.random.default_rng(seed)
+    lens_a = rng.integers(ka // 2, ka + 1, m)
+    lens_a[::9] = 0
+    lens_a[1] = ka
+    lens_b = rng.integers(0, RUN + 1, 300)
+
+    def mat(lens, n):
+        rows = np.repeat(np.arange(len(lens)), lens)
+        cols = np.concatenate([rng.choice(n, size=k, replace=False)
+                               for k in lens])
+        return sp.csr_matrix((rng.standard_normal(len(rows)),
+                              (rows, cols)), shape=(len(lens), n))
+
+    return tell(mat(lens_a, 300)), tell(mat(lens_b, 300))
+
+
+def gather_inputs(ka, m=200, seed=0):
+    """The flat route's fragment gather: g (ka, m, 128), avT (ka, m) and
+    the width, with NaN A values on the empty rows (the kernels must mask
+    them by column, never by multiply)."""
+    A, B = kernel_operands(ka, m, seed)
+    plan = tbt.plan_bitonic(A, B)
+    assert plan.run == RUN and plan.chunks == 1
+    g, avT = tbt._expand_gather_emajor(A.col_ind, A.values, B.col_ind,
+                                       B.values, run=RUN)
+    avT[:, ::9] = float("nan")
+    return g, avT, plan.width
+
+
+def pack_fragments(g, pack):
+    """Lane-pack `pack` fragments per 128-lane row, as the plan-time
+    pregather does (ia_spgemm_tpu/ops/bitonic.py:2230-2238)."""
+    if pack == 1:
+        return g
+    F, m, _ = g.shape
+    used = 4 * RUN
+    Fp = -(-F // pack) * pack
+    gp = torch.full((Fp, m, used), -1, dtype=torch.int32, device=g.device)
+    gp[:F] = g[:, :, :used]
+    return (gp.reshape(Fp // pack, pack, m, used).permute(0, 2, 1, 3)
+            .reshape(Fp // pack, m, pack * used).contiguous())
+
+
+# (fragments per row -> width, pack, out_width): K1's classes with lane
+# packing and output caps; 512 and 1024 are the split-pipeline widths
+GATHER_CASES = [(16, 1, None), (16, 4, None), (32, 4, None), (32, 4, 128),
+                (64, 1, None), (128, 1, None), (128, 1, 256)]
