@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles the sources into a shared library with a plain C
+``nvcc`` compiles each source into its own shared library with a plain C
 interface, loaded with ``ctypes``; nothing includes PyTorch's headers, so
-a build takes seconds. The library is built at first use, from the
-checkout's sources only, into ``_kernels_build/`` beside this file (listed
-in ``.gitignore``) under a name keyed on a hash of the sources and flags:
-an edited source builds anew, an unchanged one loads the existing file.
+a build takes seconds, and the sources build in parallel (one ``nvcc``
+each, all started together). A library is built at first use, from the
+checkout's sources only, into ``_kernels_build/`` beside this file
+(listed in ``.gitignore``) under a name keyed on a hash of its source, the
+shared headers and the flags: an edited source builds anew, an unchanged
+one loads the existing file.
 """
 
 from __future__ import annotations
@@ -20,23 +22,32 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "bitonic.cu",)
+_CSRC = _PKG / "csrc"
+SOURCES = {"bitonic": _CSRC / "bitonic.cu", "slab": _CSRC / "slab.cu"}
+HEADERS = (_CSRC / "sort_common.cuh",)
 BUILD_DIR = _PKG / "_kernels_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/bitonic.cu: pointers and the stream as void*,
-# sizes as int; every entry point returns a cudaError_t as int.
+# C signatures per source: pointers and the stream as void*, sizes as
+# int; every entry point returns a cudaError_t as int.
 SIGNATURES = {
-    "ia_k1_expand_sort_compress": [_P] * 5 + [_I] * 8 + [_P],
-    "ia_k2_expand_sort": [_P] * 4 + [_I] * 7 + [_P],
-    "ia_k3_compress": [_P] * 5 + [_I] * 4 + [_P],
-    "ia_k4_sort_compress_rows": [_P] * 5 + [_I] * 3 + [_P],
+    "bitonic": {
+        "ia_k1_expand_sort_compress": [_P] * 5 + [_I] * 8 + [_P],
+        "ia_k2_expand_sort": [_P] * 4 + [_I] * 7 + [_P],
+        "ia_k3_compress": [_P] * 5 + [_I] * 4 + [_P],
+        "ia_k4_sort_compress_rows": [_P] * 5 + [_I] * 3 + [_P],
+    },
+    "slab": {
+        "ia_k8_expand_sort_lr": [_P] * 5 + [_I] * 7 + [_P],
+        "ia_k9_expand_sort_lr_dd": [_P] * 5 + [_I] * 7 + [_P],
+        "ia_k10_compress_dd": [_P] * 6 + [_I] * 2 + [_P],
+    },
 }
 
-_lib = None
+_fns = None
 build_seconds = None   # wall seconds of this process's build, None if loaded
 
 
@@ -50,45 +61,61 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit (PATH or CUDA_HOME)")
 
 
-def library_path() -> Path:
+def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in HEADERS + (SOURCES[name],):
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libia_spgemm_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libia_spgemm_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless the keyed library exists; returns its
-    path. The compiler's register/shared-memory report is kept beside it
-    as ``<name>.log``. Raises RuntimeError with nvcc's output on failure."""
+def build() -> dict:
+    """Compile every source whose keyed library is missing, all at once;
+    returns {source name: library path}. Each compiler's register /
+    shared-memory report is kept beside its library as ``<name>.log``.
+    Raises RuntimeError with nvcc's output on a failure."""
     global build_seconds
-    out = library_path()
-    if out.exists():
-        return out
+    paths = {name: library_path(name) for name in SOURCES}
+    todo = {name: p for name, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}"
-                           f"\n{r.stdout}\n{r.stderr}")
-    out.with_suffix(".log").write_text(r.stdout + r.stderr)
-    os.replace(tmp, out)     # atomic: a concurrent build never sees a stub
+    jobs = {}
+    for name, out in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])]
+        jobs[name] = (cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (cmd, tmp, out, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)   # atomic: a concurrent build never sees a stub
+    if failed:
+        raise RuntimeError("\n".join(failed))
     build_seconds = time.perf_counter() - t0
-    return out
+    return paths
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def load() -> dict:
+    """{entry point name: ctypes function} of every kernel library, built
+    on first use and loaded once."""
+    global _fns
+    if _fns is None:
+        fns = {}
+        for name, path in build().items():
+            lib = ctypes.CDLL(str(path))
+            for fname, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fname)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[fname] = fn
+        _fns = fns
+    return _fns

@@ -1,5 +1,5 @@
 """Benchmark harness (PyTorch port of ``ia_spgemm_tpu.bench.harness``,
-the ``baseline`` and ``bitonic`` rows).
+the ``baseline``, ``bitonic``, ``csr``, ``esc`` and ``compensated`` rows).
 
 Reference methodology (main.cpp:709-1000): per algorithm run_time (ms),
 trans_time (format conversion and planning, ms), memory_size (bytes of C
@@ -10,8 +10,9 @@ against the baseline's.
 
 Times: on a CUDA device, the median of CUDA-event intervals around each
 run (device time of the enqueued work); on the CPU, the median host wall
-time. The warm-up run is untimed. Only baseline (scipy on the host) and
-bitonic are ported; other algorithm names raise NotImplementedError.
+time. The warm-up run is untimed. Planning that the JAX package counts as
+conversion (the bitonic and csr rows) is timed as trans time. Algorithms
+not in PORTED_ALGORITHMS raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from ia_spgemm_tpu_torch.formats import convert
 from ia_spgemm_tpu_torch.formats.types import CSR, BlockCSR
 from ia_spgemm_tpu_torch.ops.flops import get_flop
 
-PORTED_ALGORITHMS = ("baseline", "bitonic")
+PORTED_ALGORITHMS = ("baseline", "bitonic", "csr", "esc", "compensated")
 
 
 @dataclasses.dataclass
@@ -128,7 +129,7 @@ def run_benchmark(A: CSR, B: CSR,
                 res.memory_bytes = convert.sizeof_csr(A.nrows, nnz_c)
                 baseline_ms, baseline_sum = ms, vsum
                 continue
-            _bench_one(A, B, res, iters)
+            _bench_one(name, A, B, res, iters)
         except Exception as e:  # noqa: BLE001 - report, don't crash the sweep
             res.error = f"{type(e).__name__}: {e}"
 
@@ -153,15 +154,14 @@ def run_benchmark(A: CSR, B: CSR,
     return report
 
 
-def _bench_one(A: CSR, B: CSR, res: AlgorithmResult, iters: int):
+def _bitonic_row(A: CSR, B: CSR):
     """The bitonic row: flat plan when viable, else the width-class route
-    (BlockCSR out). Convert + plan (timed as trans time), then run."""
+    (BlockCSR out); CSR -> ELL and the class plan are conversion."""
     from ia_spgemm_tpu_torch.ops import bitonic as bt
     kb = convert.plan_ell_width(B)
     flat_plan = bt.plan_bitonic_dims(A.nrows, convert.plan_ell_width(A), kb)
     lens = np.diff(A.row_ptr.cpu().numpy())
     if not (flat_plan.viable or bt.multiclass_viable(lens, kb)):
-        res.skipped = True
         return None
 
     def convert_fn():
@@ -175,10 +175,61 @@ def _bench_one(A: CSR, B: CSR, res: AlgorithmResult, iters: int):
         if ab[0] == "flat":
             return bt.spgemm_bitonic(ab[1], ab[2], flat_plan)
         return ab[1]() if ab[1] is not None else None
+    return convert_fn, compute
 
-    converted = convert_fn()
-    res.trans_time_ms = time_ms(convert_fn, A.device, warmup=0,
-                                iters=max(iters, 1))
+
+def _csr_row(A: CSR, B: CSR):
+    """The production auto route (esc.plan_csr_auto); its planning is
+    conversion."""
+    from ia_spgemm_tpu_torch.ops import esc
+    return (lambda: esc.plan_csr_auto(A, B)), (lambda rc: rc[1]())
+
+
+def _esc_row(A: CSR, B: CSR):
+    """The ESC engine without the tiled route: the slab engine (SlabCSR
+    out), slab + global for heavy rows, else the global engine."""
+    from ia_spgemm_tpu_torch.ops import esc
+    from ia_spgemm_tpu_torch.ops import slab
+    scall = slab.plan_slab_csr(A, B)
+    if scall is None:
+        scall = slab.plan_slab_hybrid(A, B)
+    if scall is not None:
+        return None, lambda _: scall()
+    plan = esc.plan_spgemm(A, B)
+    return None, lambda _: esc.spgemm_csr(A, B, plan, engine="global")
+
+
+def _compensated_row(A: CSR, B: CSR):
+    """Float64-grade sums from float32 operands; skipped where the
+    compensated path cannot run (it does not slice)."""
+    from ia_spgemm_tpu_torch.ops import esc
+    if (A.dtype != torch.float32
+            or (A.nrows + 1) * (B.ncols + 1) >= 2**31):
+        return None
+    plan = esc.plan_spgemm(A, B)
+    if plan.slabs is not None:
+        return None
+    return None, lambda _: esc.spgemm_csr_compensated(A, B, plan)
+
+
+_ROWS = {"bitonic": _bitonic_row, "csr": _csr_row, "esc": _esc_row,
+         "compensated": _compensated_row}
+
+
+def _bench_one(name: str, A: CSR, B: CSR, res: AlgorithmResult,
+               iters: int):
+    """Plan (conversion, timed as trans time where the row has one), run
+    (timed), then C's checksum and size in its format."""
+    row = _ROWS[name](A, B)
+    if row is None:
+        res.skipped = True
+        return None
+    convert_fn, compute = row
+    converted = None
+    if convert_fn is not None:
+        converted = convert_fn()
+        res.trans_time_ms = time_ms(convert_fn, A.device, warmup=0,
+                                    iters=max(iters, 1))
     C = compute(converted)
     if C is None:
         res.skipped = True
@@ -188,7 +239,9 @@ def _bench_one(A: CSR, B: CSR, res: AlgorithmResult, iters: int):
     res.verified_sum = float(C.checksum())
     if isinstance(C, BlockCSR):
         res.memory_bytes = float(C.padded_bytes())
-    else:
+    elif name == "bitonic":
         res.memory_bytes = convert.sizeof_ell(C.nrows, C.max_nnz_per_row)
+    else:
+        res.memory_bytes = convert.sizeof_csr(C.nrows, int(C.nnz))
     res.ok = True
     return C

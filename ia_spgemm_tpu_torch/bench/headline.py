@@ -69,6 +69,23 @@ def build_skew_matrix(m=4096, seed=0,
                          shape=(m, m)).tocsr().astype(np.float32)
 
 
+def build_hybrid_matrix(m, heavy_every=300, heavy_len=1500, seed=3):
+    """A few huge rows among short ones (a copy of the JAX package's
+    tests/test_route_dispatch.py _skew_matrix): the heavy rows exceed the
+    tiled route's width cap and the slab width cap, so plan_csr_auto
+    routes C = A @ A to the slab + global hybrid."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(2, 6, m)
+    lens[::heavy_every] = heavy_len
+    rows = np.repeat(np.arange(m), lens)
+    cols = rng.integers(0, m, rows.shape[0])
+    a = sp.coo_matrix((rng.standard_normal(rows.shape[0]), (rows, cols)),
+                      shape=(m, m)).tocsr()
+    a.sum_duplicates()
+    return a
+
+
 def observed_out_width(nnz_row, cap: int) -> int:
     """Smallest pow2 >= 128 holding the widest output row, capped."""
     out_w = 128

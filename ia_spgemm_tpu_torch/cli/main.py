@@ -2,15 +2,18 @@
 
 Usage (the JAX package's CLI flags, plus --device):
 
-    python -m ia_spgemm_tpu_torch.cli A.mtx [B.mtx] --mode bitonic \\
-        --no-matnet [--device cuda|cpu] [--iters N] [--json OUT.json]
+    python -m ia_spgemm_tpu_torch.cli A.mtx [B.mtx] \\
+        --mode bitonic|csr|esc|compensated --no-matnet \\
+        [--device cuda|cpu] [--iters N] [--json OUT.json]
 
-With one matrix the workload is C = A @ A (reference README.md:10). Only
-``--mode bitonic`` (with its scipy baseline row) is ported; every other
-mode, and the MatNet prediction, exit non-zero saying so. Matrices are
-read as float32, the type the kernels take. ``--device cuda`` (the
-default) refuses to run without a GPU; ``--device cpu`` runs the
-kernels' plain PyTorch versions.
+With one matrix the workload is C = A @ A (reference README.md:10). The
+ported modes run beside the scipy baseline row: ``bitonic`` (flat or
+width-class bitonic route), ``csr`` (the production auto route),
+``esc`` (slab / hybrid / global ESC) and ``compensated`` (float64-grade
+sums). Every other mode, and the MatNet prediction, exit non-zero saying
+so. Matrices are read as float32, the type the kernels take. ``--device
+cuda`` (the default) refuses to run without a GPU; ``--device cpu`` runs
+the kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-PORTED_MODES = ("bitonic",)
+PORTED_MODES = ("bitonic", "csr", "esc", "compensated")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,8 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reference-CLI compat: nonzero third positional "
                         "arg == --testing")
     p.add_argument("--mode", default="all",
-                   help="ported: bitonic (the width-class / flat bitonic "
-                        "route beside the scipy baseline)")
+                   help="ported: bitonic | csr (auto route) | esc | "
+                        "compensated, each beside the scipy baseline")
     p.add_argument("--shards", type=int, default=None,
                    help="mesh size for --mode dist/ring (not ported)")
     p.add_argument("--weights", default="Intel",

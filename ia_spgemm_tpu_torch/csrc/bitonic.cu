@@ -25,164 +25,15 @@
 // several rows per block, cp.async/TMA fragment reads, fusing K2 and K3)
 // is later work.
 //
-// Conventions shared with the JAX package: SENTINEL = INT32_MAX marks an
-// empty product slot and sorts last (signed int32 compares); empty output
-// slots are col -1 / value 0; a fragment's direction (forward or reversed
-// run) follows its global fragment index e, not its packed row.
+// Conventions and building blocks: sort_common.cuh.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sort_common.cuh"
 
 namespace {
-
-constexpr int kSentinel = 0x7fffffff;
-
-// Threads per block for a row of `width` slots (width a power of two,
-// 128..16384): one compare-exchange pair per thread, at most 1024.
-inline int threads_for(int width) {
-  int t = width / 2;
-  return t < 32 ? 32 : (t > 1024 ? 1024 : t);
-}
 
 // keys + values + 32 warp totals + 1 block total
 inline size_t smem_bytes(int width) {
   return (size_t)(2 * width + 33) * sizeof(int);
-}
-
-// ---- building block 1: the expand prologue ------------------------------
-// Fragment e of this row sits in packed row ep = e / pack of g at lane
-// offset (e % pack) * 4 * run as [col_f | val_f | col_rev | val_rev]; odd
-// fragments take the reversed half, so the row arrives as alternating
-// ascending / descending runs. Invalid columns (< 0) become SENTINEL with
-// value 0 by a select: padded class rows carry NaN A values, which a
-// multiply-by-mask would leak into the sums.
-__device__ void expand_row(const int32_t* __restrict__ g,
-                           const float* __restrict__ avT, int* k, float* v,
-                           int row, int m, int ka, int lanes, int run,
-                           int pack, int width) {
-  for (int p = threadIdx.x; p < width; p += blockDim.x) {
-    int key = kSentinel;
-    float val = 0.f;
-    int e = p / run;
-    if (e < ka) {
-      int r = p - e * run;
-      int ep = e / pack;
-      int off = (e - ep * pack) * 4 * run + ((e & 1) ? 2 * run : 0);
-      const int32_t* src = g + ((size_t)ep * m + row) * lanes + off;
-      int c = src[r];
-      if (c >= 0) {
-        key = c;
-        val = avT[(size_t)e * m + row] * __int_as_float(src[run + r]);
-      }
-    }
-    k[p] = key;
-    v[p] = val;
-  }
-}
-
-// ---- building block 2: block bitonic sort in shared memory -------------
-// Ascending by key. Merging starts at block size start_kk: 2*run when the
-// row holds alternating sorted runs of length run, 2 for a full sort.
-__device__ void block_sort(int* k, float* v, int width, int start_kk) {
-  __syncthreads();
-  const int half = width >> 1;
-  for (int kk = start_kk; kk <= width; kk <<= 1) {
-    for (int s = kk >> 1; s > 0; s >>= 1) {
-      for (int t = threadIdx.x; t < half; t += blockDim.x) {
-        int i = ((t & ~(s - 1)) << 1) | (t & (s - 1));
-        int j = i + s;
-        bool asc = (i & kk) == 0;
-        int ki = k[i], kj = k[j];
-        if (ki != kj && (ki > kj) == asc) {
-          k[i] = kj;
-          k[j] = ki;
-          float vi = v[i];
-          v[i] = v[j];
-          v[j] = vi;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// ---- building block 3: compress -----------------------------------------
-__device__ __forceinline__ bool emits(const int* k, int i, int width) {
-  int key = k[i];
-  return key != kSentinel && (i == width - 1 || k[i + 1] != key);
-}
-
-// Sum of the duplicate run ending at its last slot i.
-__device__ __forceinline__ float run_sum(const int* k, const float* v,
-                                         int i) {
-  int key = k[i];
-  float s = v[i];
-  for (int j = i - 1; j >= 0 && k[j] == key; --j) s += v[j];
-  return s;
-}
-
-// Block-wide exclusive scan of one int per thread; *total gets the sum.
-// blockDim.x is a multiple of 32.
-__device__ int block_exclusive_scan(int x, int* warp_tot, int* total) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  int incl = x;
-  for (int d = 1; d < 32; d <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += y;
-  }
-  if (lane == 31) warp_tot[wid] = incl;
-  __syncthreads();
-  if (wid == 0) {
-    const int nw = blockDim.x >> 5;
-    int wt = lane < nw ? warp_tot[lane] : 0;
-    int wi = wt;
-    for (int d = 1; d < 32; d <<= 1) {
-      int y = __shfl_up_sync(0xffffffffu, wi, d);
-      if (lane >= d) wi += y;
-    }
-    if (lane < nw) warp_tot[lane] = wi - wt;
-    if (lane == 31) *total = wi;
-  }
-  __syncthreads();
-  return warp_tot[wid] + incl - x;
-}
-
-// Sorted row (k, v) in shared memory -> duplicate sums, nnz, and either
-// the survivors compacted left into out_w slots (compact) or left at
-// their sorted slots with -1 / 0 holes (!compact, out_w == width). Each
-// thread scans a contiguous chunk so ranks keep column order. nnz counts
-// every survivor, also those past out_w.
-__device__ void compress_row(const int* k, const float* v, int width,
-                             int out_w, bool compact, int* out_col,
-                             float* out_val, int* nnz, int* scratch) {
-  const int nt = blockDim.x;
-  const int chunk = width / nt;
-  const int lo = threadIdx.x * chunk;
-  int cnt = 0;
-  for (int i = lo; i < lo + chunk; ++i) cnt += emits(k, i, width);
-  int off = block_exclusive_scan(cnt, scratch, scratch + 32);
-  const int total = scratch[32];
-  if (compact) {
-    for (int i = lo; i < lo + chunk; ++i) {
-      if (!emits(k, i, width)) continue;
-      if (off < out_w) {
-        out_col[off] = k[i];
-        out_val[off] = run_sum(k, v, i);
-      }
-      ++off;
-    }
-    for (int p = total + threadIdx.x; p < out_w; p += nt) {
-      out_col[p] = -1;
-      out_val[p] = 0.f;
-    }
-  } else {
-    for (int i = lo; i < lo + chunk; ++i) {
-      bool e = emits(k, i, width);
-      out_col[i] = e ? k[i] : -1;
-      out_val[i] = e ? run_sum(k, v, i) : 0.f;
-    }
-  }
-  if (threadIdx.x == 0) *nnz = total;
 }
 
 // ---- the four kernels -----------------------------------------------------
@@ -196,10 +47,12 @@ __global__ void k1_expand_sort_compress(
   int* k = smem;
   float* v = reinterpret_cast<float*>(smem + width);
   const int row = blockIdx.x;
-  expand_row(g, avT, k, v, row, m, ka, lanes, run, pack, width);
+  expand_row<float, false>(g, avT, nullptr, 0, k, v, row, m, ka, lanes,
+                           run, pack, width);
   block_sort(k, v, width, start_kk);
   compress_row(k, v, width, out_w, true, out_col + (size_t)row * out_w,
-               out_val + (size_t)row * out_w, nnz + row, smem + 2 * width);
+               F32Out{out_val + (size_t)row * out_w}, nnz + row,
+               smem + 2 * width);
 }
 
 __global__ void k2_expand_sort(const int32_t* __restrict__ g,
@@ -212,7 +65,8 @@ __global__ void k2_expand_sort(const int32_t* __restrict__ g,
   int* k = smem;
   float* v = reinterpret_cast<float*>(smem + width);
   const int row = blockIdx.x;
-  expand_row(g, avT, k, v, row, m, ka, lanes, run, pack, width);
+  expand_row<float, false>(g, avT, nullptr, 0, k, v, row, m, ka, lanes,
+                           run, pack, width);
   block_sort(k, v, width, start_kk);
   for (int p = threadIdx.x; p < width; p += blockDim.x) {
     out_k[(size_t)row * width + p] = k[p];
@@ -236,8 +90,9 @@ __global__ void k3_compress(const int* __restrict__ key,
   }
   __syncthreads();
   compress_row(k, v, width, out_w, compact != 0,
-               out_col + (size_t)row * out_w, out_val + (size_t)row * out_w,
-               nnz + row, smem + 2 * width);
+               out_col + (size_t)row * out_w,
+               F32Out{out_val + (size_t)row * out_w}, nnz + row,
+               smem + 2 * width);
 }
 
 __global__ void k4_sort_compress_rows(const int* __restrict__ key,
@@ -256,7 +111,8 @@ __global__ void k4_sort_compress_rows(const int* __restrict__ key,
   }
   block_sort(k, v, width, start_kk);
   compress_row(k, v, width, width, true, out_col + (size_t)row * width,
-               out_val + (size_t)row * width, nnz + row, smem + 2 * width);
+               F32Out{out_val + (size_t)row * width}, nnz + row,
+               smem + 2 * width);
 }
 
 // Allow more than 48 KB of dynamic shared memory (K4 at width 16384 uses

@@ -8,11 +8,15 @@ drops straight into ``from_numpy``:
 - ELL empty slots have ``col_ind == -1`` and ``values == 0``;
 - BlockCSR rows own whole 128-slot blocks ``[blk_ptr[i], blk_ptr[i+1])``,
   the first ``nnz_row[i]`` slots valid with ascending columns, the rest of
-  the span (and every block past ``blk_ptr[nrows]``) ``-1`` / ``0``.
+  the span (and every block past ``blk_ptr[nrows]``) ``-1`` / ``0``;
+- SlabCSR pad slots have ``keys == -1`` and ``values == 0``.
 
 ``nnz`` is a 0-d int32 tensor on the operands' device, as in the JAX
 package, so producing a result never waits on the device. Every tensor
 of one value lives on one device; ``.to(device)`` moves them together.
+
+Compensated results (``values_lo`` set) carry each value as a float32
+pair whose float64 sum ``values + values_lo`` is the value.
 """
 
 from __future__ import annotations
@@ -41,6 +45,24 @@ def _moved(obj, device):
                         else v for k, v in kw.items()})
 
 
+def _f64(values, values_lo) -> np.ndarray:
+    """Host float64 values: hi + lo for compensated results."""
+    out = values.cpu().numpy().astype(np.float64)
+    if values_lo is not None:
+        out += values_lo.cpu().numpy().astype(np.float64)
+    return out
+
+
+def _checksum(values, values_lo) -> torch.Tensor:
+    """Sum of the stored values on their device; a compensated pair is
+    reduced by ``esc.dd_sum`` and returned as a float64 0-d tensor."""
+    if values_lo is None:
+        return values.sum()
+    from ia_spgemm_tpu_torch.ops.esc import dd_sum
+    hi, lo = dd_sum(values.reshape(-1), values_lo.reshape(-1))
+    return hi.double() + lo.double()
+
+
 @dataclasses.dataclass
 class CSR:
     """Compressed sparse row (reference detail/format.h:29-39)."""
@@ -50,6 +72,9 @@ class CSR:
     values: torch.Tensor    # (capacity,) float
     nnz: torch.Tensor       # 0-d int32
     shape: Shape2
+    # compensated results: the float32 low halves (values + values_lo is
+    # the float64 value); None for plain results
+    values_lo: torch.Tensor | None = None
 
     @property
     def nrows(self) -> int:
@@ -77,12 +102,14 @@ class CSR:
 
     @classmethod
     def from_numpy(cls, row_ptr, col_ind, values, nnz, shape: Shape2,
-                   device="cpu") -> "CSR":
+                   device="cpu", values_lo=None) -> "CSR":
         return cls(row_ptr=_t(row_ptr, torch.int32, device),
                    col_ind=_t(col_ind, torch.int32, device),
                    values=_t(values, _value_dtype(values), device),
                    nnz=_t(nnz, torch.int32, device),
-                   shape=(int(shape[0]), int(shape[1])))
+                   shape=(int(shape[0]), int(shape[1])),
+                   values_lo=None if values_lo is None
+                   else _t(values_lo, torch.float32, device))
 
     @classmethod
     def from_scipy(cls, mat, capacity: int | None = None,
@@ -100,17 +127,22 @@ class CSR:
     def to(self, device) -> "CSR":
         return _moved(self, device)
 
+    def values_f64(self) -> np.ndarray:
+        """Stored values on the host in float64 (hi + lo when
+        compensated)."""
+        return _f64(self.values, self.values_lo)
+
     def to_scipy(self):
         import scipy.sparse as sp
         nnz = int(self.nnz)
         return sp.csr_matrix(
-            (self.values[:nnz].cpu().numpy().astype(np.float64),
+            (self.values_f64()[:nnz],
              self.col_ind[:nnz].cpu().numpy(), self.row_ptr.cpu().numpy()),
             shape=self.shape)
 
     def checksum(self) -> torch.Tensor:
         """Sum of stored values, the reference's `verified_sum`."""
-        return self.values.sum()
+        return _checksum(self.values, self.values_lo)
 
 
 @dataclasses.dataclass
@@ -264,3 +296,75 @@ class BlockCSR:
 
     def checksum(self) -> torch.Tensor:
         return self.val_blocks.sum()
+
+
+@dataclasses.dataclass
+class SlabCSR:
+    """Slab-packed CSR, the slab engine's output (``ops/slab.py``): whole
+    C rows packed back to back into fixed-width slabs.
+
+    Slab s covers the global rows from ``slab_first_row[s]`` to the next
+    slab's first row; its first ``nnz_slab[s]`` slots are valid with
+    ascending keys ``(row - slab_first_row[s]) * ncols + col``, the rest
+    key -1 / value 0, so ``checksum()`` is one reduction."""
+
+    keys: torch.Tensor            # (S, W) int32
+    values: torch.Tensor          # (S, W) float, padding 0
+    nnz_slab: torch.Tensor        # (S,) int32 survivors per slab
+    slab_first_row: torch.Tensor  # (S,) int32 global row of local row 0
+    nnz: torch.Tensor             # 0-d int32
+    shape: Shape2
+    values_lo: torch.Tensor | None = None   # compensated low halves
+
+    @property
+    def nrows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def width(self) -> int:
+        return self.keys.shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @classmethod
+    def from_numpy(cls, keys, values, nnz_slab, slab_first_row, nnz,
+                   shape: Shape2, device="cpu", values_lo=None) -> "SlabCSR":
+        return cls(keys=_t(keys, torch.int32, device),
+                   values=_t(values, _value_dtype(values), device),
+                   nnz_slab=_t(nnz_slab, torch.int32, device),
+                   slab_first_row=_t(slab_first_row, torch.int32, device),
+                   nnz=_t(nnz, torch.int32, device),
+                   shape=(int(shape[0]), int(shape[1])),
+                   values_lo=None if values_lo is None
+                   else _t(values_lo, torch.float32, device))
+
+    def to(self, device) -> "SlabCSR":
+        return _moved(self, device)
+
+    def checksum(self) -> torch.Tensor:
+        return _checksum(self.values, self.values_lo)
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+        W = self.keys.shape[1]
+        keys = self.keys.cpu().numpy().astype(np.int64)
+        vals = (self.values.cpu().numpy() if self.values_lo is None
+                else _f64(self.values, self.values_lo))
+        nnz_s = self.nnz_slab.cpu().numpy().astype(np.int64)
+        sfr = self.slab_first_row.cpu().numpy().astype(np.int64)
+        ok = np.arange(W)[None, :] < nnz_s[:, None]
+        k = keys[ok]
+        lrow = k // self.ncols
+        rows = np.repeat(sfr, nnz_s) + lrow
+        return sp.coo_matrix((vals[ok], (rows, k - lrow * self.ncols)),
+                             shape=self.shape).tocsr()

@@ -96,7 +96,7 @@ def _launch(name, *args, device: torch.device):
     tensors pass as their device pointers, then the device's current
     stream; raise on a CUDA error."""
     from ia_spgemm_tpu_torch import _build
-    fn = getattr(_build.load(), name)
+    fn = _build.load()[name]
     with torch.cuda.device(device):
         err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
                    for a in args), torch.cuda.current_stream().cuda_stream)

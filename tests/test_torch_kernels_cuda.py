@@ -1,5 +1,5 @@
-"""PyTorch port, the CUDA kernels K1-K4 against their plain PyTorch
-versions on the card (marked `cuda`; they skip without a GPU).
+"""PyTorch port, the CUDA kernels K1-K4 and K8-K10 against their plain
+PyTorch versions on the card (marked `cuda`; they skip without a GPU).
 
 This file imports no jax, so it runs on the GPU machine, where jax is
 not installed and tests/conftest.py (which imports jax) must be left out:
@@ -11,10 +11,20 @@ not installed and tests/conftest.py (which imports jax) must be left out:
 import pytest
 import torch
 
+from ia_spgemm_tpu_torch.bench.headline import build_matrix
 from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
-from tests.torch_parity import (GATHER_CASES, RUN,
+from ia_spgemm_tpu_torch.ops import slab_kernels as SK
+from tests.torch_parity import (GATHER_CASES, RUN, assert_dd_outputs_match,
                                 assert_kernel_outputs_match, gather_inputs,
-                                pack_fragments)
+                                ill_conditioned, pack_fragments,
+                                slab_operands)
+
+# slab-kernel inputs: (matrix, planner overrides); the headline plans
+# width 1024, the others 512
+SLAB_CASES = {"headline2048": (lambda: build_matrix(m=2048), {}),
+              "headline2048_run16": (lambda: build_matrix(m=2048),
+                                     {"run": 16}),
+              "ill_conditioned": (ill_conditioned, {})}
 
 
 @pytest.fixture
@@ -61,3 +71,42 @@ def test_k4_kernel_matches_plain(cuda_device, width):
     assert_kernel_outputs_match(
         K.sort_compress_rows(key, val, width=width, start_kk=2),
         K.sort_compress_rows_plain(key, val, width=width, start_kk=2))
+
+
+def _slab_inputs(name, device):
+    make, over = SLAB_CASES[name]
+    p, g, avT, lrT, kw = slab_operands(make(), **over)
+    return (g.to(device), avT.to(device), lrT.to(device)), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SLAB_CASES))
+def test_k8_k3_slab_kernels_match_plain(cuda_device, name):
+    """K8 sorts every slab's keys exactly as the plain version; values
+    within a duplicate run may sit in another order, so the run sums
+    (K3 against its plain version) are compared."""
+    args, kw = _slab_inputs(name, cuda_device)
+    w = kw["width"]
+    n8 = SK.expand_sort_lr.launches
+    key, val = SK.expand_sort_lr(*args, **kw)
+    pkey, pval = SK.expand_sort_lr_plain(*args, **kw)
+    assert SK.expand_sort_lr.launches == n8 + 1
+    assert torch.equal(key, pkey)
+    assert_kernel_outputs_match(K.compress(key, val, width=w, out_w=w),
+                                K.compress_plain(pkey, pval, width=w,
+                                                 out_w=w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SLAB_CASES))
+def test_k9_k10_slab_kernels_match_plain(cuda_device, name):
+    args, kw = _slab_inputs(name, cuda_device)
+    key, val = SK.expand_sort_lr_dd(*args, **kw)
+    pkey, pval = SK.expand_sort_lr_dd_plain(*args, **kw)
+    assert val.dtype == torch.float64
+    assert torch.equal(key, pkey)
+    n10 = SK.compress_dd.launches
+    got = SK.compress_dd(key, val, width=kw["width"])
+    assert SK.compress_dd.launches == n10 + 1
+    assert_dd_outputs_match(got, SK.compress_dd_plain(pkey, pval,
+                                                      width=kw["width"]))

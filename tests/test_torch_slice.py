@@ -1,7 +1,8 @@
 """PyTorch port, the width-class slice end to end against the JAX package:
 multiclass_planned (BlockCSR and ELL assembly, with and without the
 plan-time gather, run 8), the flat spgemm_bitonic, the harness's bitonic
-row, the CLI, and the headline's workload."""
+row, the CLI (bitonic and the ESC modes), and the headline's and the
+hybrid route's workloads."""
 
 import re
 
@@ -152,14 +153,15 @@ def test_harness_bitonic_row_matches_jax():
         assert t.memory_bytes == j.memory_bytes
     with pytest.raises(NotImplementedError, match="not ported"):
         tharness.run_benchmark(TCSR.from_scipy(a), TCSR.from_scipy(a),
-                               ("baseline", "csr"))
+                               ("baseline", "hash"))
 
 
 def _verified_sums(out: str) -> dict:
     sums = {}
     for line in out.splitlines():
         f = line.split()
-        if len(f) == 8 and f[0] in ("baseline", "bitonic"):
+        if len(f) == 8 and f[0] in ("baseline", "bitonic", "csr", "esc",
+                                    "compensated"):
             sums[f[0]] = (f[4], f[7])
     return sums
 
@@ -184,8 +186,34 @@ def test_cli_bitonic_matches_jax_cli(tmp_path, capsys):
     assert tsums["bitonic"][1] == "ok"
 
 
+@pytest.mark.parametrize("mode", ["csr", "esc", "compensated"])
+def test_cli_esc_modes_match_jax_cli(tmp_path, capsys, mode):
+    """The production CSR route, the ESC engine and the compensated route
+    print the JAX CLI's verified_sum (small-integer values: exact sums).
+    Under the tests' x64 setting the JAX CLI reads float64 and skips its
+    float32-only compensated row, so that row is held to the baseline."""
+    rng = np.random.default_rng(6)
+    a = sp.random(120, 120, density=0.04, format="csr",
+                  random_state=np.random.RandomState(6))
+    a.data[:] = rng.integers(-3, 4, a.nnz)
+    a.eliminate_zeros()
+    path = str(tmp_path / "a.mtx")
+    tmmio.write_mtx(path, TCSR.from_scipy(a))
+    args = [path, "--mode", mode, "--no-matnet", "--iters", "1"]
+    assert jcli.main(args) == 0
+    jsums = _verified_sums(capsys.readouterr().out)
+    assert tcli.main(args + ["--device", "cpu"]) == 0
+    tsums = _verified_sums(capsys.readouterr().out)
+    assert set(tsums) == {"baseline", mode}
+    assert tsums["baseline"] == jsums["baseline"]
+    want = (jsums["baseline"][0], "ok")
+    assert tsums[mode] == want
+    assert jsums[mode] == (want if mode != "compensated" else ("0",
+                                                               "skipped"))
+
+
 @pytest.mark.parametrize("argv,pattern", [
-    (["--mode", "csr", "--no-matnet"], "not ported"),
+    (["--mode", "hash", "--no-matnet"], "not ported"),
     (["--mode", "all", "--no-matnet"], "not ported"),
     (["--mode", "bitonic"], "MatNet"),
     (["--mode", "bitonic", "--no-matnet", "--imgs-dir", "x"], "not ported"),
@@ -219,3 +247,11 @@ def test_headline_workload_and_smoke_run(monkeypatch):
     assert "host_wall_ms" in det and "device_ms" not in det
     assert det["intermediate_products"] == int(
         np.diff(a.indptr)[a.indices].sum())
+
+
+def test_hybrid_matrix_copies_jax_skew_matrix():
+    from tests.test_route_dispatch import _skew_matrix
+    for kw in ({}, {"heavy_every": 100, "heavy_len": 300}):
+        a = headline.build_hybrid_matrix(512, **kw)
+        b = _skew_matrix(m=512, **kw)
+        assert a.nnz == b.nnz and (a != b).nnz == 0

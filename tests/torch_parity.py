@@ -131,3 +131,51 @@ def pack_fragments(g, pack):
 # packing and output caps; 512 and 1024 are the split-pipeline widths
 GATHER_CASES = [(16, 1, None), (16, 4, None), (32, 4, None), (32, 4, 128),
                 (64, 1, None), (128, 1, None), (128, 1, 256)]
+
+DD_RTOL = 1e-12   # compensated values against float64, relative to max|C|
+
+
+def ill_conditioned(m=96, k=6, seed=11):
+    """Rows of +/-big pairs with tiny residuals, float32 (a jax-free copy
+    of tests/test_slab_dd.py's _ill_conditioned): float32 accumulation
+    loses ~6 digits, a float64 oracle on these float32 inputs is exact."""
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [], [], []
+    for r in range(m):
+        ks = rng.choice(m, size=k, replace=False)
+        big = rng.standard_normal() * 1e4
+        for t, c in enumerate(ks):
+            rows.append(r)
+            cols.append(int(c))
+            vals.append(big if t % 2 == 0
+                        else -big + rng.standard_normal())
+    a = sp.coo_matrix((vals, (rows, cols)), shape=(m, m)).tocsr()
+    return a.astype(np.float32)
+
+
+def slab_operands(a, b=None, *, width=None, run=None):
+    """The port's slab plan of C = a @ b (b = a by default, float32) and
+    the kernels' inputs at the plan's shapes: (plan, g, avT, lrT, kw)."""
+    from ia_spgemm_tpu_torch.ops import slab
+    A = TCSR.from_scipy(a.astype(np.float32))
+    B = A if b is None else TCSR.from_scipy(b.astype(np.float32))
+    p = slab._plan_slab_csr_uncached(A, B, width=width, run=run).plan
+    F_c = p.width // p.run
+    g = p.table[p.mt.reshape(-1).long()].reshape(F_c, p.n_slabs,
+                                                 p.table.shape[1])
+    kw = dict(ka=F_c, run=p.run, width=p.width, n=p.n, start_kk=2 * p.run)
+    return p, g, p.avt, p.lrt, kw
+
+
+def assert_dd_outputs_match(got, want):
+    """(col, hi, lo, nnz) quadruples: structure exact, hi + lo within
+    DD_RTOL * max(1, max|C|) in float64."""
+    (c1, h1, l1, n1), (c2, h2, l2, n2) = got, want
+    assert_same(n1, n2, "nnz")
+    assert_same(c1, c2, "col")
+    v1 = host(h1).astype(np.float64) + host(l1)
+    v2 = host(h2).astype(np.float64) + host(l2)
+    if v2.size:
+        scale = max(1.0, float(np.abs(v2).max()))
+        err = float(np.abs(v1 - v2).max())
+        assert err <= DD_RTOL * scale, (err, scale)
