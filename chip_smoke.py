@@ -13,10 +13,14 @@ prints no result line:
 3. kernels against their plain PyTorch versions on the card, on the
    inputs the main paths give them: K1-K4 on the headline's width
    classes and the skew matrix's wide classes, K8 + K3 on the headline's
-   slab plan, K9 + K10 on its compensated slab plan. Structure exact,
-   float32 values within 1e-5 * max(1, max|C|) (duplicates are summed in
-   another order), compensated hi + lo within 1e-12 * max(1, max|C|);
-   median ms of each over CUDA events, beside the plain version's;
+   slab plan, K9 + K10 on its compensated slab plan, K7a + K7b on the
+   headline's flat plan (width 1024, run 32; sorted packed keys
+   bit-identical), K11 on build_matrix(m=16384) (A as ELL times dense B,
+   16384 x 16384), K12 on the headline ELL pair (Ka = Kb = 29, H = 2048;
+   each row's slots compared sorted by column). Structure exact, float32
+   values within 1e-5 * max(1, max|C|) (duplicates are summed in another
+   order), compensated hi + lo within 1e-12 * max(1, max|C|); median ms
+   of each over CUDA events, beside the plain version's;
 4. headline: bench.headline at m=32768 (nnz 7,086,306, checksum within
    1e-4 of scipy, scipy's sparsity pattern exactly);
 5. skew: the width-class route on a row-skewed matrix whose classes need
@@ -33,18 +37,36 @@ prints no result line:
     and answers within 1e-4 of scipy, and picks the JAX package's cost
     model's route on the headline (HEADLINE_AUTO_ROUTE); the predicted ms
     of every route beside the measured device ms of each route run;
-11. CLI: ``--mode csr``, ``esc`` and ``compensated`` with --no-matnet.
+11. CLI: ``--mode csr``, ``esc`` and ``compensated`` with --no-matnet;
+12. serve: spgemm_bitonic(value_mode="bf16", compact=False) on the
+    headline: scipy's nnz and pattern exactly, checksum within
+    SERVE_CHECKSUM_TOL (2e-2);
+13. hash: spgemm_hash -> compact_ell -> ell_to_csr on the headline,
+    scipy's pattern, within 1e-4;
+14. dense_row: spgemm_dense_row on build_matrix(m=16384) against scipy
+    within 1e-4;
+15. selection: select_algorithm on the headline with the Intel, P100 and
+    TPU weights must make the JAX package's picks (HEADLINE_PICKS);
+    logits and the host time of features + images + MatNet, and of each
+    of the three alone (Intel weights); then
+    spgemm_auto with the TPU weights (bitonic, flat route) returns a flat
+    CSR with scipy's pattern;
+16. the input-aware CLI on the m=4096 .mtx: --mode all with MatNet
+    (Intel), --mode autotune, --profile gpu, --imgs-dir, and --mode dia on
+    a 5-point 2-D Laplacian (m = 262,144): rc 0, every row ok or skipped
+    and none failed, a winner and a MatNet verdict, the dia row run.
 
-Every kernel wrapper counts its launches. Phases 4, 5, 7-10 each drive a
-main path on its own input: the counts are set to 0 just before each run
-and read just after it. K1 must have been launched in phase 4, K2, K3
-and K4 in phase 5, K8 and K3 in phase 7, K9 and K10 in phase 9, K8 in
-the hybrid run of phase 10. Phase 3's comparison launches and the CLI's
-are not counted. The line before the last two is a JSON object with one
-entry per kernel ("ms"/"plain_ms": summed medians over its phase-3
-shapes; "launches": the sum over the main-path runs, split in
-"launches_by_run"); then the nvidia-smi line; the last line is
-{"ok": true, "device": {...}}.
+Every kernel wrapper counts its launches. Phases 4, 5, 7-10 and 12-15
+each drive a main path on its own input: the counts are set to 0 just
+before each run and read just after it. K1 must have been launched in
+phase 4, K2, K3 and K4 in phase 5, K8 and K3 in phase 7, K9 and K10 in
+phase 9, K8 in the hybrid run of phase 10, K7a and K7b in phase 12, K12
+in 13, K11 in 14, the flat route's kernels in spgemm_auto (15). Phase
+3's comparison launches and the CLI's are not counted. The line before
+the last two is a JSON object with one entry per kernel ("ms"/
+"plain_ms": summed medians over its phase-3 shapes; "launches": the sum
+over the main-path runs, split in "launches_by_run"); then the
+nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -62,15 +84,29 @@ HEADLINE_NNZ = 7_086_306
 # first on the m=32768 headline (tests/test_torch_esc.py checks it)
 HEADLINE_AUTO_ROUTE = "tiled"
 HYBRID_M = 32768
+# the JAX package's MatNet picks on the headline, C = A @ A: (algorithm,
+# class) per weight set (JAX on the CPU, float64 features; the logits'
+# margins are wide: Intel [7.24, 3.04, -3.47, 0.47, -6.21], P100
+# [-3.46, -9.80, 9.64], TPU [-0.68, 0.16, -4.37, -1.59, 7.62])
+HEADLINE_PICKS = {"Intel": ("baseline", 0), "P100": ("bitonic", 2),
+                  "TPU": ("bitonic", 4)}
+DENSE_ROW_M = 16384      # dense B + C = 2.1 GB, within the 6 GiB budget
+LAPLACIAN_SIDE = 512     # 5-point 2-D Laplacian, m = 262,144
 SOURCES = {"bitonic": "ia_spgemm_tpu_torch/csrc/bitonic.cu",
-           "slab": "ia_spgemm_tpu_torch/csrc/slab.cu"}
+           "slab": "ia_spgemm_tpu_torch/csrc/slab.cu",
+           "dense_row": "ia_spgemm_tpu_torch/csrc/dense_row.cu",
+           "hash": "ia_spgemm_tpu_torch/csrc/hash.cu"}
 REPLACES = {"K1": "ia_spgemm_tpu/ops/bitonic.py:1034",
             "K2": "ia_spgemm_tpu/ops/bitonic.py:977",
             "K3": "ia_spgemm_tpu/ops/bitonic.py:523",
             "K4": "ia_spgemm_tpu/ops/bitonic.py:241",
+            "K7a": "ia_spgemm_tpu/ops/bitonic.py:1056",
+            "K7b": "ia_spgemm_tpu/ops/bitonic.py:1086",
             "K8": "ia_spgemm_tpu/ops/slab.py:99",
             "K9": "ia_spgemm_tpu/ops/slab.py:306",
-            "K10": "ia_spgemm_tpu/ops/slab.py:369"}
+            "K10": "ia_spgemm_tpu/ops/slab.py:369",
+            "K11": "ia_spgemm_tpu/ops/dense_row.py:35",
+            "K12": "ia_spgemm_tpu/ops/hash_spgemm.py:58"}
 
 
 def _compare(name, got, want):
@@ -233,6 +269,89 @@ def _check_slab_kernels(A, stats, time_ms, dev):
                     lambda: f(K.compress), lambda: f(K.compress_plain))
 
 
+def _values_err(name, got, want, tol):
+    """max |got - want| on the card, within tol * max(1, max|want|)."""
+    import torch
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: max |dval| {err} > {tol} * {scale}")
+    return err
+
+
+def _sorted_tables(col, val):
+    """Hash tables with each row's slots sorted by column (empty slots
+    last): the kernel's hash order and the plain version's column order
+    then compare slot by slot."""
+    import torch
+    key = torch.where(col >= 0, col, 2**31 - 1)
+    key, order = torch.sort(key, dim=1)
+    return key, torch.gather(val, 1, order)
+
+
+def _check_input_aware_kernels(H, A16_ell, B16, stats, time_ms, dev):
+    """K7a/K7b on the headline's flat plan, K11 on the m=16384 dense-row
+    input, K12 on the headline ELL pair, each against its plain version
+    at those shapes."""
+    import torch
+
+    from ia_spgemm_tpu_torch.ops import bitonic as bt
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    from ia_spgemm_tpu_torch.ops import dense_row_kernels as DK
+    from ia_spgemm_tpu_torch.ops import hash_kernels as HK
+    from ia_spgemm_tpu_torch.ops import hash_spgemm
+
+    plan = bt.plan_bitonic(H, H)
+    if (plan.width, plan.run, plan.chunks) != (1024, 32, 1):
+        raise AssertionError(f"headline flat plan {plan}")
+    g, avT = bt._expand_gather_emajor(H.col_ind, H.values, H.col_ind,
+                                      H.values, run=plan.run)
+    ka = H.max_nnz_per_row
+    kw = dict(ka=ka, run=plan.run, width=plan.width, start_kk=2 * plan.run)
+    shape = f"headline flat rows={H.nrows} width={plan.width} run={plan.run}"
+    p = K.expand_sort_packed(g, avT, **kw)
+    pp = K.expand_sort_packed_plain(g, avT, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(p, pp):
+        raise AssertionError(f"K7a {shape}: sorted packed keys differ")
+    _record(stats, time_ms, dev, "K7a", shape, 0.0,
+            lambda: K.expand_sort_packed(g, avT, **kw),
+            lambda: K.expand_sort_packed_plain(g, avT, **kw))
+    for compact in (False, True):
+        f = lambda fn: fn(p, width=plan.width,  # noqa: E731
+                          out_w=plan.width, compact=compact)
+        err = _compare(f"K7b {shape} compact={compact}",
+                       f(K.compress_packed), f(K.compress_packed_plain))
+        _record(stats, time_ms, dev, "K7b", f"{shape} compact={compact}",
+                err, lambda: f(K.compress_packed),
+                lambda: f(K.compress_packed_plain))
+    del g, avT, p, pp
+
+    f = lambda fn: fn(A16_ell.col_ind, A16_ell.values, B16)  # noqa: E731
+    shape = (f"A ELL {tuple(A16_ell.col_ind.shape)} x dense B "
+             f"{tuple(B16.shape)}")
+    err = _values_err(f"K11 {shape}", f(DK.dense_row), f(DK.dense_row_plain),
+                      TOL)
+    _record(stats, time_ms, dev, "K11", shape, err,
+            lambda: f(DK.dense_row), lambda: f(DK.dense_row_plain))
+
+    Hs = hash_spgemm._next_pow2(2 * ka * ka)
+    if Hs != 2048 or not hash_spgemm.hash_viable(ka, ka, H.ncols):
+        raise AssertionError(f"headline hash table {Hs}, ka {ka}")
+    f = lambda fn: fn(H.col_ind, H.values, H.col_ind,  # noqa: E731
+                      H.values, table_size=Hs)
+    c1, v1, n1 = f(HK.hash_accumulate)
+    c2, v2, n2 = f(HK.hash_accumulate_plain)
+    k1, s1 = _sorted_tables(c1, v1)
+    k2, s2 = _sorted_tables(c2, v2)
+    shape = f"headline ELL pair rows={H.nrows} Ka=Kb={ka} H={Hs}"
+    err = _compare(f"K12 {shape}", (k1, s1, n1), (k2, s2, n2))
+    _record(stats, time_ms, dev, "K12", shape, err,
+            lambda: f(HK.hash_accumulate),
+            lambda: f(HK.hash_accumulate_plain))
+
+
 def _against_scipy(name, C, want):
     d = abs(C.to_scipy() - want)
     err = d.max() if d.nnz else 0.0
@@ -249,6 +368,7 @@ def main() -> int:
     from ia_spgemm_tpu_torch.bench import headline
     headline.apply_bench_tuning()
     import numpy as np
+    import scipy.sparse as sp
     import torch
 
     # ---- 1. device check
@@ -286,20 +406,26 @@ def main() -> int:
     from ia_spgemm_tpu_torch.io import mmio
     from ia_spgemm_tpu_torch.ops import bitonic as bt
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    from ia_spgemm_tpu_torch.ops import dense_row_kernels as DK
     from ia_spgemm_tpu_torch.ops import esc, slab
+    from ia_spgemm_tpu_torch.ops import hash_kernels as HK
     from ia_spgemm_tpu_torch.ops import slab_kernels as SK
 
-    kernel_names = list(K.KERNELS) + list(SK.KERNELS)
-    source = {**{n: SOURCES["bitonic"] for n in K.KERNELS},
-              **{n: SOURCES["slab"] for n in SK.KERNELS}}
+    modules = {"bitonic": K, "slab": SK, "dense_row": DK, "hash": HK}
+    kernel_names = sorted((n for mod in modules.values()
+                           for n in mod.KERNELS),
+                          key=lambda n: (int(n[1:].rstrip("ab")), n))
+    source = {n: SOURCES[src] for src, mod in modules.items()
+              for n in mod.KERNELS}
 
     def reset_counts():
-        K.reset_launch_counts()
-        SK.reset_launch_counts()
+        for mod in modules.values():
+            mod.reset_launch_counts()
 
     def counts():
         torch.cuda.synchronize()
-        return {**K.launch_counts(), **SK.launch_counts()}
+        return {n: c for mod in modules.values()
+                for n, c in mod.launch_counts().items()}
 
     def launched(run, names):
         missing = [n for n in names if by_run[run][n] == 0]
@@ -326,8 +452,13 @@ def main() -> int:
     S = ell(skew)
     _check_kernels(bt.multiclass_planned(S, S, assemble="bcsr"), stats,
                    "skew", time_ms, dev)
-    del H, S
+    del S
     _check_slab_kernels(A, stats, time_ms, dev)
+    a16 = headline.build_matrix(m=DENSE_ROW_M).astype(np.float32)
+    A16 = CSR.from_scipy(a16, device=dev)
+    A16_ell = convert.csr_to_ell(A16, check_guard=False)
+    B16 = convert.csr_to_dense(A16)
+    _check_input_aware_kernels(H, A16_ell, B16.values, stats, time_ms, dev)
     missing = set(kernel_names) - set(stats)
     if missing:
         raise AssertionError(f"phase 3 never reached {sorted(missing)}")
@@ -501,6 +632,172 @@ def main() -> int:
             if rc != 0:
                 raise AssertionError(f"CLI --mode {mode} returned {rc}")
     print("[11] CLI --mode csr / esc / compensated: rc 0", flush=True)
+
+    from ia_spgemm_tpu_torch import autotune
+    from ia_spgemm_tpu_torch.bench.harness import SERVE_CHECKSUM_TOL
+    from ia_spgemm_tpu_torch.ops import density, dense_row, hash_spgemm
+    input_aware = {}
+
+    # ---- 12. serve lane on the headline (launch counts from 0)
+    splan = bt.plan_bitonic(H, H)
+    serve = lambda: bt.spgemm_bitonic(H, H, splan,  # noqa: E731
+                                      value_mode="bf16", compact=False)
+    reset_counts()
+    Cv = serve()
+    by_run["serve"] = counts()
+    launched("serve", ["K7a", "K7b"])
+    got = Cv.to_scipy()
+    got.sort_indices()
+    if not (int(Cv.nnz) == HEADLINE_NNZ
+            and np.array_equal(got.indptr, c_ref.indptr)
+            and np.array_equal(got.indices, c_ref.indices)):
+        raise AssertionError(f"serve: nnz {int(Cv.nnz)} or pattern differs "
+                             "from scipy")
+    rel = abs(float(Cv.checksum()) - ref_sum) / max(1.0, abs(ref_sum))
+    if not rel <= SERVE_CHECKSUM_TOL:
+        raise AssertionError(f"serve checksum rel err {rel}")
+    input_aware["serve_ms"] = time_ms(serve, dev, 1, 10)
+    print(f"[12] serve (bf16, compact=False): width={splan.width} "
+          f"nnz={int(Cv.nnz)} rel_err={rel} "
+          f"device_ms={input_aware['serve_ms']} launches={by_run['serve']}",
+          flush=True)
+    del Cv, got
+
+    # ---- 13. hash route on the headline (launch counts from 0)
+    reset_counts()
+    Ch = convert.ell_to_csr(convert.compact_ell(hash_spgemm.spgemm_hash(H,
+                                                                        H)))
+    by_run["hash"] = counts()
+    launched("hash", ["K12"])
+    err = same_pattern("hash", Ch)
+    input_aware["hash_ms"] = time_ms(lambda: hash_spgemm.spgemm_hash(H, H),
+                                     dev, 1, 10)
+    input_aware["hash_route_ms"] = time_ms(
+        lambda: convert.ell_to_csr(convert.compact_ell(
+            hash_spgemm.spgemm_hash(H, H))), dev, 1, 5)
+    print(f"[13] hash: nnz={int(Ch.nnz)} max_err={err} "
+          f"device_ms={input_aware['hash_ms']} (with compact_ell + "
+          f"ell_to_csr {input_aware['hash_route_ms']}) "
+          f"launches={by_run['hash']}", flush=True)
+    del Ch
+
+    # ---- 14. dense-row route on build_matrix(m=16384) (counts from 0)
+    want16 = convert.csr_to_dense(CSR.from_scipy(
+        (a16.astype(np.float64) @ a16.astype(np.float64)).tocsr(),
+        device=dev)).values
+    reset_counts()
+    Cd = dense_row.spgemm_dense_row(A16_ell, B16)
+    by_run["dense_row"] = counts()
+    launched("dense_row", ["K11"])
+    err = _values_err("dense_row", Cd.values, want16, ORACLE_TOL)
+    del Cd, want16
+    input_aware["dense_row_ms"] = time_ms(
+        lambda: dense_row.spgemm_dense_row(A16_ell, B16), dev, 1, 5)
+    print(f"[14] dense_row m={DENSE_ROW_M}: max_err={err} "
+          f"device_ms={input_aware['dense_row_ms']} "
+          f"launches={by_run['dense_row']}", flush=True)
+    del A16, A16_ell, B16
+
+    # ---- 15. selection on the headline, then spgemm_auto (TPU weights)
+    for w, (algo, cls) in HEADLINE_PICKS.items():
+        sel = autotune.select_algorithm(A, A, weight_name=w)   # warm
+        t0 = time.perf_counter()
+        sel = autotune.select_algorithm(A, A, weight_name=w)
+        torch.cuda.synchronize()
+        sel_ms = (time.perf_counter() - t0) * 1e3
+        input_aware[f"select_{w}_host_ms"] = sel_ms
+        print(f"[15] MatNet {w}: class {sel.class_index} -> {sel.algorithm} "
+              f"logits={[round(float(x), 4) for x in sel.logits]} "
+              f"features+images+MatNet host_ms={sel_ms}", flush=True)
+        if (sel.algorithm, sel.class_index) != (algo, cls):
+            raise AssertionError(f"{w} picks {sel.algorithm} (class "
+                                 f"{sel.class_index}), the JAX package "
+                                 f"{algo} ({cls})")
+    # the selection's parts, each timed alone (host clock, synchronised)
+    from ia_spgemm_tpu_torch.models import matnet, weights
+    from ia_spgemm_tpu_torch.ops import features
+    params, arch = weights.import_reference_weights("Intel")
+    parts = {
+        "features": lambda: features.feature_vector(A, A),
+        "images": lambda: (density.density_image_normalized(A),
+                           density.density_image_normalized(A)),
+        "matnet": lambda: matnet.predict_logits(
+            params, img1, img1, fv, device=dev, **arch)}
+    fv = features.feature_vector(A, A)
+    img1 = density.density_image_normalized(A)
+    for part, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        input_aware[f"select_{part}_host_ms"] = (time.perf_counter()
+                                                 - t0) * 1e3
+    print("[15] selection parts (Intel, host ms): " + ", ".join(
+        f"{p} {input_aware[f'select_{p}_host_ms']}" for p in parts),
+        flush=True)
+    want_k = (["K1"] if splan.width <= bt.FUSED_MAX_WIDTH
+              else ["K2", "K3"])
+    reset_counts()
+    Ca, sel = autotune.spgemm_auto(A, A, weight_name="TPU")
+    by_run["auto_tpu"] = counts()
+    launched("auto_tpu", want_k)
+    if sel.algorithm != "bitonic" or type(Ca) is not CSR:
+        raise AssertionError(f"spgemm_auto ran {sel.algorithm} and "
+                             f"returned {type(Ca).__name__}")
+    err = same_pattern("spgemm_auto", Ca)
+    print(f"[15] spgemm_auto (TPU weights): {sel.algorithm} -> flat CSR "
+          f"max_err={err} launches={by_run['auto_tpu']}", flush=True)
+    del Ca
+
+    # ---- 16. the input-aware CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "smoke.mtx")
+        a4096 = headline.build_matrix(m=4096)
+        mmio.write_mtx(path, CSR.from_scipy(a4096))
+        side = LAPLACIAN_SIDE
+        T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(side, side))
+        lap = (sp.kron(sp.identity(side), T)
+               + sp.kron(T, sp.identity(side))).tocsr()
+        lap_path = os.path.join(tmp, "laplacian.mtx")
+        mmio.write_mtx(lap_path, CSR.from_scipy(lap))
+        imgs = os.path.join(tmp, "imgs")
+        runs = {"all": [path],
+                "autotune": [path, "--mode", "autotune"],
+                "gpu_all": [path, "--profile", "gpu"],
+                "imgs": [path, "--mode", "csr", "--imgs-dir", imgs],
+                "dia": [lap_path, "--mode", "dia", "--no-matnet"]}
+        for name, argv in runs.items():
+            out = os.path.join(tmp, f"{name}.json")
+            rc = cli.main(argv + ["--iters", "3", "--json", out])
+            if rc != 0:
+                raise AssertionError(f"CLI {name} returned {rc}")
+            if name == "autotune":
+                print("[16] CLI autotune: rc 0", flush=True)
+                continue
+            with open(out) as f:
+                rep = json.load(f)
+            bad = [r["name"] for r in rep["results"]
+                   if r["error"] or not (r["ok"] or r["skipped"])]
+            if bad or not rep["winner"]:
+                raise AssertionError(f"CLI {name}: rows {bad} failed, "
+                                     f"winner {rep['winner']!r}")
+            if name in ("all", "gpu_all") and not rep["matnet_pick"]:
+                raise AssertionError(f"CLI {name}: no MatNet verdict")
+            rows = {r["name"]: ("ok" if r["ok"] else "skipped")
+                    for r in rep["results"]}
+            if name == "dia" and rows["dia"] != "ok":
+                raise AssertionError("CLI --mode dia skipped the dia row")
+            print(f"[16] CLI {name}: rc 0 rows={rows} winner="
+                  f"{rep['winner']} matnet_pick={rep['matnet_pick']}",
+                  flush=True)
+        # m >= 128: every stored entry adds one count to one cell
+        for fname in ("img1.txt", "img2.txt"):
+            img = density.read_density_image(os.path.join(imgs, fname))
+            if img.shape != (128, 128) or img.sum() != a4096.nnz:
+                raise AssertionError(f"{fname}: shape {img.shape}, sum "
+                                     f"{img.sum()} != nnz {a4096.nnz}")
+    print(json.dumps({"input_aware": input_aware}), flush=True)
 
     torch.cuda.synchronize()
     kernels = [{"name": name, "route": "cuda",

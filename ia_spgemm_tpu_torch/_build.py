@@ -23,7 +23,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
-SOURCES = {"bitonic": _CSRC / "bitonic.cu", "slab": _CSRC / "slab.cu"}
+SOURCES = {"bitonic": _CSRC / "bitonic.cu", "slab": _CSRC / "slab.cu",
+           "dense_row": _CSRC / "dense_row.cu", "hash": _CSRC / "hash.cu"}
 HEADERS = (_CSRC / "sort_common.cuh",)
 BUILD_DIR = _PKG / "_kernels_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -39,7 +40,11 @@ SIGNATURES = {
         "ia_k2_expand_sort": [_P] * 4 + [_I] * 7 + [_P],
         "ia_k3_compress": [_P] * 5 + [_I] * 4 + [_P],
         "ia_k4_sort_compress_rows": [_P] * 5 + [_I] * 3 + [_P],
+        "ia_k7a_expand_sort_packed": [_P] * 3 + [_I] * 6 + [_P],
+        "ia_k7b_compress_packed": [_P] * 4 + [_I] * 4 + [_P],
     },
+    "dense_row": {"ia_k11_dense_row": [_P] * 4 + [_I] * 3 + [_P]},
+    "hash": {"ia_k12_hash": [_P] * 7 + [_I] * 4 + [_P]},
     "slab": {
         "ia_k8_expand_sort_lr": [_P] * 5 + [_I] * 7 + [_P],
         "ia_k9_expand_sort_lr_dd": [_P] * 5 + [_I] * 7 + [_P],

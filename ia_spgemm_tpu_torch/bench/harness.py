@@ -1,22 +1,31 @@
-"""Benchmark harness (PyTorch port of ``ia_spgemm_tpu.bench.harness``,
-the ``baseline``, ``bitonic``, ``csr``, ``esc`` and ``compensated`` rows).
+"""Benchmark harness (PyTorch port of ``ia_spgemm_tpu.bench.harness``):
+per-algorithm timing, watchdog, memory, checksum, GFLOPS, speedup and
+the MatNet verdict.
 
 Reference methodology (main.cpp:709-1000): per algorithm run_time (ms),
 trans_time (format conversion and planning, ms), memory_size (bytes of C
-in its format), verified_sum (sum of C's values), GFLOPS =
-2*flops/(ms*1e6) with flops = GetFlop(A, B) (main.cpp:989), speedup =
-t_baseline / t_alg (main.cpp:968-979), and every verified_sum checked
-against the baseline's.
+in its format, the sizeof* formulas), verified_sum (sum of C's values),
+GFLOPS = 2*flops/(ms*1e6) with flops = GetFlop(A, B) (main.cpp:989),
+speedup = t_baseline / t_alg (main.cpp:968-979), and every verified_sum
+checked against the baseline's (1e-4 relative in float32; the bf16
+``serve`` row at SERVE_CHECKSUM_TOL).
 
-Times: on a CUDA device, the median of CUDA-event intervals around each
-run (device time of the enqueued work); on the CPU, the median host wall
-time. The warm-up run is untimed. Planning that the JAX package counts as
-conversion (the bitonic and csr rows) is timed as trans time. Algorithms
-not in PORTED_ALGORITHMS raise NotImplementedError.
+- Viability: a format its guard rejects (the reference's choice=false,
+  dia/common_dia.h:56), or a route that cannot take the input, is
+  reported as skipped, with the JAX package's guards and budgets.
+- Watchdog: an algorithm is abandoned past timeout_scale x the
+  baseline's runtime (at least 5 s; main.cpp:43-93,770-793), the first
+  run (which builds the kernels) past COMPILE_BUDGET_S. It runs in a
+  worker thread the harness stops waiting on; a kernel already on the
+  card runs to its end, as a dispatched TPU program did.
+- Times: on a CUDA device the median of CUDA-event intervals around each
+  run (device time of the enqueued work); on the CPU the median host
+  wall time. Warm-up runs are untimed.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import time
 from typing import Callable, List, Optional, Sequence
@@ -24,18 +33,32 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ia_spgemm_tpu_torch import config as cfg
 from ia_spgemm_tpu_torch.formats import convert
 from ia_spgemm_tpu_torch.formats.types import CSR, BlockCSR
 from ia_spgemm_tpu_torch.ops.flops import get_flop
 
-PORTED_ALGORITHMS = ("baseline", "bitonic", "csr", "esc", "compensated")
+ALGORITHMS = ("baseline", "csr", "dia", "ell", "coo")   # reference menu
+# every row the harness runs (the JAX package's menu but for the
+# distributed modes, which are CLI modes there too)
+PORTED_ALGORITHMS = ALGORITHMS + ("esc", "bitonic", "compensated", "dense",
+                                  "dense_row", "hash", "serve")
+
+# serve-lane checksum gate: bf16-rounded products carry <= 2^-9 relative
+# error each (float32 sums), so its verified_sum is held to this bound
+SERVE_CHECKSUM_TOL = 2e-2
+
+# Budget of an algorithm's first run, which includes building the CUDA
+# kernels at first use (nvcc, seconds) and the first launch.
+COMPILE_BUDGET_S = 300.0
 
 
 @dataclasses.dataclass
 class AlgorithmResult:
     name: str
     ok: bool = False
-    skipped: bool = False           # no viable plan for this input
+    skipped: bool = False           # viability guard rejected the input
+    timed_out: bool = False
     run_time_ms: float = 0.0
     trans_time_ms: float = 0.0
     memory_bytes: float = 0.0       # size of C in this algorithm's format
@@ -56,6 +79,8 @@ class BenchReport:
     flops: int
     results: List[AlgorithmResult] = dataclasses.field(default_factory=list)
     winner: str = ""
+    matnet_pick: str = ""
+    matnet_correct: Optional[bool] = None
 
     def by_name(self, name: str) -> Optional[AlgorithmResult]:
         for r in self.results:
@@ -89,6 +114,29 @@ def time_ms(fn: Callable, device: torch.device, warmup: int = 1,
     return float(np.median(times))
 
 
+def _run_with_timeout(fn: Callable, timeout_s: Optional[float]):
+    """Run fn in a worker thread; abandon it past timeout_s (the
+    watchdog). Returns (result, timed_out)."""
+    if timeout_s is None or timeout_s <= 0:
+        return fn(), False
+    ex = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    fut = ex.submit(fn)
+    try:
+        return fut.result(timeout=timeout_s), False
+    except concurrent.futures.TimeoutError:
+        ex.shutdown(wait=False, cancel_futures=True)
+        return None, True
+    finally:
+        ex.shutdown(wait=False)
+
+
+def _synced(x, device: torch.device):
+    """x, once the device has finished the work enqueued so far."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return x
+
+
 def _scipy_baseline(A: CSR, B: CSR, iters: int):
     """scipy.sparse CSR x CSR on the host, the role MKL plays in the
     reference (main.cpp:709-765)."""
@@ -100,23 +148,20 @@ def _scipy_baseline(A: CSR, B: CSR, iters: int):
 
 
 def run_benchmark(A: CSR, B: CSR,
-                  algorithms: Sequence[str] = PORTED_ALGORITHMS,
+                  algorithms: Sequence[str] = ALGORITHMS,
                   *,
                   matrix_a: str = "A", matrix_b: str = "B",
+                  config: cfg.SpGEMMConfig = cfg.DEFAULT_CONFIG,
+                  matnet_pick: Optional[str] = None,
                   iters: int = 3) -> BenchReport:
     """Benchmark every algorithm computing C = A @ B, reference-style, on
-    the device A and B live on. An algorithm that fails is reported with
-    its error, not raised."""
-    unported = [n for n in algorithms if n not in PORTED_ALGORITHMS]
-    if unported:
-        raise NotImplementedError(
-            f"algorithms {unported} are not ported yet (ported: "
-            f"{', '.join(PORTED_ALGORITHMS)})")
+    the device A and B live on. An algorithm that fails (an unknown name
+    included) is reported with its error, not raised."""
     flops = get_flop(A, B)
     report = BenchReport(matrix_a=matrix_a, matrix_b=matrix_b,
                          shape_a=A.shape, shape_b=B.shape,
                          nnz_a=int(A.nnz), nnz_b=int(B.nnz), flops=flops)
-    baseline_ms = baseline_sum = None
+    baseline_ms = baseline_sum = timeout_s = None
     for name in algorithms:
         res = AlgorithmResult(name=name)
         report.results.append(res)
@@ -128,8 +173,15 @@ def run_benchmark(A: CSR, B: CSR,
                 res.verified_sum = vsum
                 res.memory_bytes = convert.sizeof_csr(A.nrows, nnz_c)
                 baseline_ms, baseline_sum = ms, vsum
+                # watchdog budget for everything after the baseline
+                # (main.cpp:510,751: 20 x the baseline's runtime)
+                timeout_s = max(config.timeout_scale * ms / 1e3, 5.0)
                 continue
-            _bench_one(name, A, B, res, iters)
+            # a menu without a leading baseline gets the fixed budget, so
+            # the watchdog never disarms
+            budget_s = timeout_s if timeout_s is not None \
+                else config.default_timeout_s
+            _bench_one(name, A, B, config, budget_s, res, iters)
         except Exception as e:  # noqa: BLE001 - report, don't crash the sweep
             res.error = f"{type(e).__name__}: {e}"
 
@@ -146,17 +198,44 @@ def run_benchmark(A: CSR, B: CSR,
         # the oracle sums in float64; the kernels run in the matrix dtype
         tol = 1e-9 if A.dtype == torch.float64 else 1e-4
         for res in report.results:
-            if res.ok and res.name != "baseline" and abs(
-                    res.verified_sum - baseline_sum) > tol * max(
+            if not res.ok or res.name == "baseline":
+                continue
+            rtol = SERVE_CHECKSUM_TOL if res.name == "serve" else tol
+            if abs(res.verified_sum - baseline_sum) > rtol * max(
                     1.0, abs(baseline_sum)):
                 res.error = (f"checksum mismatch vs baseline: "
                              f"{res.verified_sum} != {baseline_sum}")
+    if matnet_pick is not None:
+        report.matnet_pick = matnet_pick
+        report.matnet_correct = matnet_pick == report.winner
     return report
 
 
-def _bitonic_row(A: CSR, B: CSR):
-    """The bitonic row: flat plan when viable, else the width-class route
-    (BlockCSR out); CSR -> ELL and the class plan are conversion."""
+# ------------------------------------------------------------------ rows
+# Each row returns (convert_fn or None, compute) or None when its guard
+# skips the input; convert_fn's work (format conversion, planning) is
+# timed as trans time, compute(converted) is the timed run.
+
+def _ell_probe(A: CSR, ratio: float):
+    """The ELL guard from the planner's K alone."""
+    K = convert.plan_ell_width(A)
+    return K if convert.ell_viable(A.nrows, int(A.nnz), K, ratio) else None
+
+
+def _dia_probe(A: CSR, ratio: float):
+    nd = len(convert.plan_dia_offsets(A))
+    return nd if convert.dia_viable(A.nrows, A.ncols, int(A.nnz), nd,
+                                    ratio) else None
+
+
+def _ells(A: CSR, B: CSR):
+    return (convert.csr_to_ell(A, check_guard=False),
+            convert.csr_to_ell(B, check_guard=False))
+
+
+def _bitonic_row(A: CSR, B: CSR, config):
+    """Flat plan when viable, else the width-class route (BlockCSR out);
+    CSR -> ELL and the class plan are conversion."""
     from ia_spgemm_tpu_torch.ops import bitonic as bt
     kb = convert.plan_ell_width(B)
     flat_plan = bt.plan_bitonic_dims(A.nrows, convert.plan_ell_width(A), kb)
@@ -165,8 +244,7 @@ def _bitonic_row(A: CSR, B: CSR):
         return None
 
     def convert_fn():
-        A_ell = convert.csr_to_ell(A, check_guard=False)
-        B_ell = convert.csr_to_ell(B, check_guard=False)
+        A_ell, B_ell = _ells(A, B)
         if flat_plan.viable:
             return ("flat", A_ell, B_ell)
         return ("mc", bt.multiclass_planned(A_ell, B_ell, assemble="bcsr"))
@@ -178,14 +256,16 @@ def _bitonic_row(A: CSR, B: CSR):
     return convert_fn, compute
 
 
-def _csr_row(A: CSR, B: CSR):
+def _csr_row(A: CSR, B: CSR, config):
     """The production auto route (esc.plan_csr_auto); its planning is
     conversion."""
     from ia_spgemm_tpu_torch.ops import esc
-    return (lambda: esc.plan_csr_auto(A, B)), (lambda rc: rc[1]())
+    return ((lambda: esc.plan_csr_auto(A, B,
+                                       bucket=config.bucket_capacities)),
+            (lambda rc: rc[1]()))
 
 
-def _esc_row(A: CSR, B: CSR):
+def _esc_row(A: CSR, B: CSR, config):
     """The ESC engine without the tiled route: the slab engine (SlabCSR
     out), slab + global for heavy rows, else the global engine."""
     from ia_spgemm_tpu_torch.ops import esc
@@ -195,53 +275,180 @@ def _esc_row(A: CSR, B: CSR):
         scall = slab.plan_slab_hybrid(A, B)
     if scall is not None:
         return None, lambda _: scall()
-    plan = esc.plan_spgemm(A, B)
+    plan = esc.plan_spgemm(A, B, bucket=config.bucket_capacities)
     return None, lambda _: esc.spgemm_csr(A, B, plan, engine="global")
 
 
-def _compensated_row(A: CSR, B: CSR):
+def _compensated_row(A: CSR, B: CSR, config):
     """Float64-grade sums from float32 operands; skipped where the
     compensated path cannot run (it does not slice)."""
     from ia_spgemm_tpu_torch.ops import esc
     if (A.dtype != torch.float32
             or (A.nrows + 1) * (B.ncols + 1) >= 2**31):
         return None
-    plan = esc.plan_spgemm(A, B)
+    plan = esc.plan_spgemm(A, B, bucket=config.bucket_capacities)
     if plan.slabs is not None:
         return None
     return None, lambda _: esc.spgemm_csr_compensated(A, B, plan)
 
 
+def _coo_row(A: CSR, B: CSR, config):
+    from ia_spgemm_tpu_torch.ops import esc
+    if not convert.coo_viable(A.nrows, int(A.nnz), config.size_guard_ratio):
+        return None
+    plan = esc.plan_spgemm(A, B, bucket=config.bucket_capacities)
+    return ((lambda: (convert.csr_to_coo(A), convert.csr_to_coo(B))),
+            (lambda ab: esc.spgemm_coo(ab[0], ab[1], plan)))
+
+
+def _ell_row(A: CSR, B: CSR, config):
+    from ia_spgemm_tpu_torch.ops import ell
+    ratio = config.size_guard_ratio
+    if _ell_probe(A, ratio) is None or _ell_probe(B, ratio) is None:
+        return None
+    return (lambda: _ells(A, B)), (lambda ab: ell.spgemm_ell(*ab))
+
+
+def _dia_row(A: CSR, B: CSR, config):
+    """Skipped by the size guard or by the compute budget, which rejects
+    before dispatch (dia.DIA_PAIR_FLOP_BUDGET)."""
+    from ia_spgemm_tpu_torch.ops import dia
+    ratio = config.size_guard_ratio
+    nda, ndb = _dia_probe(A, ratio), _dia_probe(B, ratio)
+    if nda is None or ndb is None or not dia.dia_compute_viable(
+            nda, ndb, A.nrows):
+        return None
+    return ((lambda: (convert.csr_to_dia(A, check_guard=False),
+                      convert.csr_to_dia(B, check_guard=False))),
+            (lambda ab: dia.spgemm_dia(*ab)))
+
+
+def _dense_budget_ok(elems: int, A: CSR, config) -> bool:
+    return elems * A.values.element_size() <= config.dense_bytes_budget
+
+
+def _dense_matmul_row(A: CSR, B: CSR, config):
+    """A, B and C all densify: the device-memory budget guards it."""
+    from ia_spgemm_tpu_torch.ops import dense
+    if not _dense_budget_ok(A.nrows * A.ncols + B.nrows * B.ncols
+                                + A.nrows * B.ncols, A, config):
+        return None
+    return ((lambda: (convert.csr_to_dense(A), convert.csr_to_dense(B))),
+            (lambda ab: dense.spgemm_dense(*ab)))
+
+
+def _dense_row_row(A: CSR, B: CSR, config):
+    """K11: B and C densify (the budget), n within MAX_N_F32, A
+    ELL-viable."""
+    from ia_spgemm_tpu_torch.ops import dense_row as dr
+    if (B.ncols > dr.MAX_N_F32
+            or not _dense_budget_ok(B.nrows * B.ncols
+                                        + A.nrows * B.ncols, A, config)
+            or _ell_probe(A, config.size_guard_ratio) is None):
+        return None
+    return ((lambda: (convert.csr_to_ell(A, check_guard=False),
+                      convert.csr_to_dense(B))),
+            (lambda ab: dr.spgemm_dense_row(*ab)))
+
+
+def _hash_row(A: CSR, B: CSR, config):
+    """K12: float32 only, both operands ELL-viable, the tables within the
+    JAX package's budget (hash_viable)."""
+    from ia_spgemm_tpu_torch.ops import hash_spgemm as hs
+    ratio = config.size_guard_ratio
+    lens_a = np.diff(A.row_ptr.cpu().numpy())
+    lens_b = np.diff(B.row_ptr.cpu().numpy())
+    if (A.dtype != torch.float32
+            or _ell_probe(A, ratio) is None or _ell_probe(B, ratio) is None
+            or not hs.hash_viable(int(lens_a.max(initial=0)),
+                                  int(lens_b.max(initial=0)), B.ncols)):
+        return None
+    return (lambda: _ells(A, B)), (lambda ab: hs.spgemm_hash(*ab))
+
+
+def _serve_row(A: CSR, B: CSR, config):
+    """K7, the bf16 + sparse serving lane: products round to bfloat16 and
+    travel with their column in one int32 key; the output keeps
+    survivors at their sorted slots (compact=False). Needs the flat
+    plan's expand-from-gather path (per-product relative error <= 2^-9,
+    float32 sums: checksum gate SERVE_CHECKSUM_TOL)."""
+    from ia_spgemm_tpu_torch.ops import bitonic as bt
+    ka = convert.plan_ell_width(A)
+    kb = convert.plan_ell_width(B)
+    plan = bt.plan_bitonic_dims(A.nrows, ka, kb)
+    lanes = max(128, 4 * plan.run)
+    ka_eff = ka * plan.chunks
+    if (A.dtype != torch.float32 or B.ncols > 32768 or not plan.viable
+            or plan.width > bt.TRANSPOSED_MAX_WIDTH
+            or ka_eff * plan.run > plan.width
+            or ka_eff * lanes > bt._EXPAND_TILE_ELEMS):
+        return None
+    return (lambda: _ells(A, B)), (lambda ab: bt.spgemm_bitonic(
+        ab[0], ab[1], plan, value_mode="bf16", compact=False))
+
+
 _ROWS = {"bitonic": _bitonic_row, "csr": _csr_row, "esc": _esc_row,
-         "compensated": _compensated_row}
+         "compensated": _compensated_row, "coo": _coo_row, "ell": _ell_row,
+         "dia": _dia_row, "dense": _dense_matmul_row,
+         "dense_row": _dense_row_row, "hash": _hash_row, "serve": _serve_row}
 
 
-def _bench_one(name: str, A: CSR, B: CSR, res: AlgorithmResult,
-               iters: int):
-    """Plan (conversion, timed as trans time where the row has one), run
-    (timed), then C's checksum and size in its format."""
-    row = _ROWS[name](A, B)
+def _memory_bytes(name: str, C) -> float:
+    """Bytes of C in the row's format (the reference's sizeof*)."""
+    if isinstance(C, BlockCSR):
+        return float(C.padded_bytes())
+    if name in ("csr", "esc", "compensated"):
+        return convert.sizeof_csr(C.nrows, int(C.nnz))
+    if name == "coo":
+        return convert.sizeof_coo(C.nrows, int(C.nnz))
+    if name in ("ell", "bitonic"):
+        return convert.sizeof_ell(C.nrows, C.max_nnz_per_row)
+    if name == "hash":
+        # the table carries load-factor padding: report the canonical ELL
+        # footprint of the widest real row
+        return convert.sizeof_ell(C.nrows, max(int(C.nnz_row.max()), 1))
+    if name == "dia":
+        return convert.sizeof_dia(C.nrows, C.ncols, C.num_diagonals)
+    if name in ("dense", "dense_row"):
+        return 8.0 * C.nrows * C.ncols
+    return 0.0
+
+
+def _bench_one(name: str, A: CSR, B: CSR, config: cfg.SpGEMMConfig,
+               timeout_s: float, res: AlgorithmResult, iters: int):
+    """Convert (timed as trans time), first run and one steady run under
+    the watchdog, then the timed runs; C's checksum and size."""
+    if name not in _ROWS:
+        raise ValueError(f"unknown algorithm {name!r}")
+    row = _ROWS[name](A, B, config)
     if row is None:
         res.skipped = True
         return None
     convert_fn, compute = row
+    dev = A.device
     converted = None
     if convert_fn is not None:
-        converted = convert_fn()
-        res.trans_time_ms = time_ms(convert_fn, A.device, warmup=0,
+        converted = _synced(convert_fn(), dev)
+        res.trans_time_ms = time_ms(convert_fn, dev, warmup=0,
                                     iters=max(iters, 1))
-    C = compute(converted)
+    C, timed_out = _run_with_timeout(
+        lambda: _synced(compute(converted), dev),
+        max(timeout_s, COMPILE_BUDGET_S))
+    if timed_out:
+        res.timed_out = True
+        return None
     if C is None:
+        # the width-class probe is an upper bound; the route may decline
         res.skipped = True
         return None
-    res.run_time_ms = time_ms(lambda: compute(converted), A.device,
-                              warmup=0, iters=iters)
+    _, timed_out = _run_with_timeout(
+        lambda: _synced(compute(converted), dev), timeout_s)
+    if timed_out:
+        res.timed_out = True
+        return None
+    res.run_time_ms = time_ms(lambda: compute(converted), dev, warmup=0,
+                              iters=iters)
     res.verified_sum = float(C.checksum())
-    if isinstance(C, BlockCSR):
-        res.memory_bytes = float(C.padded_bytes())
-    elif name == "bitonic":
-        res.memory_bytes = convert.sizeof_ell(C.nrows, C.max_nnz_per_row)
-    else:
-        res.memory_bytes = convert.sizeof_csr(C.nrows, int(C.nnz))
+    res.memory_bytes = _memory_bytes(name, C)
     res.ok = True
     return C

@@ -5,10 +5,14 @@
 
 Routes: ``multiclass_pg`` (default; the headline route, planned as
 ``bench/headline.py`` plans it), ``slab``, ``compensated`` (the
-compensated slab pipeline) and ``global`` on the headline matrix
-``build_matrix(m)``, and ``hybrid`` on ``build_hybrid_matrix(m)``; C =
-A @ A in float32. Plans the route, warms it up, and profiles ``calls``
-back-to-back calls with one synchronise at the end.
+compensated slab pipeline), ``global``, ``serve`` (the bf16 lane,
+``spgemm_bitonic(value_mode="bf16", compact=False)`` on the flat plan)
+and ``hash`` (``spgemm_hash`` -> ``compact_ell`` -> ``ell_to_csr``) on
+the headline matrix ``build_matrix(m)``, ``dense_row`` (A as ELL times
+dense B) on ``build_matrix(m)`` with m = 16384 by default, and ``hybrid``
+on ``build_hybrid_matrix(m)``; C = A @ A in float32. Plans the route
+(conversions included), warms it up, and profiles ``calls`` back-to-back
+calls with one synchronise at the end.
 The profiler records device activity only, unless ``--cpu-ops`` also
 records every host-side operator (which slows the host's launch path
 and so widens the gaps between kernels).
@@ -41,15 +45,21 @@ from collections import defaultdict
 
 import numpy as np
 
-_KERNEL = re.compile(r"\bk(?:[1-4]|8|9|10)_[a-z_]+")
-ROUTES = ("multiclass_pg", "slab", "compensated", "global", "hybrid")
+_KERNEL = re.compile(r"\bk(?:[1-4]|7[ab]|8|9|1[0-2])_[a-z_]+")
+ROUTES = ("multiclass_pg", "slab", "compensated", "global", "hybrid",
+          "serve", "hash", "dense_row")
+# the dense-row route's default size: dense B + C = 2.1 GB, within the
+# dense_bytes_budget (the headline's m = 32768 is past it)
+DENSE_ROW_M = 16384
 
 
 def _plan(route: str, m: int, dev):
     """(call, plan details) of one route on its matrix."""
     from ia_spgemm_tpu_torch.bench import headline
+    from ia_spgemm_tpu_torch.formats import convert
     from ia_spgemm_tpu_torch.formats.types import CSR
-    from ia_spgemm_tpu_torch.ops import esc, slab
+    from ia_spgemm_tpu_torch.ops import bitonic, dense_row, esc, hash_spgemm
+    from ia_spgemm_tpu_torch.ops import slab
 
     a = (headline.build_hybrid_matrix(m) if route == "hybrid"
          else headline.build_matrix(m=m))
@@ -66,6 +76,22 @@ def _plan(route: str, m: int, dev):
         call = slab.plan_slab_hybrid(A, A)
         detail = {"n_heavy": call.n_heavy,
                   "variant": call.heavy_plan.variant}
+    elif route == "serve":
+        H = convert.csr_to_ell(A, check_guard=False)
+        plan = bitonic.plan_bitonic(H, H)
+        call = lambda: bitonic.spgemm_bitonic(  # noqa: E731
+            H, H, plan, value_mode="bf16", compact=False)
+        detail = {"width": plan.width, "run": plan.run}
+    elif route == "hash":
+        H = convert.csr_to_ell(A, check_guard=False)
+        call = lambda: convert.ell_to_csr(convert.compact_ell(  # noqa: E731
+            hash_spgemm.spgemm_hash(H, H)))
+        detail = {"ka": H.max_nnz_per_row}
+    elif route == "dense_row":
+        Ae = convert.csr_to_ell(A, check_guard=False)
+        B = convert.csr_to_dense(A)
+        call = lambda: dense_row.spgemm_dense_row(Ae, B)  # noqa: E731
+        detail = {"ka": Ae.max_nnz_per_row, "n": B.ncols}
     else:
         plan = esc.plan_spgemm(A, A)
         call = lambda: esc.spgemm_csr(A, A, plan)  # noqa: E731
@@ -75,7 +101,7 @@ def _plan(route: str, m: int, dev):
     return call, detail
 
 
-def profile_route(route: str = "multiclass_pg", m: int = 32768,
+def profile_route(route: str = "multiclass_pg", m: int | None = None,
                   calls: int = 10, warmup: int = 5, cpu_ops: bool = False):
     from ia_spgemm_tpu_torch.bench import headline
     headline.apply_bench_tuning()
@@ -87,6 +113,8 @@ def profile_route(route: str = "multiclass_pg", m: int = 32768,
         raise ValueError(f"unknown route {route!r} (one of {ROUTES})")
     if not torch.cuda.is_available():
         raise RuntimeError("the profile needs a CUDA device")
+    if m is None:
+        m = DENSE_ROW_M if route == "dense_row" else 32768
     call, detail = _plan(route, m, torch.device("cuda"))
     for _ in range(warmup):
         call()
@@ -144,7 +172,8 @@ def profile_route(route: str = "multiclass_pg", m: int = 32768,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--route", default="multiclass_pg", choices=ROUTES)
-    p.add_argument("--m", type=int, default=32768)
+    p.add_argument("--m", type=int, default=None,
+                   help=f"rows (default 32768; dense_row {DENSE_ROW_M})")
     p.add_argument("--calls", type=int, default=10)
     p.add_argument("--cpu-ops", action="store_true",
                    help="also record host-side operators")

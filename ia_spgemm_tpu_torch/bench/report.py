@@ -21,7 +21,10 @@ def format_table(report: BenchReport) -> str:
     lines.append("-" * 42)
     lines.append("  ".join(f"{h:>14}" for h in _HDR))
     for r in report.results:
-        status = "ok" if r.ok else "skipped" if r.skipped else "failed"
+        status = ("ok" if r.ok else
+                  "skipped" if r.skipped else
+                  "timeout" if r.timed_out else
+                  "failed")
         if r.error:
             status = "CHECKSUM!" if "checksum" in r.error else "error"
         lines.append("  ".join([
@@ -39,6 +42,12 @@ def format_table(report: BenchReport) -> str:
     lines.append("-" * 42)
     if report.winner:
         lines.append(f"Fastest algorithm: {report.winner}")
+    if report.matnet_pick:
+        # the reference's verdict line (main.cpp:994-999)
+        verdict = ("Congratulate! MatNet Correct Prediction."
+                   if report.matnet_correct
+                   else "MatNet Incorrect Prediction.")
+        lines.append(f"MatNet pick: {report.matnet_pick} — {verdict}")
     return "\n".join(lines)
 
 

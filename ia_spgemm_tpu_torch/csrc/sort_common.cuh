@@ -1,6 +1,7 @@
-// Building blocks shared by the sort kernels of bitonic.cu (K1-K4) and
-// slab.cu (K8-K10): the fragment expand, the block bitonic sort in shared
-// memory, and the duplicate-sum / compaction of a sorted row.
+// Building blocks shared by the sort kernels of bitonic.cu (K1-K4, K7)
+// and slab.cu (K8-K10): the fragment expand, the block bitonic sort in
+// shared memory (key + value, or key only), and the duplicate-sum /
+// compaction of a sorted row.
 //
 // Conventions shared with the JAX package: SENTINEL = INT32_MAX marks an
 // empty product slot and sorts last (signed int32 compares); empty output
@@ -78,6 +79,29 @@ __device__ void block_sort(int* k, V* v, int width, int start_kk) {
           V vi = v[i];
           v[i] = v[j];
           v[j] = vi;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Key-only form of block_sort, for packed (col | bf16 value) keys (the
+// JAX package's _bitonic_sort_t1): equal keys are equal values, so
+// nothing rides along.
+__device__ void block_sort_keys(int* k, int width, int start_kk) {
+  __syncthreads();
+  const int half = width >> 1;
+  for (int kk = start_kk; kk <= width; kk <<= 1) {
+    for (int s = kk >> 1; s > 0; s >>= 1) {
+      for (int t = threadIdx.x; t < half; t += blockDim.x) {
+        int i = ((t & ~(s - 1)) << 1) | (t & (s - 1));
+        int j = i + s;
+        bool asc = (i & kk) == 0;
+        int ki = k[i], kj = k[j];
+        if ((ki > kj) == asc && ki != kj) {
+          k[i] = kj;
+          k[j] = ki;
         }
       }
       __syncthreads();

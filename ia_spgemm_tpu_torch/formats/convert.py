@@ -1,13 +1,16 @@
-"""Format conversions and the reference's size guard (PyTorch port of
+"""Format conversions and the reference's size guards (PyTorch port of
 ``ia_spgemm_tpu.formats.convert``, semantics only).
 
 Size formulas replicate the reference byte for byte (sizeof(int)=4,
-VALUE_TYPE=double=8): sizeofcsr (csr/common_csr.h:196-202) and sizeofell
-(ell/common_ell.h:21-27). The guard rejects ELL when its size exceeds
-ratio x CSR (ell/common_ell.h:71-74).
+VALUE_TYPE=double=8): sizeofcsr (csr/common_csr.h:196-202), sizeofdia
+(dia/common_dia.h:20-26), sizeofell (ell/common_ell.h:21-27) and
+sizeofcoo (coo/common_coo.h:20-26). A guard rejects a format when its
+size exceeds ratio x CSR (50x on CPU, 20x on GPU; dia/common_dia.h:56).
 
 Every conversion runs on the device its input lives on; only the
-planners (ELL width, transposition) read the row pointer on the host.
+planners (ELL width, DIA offsets, transposition) read the row pointer
+and columns on the host, and ``dia_to_csr`` / ``dense_to_csr`` compact
+through scipy on the host, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,12 +19,19 @@ import numpy as np
 import torch
 
 from ia_spgemm_tpu_torch import config as cfg
-from ia_spgemm_tpu_torch.formats.types import CSR, ELL, BlockCSR
+from ia_spgemm_tpu_torch.formats.types import (CSR, COO, DIA, ELL, BlockCSR,
+                                               Dense)
 
 
 def sizeof_csr(nrows: int, nnz: int) -> float:
     """csr/common_csr.h:196-202."""
     return cfg.SIZEOF_INDEX * (nrows + 1 + nnz + 3) + cfg.SIZEOF_VALUE * nnz
+
+
+def sizeof_dia(nrows: int, ncols: int, num_diagonals: int) -> float:
+    """dia/common_dia.h:20-26."""
+    return (cfg.SIZEOF_INDEX * (nrows + ncols - 1 + num_diagonals + 3)
+            + cfg.SIZEOF_VALUE * (nrows * num_diagonals))
 
 
 def sizeof_ell(nrows: int, max_nnz_per_row: int) -> float:
@@ -30,9 +40,24 @@ def sizeof_ell(nrows: int, max_nnz_per_row: int) -> float:
             + cfg.SIZEOF_VALUE * (nrows * max_nnz_per_row))
 
 
+def sizeof_coo(nrows: int, nnz: int) -> float:
+    """coo/common_coo.h:20-26."""
+    return cfg.SIZEOF_INDEX * (nrows + 1 + 2 * nnz + 3) + cfg.SIZEOF_VALUE * nnz
+
+
+def dia_viable(nrows, ncols, nnz, num_diagonals,
+               ratio: float = cfg.SIZE_GUARD_RATIO_CPU) -> bool:
+    return sizeof_dia(nrows, ncols, num_diagonals) < ratio * sizeof_csr(
+        nrows, nnz)
+
+
 def ell_viable(nrows, nnz, max_nnz_per_row,
                ratio: float = cfg.SIZE_GUARD_RATIO_CPU) -> bool:
     return sizeof_ell(nrows, max_nnz_per_row) < ratio * sizeof_csr(nrows, nnz)
+
+
+def coo_viable(nrows, nnz, ratio: float = cfg.SIZE_GUARD_RATIO_CPU) -> bool:
+    return sizeof_coo(nrows, nnz) < ratio * sizeof_csr(nrows, nnz)
 
 
 def plan_ell_width(A: CSR) -> int:
@@ -75,6 +100,24 @@ def csr_to_ell(A: CSR, width: int | None = None,
                nnz=A.nnz.clone(), shape=A.shape)
 
 
+def compact_ell(A: ELL) -> ELL:
+    """Left-justify an ELL whose rows carry interior holes (col < 0), as
+    the hash route emits, keeping the slots' order: the invariant
+    ell_to_csr relies on."""
+    m, K = A.col_ind.shape
+    dev = A.device
+    valid = A.col_ind >= 0
+    slot = torch.cumsum(valid, dim=1) - 1
+    dst = torch.where(valid, slot, K)
+    col = torch.full((m, K + 1), -1, dtype=torch.int32, device=dev)
+    val = torch.zeros((m, K + 1), dtype=A.dtype, device=dev)
+    col.scatter_(1, dst, A.col_ind)
+    val.scatter_(1, dst, A.values)
+    return ELL(col_ind=col[:, :K].contiguous(),
+               values=val[:, :K].contiguous(), nnz_row=A.nnz_row,
+               nnz=A.nnz, shape=A.shape)
+
+
 def ell_to_csr(A: ELL) -> CSR:
     """Left-justified ELL -> CSR of capacity nrows*K (tail = ncols)."""
     m, K = A.col_ind.shape
@@ -115,6 +158,94 @@ def bcsr_to_csr(A: BlockCSR) -> CSR:
     val[:n] = A.val_blocks[:used][valid]
     return CSR(row_ptr=row_ptr, col_ind=col, values=val,
                nnz=A.nnz.clone(), shape=A.shape)
+
+
+def csr_to_coo(A: CSR) -> COO:
+    """CSR -> COO (coo/common_coo.h:29-66): per-entry rows, tail nrows."""
+    nnz = int(A.nnz)
+    row_ind = torch.full((A.capacity,), A.nrows, dtype=torch.int32,
+                         device=A.device)
+    row_ind[:nnz] = _entry_rows(A.row_ptr, nnz).to(torch.int32)
+    return COO(row_offset=A.row_ptr, row_ind=row_ind, col_ind=A.col_ind,
+               values=A.values, nnz=A.nnz, shape=A.shape)
+
+
+def coo_to_csr(A: COO) -> CSR:
+    return CSR(row_ptr=A.row_offset, col_ind=A.col_ind, values=A.values,
+               nnz=A.nnz, shape=A.shape)
+
+
+def plan_dia_offsets(A: CSR) -> np.ndarray:
+    """Host planner: ascending offsets (col - row) of the occupied
+    diagonals (dia/common_dia.h:36-71)."""
+    nnz = int(A.nnz)
+    ci = A.col_ind[:nnz].cpu().numpy().astype(np.int64)
+    ri = np.repeat(np.arange(A.nrows, dtype=np.int64),
+                   np.diff(A.row_ptr.cpu().numpy()))
+    return np.unique(ci - ri).astype(np.int32)
+
+
+def _diag_index(offsets: torch.Tensor, nrows: int, ncols: int):
+    """Dense diagonal index (offset + nrows - 1) -> slot, -1 if absent."""
+    diag_ind = torch.full((nrows + ncols - 1,), -1, dtype=torch.int32,
+                          device=offsets.device)
+    diag_ind[offsets.long() + (nrows - 1)] = torch.arange(
+        offsets.shape[0], dtype=torch.int32, device=offsets.device)
+    return diag_ind
+
+
+def csr_to_dia(A: CSR, offsets: np.ndarray | None = None,
+               check_guard: bool = True,
+               ratio: float = cfg.SIZE_GUARD_RATIO_CPU) -> DIA | None:
+    """CSR -> DIA (dia/common_dia.h:29-96); None when the guard rejects
+    it. Entries on a diagonal missing from a caller's `offsets` are
+    dropped."""
+    offs = plan_dia_offsets(A) if offsets is None else np.asarray(offsets)
+    nd = len(offs)
+    if check_guard and not dia_viable(A.nrows, A.ncols, int(A.nnz), nd,
+                                      ratio):
+        return None
+    if nd == 0:
+        offs = np.zeros(1, np.int32)
+        nd = 1
+    m, n, dev = A.nrows, A.ncols, A.device
+    nnz = int(A.nnz)
+    offs_d = torch.from_numpy(np.asarray(offs, np.int32)).to(dev)
+    diag_ind = _diag_index(offs_d, m, n)
+    row = _entry_rows(A.row_ptr, nnz)
+    slot = diag_ind[A.col_ind[:nnz].long() - row + (m - 1)].long()
+    keep = slot >= 0
+    vals = torch.zeros((m, nd), dtype=A.dtype, device=dev)
+    vals[row[keep], slot[keep]] = A.values[:nnz][keep]
+    return DIA(offsets=offs_d, values=vals, diag_ind=diag_ind, nnz=A.nnz,
+               shape=A.shape)
+
+
+def dia_to_csr(A: DIA, capacity: int | None = None) -> CSR:
+    """On the host through scipy (the capacity is data-dependent)."""
+    return CSR.from_scipy(A.to_scipy(), capacity=capacity, device=A.device)
+
+
+def csr_to_dense(A: CSR) -> Dense:
+    """CSR -> Dense (dense/common_dense.h:20-40); duplicates add."""
+    nnz = int(A.nnz)
+    flat = (_entry_rows(A.row_ptr, nnz) * A.ncols
+            + A.col_ind[:nnz].long())
+    out = torch.zeros(A.nrows * A.ncols, dtype=A.dtype, device=A.device)
+    out.index_add_(0, flat, A.values[:nnz])
+    return Dense(values=out.reshape(A.nrows, A.ncols))
+
+
+def dense_to_csr(A: Dense, capacity: int | None = None,
+                 tol: float = 0.0) -> CSR:
+    """On the host through scipy: the dense matrix's nonzeros (|x| > tol
+    when tol > 0)."""
+    import scipy.sparse as sp
+    arr = A.values.cpu().numpy()
+    if tol > 0:
+        arr = np.where(np.abs(arr) <= tol, 0, arr)
+    return CSR.from_scipy(sp.csr_matrix(arr), capacity=capacity,
+                          device=A.device)
 
 
 def transpose_csr(A: CSR) -> CSR:

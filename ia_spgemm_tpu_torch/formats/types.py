@@ -4,8 +4,12 @@ Counterparts of ``ia_spgemm_tpu.formats.types`` with the same fields and
 padding conventions, so an array taken from a JAX pytree (``np.asarray``)
 drops straight into ``from_numpy``:
 
-- CSR tail entries have ``col_ind == ncols`` and ``values == 0``;
+- CSR / COO tail entries have ``col_ind == ncols`` (COO ``row_ind ==
+  nrows``) and ``values == 0``;
 - ELL empty slots have ``col_ind == -1`` and ``values == 0``;
+- DIA ``values[i, d]`` holds A[i, i + offsets[d]] (0 where the diagonal
+  leaves the matrix); ``diag_ind`` maps offset + nrows - 1 to its slot,
+  -1 for an absent diagonal;
 - BlockCSR rows own whole 128-slot blocks ``[blk_ptr[i], blk_ptr[i+1])``,
   the first ``nnz_row[i]`` slots valid with ascending columns, the rest of
   the span (and every block past ``blk_ptr[nrows]``) ``-1`` / ``0``;
@@ -143,6 +147,169 @@ class CSR:
     def checksum(self) -> torch.Tensor:
         """Sum of stored values, the reference's `verified_sum`."""
         return _checksum(self.values, self.values_lo)
+
+
+@dataclasses.dataclass
+class COO:
+    """Coordinate format with the CSR row pointer kept beside the per-entry
+    rows, as the reference's CooMatrix (format.h:16-27)."""
+
+    row_offset: torch.Tensor  # (nrows+1,) int32
+    row_ind: torch.Tensor     # (capacity,) int32, tail padded with nrows
+    col_ind: torch.Tensor     # (capacity,) int32, tail padded with ncols
+    values: torch.Tensor      # (capacity,) float
+    nnz: torch.Tensor         # 0-d int32
+    shape: Shape2
+
+    @property
+    def nrows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def capacity(self) -> int:
+        return self.col_ind.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @classmethod
+    def from_scipy(cls, mat, device="cpu") -> "COO":
+        from ia_spgemm_tpu_torch.formats.convert import csr_to_coo
+        return csr_to_coo(CSR.from_scipy(mat, device=device))
+
+    def to(self, device) -> "COO":
+        return _moved(self, device)
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+        nnz = int(self.nnz)
+        return sp.coo_matrix(
+            (self.values[:nnz].cpu().numpy(),
+             (self.row_ind[:nnz].cpu().numpy(),
+              self.col_ind[:nnz].cpu().numpy())), shape=self.shape)
+
+    def checksum(self) -> torch.Tensor:
+        return self.values.sum()
+
+
+@dataclasses.dataclass
+class DIA:
+    """Diagonal format (reference format.h:53-63): ``offsets[d] = col -
+    row`` of occupied diagonal slot d, ascending."""
+
+    offsets: torch.Tensor    # (ndiag,) int32, ascending
+    values: torch.Tensor     # (nrows, ndiag) float
+    diag_ind: torch.Tensor   # (nrows + ncols - 1,) int32, -1 if absent
+    nnz: torch.Tensor        # 0-d int32
+    shape: Shape2
+
+    @property
+    def nrows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def num_diagonals(self) -> int:
+        return self.offsets.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @classmethod
+    def from_scipy(cls, mat, device="cpu") -> "DIA":
+        from ia_spgemm_tpu_torch.formats.convert import csr_to_dia
+        return csr_to_dia(CSR.from_scipy(mat, device=device),
+                          check_guard=False)
+
+    def to(self, device) -> "DIA":
+        return _moved(self, device)
+
+    def to_scipy(self):
+        """Every in-band slot of every stored diagonal, explicit zeros
+        included (as the JAX package)."""
+        import scipy.sparse as sp
+        m, n = self.shape
+        offs = self.offsets.cpu().numpy().astype(np.int64)
+        vals = self.values.cpu().numpy()
+        i = np.arange(m)
+        rows, cols, data = [], [], []
+        for d, off in enumerate(offs):
+            j = i + off
+            ok = (j >= 0) & (j < n)
+            rows.append(i[ok])
+            cols.append(j[ok])
+            data.append(vals[ok, d])
+        return sp.coo_matrix(
+            (np.concatenate(data), (np.concatenate(rows),
+                                    np.concatenate(cols))),
+            shape=self.shape).tocsr()
+
+    def checksum(self) -> torch.Tensor:
+        return self.values.sum()
+
+
+@dataclasses.dataclass
+class Dense:
+    """Dense matrix (reference format.h:7-14)."""
+
+    values: torch.Tensor   # (nrows, ncols)
+
+    @property
+    def shape(self) -> Shape2:
+        return tuple(self.values.shape)
+
+    @property
+    def nrows(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def ncols(self) -> int:
+        return self.values.shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @property
+    def nnz(self) -> torch.Tensor:
+        """Count of nonzero values, a 0-d int32 tensor on the device."""
+        return torch.count_nonzero(self.values).to(torch.int32)
+
+    @classmethod
+    def from_scipy(cls, mat, device="cpu") -> "Dense":
+        return cls(values=torch.from_numpy(np.asarray(mat.toarray())).to(
+            device))
+
+    def to(self, device) -> "Dense":
+        return Dense(values=self.values.to(device))
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+        return sp.csr_matrix(self.values.cpu().numpy())
+
+    def checksum(self) -> torch.Tensor:
+        return self.values.sum()
 
 
 @dataclasses.dataclass

@@ -844,7 +844,14 @@ def spgemm_bitonic(A: ELL, B: ELL, plan: BitonicPlan | None = None,
     widths up to TRANSPOSED_MAX_WIDTH and K4 above; "rows" forces K4.
     out_width caps the output width (the caller guarantees every row
     fits); compact=False keeps survivors at their sorted slots (honoured
-    by K3 only, as in the JAX package)."""
+    by K3 and K7b, as in the JAX package).
+
+    value_mode="bf16", the serve lane (K7a + K7b): each product rounds to
+    bfloat16 and is packed with its column into one int32 sort key; sums
+    accumulate in float32 (per-product relative error <= 2^-9). It needs
+    the expand-from-gather path with float32 operands, B.ncols <= 32768
+    (15 column bits) and no entry split, as in the JAX package, and
+    raises ValueError otherwise."""
     if A.ncols != B.nrows:
         raise ValueError(f"shape mismatch: {A.shape} @ {B.shape}")
     if plan is None:
@@ -853,22 +860,41 @@ def spgemm_bitonic(A: ELL, B: ELL, plan: BitonicPlan | None = None,
         raise ValueError(f"bitonic plan not viable: {plan.reason}")
     if value_mode not in ("f32", "bf16"):
         raise ValueError(f"unknown value_mode {value_mode!r}")
-    if value_mode == "bf16":
-        raise NotImplementedError(
-            "value_mode='bf16' needs K7 (_expand_sort_kernel_packed + "
-            "_compress_kernel_packed), not ported yet")
-    if A.dtype != torch.float32 or B.dtype != torch.float32:
-        raise NotImplementedError(
-            "spgemm_bitonic takes float32 operands; other dtypes need K5 "
-            "(_fused_kernel_t), not ported yet")
     if A.device != B.device:
         raise ValueError(f"operands on {A.device} and {B.device}")
     use_cols = layout == "cols" or (layout == "auto"
                                     and plan.width <= TRANSPOSED_MAX_WIDTH)
     ka_eff = A.col_ind.shape[1] * plan.chunks
     lanes = max(128, 4 * plan.run)
-    fused_expand = (use_cols and ka_eff * plan.run <= plan.width
+    f32 = A.dtype == torch.float32 and B.dtype == torch.float32
+    fused_expand = (use_cols and f32 and ka_eff * plan.run <= plan.width
                     and ka_eff * lanes <= _EXPAND_TILE_ELEMS)
+    if value_mode == "bf16":
+        if not fused_expand:
+            raise ValueError(
+                "value_mode='bf16' requires the fused-expand path "
+                "(f32 inputs within the gather-tile budget)")
+        if B.ncols > 32768:
+            raise ValueError(
+                f"value_mode='bf16' packs columns into 15 bits; "
+                f"n={B.ncols} > 32768")
+        g, avT = _expand_gather_emajor(A.col_ind, A.values, B.col_ind,
+                                       B.values, run=plan.run,
+                                       chunks=plan.chunks)
+        out_w = plan.width if (out_width is None or not compact) \
+            else min(out_width, plan.width)
+        p = K.expand_sort_packed(g, avT, ka=ka_eff, run=plan.run,
+                                 width=plan.width, start_kk=2 * plan.run)
+        col, val, nnz = K.compress_packed(p, width=plan.width, out_w=out_w,
+                                          compact=compact)
+        nnz_row = nnz[:, 0]
+        return ELL(col_ind=col, values=val, nnz_row=nnz_row,
+                   nnz=nnz_row.sum(dtype=torch.int32),
+                   shape=(A.nrows, B.ncols))
+    if not f32:
+        raise NotImplementedError(
+            "spgemm_bitonic takes float32 operands; other dtypes need K5 "
+            "(_fused_kernel_t), not ported yet")
     if fused_expand:
         g, avT = _expand_gather_emajor(A.col_ind, A.values, B.col_ind,
                                        B.values, run=plan.run,

@@ -1,11 +1,16 @@
-"""The width-class route's four kernels: wrappers, plain versions, counts.
+"""The bitonic routes' kernels: wrappers, plain versions, counts.
 
 =====  ==========================  ==========================================
  K1    expand_sort_compress        ops/bitonic.py:1034 _expand_sort_compress_kernel_t
  K2    expand_sort                 ops/bitonic.py:977  _expand_sort_kernel_t
  K3    compress                    ops/bitonic.py:523  _compress_kernel_t
  K4    sort_compress_rows          ops/bitonic.py:241  _kernel
+ K7a   expand_sort_packed          ops/bitonic.py:1056 _expand_sort_kernel_packed
+ K7b   compress_packed             ops/bitonic.py:1086 _compress_kernel_packed
 =====  ==========================  ==========================================
+
+K7a/K7b are the bf16 serve lane: each product rounds to bfloat16 and
+travels with its column in one int32 sort key (``_pack_colval``).
 
 (file:line of the JAX package.) Each wrapper checks its operands, then:
 on CUDA tensors it launches the hand-written kernel of
@@ -191,6 +196,41 @@ def sort_compress_rows_plain(key, val, *, width, start_kk):
     return _compress_plain(*_sort_plain(key, val), width, True)
 
 
+def _pack_colval(c, prod):
+    """(col | bf16(product)) int32 keys, the JAX package's _pack_colval
+    (bitonic.py:498) bit for bit: col in bits 30..16 (col <= 32767),
+    the round-to-nearest-even bf16 bits of the float32 product in bits
+    15..0, capped at 0xFFFE so no key equals SENTINEL. Worked in int64 so
+    the 32-bit wrap and the logical shift are explicit."""
+    pb = prod.to(torch.float32).view(torch.int32).to(torch.int64) \
+        & 0xFFFFFFFF
+    rnd = (pb + 0x7FFF + ((pb >> 16) & 1)) & 0xFFFFFFFF
+    enc = torch.clamp(rnd >> 16, max=0xFFFE)
+    return ((c.to(torch.int64) << 16) | enc).to(torch.int32)
+
+
+def _unpack_colval(p):
+    """Inverse of _pack_colval (bitonic.py:512): (cols, SENTINEL kept;
+    float32 values, the bf16 bits widened exactly)."""
+    sent = p == SENTINEL
+    p64 = p.to(torch.int64) & 0xFFFFFFFF
+    k = torch.where(sent, SENTINEL, (p64 >> 16).to(torch.int32))
+    bits = torch.where(sent, 0, (p64 & 0xFFFF) << 16)
+    bits = bits - ((bits >> 31) & 1) * (1 << 32)     # as signed int32
+    return k, bits.to(torch.int32).view(torch.float32)
+
+
+def expand_sort_packed_plain(g, avT, *, ka, run, width, start_kk):
+    key, val = _expand_plain(g, avT, ka, run, width, 1)
+    p = torch.where(key != SENTINEL, _pack_colval(key.clamp(min=0), val),
+                    SENTINEL)
+    return torch.sort(p, dim=1).values
+
+
+def compress_packed_plain(p, *, width, out_w, compact=True):
+    return _compress_plain(*_unpack_colval(p), out_w, compact)
+
+
 # ------------------------------------------------------------------ wrappers
 
 def expand_sort_compress(g, avT, *, ka: int, run: int, width: int,
@@ -282,8 +322,56 @@ def sort_compress_rows(key, val, *, width: int, start_kk: int):
     return col, out, nnz
 
 
+def expand_sort_packed(g, avT, *, ka: int, run: int, width: int,
+                       start_kk: int):
+    """K7a: the bf16 serve lane's expand + sort: each product packed
+    with its column into one int32 key, the keys sorted. ``g`` has one
+    fragment per table row (pack 1). Returns the sorted keys (m, width);
+    equal multisets sort to equal arrays, so they are the JAX package's
+    bit for bit."""
+    _check_width(width, start_kk)
+    _check_gather(g, avT, ka, run, width, 1)
+    if avT.device.type == "cpu":
+        return expand_sort_packed_plain(g, avT, ka=ka, run=run, width=width,
+                                        start_kk=start_kk)
+    _cuda_or_raise(avT)
+    m = avT.shape[1]
+    p = torch.empty((m, width), dtype=torch.int32, device=avT.device)
+    if m:
+        _launch("ia_k7a_expand_sort_packed", g, avT, p, m, ka, g.shape[2],
+                run, width, start_kk, device=avT.device)
+        expand_sort_packed.launches += 1
+    return p
+
+
+def compress_packed(p, *, width: int, out_w: int, compact: bool = True):
+    """K7b: unpack sorted (col | bf16) keys, then K3's float32 duplicate
+    sums, nnz and compaction (compact=False: holes, out_w == width)."""
+    _check_width(width)
+    _check_tensor("p", p, torch.int32, 2, p.device)
+    if p.shape[1] != width:
+        raise ValueError(f"p {tuple(p.shape)} must be (m, {width})")
+    if not 1 <= out_w <= width or (not compact and out_w != width):
+        raise ValueError(f"out_w {out_w} invalid for width {width}, "
+                         f"compact={compact}")
+    if p.device.type == "cpu":
+        return compress_packed_plain(p, width=width, out_w=out_w,
+                                     compact=compact)
+    _cuda_or_raise(p)
+    m = p.shape[0]
+    col = torch.empty((m, out_w), dtype=torch.int32, device=p.device)
+    out = torch.empty((m, out_w), dtype=torch.float32, device=p.device)
+    nnz = torch.empty((m, 1), dtype=torch.int32, device=p.device)
+    if m:
+        _launch("ia_k7b_compress_packed", p, col, out, nnz, m, width, out_w,
+                int(compact), device=p.device)
+        compress_packed.launches += 1
+    return col, out, nnz
+
+
 KERNELS = {"K1": expand_sort_compress, "K2": expand_sort, "K3": compress,
-           "K4": sort_compress_rows}
+           "K4": sort_compress_rows, "K7a": expand_sort_packed,
+           "K7b": compress_packed}
 for _fn in KERNELS.values():
     _fn.launches = 0
 

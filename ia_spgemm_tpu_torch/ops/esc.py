@@ -14,6 +14,7 @@
   (``ops/slab.py``), the slab + global hybrid, or the global engine. The
   model's constants are the JAX package's (measured on a TPU v5e), kept
   so the port picks the same route; they say nothing about this card.
+- ``spgemm_coo``: COO operands through the global engine.
 - ``spgemm_csr_compensated``: float32 operands, float64-grade sums,
   returned as a float32 (hi, lo) pair. The slab route runs kernels K9 +
   K10; the global fallback forms exact float64 products and float64 run
@@ -32,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ia_spgemm_tpu_torch import config as cfg
-from ia_spgemm_tpu_torch.formats.types import CSR
+from ia_spgemm_tpu_torch.formats.types import COO, CSR
 from ia_spgemm_tpu_torch.utils.scans import entry_rows, segment_broadcast
 
 # Single-slab workspace ceiling, in intermediate products (the JAX
@@ -364,6 +365,25 @@ def _spgemm_csr_sliced(A: CSR, B: CSR, plan: SpGEMMPlan) -> CSR:
                values=val_out[:total_cap],
                nnz=torch.tensor(off, dtype=torch.int32, device=dev),
                shape=(m, n))
+
+
+def spgemm_coo(A: COO, B: COO, plan: SpGEMMPlan | None = None) -> COO:
+    """C = A @ B with both operands COO. The reference's COO_MUL_COO
+    probes the output row linearly (coo/common_coo.h:72-161); here the
+    same products go through the global engine with A's per-entry rows
+    (the sliced engine for a sliced plan)."""
+    from ia_spgemm_tpu_torch.formats.convert import coo_to_csr, csr_to_coo
+    if plan is None:
+        plan = plan_spgemm(coo_to_csr(A), coo_to_csr(B))
+    if plan.slabs is not None:
+        return csr_to_coo(_spgemm_csr_sliced(coo_to_csr(A), coo_to_csr(B),
+                                             plan))
+    row_ptr, col, val, nnz = _esc_core(
+        A.row_ind, A.col_ind, A.values, A.nnz, B.row_offset, B.col_ind,
+        B.values, e_cap=plan.expansion_capacity,
+        out_cap=plan.out_capacity, m=A.nrows, k=A.ncols, n=B.ncols)
+    return csr_to_coo(CSR(row_ptr=row_ptr, col_ind=col, values=val, nnz=nnz,
+                          shape=(A.nrows, B.ncols)))
 
 
 def spgemm_csr(A: CSR, B: CSR, plan: SpGEMMPlan | None = None,

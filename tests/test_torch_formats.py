@@ -198,3 +198,99 @@ print("OK", int(C.nnz))
                        text=True, cwd=REPO, env=env, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("OK")
+
+
+@pytest.mark.parametrize("name", sorted(MATS))
+@pytest.mark.parametrize("fmt", ["COO", "DIA", "Dense"])
+def test_scipy_round_trip_coo_dia_dense(name, fmt):
+    """DIA keeps the in-band slots of its diagonals as explicit zeros, so
+    the comparison drops stored zeros on both sides."""
+    a = MATS[name]
+    X = getattr(ttypes, fmt).from_scipy(a)
+    back = X.to_scipy().tocsr()
+    back.eliminate_zeros()
+    ref = a.copy()
+    ref.eliminate_zeros()
+    _same_scipy(back, ref)
+    # Dense counts nonzero values; the others keep the stored count
+    assert int(X.nnz) == (ref.nnz if fmt == "Dense" else a.nnz)
+    assert float(X.checksum()) == pytest.approx(float(a.sum()), rel=1e-6)
+    _same_scipy(X.to("cpu").to_scipy(), X.to_scipy())
+
+
+@pytest.mark.parametrize("name", sorted(MATS))
+def test_coo_dia_dense_conversions_match_jax(name):
+    a = MATS[name]
+    JA, TA = jtypes.CSR.from_scipy(a), ttypes.CSR.from_scipy(a)
+    Jc, Tc = jconvert.csr_to_coo(JA), tconvert.csr_to_coo(TA)
+    for f in ("row_offset", "row_ind", "col_ind", "values", "nnz"):
+        np.testing.assert_array_equal(_np(getattr(Tc, f)),
+                                      np.asarray(getattr(Jc, f)), err_msg=f)
+    Tb = tconvert.coo_to_csr(Tc)
+    np.testing.assert_array_equal(_np(Tb.row_ptr), _np(TA.row_ptr))
+    np.testing.assert_array_equal(tconvert.plan_dia_offsets(TA),
+                                  jconvert.plan_dia_offsets(JA))
+    Jd = jconvert.csr_to_dia(JA, check_guard=False)
+    Td = tconvert.csr_to_dia(TA, check_guard=False)
+    for f in ("offsets", "values", "diag_ind", "nnz"):
+        np.testing.assert_array_equal(_np(getattr(Td, f)),
+                                      np.asarray(getattr(Jd, f)), err_msg=f)
+    Jr, Tr = jconvert.dia_to_csr(Jd), tconvert.dia_to_csr(Td)
+    for f in ("row_ptr", "col_ind", "values", "nnz"):
+        np.testing.assert_array_equal(_np(getattr(Tr, f)),
+                                      np.asarray(getattr(Jr, f)), err_msg=f)
+    for ratio in (1.0, 3.0, 50.0):
+        assert (jconvert.csr_to_dia(JA, ratio=ratio) is None) == \
+            (tconvert.csr_to_dia(TA, ratio=ratio) is None), ratio
+    Jn, Tn = jconvert.csr_to_dense(JA), tconvert.csr_to_dense(TA)
+    np.testing.assert_array_equal(_np(Tn.values), np.asarray(Jn.values))
+    Jb, Tb = jconvert.dense_to_csr(Jn), tconvert.dense_to_csr(Tn)
+    for f in ("row_ptr", "col_ind", "values", "nnz"):
+        np.testing.assert_array_equal(_np(getattr(Tb, f)),
+                                      np.asarray(getattr(Jb, f)), err_msg=f)
+
+
+def test_csr_to_dia_drops_entries_off_the_given_offsets():
+    a = MATS["banded"]
+    offs = np.array([-1, 0, 2], np.int32)
+    J = jconvert.csr_to_dia(jtypes.CSR.from_scipy(a), offsets=offs,
+                            check_guard=False)
+    T = tconvert.csr_to_dia(ttypes.CSR.from_scipy(a), offsets=offs,
+                            check_guard=False)
+    np.testing.assert_array_equal(_np(T.values), np.asarray(J.values))
+
+
+def test_compact_ell_matches_jax():
+    """Random interior holes, as the hash route's tables carry."""
+    rng = np.random.default_rng(9)
+    col = rng.integers(0, 50, (30, 16)).astype(np.int32)
+    col[rng.random((30, 16)) < 0.6] = -1
+    val = np.where(col >= 0, rng.standard_normal((30, 16)), 0).astype(
+        np.float32)
+    nnz_row = (col >= 0).sum(1).astype(np.int32)
+    J = jconvert.compact_ell(jtypes.ELL(
+        col_ind=jnp.asarray(col), values=jnp.asarray(val),
+        nnz_row=jnp.asarray(nnz_row), nnz=jnp.asarray(nnz_row.sum()),
+        shape=(30, 50)))
+    T = tconvert.compact_ell(ttypes.ELL.from_numpy(col, val, nnz_row,
+                                                   nnz_row.sum(), (30, 50)))
+    for f in ("col_ind", "values", "nnz_row"):
+        np.testing.assert_array_equal(_np(getattr(T, f)),
+                                      np.asarray(getattr(J, f)), err_msg=f)
+
+
+def test_size_formulas_and_guards_match_jax():
+    for m, n, nnz, k in [(10, 12, 30, 5), (32768, 32768, 556940, 29),
+                         (4, 4, 0, 0), (1000, 10, 900, 1000)]:
+        assert tconvert.sizeof_coo(m, nnz) == jconvert.sizeof_coo(m, nnz)
+        assert tconvert.sizeof_dia(m, n, k) == jconvert.sizeof_dia(m, n, k)
+        for ratio in (1.0, 20.0, 50.0):
+            assert tconvert.coo_viable(m, nnz, ratio) == \
+                jconvert.coo_viable(m, nnz, ratio)
+            assert tconvert.dia_viable(m, n, nnz, k, ratio) == \
+                jconvert.dia_viable(m, n, nnz, k, ratio)
+    for f in ("timeout_scale", "default_timeout_s", "dense_bytes_budget",
+              "bucket_capacities", "size_guard_ratio"):
+        assert getattr(tcfg.DEFAULT_CONFIG, f) == \
+            getattr(jcfg.DEFAULT_CONFIG, f), f
+    assert tcfg.DENSITY_IMAGE_SIZE == jcfg.DENSITY_IMAGE_SIZE

@@ -1,5 +1,5 @@
-"""PyTorch port, the CUDA kernels K1-K4 and K8-K10 against their plain
-PyTorch versions on the card (marked `cuda`; they skip without a GPU).
+"""PyTorch port, the CUDA kernels K1-K4, K7 and K8-K12 against their
+plain PyTorch versions on the card (marked `cuda`; they skip without a GPU).
 
 This file imports no jax, so it runs on the GPU machine, where jax is
 not installed and tests/conftest.py (which imports jax) must be left out:
@@ -13,11 +13,14 @@ import torch
 
 from ia_spgemm_tpu_torch.bench.headline import build_matrix
 from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+from ia_spgemm_tpu_torch.ops import dense_row_kernels as DK
+from ia_spgemm_tpu_torch.ops import hash_kernels as HK
 from ia_spgemm_tpu_torch.ops import slab_kernels as SK
 from tests.torch_parity import (GATHER_CASES, RUN, assert_dd_outputs_match,
-                                assert_kernel_outputs_match, gather_inputs,
-                                ill_conditioned, pack_fragments,
-                                slab_operands)
+                                assert_kernel_outputs_match,
+                                assert_tables_match, assert_values_close,
+                                ell_pair, gather_inputs, ill_conditioned,
+                                pack_fragments, slab_operands)
 
 # slab-kernel inputs: (matrix, planner overrides); the headline plans
 # width 1024, the others 512
@@ -110,3 +113,56 @@ def test_k9_k10_slab_kernels_match_plain(cuda_device, name):
     assert SK.compress_dd.launches == n10 + 1
     assert_dd_outputs_match(got, SK.compress_dd_plain(pkey, pval,
                                                       width=kw["width"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ka", [16, 128])
+def test_k7_kernels_match_plain(cuda_device, ka):
+    """K7a's sorted packed keys equal the plain version's exactly (equal
+    multisets sort to equal arrays); K7b's sums within tolerance, with
+    and without compaction. Widths 128 and 1024."""
+    g, avT, width = gather_inputs(ka)
+    g, avT = g.to(cuda_device), avT.to(cuda_device)
+    kw = dict(ka=ka, run=RUN, width=width, start_kk=2 * RUN)
+    n7 = K.expand_sort_packed.launches
+    p = K.expand_sort_packed(g, avT, **kw)
+    assert K.expand_sort_packed.launches == n7 + 1
+    assert torch.equal(p, K.expand_sort_packed_plain(g, avT, **kw))
+    for compact, out_w in ((True, width), (True, 128), (False, width)):
+        assert_kernel_outputs_match(
+            K.compress_packed(p, width=width, out_w=out_w, compact=compact),
+            K.compress_packed_plain(p, width=width, out_w=out_w,
+                                    compact=compact))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,density", [(300, 200, 2500, 0.05),
+                                           (64, 4096, 16384, 0.004)])
+def test_k11_kernel_matches_plain(cuda_device, m, k, n, density):
+    """n not a multiple of the 1024-column chunk, and a wide B."""
+    A, _, a, _ = ell_pair(m, k, 8, density, seed=m, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    b = torch.randn((k, n), device=cuda_device, generator=gen)
+    n11 = DK.dense_row.launches
+    got = DK.dense_row(A.col_ind, A.values, b)
+    assert DK.dense_row.launches == n11 + 1
+    assert_values_close(got, DK.dense_row_plain(A.col_ind, A.values, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,density,table_size",
+                         [(500, 400, 300, 0.02, None), (64, 64, 64, 0.2, 64)])
+def test_k12_kernel_matches_plain(cuda_device, m, k, n, density, table_size):
+    """The default table, and a full table (H = n) with long probe
+    chains; compared after compact_ell, as sets per row."""
+    from ia_spgemm_tpu_torch.ops import hash_spgemm
+    A, B, _, _ = ell_pair(m, k, n, density, seed=k, device=cuda_device)
+    H = table_size or min(hash_spgemm._next_pow2(
+        2 * A.max_nnz_per_row * B.max_nnz_per_row),
+        hash_spgemm._next_pow2(2 * n))
+    args = (A.col_ind, A.values, B.col_ind, B.values)
+    n12 = HK.hash_accumulate.launches
+    got = HK.hash_accumulate(*args, table_size=H)
+    assert HK.hash_accumulate.launches == n12 + 1
+    assert_tables_match(got, HK.hash_accumulate_plain(*args, table_size=H),
+                        (m, n))

@@ -17,7 +17,9 @@ from ia_spgemm_tpu.formats.types import CSR as JCSR
 from ia_spgemm_tpu.ops import bitonic as jbt
 from ia_spgemm_tpu_torch.bench import harness as tharness
 from ia_spgemm_tpu_torch.bench import headline
+from ia_spgemm_tpu_torch.bench import report as treport
 from ia_spgemm_tpu_torch.cli import main as tcli
+from ia_spgemm_tpu_torch.formats import convert as tconvert
 from ia_spgemm_tpu_torch.formats.types import CSR as TCSR
 from ia_spgemm_tpu_torch.io import mmio as tmmio
 from ia_spgemm_tpu_torch.ops import bitonic as tbt
@@ -124,11 +126,17 @@ def test_flat_spgemm_bitonic_matches_jax(seed, layout):
 
 
 def test_flat_unported_options_raise():
+    """The flat cols layout over a torch expand needs K5 (not ported);
+    the bf16 lane refuses what the JAX package refuses."""
     a = sp.random(32, 32, density=0.1, format="csr", dtype=np.float32,
                   random_state=np.random.RandomState(1))
     A = tell(a)
-    with pytest.raises(NotImplementedError, match="K7"):
-        tbt.spgemm_bitonic(A, A, value_mode="bf16")
+    A64 = tconvert.csr_to_ell(TCSR.from_scipy(a.astype(np.float64)),
+                              check_guard=False)
+    with pytest.raises(ValueError, match="fused-expand"):
+        tbt.spgemm_bitonic(A64, A64, value_mode="bf16")
+    with pytest.raises(NotImplementedError, match="K5"):
+        tbt.spgemm_bitonic(A64, A64)
     dense = tell(sp.csr_matrix(np.ones((8, 100), np.float32)))
     wide = tell(sp.csr_matrix(np.ones((100, 8), np.float32)))
     with pytest.raises(NotImplementedError, match="K5"):
@@ -151,17 +159,20 @@ def test_harness_bitonic_row_matches_jax():
         assert t.ok and j.ok and not t.error, t.error
         assert t.verified_sum == pytest.approx(j.verified_sum, rel=1e-5)
         assert t.memory_bytes == j.memory_bytes
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tharness.run_benchmark(TCSR.from_scipy(a), TCSR.from_scipy(a),
-                               ("baseline", "hash"))
+    # a name off the menu is an error row, as in the JAX harness
+    jrep = jharness.run_benchmark(JCSR.from_scipy(a), JCSR.from_scipy(a),
+                                  ("baseline", "dist"), iters=1)
+    trep = tharness.run_benchmark(TCSR.from_scipy(a), TCSR.from_scipy(a),
+                                  ("baseline", "dist"), iters=1)
+    for rep in (jrep, trep):
+        assert "unknown algorithm" in rep.by_name("dist").error
 
 
 def _verified_sums(out: str) -> dict:
     sums = {}
     for line in out.splitlines():
         f = line.split()
-        if len(f) == 8 and f[0] in ("baseline", "bitonic", "csr", "esc",
-                                    "compensated"):
+        if len(f) == 8 and f[0] in tharness.PORTED_ALGORITHMS:
             sums[f[0]] = (f[4], f[7])
     return sums
 
@@ -213,10 +224,10 @@ def test_cli_esc_modes_match_jax_cli(tmp_path, capsys, mode):
 
 
 @pytest.mark.parametrize("argv,pattern", [
-    (["--mode", "hash", "--no-matnet"], "not ported"),
-    (["--mode", "all", "--no-matnet"], "not ported"),
-    (["--mode", "bitonic"], "MatNet"),
-    (["--mode", "bitonic", "--no-matnet", "--imgs-dir", "x"], "not ported"),
+    (["--mode", "dist"], "--mode dist is not ported"),
+    (["--mode", "ring", "--no-matnet"], "--mode ring is not ported"),
+    (["--mode", "bitonic", "--isolate"], "--isolate is not ported"),
+    (["--mode", "all", "--shards", "2"], "--shards is not ported"),
 ])
 def test_cli_refuses_unported(tmp_path, capsys, argv, pattern):
     path = str(tmp_path / "a.mtx")
@@ -255,3 +266,111 @@ def test_hybrid_matrix_copies_jax_skew_matrix():
         a = headline.build_hybrid_matrix(512, **kw)
         b = _skew_matrix(m=512, **kw)
         assert a.nnz == b.nnz and (a != b).nnz == 0
+
+
+@pytest.fixture(scope="module")
+def all_menu_reports():
+    """The JAX and the port harness on the CLI's whole `all` menu, one
+    small float32 matrix, with a MatNet pick (the JAX side runs its
+    Pallas kernels in interpret mode)."""
+    a = fixtures.random_csr(24, 24, density=0.2, seed=11, dtype=np.float32)
+    kw = dict(iters=1, matnet_pick="csr")
+    return (jharness.run_benchmark(JCSR.from_scipy(a), JCSR.from_scipy(a),
+                                   tharness.PORTED_ALGORITHMS, **kw),
+            tharness.run_benchmark(TCSR.from_scipy(a), TCSR.from_scipy(a),
+                                   tharness.PORTED_ALGORITHMS, **kw))
+
+
+@pytest.mark.parametrize("name", tharness.PORTED_ALGORITHMS)
+def test_harness_all_menu_row_matches_jax(all_menu_reports, name):
+    """Each row ok / skipped as in the JAX harness, its verified_sum
+    within the JAX gates of the baseline (1e-4, serve 2e-2) and of the
+    JAX row, and the same memory size."""
+    jrep, trep = all_menu_reports
+    j, t = jrep.by_name(name), trep.by_name(name)
+    assert (t.ok, t.skipped, t.timed_out) == (j.ok, j.skipped, j.timed_out)
+    assert not t.error and not j.error, (t.error, j.error)
+    base = trep.by_name("baseline").verified_sum
+    tol = tharness.SERVE_CHECKSUM_TOL if name == "serve" else 1e-4
+    assert abs(t.verified_sum - base) <= tol * max(1.0, abs(base))
+    assert t.verified_sum == pytest.approx(j.verified_sum, rel=1e-5,
+                                           abs=1e-5)
+    assert t.memory_bytes == j.memory_bytes
+
+
+def test_harness_matnet_verdict_matches_jax(all_menu_reports):
+    jrep, trep = all_menu_reports
+    assert [r.name for r in trep.results] == [r.name for r in jrep.results]
+    assert trep.matnet_pick == jrep.matnet_pick == "csr"
+    assert trep.matnet_correct == (trep.winner == "csr")
+    text = treport.format_table(trep)
+    assert "MatNet pick: csr" in text and "Fastest algorithm:" in text
+
+
+@pytest.fixture
+def int_mtx(tmp_path):
+    """A 120 x 120 matrix of small integers: every sum is exact in
+    float32 and float64, so both CLIs print the same digits."""
+    rng = np.random.default_rng(4)
+    a = sp.random(120, 120, density=0.04, format="csr",
+                  random_state=np.random.RandomState(4))
+    a.data[:] = rng.integers(-3, 4, a.nnz)
+    a.eliminate_zeros()
+    path = str(tmp_path / "a.mtx")
+    tmmio.write_mtx(path, TCSR.from_scipy(a))
+    return path
+
+
+def _lines(out, prefix):
+    return [ln for ln in out.splitlines() if ln.startswith(prefix)]
+
+
+def test_cli_all_with_matnet(int_mtx, capsys):
+    """The default run: MatNet's pick (the JAX CLI's), every row of the
+    menu ok or skipped, the winner and the verdict lines."""
+    assert jcli.main([int_mtx, "--mode", "baseline", "--iters", "1"]) == 0
+    jpred = _lines(capsys.readouterr().out, "MatNet prediction")
+    assert tcli.main([int_mtx, "--device", "cpu", "--iters", "1"]) == 0
+    out = capsys.readouterr().out
+    assert _lines(out, "MatNet prediction") == jpred and jpred
+    sums = _verified_sums(out)
+    assert tuple(sums) == tharness.PORTED_ALGORITHMS
+    assert {s for _, s in sums.values()} <= {"ok", "skipped"}
+    assert _lines(out, "Fastest algorithm:")
+    assert _lines(out, "MatNet pick:")
+
+
+def test_cli_autotune_matches_jax_cli(int_mtx, capsys):
+    args = [int_mtx, "--mode", "autotune", "--iters", "1"]
+    assert jcli.main(args) == 0
+    jout = capsys.readouterr().out
+    assert tcli.main(args + ["--device", "cpu"]) == 0
+    tout = capsys.readouterr().out
+    for prefix in ("MatNet prediction", "ran algorithm", "C:"):
+        assert _lines(tout, prefix) == _lines(jout, prefix), prefix
+
+
+def test_cli_profile_gpu_matches_jax_cli(int_mtx, capsys):
+    """P100 weights, B = A^T, the (coo, csr, bitonic) menu."""
+    args = [int_mtx, "--profile", "gpu", "--iters", "1"]
+    assert jcli.main(args) == 0
+    jout = capsys.readouterr().out
+    assert tcli.main(args + ["--device", "cpu"]) == 0
+    tout = capsys.readouterr().out
+    assert _lines(tout, "MatNet prediction") == _lines(jout,
+                                                       "MatNet prediction")
+    tsums = _verified_sums(tout)
+    assert tuple(tsums) == ("baseline", "coo", "csr", "bitonic")
+    assert tsums == _verified_sums(jout)
+
+
+def test_cli_imgs_dir_matches_jax_cli(int_mtx, tmp_path, capsys):
+    for main, sub, extra in ((jcli.main, "jax", []),
+                             (tcli.main, "port", ["--device", "cpu"])):
+        assert main([int_mtx, "--mode", "baseline", "--no-matnet",
+                     "--iters", "1", "--imgs-dir",
+                     str(tmp_path / sub)] + extra) == 0
+    capsys.readouterr()
+    for f in ("img1.txt", "img2.txt"):
+        assert (tmp_path / "port" / f).read_bytes() == \
+            (tmp_path / "jax" / f).read_bytes()

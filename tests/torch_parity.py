@@ -179,3 +179,43 @@ def assert_dd_outputs_match(got, want):
         scale = max(1.0, float(np.abs(v2).max()))
         err = float(np.abs(v1 - v2).max())
         assert err <= DD_RTOL * scale, (err, scale)
+
+
+def ell_pair(m, k, n, density, seed, device="cpu"):
+    """Port ELLs of random float32 A (m x k) and B (k x n), and the scipy
+    matrices."""
+    rng = np.random.default_rng(seed)
+
+    def mat(r, c):
+        nnz = max(1, int(r * c * density))
+        a = sp.coo_matrix((rng.standard_normal(nnz),
+                           (rng.integers(0, r, nnz), rng.integers(0, c, nnz))),
+                          shape=(r, c)).tocsr()
+        a.sum_duplicates()
+        return a.astype(np.float32)
+
+    a, b = mat(m, k), mat(k, n)
+    return tell(a, device), tell(b, device), a, b
+
+
+def table_csr(col, val, nnz, shape):
+    """A hash route's (col, val, nnz) tables as scipy CSR (sorted
+    columns, explicit zeros kept), through compact_ell."""
+    from ia_spgemm_tpu_torch.formats.types import ELL
+    E = tconvert.compact_ell(ELL(col_ind=col, values=val,
+                                 nnz_row=nnz.reshape(-1),
+                                 nnz=nnz.sum(dtype=torch.int32),
+                                 shape=shape))
+    c = E.to_scipy()
+    c.sort_indices()
+    return c
+
+
+def assert_tables_match(got, want, shape):
+    """Hash tables: nnz per row exact, each row's set of columns exact,
+    values within tolerance; slot order not compared."""
+    assert_same(got[2].reshape(-1), want[2].reshape(-1), "nnz")
+    g, w = table_csr(*got, shape), table_csr(*want, shape)
+    assert_same(g.indptr, w.indptr, "indptr")
+    assert_same(g.indices, w.indices, "indices")
+    assert_values_close(g.data, w.data, "values")
