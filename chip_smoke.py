@@ -5,9 +5,9 @@
 Phases, in order; any failure raises, so the script exits non-zero and
 prints no result line:
 
-1. device check: a CUDA GPU must be present; prints the card's name and
-   power limit (nvidia-smi), the CUDA version torch was built for, nvcc's
-   version;
+1. device check: a CUDA GPU must be present; prints the card's name,
+   power limit and compute mode (nvidia-smi), the CUDA version torch was
+   built for, nvcc's version;
 2. build: compiles csrc/*.cu for sm_90a, one nvcc per source, in
    parallel (ia_spgemm_tpu_torch/_build.py);
 3. kernels against their plain PyTorch versions on the card, on the
@@ -17,10 +17,19 @@ prints no result line:
    headline's flat plan (width 1024, run 32; sorted packed keys
    bit-identical), K11 on build_matrix(m=16384) (A as ELL times dense B,
    16384 x 16384), K12 on the headline ELL pair (Ka = Kb = 29, H = 2048;
-   each row's slots compared sorted by column). Structure exact, float32
-   values within 1e-5 * max(1, max|C|) (duplicates are summed in another
-   order), compensated hi + lo within 1e-12 * max(1, max|C|); median ms
-   of each over CUDA events, beside the plain version's;
+   each row's slots compared sorted by column); K5 and K6 + K3 (float64)
+   on the float64 headline's chunked width classes, K5, K6 + K3 and K4
+   (float64) on the skew x band classes, K6 + K3 on the flat float64
+   headline (width 1024, run 32) and on the float32 wide x band flat
+   plan (width 1024, run 8), and K5 at width 1024 beside K6 + K3 on those
+   two. Structure exact, float32 values within 1e-5 * max(1, max|C|)
+   (duplicates are summed in another order), float64 values and
+   compensated hi + lo within 1e-12 * max(1, max|C|); median ms of each
+   over CUDA events, beside the plain version's, one PyTorch call
+   computing the same function where there is one (torch.sort of the
+   keys for K4-K6, torch.sparse.mm for K11), and the bound (inputs read
+   once and outputs written once at 3.35 TB/s, or K11's float32
+   operations at 67 TFLOP/s, whichever is longer);
 4. headline: bench.headline at m=32768 (nnz 7,086,306, checksum within
    1e-4 of scipy, scipy's sparsity pattern exactly);
 5. skew: the width-class route on a row-skewed matrix whose classes need
@@ -54,19 +63,36 @@ prints no result line:
 16. the input-aware CLI on the m=4096 .mtx: --mode all with MatNet
     (Intel), --mode autotune, --profile gpu, --imgs-dir, and --mode dia on
     a 5-point 2-D Laplacian (m = 262,144): rc 0, every row ok or skipped
-    and none failed, a winner and a MatNet verdict, the dia row run.
+    and none failed, a winner and a MatNet verdict, the dia row run;
+17. f64_flat and f64_multiclass: the flat spgemm_bitonic (K6 + K3) and
+    the chunked width-class route (K5, K6 + K3) on the headline in
+    float64: scipy's nnz (7,086,306) and pattern, values and checksum
+    within 1e-9 of the float64 oracle;
+18. f64_skew: the width-class route on build_skew_matrix() times a
+    7-diagonal band, float64 (classes 128 to 8192: K4 in float64);
+19. f32_wide_flat: the flat route on build_matrix(extra_per_row=60)
+    (rows of up to ~100 entries) times the band, float32, outside the
+    gather budget (ka * 128 > 8192): K6 + K3, within 1e-4 of scipy;
+20. the harness's baseline, bitonic and csr rows on the m=4096 CLI
+    input in float64, each ok within the 1e-9 gate;
+21. the isolated watchdog: a _test_slow worker (start-up grace lowered to
+    3 s) times out and is killed, then an isolated bitonic row runs ok,
+    then the CLI's --mode all --isolate --no-matnet on the m=4096 .mtx:
+    rc 0, no row failed.
 
-Every kernel wrapper counts its launches. Phases 4, 5, 7-10 and 12-15
-each drive a main path on its own input: the counts are set to 0 just
-before each run and read just after it. K1 must have been launched in
-phase 4, K2, K3 and K4 in phase 5, K8 and K3 in phase 7, K9 and K10 in
-phase 9, K8 in the hybrid run of phase 10, K7a and K7b in phase 12, K12
-in 13, K11 in 14, the flat route's kernels in spgemm_auto (15). Phase
-3's comparison launches and the CLI's are not counted. The line before
-the last two is a JSON object with one entry per kernel ("ms"/
-"plain_ms": summed medians over its phase-3 shapes; "launches": the sum
-over the main-path runs, split in "launches_by_run"); then the
-nvidia-smi line; the last line is {"ok": true, "device": {...}}.
+Every kernel wrapper counts its launches. Phases 4, 5, 7-10, 12-15 and
+17-19 each drive a main path on its own input: the counts are set to 0
+just before each run and read just after it. K1 must have been launched
+in phase 4, K2, K3 and K4 in phase 5, K8 and K3 in phase 7, K9 and K10
+in phase 9, K8 in the hybrid run of phase 10, K7a and K7b in phase 12,
+K12 in 13, K11 in 14, the flat route's kernels in spgemm_auto (15), K6
+and K3 in f64_flat and f32_wide_flat, K5, K6 and K3 in f64_multiclass,
+K4 in f64_skew. Phase 3's comparison launches and the CLI's are not
+counted. The line before the last two is a JSON object with one entry
+per kernel ("ms"/"plain_ms"/"library_ms"/"bound_ms": summed over its
+phase-3 shapes, "bound_by" the larger term; "launches": the sum over the
+main-path runs, split in "launches_by_run"); then the nvidia-smi line;
+the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -77,8 +103,14 @@ import tempfile
 import time
 
 TOL = 1e-5          # relative to max(1, max|C|)
+F64_TOL = 1e-12     # float64 values, relative to max(1, max|C|)
 DD_TOL = 1e-12      # compensated hi + lo, relative to max(1, max|C|)
 ORACLE_TOL = 1e-4   # against scipy, as the JAX package's tests
+F64_ORACLE_TOL = 1e-9   # float64 routes against scipy (the harness's gate)
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory, and
+# float32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 HEADLINE_NNZ = 7_086_306
 # the route the JAX package's cost model (esc.predict_csr_route_ms) ranks
 # first on the m=32768 headline (tests/test_torch_esc.py checks it)
@@ -100,6 +132,8 @@ REPLACES = {"K1": "ia_spgemm_tpu/ops/bitonic.py:1034",
             "K2": "ia_spgemm_tpu/ops/bitonic.py:977",
             "K3": "ia_spgemm_tpu/ops/bitonic.py:523",
             "K4": "ia_spgemm_tpu/ops/bitonic.py:241",
+            "K5": "ia_spgemm_tpu/ops/bitonic.py:657",
+            "K6": "ia_spgemm_tpu/ops/bitonic.py:346",
             "K7a": "ia_spgemm_tpu/ops/bitonic.py:1056",
             "K7b": "ia_spgemm_tpu/ops/bitonic.py:1086",
             "K8": "ia_spgemm_tpu/ops/slab.py:99",
@@ -110,17 +144,21 @@ REPLACES = {"K1": "ia_spgemm_tpu/ops/bitonic.py:1034",
 
 
 def _compare(name, got, want):
+    """(col, val, nnz): structure exact, values within TOL (float32) or
+    F64_TOL (float64) of max(1, max|C|)."""
     import torch
     (c1, v1, n1), (c2, v2, n2) = got, want
     torch.cuda.synchronize()
-    if not (torch.equal(c1, c2) and torch.equal(n1, n2)):
+    if not (torch.equal(c1, c2) and torch.equal(n1, n2)
+            and v1.dtype == v2.dtype):
         raise AssertionError(f"{name}: kernel and plain structure differ")
     if v1.numel() == 0:
         return 0.0
+    tol = F64_TOL if v2.dtype == torch.float64 else TOL
     err = (v1 - v2).abs().max().item()
     scale = max(1.0, v2.abs().max().item())
-    if not err <= TOL * scale:
-        raise AssertionError(f"{name}: max |dval| {err} > {TOL} * {scale}")
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: max |dval| {err} > {tol} * {scale}")
     return err
 
 
@@ -142,31 +180,137 @@ def _compare_dd(name, got, want):
     return err
 
 
-def _record(stats, time_ms, dev, kname, what, err, kern, plain):
-    """Median ms of the kernel and of its plain version, into stats."""
+def _nbytes(x):
+    """Bytes of the tensors in x (a tensor or nested tuples of them)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (tuple, list)):
+        return sum(_nbytes(y) for y in x)
+    return 0
+
+
+def _record(stats, time_ms, dev, kname, what, err, kern, plain, ins,
+            library=None, flops=0.0):
+    """Into stats: median ms of the kernel, of its plain version and of
+    `library` (one PyTorch call computing the same function, or None);
+    and the bound's two terms: the inputs `ins` read once plus the
+    kernel's outputs written once at PEAK_BYTES_PER_S, and `flops` (the
+    float32 operations these inputs need) at PEAK_F32_FLOPS."""
+    bytes_ms = (_nbytes(ins) + _nbytes(kern())) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
     ms, pms = time_ms(kern, dev, 2, 20), time_ms(plain, dev, 2, 20)
+    lms = time_ms(library, dev, 2, 20) if library is not None else None
     s = stats.setdefault(kname, {"ms": 0.0, "plain_ms": 0.0,
-                                 "max_abs_err": 0.0})
+                                 "max_abs_err": 0.0, "bytes_ms": 0.0,
+                                 "ops_ms": 0.0, "library_ms": None})
     s["ms"] += ms
     s["plain_ms"] += pms
+    s["bytes_ms"] += bytes_ms
+    s["ops_ms"] += ops_ms
+    if lms is not None:
+        s["library_ms"] = (s["library_ms"] or 0.0) + lms
     s["max_abs_err"] = max(s["max_abs_err"], err)
-    print(f"  {kname} {what}: max_abs_err={err} ms={ms} plain_ms={pms}",
-          flush=True)
+    print(f"  {kname} {what}: max_abs_err={err} ms={ms} plain_ms={pms} "
+          f"library_ms={lms} bound_ms={max(bytes_ms, ops_ms)}", flush=True)
 
 
-def _check_kernels(call, stats, label, time_ms, dev):
-    """Each class of a planned call: its kernel(s) against the plain
-    version(s) on the class's own inputs."""
+def _torch_sort(key):
+    """The library yardstick of the sort kernels (K4-K6): one stable
+    torch.sort of the keys alone (the value gather is left out)."""
+    import torch
+    return lambda: torch.sort(key, dim=1, stable=True)
+
+
+def _check_cols(stats, label, time_ms, dev, key, val, *, width, start_kk,
+                out_w=None):
+    """The kernels of pre-expanded rows (the torch _expand_ell's) against
+    their plain versions, routed as the main paths route them: K5 up to
+    FUSED_MAX_WIDTH, K6 + K3 up to TRANSPOSED_MAX_WIDTH, K4 above."""
     import torch
 
     from ia_spgemm_tpu_torch.ops import bitonic as bt
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
 
-    def record(kname, shape, err, kern, plain):
+    out_w = width if out_w is None else out_w
+    kw = dict(width=width, start_kk=start_kk)
+    what = (f"{label} rows={key.shape[0]} width={width} "
+            f"{str(val.dtype)[6:]}")
+    lib = _torch_sort(key)
+    if width > bt.TRANSPOSED_MAX_WIDTH:
+        f = lambda fn: fn(key, val, **kw)  # noqa: E731
+        err = _compare(f"K4 {what}", f(K.sort_compress_rows),
+                       f(K.sort_compress_rows_plain))
+        _record(stats, time_ms, dev, "K4", what, err,
+                lambda: f(K.sort_compress_rows),
+                lambda: f(K.sort_compress_rows_plain), (key, val), lib)
+    elif width <= bt.FUSED_MAX_WIDTH:
+        f = lambda fn: fn(key, val, out_w=out_w, **kw)  # noqa: E731
+        err = _compare(f"K5 {what}", f(K.sort_compress),
+                       f(K.sort_compress_plain))
+        _record(stats, time_ms, dev, "K5", what, err,
+                lambda: f(K.sort_compress), lambda: f(K.sort_compress_plain),
+                (key, val), lib)
+    else:
+        sk, sv = K.sort_only(key, val, **kw)
+        pk, pv = K.sort_only_plain(key, val, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(sk, pk):
+            raise AssertionError(f"K6 {what}: sorted keys differ")
+        # values within a duplicate run may sit in another order:
+        # compare the run sums
+        err = _compare(f"K6 {what}",
+                       K.compress_plain(sk, sv, width=width, out_w=width),
+                       K.compress_plain(pk, pv, width=width, out_w=width))
+        _record(stats, time_ms, dev, "K6", what, err,
+                lambda: K.sort_only(key, val, **kw),
+                lambda: K.sort_only_plain(key, val, **kw), (key, val), lib)
+        f = lambda fn: fn(sk, sv, width=width, out_w=out_w)  # noqa: E731
+        err = _compare(f"K3 {what}", f(K.compress), f(K.compress_plain))
+        _record(stats, time_ms, dev, "K3", what, err, lambda: f(K.compress),
+                lambda: f(K.compress_plain), (sk, sv))
+
+
+def _k5_beside_k6_k3(key, val, *, width, start_kk, time_ms, dev):
+    """K5 at a width the main paths give K6 + K3 (1024): the same output,
+    and the ms of each."""
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    kw = dict(width=width, start_kk=start_kk)
+    k5 = lambda: K.sort_compress(key, val, out_w=width, **kw)  # noqa: E731
+    k6_k3 = lambda: K.compress(*K.sort_only(key, val, **kw),  # noqa: E731
+                               width=width, out_w=width)
+    _compare(f"K5 vs K6 + K3 width={width}", k5(), k6_k3())
+    return {"k5_ms": time_ms(k5, dev, 2, 20),
+            "k6_k3_ms": time_ms(k6_k3, dev, 2, 20)}
+
+
+def _check_kernels(call, stats, label, time_ms, dev):
+    """Each class of a planned call: its kernel(s) against the plain
+    version(s) on the class's own inputs. A ragged (float32) call's
+    classes take the gather kernels; a chunked float64 call's the cols
+    layout over the torch expand."""
+    import torch
+
+    from ia_spgemm_tpu_torch.ops import bitonic as bt
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+
+    def record(kname, shape, err, kern, plain, ins, library=None):
         _record(stats, time_ms, dev, kname, f"{label} {shape}", err, kern,
-                plain)
+                plain, ins, library)
 
     run = call.run
+    if not call.ragged:
+        if call.A.dtype == torch.float32:
+            raise AssertionError(f"{label}: a chunked float32 call")
+        for i, w in enumerate(call.widths):
+            ac = bt._take_rows(call.A.col_ind, call.idxs[i])[:, :call.kas[i]]
+            av = bt._take_rows(call.A.values, call.idxs[i])[:, :call.kas[i]]
+            key, val = bt._expand_ell(ac, av, call.B.col_ind, call.B.values,
+                                      width=w, run=run, chunks=call.chunks)
+            _check_cols(stats, f"{label} run={run}", time_ms, dev, key, val,
+                        width=w, start_kk=2 * run,
+                        out_w=min(call.out_w, w))
+        return
     for i, w in enumerate(call.widths):
         n = call.counts[i]
         shape = f"width={w} rows={n} run={run}"
@@ -184,7 +328,7 @@ def _check_kernels(call, stats, label, time_ms, dev):
                                f(K.expand_sort_compress_plain))
                 record("K1", f"{shape} pack={pack}", err,
                        lambda: f(K.expand_sort_compress),
-                       lambda: f(K.expand_sort_compress_plain))
+                       lambda: f(K.expand_sort_compress_plain), (g, avT))
                 continue
             key, val = K.expand_sort(g, avT, **kw)
             pkey, pval = K.expand_sort_plain(g, avT, **kw)
@@ -197,14 +341,15 @@ def _check_kernels(call, stats, label, time_ms, dev):
                            K.compress_plain(key, val, width=w, out_w=w),
                            K.compress_plain(pkey, pval, width=w, out_w=w))
             record("K2", shape, err, lambda: K.expand_sort(g, avT, **kw),
-                   lambda: K.expand_sort_plain(g, avT, **kw))
+                   lambda: K.expand_sort_plain(g, avT, **kw), (g, avT))
             for compact in (True, False):
                 f = lambda fn: fn(key, val, width=w, out_w=w,  # noqa: E731
                                   compact=compact)
                 err = _compare(f"K3 {shape} compact={compact}",
                                f(K.compress), f(K.compress_plain))
                 record("K3", f"{shape} compact={compact}", err,
-                       lambda: f(K.compress), lambda: f(K.compress_plain))
+                       lambda: f(K.compress), lambda: f(K.compress_plain),
+                       (key, val))
         else:
             key, val = bt._expand_rows(call.table, call.frags[i].T,
                                        call.avts[i].T, run=run, width=w)
@@ -213,7 +358,8 @@ def _check_kernels(call, stats, label, time_ms, dev):
             err = _compare(f"K4 {shape}", f(K.sort_compress_rows),
                            f(K.sort_compress_rows_plain))
             record("K4", shape, err, lambda: f(K.sort_compress_rows),
-                   lambda: f(K.sort_compress_rows_plain))
+                   lambda: f(K.sort_compress_rows_plain), (key, val),
+                   _torch_sort(key))
 
 
 def _check_slab_kernels(A, stats, time_ms, dev):
@@ -253,20 +399,21 @@ def _check_slab_kernels(A, stats, time_ms, dev):
                            K.compress_plain(pkey, pval, width=w, out_w=w))
         _record(stats, time_ms, dev, name, shape, err,
                 lambda: exp(g, p.avt, p.lrt, **kw),
-                lambda: exp_plain(g, p.avt, p.lrt, **kw))
+                lambda: exp_plain(g, p.avt, p.lrt, **kw), (g, p.avt, p.lrt))
         if dd:
             f = lambda fn: fn(key, val, width=w)  # noqa: E731
             err = _compare_dd(f"K10 {shape}", f(SK.compress_dd),
                               f(SK.compress_dd_plain))
             _record(stats, time_ms, dev, "K10", shape, err,
                     lambda: f(SK.compress_dd),
-                    lambda: f(SK.compress_dd_plain))
+                    lambda: f(SK.compress_dd_plain), (key, val))
         else:
             f = lambda fn: fn(key, val, width=w, out_w=w)  # noqa: E731
             err = _compare(f"K3 {shape}", f(K.compress),
                            f(K.compress_plain))
             _record(stats, time_ms, dev, "K3", shape, err,
-                    lambda: f(K.compress), lambda: f(K.compress_plain))
+                    lambda: f(K.compress), lambda: f(K.compress_plain),
+                    (key, val))
 
 
 def _values_err(name, got, want, tol):
@@ -290,7 +437,7 @@ def _sorted_tables(col, val):
     return key, torch.gather(val, 1, order)
 
 
-def _check_input_aware_kernels(H, A16_ell, B16, stats, time_ms, dev):
+def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
     """K7a/K7b on the headline's flat plan, K11 on the m=16384 dense-row
     input, K12 on the headline ELL pair, each against its plain version
     at those shapes."""
@@ -317,7 +464,7 @@ def _check_input_aware_kernels(H, A16_ell, B16, stats, time_ms, dev):
         raise AssertionError(f"K7a {shape}: sorted packed keys differ")
     _record(stats, time_ms, dev, "K7a", shape, 0.0,
             lambda: K.expand_sort_packed(g, avT, **kw),
-            lambda: K.expand_sort_packed_plain(g, avT, **kw))
+            lambda: K.expand_sort_packed_plain(g, avT, **kw), (g, avT))
     for compact in (False, True):
         f = lambda fn: fn(p, width=plan.width,  # noqa: E731
                           out_w=plan.width, compact=compact)
@@ -325,7 +472,7 @@ def _check_input_aware_kernels(H, A16_ell, B16, stats, time_ms, dev):
                        f(K.compress_packed), f(K.compress_packed_plain))
         _record(stats, time_ms, dev, "K7b", f"{shape} compact={compact}",
                 err, lambda: f(K.compress_packed),
-                lambda: f(K.compress_packed_plain))
+                lambda: f(K.compress_packed_plain), (p,))
     del g, avT, p, pp
 
     f = lambda fn: fn(A16_ell.col_ind, A16_ell.values, B16)  # noqa: E731
@@ -333,8 +480,15 @@ def _check_input_aware_kernels(H, A16_ell, B16, stats, time_ms, dev):
              f"{tuple(B16.shape)}")
     err = _values_err(f"K11 {shape}", f(DK.dense_row), f(DK.dense_row_plain),
                       TOL)
+    # cuSPARSE SpMM (torch.sparse.mm of A as sparse CSR), the yardstick
+    nnz16 = int(A16.nnz)
+    a16_sp = torch.sparse_csr_tensor(A16.row_ptr, A16.col_ind[:nnz16],
+                                     A16.values[:nnz16], size=A16.shape)
     _record(stats, time_ms, dev, "K11", shape, err,
-            lambda: f(DK.dense_row), lambda: f(DK.dense_row_plain))
+            lambda: f(DK.dense_row), lambda: f(DK.dense_row_plain),
+            (A16_ell.col_ind, A16_ell.values, B16),
+            lambda: torch.sparse.mm(a16_sp, B16),
+            flops=2.0 * nnz16 * B16.shape[1])
 
     Hs = hash_spgemm._next_pow2(2 * ka * ka)
     if Hs != 2048 or not hash_spgemm.hash_viable(ka, ka, H.ncols):
@@ -349,7 +503,8 @@ def _check_input_aware_kernels(H, A16_ell, B16, stats, time_ms, dev):
     err = _compare(f"K12 {shape}", (k1, s1, n1), (k2, s2, n2))
     _record(stats, time_ms, dev, "K12", shape, err,
             lambda: f(HK.hash_accumulate),
-            lambda: f(HK.hash_accumulate_plain))
+            lambda: f(HK.hash_accumulate_plain),
+            (H.col_ind, H.values, H.col_ind, H.values))
 
 
 def _against_scipy(name, C, want):
@@ -381,12 +536,17 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+    # the isolated watchdog's workers share the card with this process:
+    # that needs the Default compute mode, not EXCLUSIVE_PROCESS
+    compute_mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
     from ia_spgemm_tpu_torch import _build
     nvcc = subprocess.run([_build._nvcc(), "--version"], check=True,
                           capture_output=True, text=True).stdout
-    print(f"[1] card: {smi}; torch {torch.__version__} CUDA "
-          f"{torch.version.cuda}; nvcc: {nvcc.strip().splitlines()[-1]}",
-          flush=True)
+    print(f"[1] card: {smi}; compute mode {compute_mode}; torch "
+          f"{torch.__version__} CUDA {torch.version.cuda}; nvcc: "
+          f"{nvcc.strip().splitlines()[-1]}", flush=True)
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -432,13 +592,28 @@ def main() -> int:
         if missing:
             raise AssertionError(f"{run} run never launched {missing}")
 
-    def ell(a):
-        return convert.csr_to_ell(CSR.from_scipy(a.astype(np.float32),
+    def ell(a, dtype=np.float32):
+        return convert.csr_to_ell(CSR.from_scipy(a.astype(dtype),
                                                  device=dev),
                                   check_guard=False)
 
-    a32 = headline.build_matrix().astype(np.float32)
+    a64 = headline.build_matrix()
+    a32 = a64.astype(np.float32)
     A = CSR.from_scipy(a32, device=dev)
+    # the float64 and wide-A inputs (phases 17-19): the headline in
+    # float64; the row-skewed matrix times a 7-diagonal band (m = 4096),
+    # whose chunked plan has classes above 1024 (K4 in float64); a wide A
+    # (rows of up to ~100 entries) times the band at m = 32768, outside
+    # the flat route's gather budget in float32
+    H64 = ell(a64, np.float64)
+    skew_a = headline.build_skew_matrix().astype(np.float64)
+    skew_b = headline.build_matrix(m=skew_a.shape[0], band=3,
+                                   extra_per_row=0)
+    SA64, SB64 = ell(skew_a, np.float64), ell(skew_b, np.float64)
+    wide_a = headline.build_matrix(extra_per_row=60).astype(np.float32)
+    band_b = headline.build_matrix(band=3, extra_per_row=0).astype(
+        np.float32)
+    WA, WB = ell(wide_a), ell(band_b)
 
     # ---- 3. kernels against plain versions at the main paths' shapes
     print(f"[3] kernel vs plain (FUSED_MAX_WIDTH={bt.FUSED_MAX_WIDTH})",
@@ -458,7 +633,26 @@ def main() -> int:
     A16 = CSR.from_scipy(a16, device=dev)
     A16_ell = convert.csr_to_ell(A16, check_guard=False)
     B16 = convert.csr_to_dense(A16)
-    _check_input_aware_kernels(H, A16_ell, B16.values, stats, time_ms, dev)
+    _check_input_aware_kernels(H, A16, A16_ell, B16.values, stats, time_ms,
+                               dev)
+    _check_kernels(bt.multiclass_planned(H64, H64, assemble="bcsr"), stats,
+                   "headline f64", time_ms, dev)
+    _check_kernels(bt.multiclass_planned(SA64, SB64, assemble="bcsr"),
+                   stats, "skew x band f64", time_ms, dev)
+    split = {}
+    for label, (X, Y) in {"headline f64 flat": (H64, H64),
+                          "wide x band f32 flat": (WA, WB)}.items():
+        plan = bt.plan_bitonic(X, Y)
+        key, val = bt._expand_ell(X.col_ind, X.values, Y.col_ind, Y.values,
+                                  width=plan.width, run=plan.run,
+                                  chunks=plan.chunks)
+        kw = dict(width=plan.width, start_kk=2 * plan.run)
+        _check_cols(stats, f"{label} run={plan.run}", time_ms, dev, key, val,
+                    **kw)
+        split[label] = _k5_beside_k6_k3(key, val, time_ms=time_ms, dev=dev,
+                                        **kw)
+        del key, val
+    print(json.dumps({"k5_beside_k6_k3": split}), flush=True)
     missing = set(kernel_names) - set(stats)
     if missing:
         raise AssertionError(f"phase 3 never reached {sorted(missing)}")
@@ -799,16 +993,139 @@ def main() -> int:
                                      f"{img.sum()} != nnz {a4096.nnz}")
     print(json.dumps({"input_aware": input_aware}), flush=True)
 
+    # ---- 17-19. the cols layout's routes (launch counts from 0)
+    cols = {}
+
+    def cols_run(run, fn, want, tol, kernels):
+        """One main-path run: launches, scipy's pattern, values and
+        checksum within tol, then the route's device ms."""
+        reset_counts()
+        C = fn()
+        by_run[run] = counts()
+        launched(run, kernels)
+        want.sort_indices()
+        got = C.to_scipy()
+        got.sort_indices()
+        if not (int(C.nnz) == want.nnz
+                and np.array_equal(got.indptr, want.indptr)
+                and np.array_equal(got.indices, want.indices)):
+            raise AssertionError(f"{run}: nnz {int(C.nnz)} or pattern "
+                                 f"differs from scipy ({want.nnz})")
+        d = abs(got - want)
+        err = (d.max() if d.nnz else 0.0) / max(1.0, abs(want).max())
+        ref = float(want.sum())
+        rel = abs(float(C.checksum()) - ref) / max(1.0, abs(ref))
+        if not (err <= tol and rel <= tol):
+            raise AssertionError(f"{run}: max err {err}, checksum rel err "
+                                 f"{rel} > {tol}")
+        ms = time_ms(fn, dev, 1, 10)
+        cols[run] = {"device_ms": ms, "max_rel_err": err,
+                     "checksum_rel_err": rel, "launches": by_run[run]}
+        print(f"[{run}] nnz={int(C.nnz)} max_rel_err={err} "
+              f"checksum_rel_err={rel} device_ms={ms} "
+              f"launches={by_run[run]}", flush=True)
+
+    fplan = bt.plan_bitonic(H64, H64)
+    if (fplan.width, fplan.run, H64.max_nnz_per_row) != (1024, 32, 29):
+        raise AssertionError(f"float64 headline flat plan {fplan}")
+    cols_run("f64_flat", lambda: bt.spgemm_bitonic(H64, H64, fplan), c_ref,
+             F64_ORACLE_TOL, ["K6", "K3"])
+    mcall = bt.multiclass_planned(H64, H64, assemble="bcsr")
+    if mcall.ragged or not any(w <= bt.FUSED_MAX_WIDTH
+                               for w in mcall.widths):
+        raise AssertionError(f"float64 headline plan: widths "
+                             f"{mcall.widths}, ragged {mcall.ragged}")
+    cols_run("f64_multiclass", mcall, c_ref, F64_ORACLE_TOL,
+             ["K5", "K6", "K3"])
+    cols["f64_multiclass"]["widths"] = list(mcall.widths)
+    scall = bt.multiclass_planned(SA64, SB64, assemble="bcsr")
+    cols_run("f64_skew", scall, (skew_a @ skew_b).tocsr(), F64_ORACLE_TOL,
+             ["K4"])
+    cols["f64_skew"]["widths"] = list(scall.widths)
+    wplan = bt.plan_bitonic(WA, WB)
+    lanes = max(128, 4 * wplan.run)
+    if not (65 <= WA.max_nnz_per_row <= 128 and wplan.width == 1024
+            and WA.max_nnz_per_row * wplan.chunks * lanes
+            > bt._EXPAND_TILE_ELEMS):
+        raise AssertionError(f"wide A: max row {WA.max_nnz_per_row}, plan "
+                             f"{wplan}")
+    cols_run("f32_wide_flat", lambda: bt.spgemm_bitonic(WA, WB, wplan),
+             (wide_a.astype(np.float64) @ band_b.astype(np.float64)).tocsr(),
+             ORACLE_TOL, ["K6", "K3"])
+    print(json.dumps({"cols_layout": cols}), flush=True)
+    del H64, SA64, SB64, WA, WB, mcall, scall
+
+    from ia_spgemm_tpu_torch.bench import harness
+    from ia_spgemm_tpu_torch.bench import isolated as iso
+    a4096 = headline.build_matrix(m=4096)
+
+    # ---- 20. the harness on a float64 CSR (1e-9 gate)
+    A4 = CSR.from_scipy(a4096, device=dev)
+    rep = harness.run_benchmark(A4, A4, ("baseline", "bitonic", "csr"))
+    bad = [r.name for r in rep.results if r.error or not r.ok]
+    if bad:
+        raise AssertionError(f"float64 harness rows failed: "
+                             f"{[(r.name, r.error) for r in rep.results]}")
+    print("[20] harness float64 m=4096: " + ", ".join(
+        f"{r.name} {r.run_time_ms} ms sum {r.verified_sum!r}"
+        for r in rep.results), flush=True)
+
+    # ---- 21. the isolated watchdog: a hung row killed, then rows after it
+    A4 = CSR.from_scipy(a4096.astype(np.float32), device=dev)
+    grace = iso.STARTUP_GRACE_S
+    iso.STARTUP_GRACE_S = 3.0
+    try:
+        t0 = time.perf_counter()
+        res = iso.bench_algorithm_isolated(A4, A4, "_test_slow",
+                                           timeout_s=1.0)
+        slow_s = time.perf_counter() - t0
+    finally:
+        iso.STARTUP_GRACE_S = grace
+    if not (res.timed_out and slow_s < 1.0 + 3.0 + 5.0):
+        raise AssertionError(f"_test_slow: {res}, {slow_s} s")
+    t0 = time.perf_counter()
+    res = iso.bench_algorithm_isolated(A4, A4, "bitonic", timeout_s=5.0)
+    row_s = time.perf_counter() - t0
+    if not (res.ok and res.run_time_ms > 0 and not res.error):
+        raise AssertionError(f"isolated bitonic row: {res}")
+    print(f"[21] isolated: _test_slow timed out and was killed after "
+          f"{slow_s} s; bitonic ok, {res.run_time_ms} ms in a worker of "
+          f"{row_s} s wall", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "smoke.mtx")
+        mmio.write_mtx(path, CSR.from_scipy(a4096))
+        out = os.path.join(tmp, "isolate.json")
+        t0 = time.perf_counter()
+        rc = cli.main([path, "--isolate", "--no-matnet", "--iters", "3",
+                       "--json", out])
+        iso_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"CLI --isolate returned {rc}")
+        with open(out) as f:
+            rep = json.load(f)
+    bad = [r["name"] for r in rep["results"]
+           if r["error"] or not (r["ok"] or r["skipped"])]
+    if bad:
+        raise AssertionError(f"CLI --isolate: rows {bad} failed")
+    print(f"[21] CLI --mode all --isolate: rc 0 in {iso_s} s, rows=" + str(
+        {r["name"]: ("ok" if r["ok"] else "skipped")
+         for r in rep["results"]}), flush=True)
+
     torch.cuda.synchronize()
-    kernels = [{"name": name, "route": "cuda",
-                "source": source[name],
-                "replaces": REPLACES[name],
-                "launches": sum(c[name] for c in by_run.values()),
-                "launches_by_run": {r: c[name] for r, c in by_run.items()},
-                "max_abs_err": stats[name]["max_abs_err"],
-                "ms": stats[name]["ms"],
-                "plain_ms": stats[name]["plain_ms"]}
-               for name in kernel_names]
+    kernels = []
+    for name in kernel_names:
+        st = stats[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source[name],
+            "replaces": REPLACES[name],
+            "launches": sum(c[name] for c in by_run.values()),
+            "launches_by_run": {r: c[name] for r, c in by_run.items()},
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+            "plain_ms": st["plain_ms"],
+            "bound_ms": max(st["bytes_ms"], st["ops_ms"]),
+            "bound_by": ("operations" if st["ops_ms"] > st["bytes_ms"]
+                         else "bytes"),
+            "library_ms": st["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

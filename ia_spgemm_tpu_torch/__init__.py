@@ -4,8 +4,9 @@ The JAX package ``ia_spgemm_tpu`` is the reference; this package mirrors
 its module paths and names. It imports torch, numpy and scipy, never
 jax. Ported so far: the width-class bitonic route (CSR -> ELL, the
 width-class planner, fragment tables, the K1-K4 kernels of
-``csrc/bitonic.cu``, BlockCSR assembly), the flat ``spgemm_bitonic``
-(float32), the production CSR entry ``ops/esc.spgemm_csr_auto`` with its
+``csrc/bitonic.cu``, BlockCSR assembly), the flat ``spgemm_bitonic``,
+the cols layout over the torch expand (K5, K6 + K3) that float64
+operands and wide float32 rows take, the production CSR entry ``ops/esc.spgemm_csr_auto`` with its
 engines (tiled, the slab engine with K8 + K3, the slab + global hybrid,
 the global sort, workspace slicing) and the compensated route (K9 + K10
 of ``csrc/slab.cu``), the harness's ``baseline``/``bitonic``/``csr``/

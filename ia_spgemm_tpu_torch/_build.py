@@ -39,7 +39,13 @@ SIGNATURES = {
         "ia_k1_expand_sort_compress": [_P] * 5 + [_I] * 8 + [_P],
         "ia_k2_expand_sort": [_P] * 4 + [_I] * 7 + [_P],
         "ia_k3_compress": [_P] * 5 + [_I] * 4 + [_P],
+        "ia_k3_compress_f64": [_P] * 5 + [_I] * 4 + [_P],
         "ia_k4_sort_compress_rows": [_P] * 5 + [_I] * 3 + [_P],
+        "ia_k4_sort_compress_rows_f64": [_P] * 5 + [_I] * 3 + [_P],
+        "ia_k5_sort_compress": [_P] * 5 + [_I] * 4 + [_P],
+        "ia_k5_sort_compress_f64": [_P] * 5 + [_I] * 4 + [_P],
+        "ia_k6_sort": [_P] * 4 + [_I] * 3 + [_P],
+        "ia_k6_sort_f64": [_P] * 4 + [_I] * 3 + [_P],
         "ia_k7a_expand_sort_packed": [_P] * 3 + [_I] * 6 + [_P],
         "ia_k7b_compress_packed": [_P] * 4 + [_I] * 4 + [_P],
     },

@@ -15,9 +15,14 @@ checked against the baseline's (1e-4 relative in float32; the bf16
   reported as skipped, with the JAX package's guards and budgets.
 - Watchdog: an algorithm is abandoned past timeout_scale x the
   baseline's runtime (at least 5 s; main.cpp:43-93,770-793), the first
-  run (which builds the kernels) past COMPILE_BUDGET_S. It runs in a
-  worker thread the harness stops waiting on; a kernel already on the
-  card runs to its end, as a dispatched TPU program did.
+  run (which builds the kernels) past COMPILE_BUDGET_S. In process it
+  runs in a worker thread the harness stops waiting on; a kernel already
+  on the card runs to its end, as a dispatched TPU program did. With
+  ``isolate=True`` each row runs in its own process (bench/isolated.py),
+  which the harness kills at the budget, freeing the card.
+- Values keep the matrices' type: float64 CSRs run the rows that take
+  them (bitonic, csr, esc, ...) in float64 and are held to 1e-9 of the
+  baseline.
 - Times: on a CUDA device the median of CUDA-event intervals around each
   run (device time of the enqueued work); on the CPU the median host
   wall time. Warm-up runs are untimed.
@@ -153,10 +158,17 @@ def run_benchmark(A: CSR, B: CSR,
                   matrix_a: str = "A", matrix_b: str = "B",
                   config: cfg.SpGEMMConfig = cfg.DEFAULT_CONFIG,
                   matnet_pick: Optional[str] = None,
-                  iters: int = 3) -> BenchReport:
+                  iters: int = 3, isolate: bool = False,
+                  isolate_device: Optional[str] = None) -> BenchReport:
     """Benchmark every algorithm computing C = A @ B, reference-style, on
     the device A and B live on. An algorithm that fails (an unknown name
-    included) is reported with its error, not raised."""
+    included) is reported with its error, not raised.
+
+    isolate=True runs each row but the baseline in a killable subprocess
+    on isolate_device ("cuda" or "cpu"; default A's device type), with
+    the row's watchdog budget (bench/isolated.py): a row that times out
+    is killed with its process and cannot hold the card for the rows
+    after it."""
     flops = get_flop(A, B)
     report = BenchReport(matrix_a=matrix_a, matrix_b=matrix_b,
                          shape_a=A.shape, shape_b=B.shape,
@@ -181,6 +193,13 @@ def run_benchmark(A: CSR, B: CSR,
             # the watchdog never disarms
             budget_s = timeout_s if timeout_s is not None \
                 else config.default_timeout_s
+            if isolate:
+                from ia_spgemm_tpu_torch.bench.isolated import (
+                    bench_algorithm_isolated)
+                report.results[-1] = bench_algorithm_isolated(
+                    A, B, name, timeout_s=budget_s, iters=iters,
+                    device=isolate_device)
+                continue
             _bench_one(name, A, B, config, budget_s, res, iters)
         except Exception as e:  # noqa: BLE001 - report, don't crash the sweep
             res.error = f"{type(e).__name__}: {e}"
@@ -415,9 +434,11 @@ def _memory_bytes(name: str, C) -> float:
 
 
 def _bench_one(name: str, A: CSR, B: CSR, config: cfg.SpGEMMConfig,
-               timeout_s: float, res: AlgorithmResult, iters: int):
+               timeout_s: Optional[float], res: AlgorithmResult,
+               iters: int):
     """Convert (timed as trans time), first run and one steady run under
-    the watchdog, then the timed runs; C's checksum and size."""
+    the watchdog (none when timeout_s is None: an isolated worker, which
+    its parent kills), then the timed runs; C's checksum and size."""
     if name not in _ROWS:
         raise ValueError(f"unknown algorithm {name!r}")
     row = _ROWS[name](A, B, config)
@@ -433,7 +454,7 @@ def _bench_one(name: str, A: CSR, B: CSR, config: cfg.SpGEMMConfig,
                                     iters=max(iters, 1))
     C, timed_out = _run_with_timeout(
         lambda: _synced(compute(converted), dev),
-        max(timeout_s, COMPILE_BUDGET_S))
+        None if timeout_s is None else max(timeout_s, COMPILE_BUDGET_S))
     if timed_out:
         res.timed_out = True
         return None

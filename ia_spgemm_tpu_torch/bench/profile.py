@@ -10,7 +10,10 @@ compensated slab pipeline), ``global``, ``serve`` (the bf16 lane,
 and ``hash`` (``spgemm_hash`` -> ``compact_ell`` -> ``ell_to_csr``) on
 the headline matrix ``build_matrix(m)``, ``dense_row`` (A as ELL times
 dense B) on ``build_matrix(m)`` with m = 16384 by default, and ``hybrid``
-on ``build_hybrid_matrix(m)``; C = A @ A in float32. Plans the route
+on ``build_hybrid_matrix(m)``; C = A @ A in float32. ``bitonic_f64``
+(the flat ``spgemm_bitonic``: torch expand, then K6 + K3) and
+``multiclass_f64`` (the chunked width-class route, BlockCSR out: K5 and
+K6 + K3) run C = A @ A on the headline matrix in float64. Plans the route
 (conversions included), warms it up, and profiles ``calls`` back-to-back
 calls with one synchronise at the end.
 The profiler records device activity only, unless ``--cpu-ops`` also
@@ -45,9 +48,9 @@ from collections import defaultdict
 
 import numpy as np
 
-_KERNEL = re.compile(r"\bk(?:[1-4]|7[ab]|8|9|1[0-2])_[a-z_]+")
+_KERNEL = re.compile(r"\bk(?:[1-6]|7[ab]|8|9|1[0-2])_[a-z_]+")
 ROUTES = ("multiclass_pg", "slab", "compensated", "global", "hybrid",
-          "serve", "hash", "dense_row")
+          "serve", "hash", "dense_row", "bitonic_f64", "multiclass_f64")
 # the dense-row route's default size: dense B + C = 2.1 GB, within the
 # dense_bytes_budget (the headline's m = 32768 is past it)
 DENSE_ROW_M = 16384
@@ -63,7 +66,8 @@ def _plan(route: str, m: int, dev):
 
     a = (headline.build_hybrid_matrix(m) if route == "hybrid"
          else headline.build_matrix(m=m))
-    A = CSR.from_scipy(a.astype(np.float32), device=dev)
+    A = CSR.from_scipy(a.astype(np.float64 if route.endswith("_f64")
+                                else np.float32), device=dev)
     if route == "multiclass_pg":
         call, out_w, plan_s = headline.plan_headline(A)
         return call, {"widths": list(call.widths), "run": call.run,
@@ -82,6 +86,15 @@ def _plan(route: str, m: int, dev):
         call = lambda: bitonic.spgemm_bitonic(  # noqa: E731
             H, H, plan, value_mode="bf16", compact=False)
         detail = {"width": plan.width, "run": plan.run}
+    elif route == "bitonic_f64":
+        H = convert.csr_to_ell(A, check_guard=False)
+        plan = bitonic.plan_bitonic(H, H)
+        call = lambda: bitonic.spgemm_bitonic(H, H, plan)  # noqa: E731
+        detail = {"width": plan.width, "run": plan.run}
+    elif route == "multiclass_f64":
+        H = convert.csr_to_ell(A, check_guard=False)
+        call = bitonic.multiclass_planned(H, H, assemble="bcsr")
+        detail = {"widths": list(call.widths), "run": call.run}
     elif route == "hash":
         H = convert.csr_to_ell(A, check_guard=False)
         call = lambda: convert.ell_to_csr(convert.compact_ell(  # noqa: E731

@@ -4,8 +4,8 @@ Usage (the JAX package's CLI, plus --device):
 
     python -m ia_spgemm_tpu_torch.cli A.mtx [B.mtx] [--mode all|autotune|ALG]
         [--weights Intel|Amd|P100|TPU|path.npz] [--profile cpu|gpu]
-        [--imgs-dir DIR] [--no-matnet] [--device cuda|cpu] [--iters N]
-        [--json OUT.json] [--testing]
+        [--imgs-dir DIR] [--no-matnet] [--device cuda|cpu] [--isolate]
+        [--iters N] [--json OUT.json] [--testing]
 
 With one matrix the workload is C = A @ A (reference README.md:10).
 MatNet predicts the fastest algorithm first (unless --no-matnet), from
@@ -18,10 +18,15 @@ bitonic, dense_row, compensated, hash, serve (the bf16 lane, checksum
 held to its 2e-2 bound). ``--profile gpu`` is the reference GPU
 program: P100 weights, B = A^T when no B is given, 20x size guards, the
 (coo, csr, bitonic) menu. ``--imgs-dir`` writes the density images
-img1.txt / img2.txt. The distributed modes (dist, ring), --shards and
---isolate are not ported and exit non-zero.
+img1.txt / img2.txt. ``--isolate`` runs every row but the baseline in
+its own process on ``--device``, killed at the row's watchdog budget
+(bench/isolated.py): a CUDA kernel cannot be cancelled in process, so
+this is the watchdog that frees the card. The distributed modes (dist,
+ring) and --shards are not ported and exit non-zero.
 
-Matrices are read as float32, the type the kernels take. ``--device
+Matrices are read as float32, the type the CLI runs; the float64 routes
+(the bitonic row's flat and width-class routes, K3-K6 in float64) are
+reached through the API and ``bench.harness.run_benchmark``. ``--device
 cuda`` (the default) refuses to run without a GPU; ``--device cpu`` runs
 the kernels' plain PyTorch versions. Unlike the JAX CLI, a failed or
 mismatching row fails the run (exit code 3); a row its guard skips does
@@ -77,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--transpose-b", action="store_true",
                    help="use B = A^T (the reference GPU program's workload)")
     p.add_argument("--isolate", action="store_true",
-                   help="subprocess watchdog (not ported)")
+                   help="run each row in its own process, killed at the "
+                        "watchdog budget (frees the card)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the kernels run (default cuda)")
     return p
@@ -104,10 +110,8 @@ def main(argv=None) -> int:
         args.testing = True
     if args.mode in NOT_PORTED_MODES:
         return _refuse(f"--mode {args.mode} is not ported yet")
-    for flag, given in (("--isolate", args.isolate),
-                        ("--shards", args.shards)):
-        if given:
-            return _refuse(f"{flag} is not ported yet")
+    if args.shards:
+        return _refuse("--shards is not ported yet")
 
     import numpy as np
     import torch
@@ -192,7 +196,8 @@ def main(argv=None) -> int:
     rep = harness.run_benchmark(
         A, B, algorithms,
         matrix_a=args.matrix_a, matrix_b=args.matrix_b or args.matrix_a,
-        config=run_config, matnet_pick=pick, iters=args.iters)
+        config=run_config, matnet_pick=pick, iters=args.iters,
+        isolate=args.isolate, isolate_device=args.device)
     print(report_mod.format_table(rep))
     if args.json:
         with open(args.json, "w") as f:

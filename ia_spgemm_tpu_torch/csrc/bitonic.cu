@@ -3,10 +3,13 @@
 // Counterparts of the Pallas kernels in ia_spgemm_tpu/ops/bitonic.py:
 //   K1 ia_k1_expand_sort_compress  <- _expand_sort_compress_kernel_t (:1034)
 //   K2 ia_k2_expand_sort           <- _expand_sort_kernel_t          (:977)
-//   K3 ia_k3_compress              <- _compress_kernel_t             (:523)
-//   K4 ia_k4_sort_compress_rows    <- _kernel                        (:241)
+//   K3 ia_k3_compress[_f64]        <- _compress_kernel_t             (:523)
+//   K4 ia_k4_sort_compress_rows[_f64] <- _kernel                     (:241)
+//   K5 ia_k5_sort_compress[_f64]   <- _fused_kernel_t                (:657)
+//   K6 ia_k6_sort[_f64]            <- _sort_only_kernel_t            (:346)
 //   K7a ia_k7a_expand_sort_packed  <- _expand_sort_kernel_packed     (:1056)
 //   K7b ia_k7b_compress_packed     <- _compress_kernel_packed        (:1086)
+// (an _f64 entry is the float64-value instance of the same kernel)
 //
 // They compute what the Pallas kernels compute, not how: one thread block
 // owns one output row, keeps the row's `width` (key, value) products in
@@ -29,18 +32,33 @@
 // through the network instead of a (key, value) pair: half the shared
 // memory and half the exchanges of K2, at bf16 precision per product.
 //
+// K5 and K6 take rows the torch expand (ops/bitonic.py _expand_ell) has
+// already written to device memory: (m, width) int32 keys and float32 or
+// float64 values, each row alternating ascending / descending runs of
+// `run`. The TPU split them at FUSED_MAX_WIDTH (sort + compress in one
+// kernel below it, sort then K3 above) because of its scoped VMEM; here
+// one block per row holds up to 12 * width bytes of shared memory either
+// way, and the split is kept so both kernels run where the JAX package
+// runs them. Bound on this card: bytes would allow 12 * width * 2 per row
+// (read the pair, write it or its compacted survivors) at 3.35 TB/s, but
+// the same barrier-separated network passes as K1/K2 hold them back; K5
+// saves K6 + K3's extra write and read of the sorted row. K4 and K5 share
+// one device function (sort_compress_row); K5 adds the out_w cap.
+//
 // Conventions and building blocks: sort_common.cuh.
 
 #include "sort_common.cuh"
 
 namespace {
 
-// keys + values + 32 warp totals + 1 block total
+// values + keys + 32 warp totals + 1 block total (values first, so a
+// float64 lane stays 8-byte aligned)
+template <typename V>
 inline size_t smem_bytes(int width) {
-  return (size_t)(2 * width + 33) * sizeof(int);
+  return (size_t)width * (sizeof(V) + sizeof(int)) + 33 * sizeof(int);
 }
 
-// ---- the four kernels -----------------------------------------------------
+// ---- K1-K4 ----------------------------------------------------------------
 
 __global__ void k1_expand_sort_compress(
     const int32_t* __restrict__ g, const float* __restrict__ avT,
@@ -78,45 +96,96 @@ __global__ void k2_expand_sort(const int32_t* __restrict__ g,
   }
 }
 
-__global__ void k3_compress(const int* __restrict__ key,
-                            const float* __restrict__ val,
-                            int* __restrict__ out_col,
-                            float* __restrict__ out_val,
-                            int* __restrict__ nnz, int width, int out_w,
-                            int compact) {
-  extern __shared__ int smem[];
-  int* k = smem;
-  float* v = reinterpret_cast<float*>(smem + width);
-  const int row = blockIdx.x;
+// One row of (m, width) keys and values from device memory into shared
+// memory laid out as smem_bytes<V> says: returns the keys; *v gets the
+// values.
+template <typename V>
+__device__ int* load_row(const int* __restrict__ key,
+                         const V* __restrict__ val, unsigned char* raw,
+                         V** v, int row, int width) {
+  V* vs = reinterpret_cast<V*>(raw);
+  int* ks = reinterpret_cast<int*>(vs + width);
   for (int p = threadIdx.x; p < width; p += blockDim.x) {
-    k[p] = key[(size_t)row * width + p];
-    v[p] = val[(size_t)row * width + p];
+    ks[p] = key[(size_t)row * width + p];
+    vs[p] = val[(size_t)row * width + p];
   }
+  *v = vs;
+  return ks;
+}
+
+template <typename V>
+__global__ void k3_compress(const int* __restrict__ key,
+                            const V* __restrict__ val,
+                            int* __restrict__ out_col,
+                            V* __restrict__ out_val, int* __restrict__ nnz,
+                            int width, int out_w, int compact) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int row = blockIdx.x;
+  V* v;
+  int* k = load_row(key, val, smem_raw, &v, row, width);
   __syncthreads();
   compress_row(k, v, width, out_w, compact != 0,
                out_col + (size_t)row * out_w,
-               F32Out{out_val + (size_t)row * out_w}, nnz + row,
-               smem + 2 * width);
+               ValOut<V>{out_val + (size_t)row * out_w}, nnz + row,
+               k + width);
 }
 
+// K4 and K5: sort one pre-expanded row, sum duplicates, write the first
+// out_w survivors (K4: out_w == width).
+template <typename V>
+__device__ void sort_compress_row(const int* __restrict__ key,
+                                  const V* __restrict__ val,
+                                  int* __restrict__ out_col,
+                                  V* __restrict__ out_val,
+                                  int* __restrict__ nnz, int width,
+                                  int start_kk, int out_w) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int row = blockIdx.x;
+  V* v;
+  int* k = load_row(key, val, smem_raw, &v, row, width);
+  block_sort(k, v, width, start_kk);
+  compress_row(k, v, width, out_w, true, out_col + (size_t)row * out_w,
+               ValOut<V>{out_val + (size_t)row * out_w}, nnz + row,
+               k + width);
+}
+
+template <typename V>
 __global__ void k4_sort_compress_rows(const int* __restrict__ key,
-                                      const float* __restrict__ val,
+                                      const V* __restrict__ val,
                                       int* __restrict__ out_col,
-                                      float* __restrict__ out_val,
+                                      V* __restrict__ out_val,
                                       int* __restrict__ nnz, int width,
                                       int start_kk) {
-  extern __shared__ int smem[];
-  int* k = smem;
-  float* v = reinterpret_cast<float*>(smem + width);
+  sort_compress_row(key, val, out_col, out_val, nnz, width, start_kk,
+                    width);
+}
+
+// ---- K5, K6: the cols layout over the torch expand --------------------------
+
+template <typename V>
+__global__ void k5_sort_compress(const int* __restrict__ key,
+                                 const V* __restrict__ val,
+                                 int* __restrict__ out_col,
+                                 V* __restrict__ out_val,
+                                 int* __restrict__ nnz, int width,
+                                 int start_kk, int out_w) {
+  sort_compress_row(key, val, out_col, out_val, nnz, width, start_kk,
+                    out_w);
+}
+
+template <typename V>
+__global__ void k6_sort(const int* __restrict__ key,
+                        const V* __restrict__ val, int* __restrict__ out_k,
+                        V* __restrict__ out_v, int width, int start_kk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int row = blockIdx.x;
-  for (int p = threadIdx.x; p < width; p += blockDim.x) {
-    k[p] = key[(size_t)row * width + p];
-    v[p] = val[(size_t)row * width + p];
-  }
+  V* v;
+  int* k = load_row(key, val, smem_raw, &v, row, width);
   block_sort(k, v, width, start_kk);
-  compress_row(k, v, width, width, true, out_col + (size_t)row * width,
-               F32Out{out_val + (size_t)row * width}, nnz + row,
-               smem + 2 * width);
+  for (int p = threadIdx.x; p < width; p += blockDim.x) {
+    out_k[(size_t)row * width + p] = k[p];
+    out_v[(size_t)row * width + p] = v[p];
+  }
 }
 
 // ---- K7: the bf16 serve lane ---------------------------------------------
@@ -188,12 +257,13 @@ __global__ void k7b_compress_packed(const int* __restrict__ packed,
 }
 
 // Allow more than 48 KB of dynamic shared memory (K4 at width 16384 uses
-// 128 KB). Set once per kernel and device, to what the widest row needs,
-// on the device the caller made current; later launches skip it.
+// 128 KB with float32 values, 192 KB with float64). Set once per kernel
+// instance and device, to what its widest row needs, on the device the
+// caller made current; later launches skip it.
 constexpr int kMaxDevices = 64;
 constexpr int kMaxWidth = 16384;
 
-template <typename Kernel>
+template <typename V, typename Kernel>
 cudaError_t allow_smem(Kernel kernel, bool* done, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   int dev = 0;
@@ -203,14 +273,72 @@ cudaError_t allow_smem(Kernel kernel, bool* done, size_t smem) {
   if (done[dev]) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes(kMaxWidth));
+                             (int)smem_bytes<V>(kMaxWidth));
   if (err == cudaSuccess) done[dev] = true;
   return err;
 }
 
 bool k1_smem_set[kMaxDevices], k2_smem_set[kMaxDevices],
-    k3_smem_set[kMaxDevices], k4_smem_set[kMaxDevices],
     k7a_smem_set[kMaxDevices], k7b_smem_set[kMaxDevices];
+
+// The launches of the kernels with a float and a double instance; each
+// instance keeps its own shared-memory flags (the static locals).
+template <typename V>
+int launch_k3(const void* key, const void* val, void* out_col,
+              void* out_val, void* nnz, int m, int width, int out_w,
+              int compact, void* stream) {
+  static bool done[kMaxDevices];
+  size_t smem = smem_bytes<V>(width);
+  cudaError_t err = allow_smem<V>(k3_compress<V>, done, smem);
+  if (err != cudaSuccess) return (int)err;
+  k3_compress<V><<<m, threads_for(width), smem, (cudaStream_t)stream>>>(
+      (const int*)key, (const V*)val, (int*)out_col, (V*)out_val,
+      (int*)nnz, width, out_w, compact);
+  return (int)cudaGetLastError();
+}
+
+template <typename V>
+int launch_k4(const void* key, const void* val, void* out_col,
+              void* out_val, void* nnz, int m, int width, int start_kk,
+              void* stream) {
+  static bool done[kMaxDevices];
+  size_t smem = smem_bytes<V>(width);
+  cudaError_t err = allow_smem<V>(k4_sort_compress_rows<V>, done, smem);
+  if (err != cudaSuccess) return (int)err;
+  k4_sort_compress_rows<V><<<m, threads_for(width), smem,
+                             (cudaStream_t)stream>>>(
+      (const int*)key, (const V*)val, (int*)out_col, (V*)out_val,
+      (int*)nnz, width, start_kk);
+  return (int)cudaGetLastError();
+}
+
+template <typename V>
+int launch_k5(const void* key, const void* val, void* out_col,
+              void* out_val, void* nnz, int m, int width, int start_kk,
+              int out_w, void* stream) {
+  static bool done[kMaxDevices];
+  size_t smem = smem_bytes<V>(width);
+  cudaError_t err = allow_smem<V>(k5_sort_compress<V>, done, smem);
+  if (err != cudaSuccess) return (int)err;
+  k5_sort_compress<V><<<m, threads_for(width), smem,
+                        (cudaStream_t)stream>>>(
+      (const int*)key, (const V*)val, (int*)out_col, (V*)out_val,
+      (int*)nnz, width, start_kk, out_w);
+  return (int)cudaGetLastError();
+}
+
+template <typename V>
+int launch_k6(const void* key, const void* val, void* out_k, void* out_v,
+              int m, int width, int start_kk, void* stream) {
+  static bool done[kMaxDevices];
+  size_t smem = smem_bytes<V>(width);
+  cudaError_t err = allow_smem<V>(k6_sort<V>, done, smem);
+  if (err != cudaSuccess) return (int)err;
+  k6_sort<V><<<m, threads_for(width), smem, (cudaStream_t)stream>>>(
+      (const int*)key, (const V*)val, (int*)out_k, (V*)out_v, width,
+      start_kk);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -222,8 +350,9 @@ extern "C" int ia_k1_expand_sort_compress(
     const void* g, const void* avT, void* out_col, void* out_val,
     void* nnz, int m, int ka, int lanes, int run, int pack, int width,
     int start_kk, int out_w, void* stream) {
-  size_t smem = smem_bytes(width);
-  cudaError_t err = allow_smem(k1_expand_sort_compress, k1_smem_set, smem);
+  size_t smem = smem_bytes<float>(width);
+  cudaError_t err =
+      allow_smem<float>(k1_expand_sort_compress, k1_smem_set, smem);
   if (err != cudaSuccess) return (int)err;
   k1_expand_sort_compress<<<m, threads_for(width), smem,
                             (cudaStream_t)stream>>>(
@@ -236,8 +365,8 @@ extern "C" int ia_k2_expand_sort(const void* g, const void* avT,
                                  void* out_k, void* out_v, int m, int ka,
                                  int lanes, int run, int pack, int width,
                                  int start_kk, void* stream) {
-  size_t smem = smem_bytes(width);
-  cudaError_t err = allow_smem(k2_expand_sort, k2_smem_set, smem);
+  size_t smem = smem_bytes<float>(width);
+  cudaError_t err = allow_smem<float>(k2_expand_sort, k2_smem_set, smem);
   if (err != cudaSuccess) return (int)err;
   k2_expand_sort<<<m, threads_for(width), smem, (cudaStream_t)stream>>>(
       (const int32_t*)g, (const float*)avT, (int*)out_k, (float*)out_v, m,
@@ -249,27 +378,64 @@ extern "C" int ia_k3_compress(const void* key, const void* val,
                               void* out_col, void* out_val, void* nnz,
                               int m, int width, int out_w, int compact,
                               void* stream) {
-  size_t smem = smem_bytes(width);
-  cudaError_t err = allow_smem(k3_compress, k3_smem_set, smem);
-  if (err != cudaSuccess) return (int)err;
-  k3_compress<<<m, threads_for(width), smem, (cudaStream_t)stream>>>(
-      (const int*)key, (const float*)val, (int*)out_col, (float*)out_val,
-      (int*)nnz, width, out_w, compact);
-  return (int)cudaGetLastError();
+  return launch_k3<float>(key, val, out_col, out_val, nnz, m, width, out_w,
+                          compact, stream);
+}
+
+extern "C" int ia_k3_compress_f64(const void* key, const void* val,
+                                  void* out_col, void* out_val, void* nnz,
+                                  int m, int width, int out_w, int compact,
+                                  void* stream) {
+  return launch_k3<double>(key, val, out_col, out_val, nnz, m, width,
+                           out_w, compact, stream);
 }
 
 extern "C" int ia_k4_sort_compress_rows(const void* key, const void* val,
                                         void* out_col, void* out_val,
                                         void* nnz, int m, int width,
                                         int start_kk, void* stream) {
-  size_t smem = smem_bytes(width);
-  cudaError_t err = allow_smem(k4_sort_compress_rows, k4_smem_set, smem);
-  if (err != cudaSuccess) return (int)err;
-  k4_sort_compress_rows<<<m, threads_for(width), smem,
-                          (cudaStream_t)stream>>>(
-      (const int*)key, (const float*)val, (int*)out_col, (float*)out_val,
-      (int*)nnz, width, start_kk);
-  return (int)cudaGetLastError();
+  return launch_k4<float>(key, val, out_col, out_val, nnz, m, width,
+                          start_kk, stream);
+}
+
+extern "C" int ia_k4_sort_compress_rows_f64(const void* key,
+                                            const void* val, void* out_col,
+                                            void* out_val, void* nnz, int m,
+                                            int width, int start_kk,
+                                            void* stream) {
+  return launch_k4<double>(key, val, out_col, out_val, nnz, m, width,
+                           start_kk, stream);
+}
+
+extern "C" int ia_k5_sort_compress(const void* key, const void* val,
+                                   void* out_col, void* out_val, void* nnz,
+                                   int m, int width, int start_kk,
+                                   int out_w, void* stream) {
+  return launch_k5<float>(key, val, out_col, out_val, nnz, m, width,
+                          start_kk, out_w, stream);
+}
+
+extern "C" int ia_k5_sort_compress_f64(const void* key, const void* val,
+                                       void* out_col, void* out_val,
+                                       void* nnz, int m, int width,
+                                       int start_kk, int out_w,
+                                       void* stream) {
+  return launch_k5<double>(key, val, out_col, out_val, nnz, m, width,
+                           start_kk, out_w, stream);
+}
+
+extern "C" int ia_k6_sort(const void* key, const void* val, void* out_k,
+                          void* out_v, int m, int width, int start_kk,
+                          void* stream) {
+  return launch_k6<float>(key, val, out_k, out_v, m, width, start_kk,
+                          stream);
+}
+
+extern "C" int ia_k6_sort_f64(const void* key, const void* val, void* out_k,
+                              void* out_v, int m, int width, int start_kk,
+                              void* stream) {
+  return launch_k6<double>(key, val, out_k, out_v, m, width, start_kk,
+                           stream);
 }
 
 extern "C" int ia_k7a_expand_sort_packed(const void* g, const void* avT,
@@ -277,7 +443,8 @@ extern "C" int ia_k7a_expand_sort_packed(const void* g, const void* avT,
                                          int lanes, int run, int width,
                                          int start_kk, void* stream) {
   size_t smem = (size_t)width * sizeof(int);
-  cudaError_t err = allow_smem(k7a_expand_sort_packed, k7a_smem_set, smem);
+  cudaError_t err =
+      allow_smem<float>(k7a_expand_sort_packed, k7a_smem_set, smem);
   if (err != cudaSuccess) return (int)err;
   k7a_expand_sort_packed<<<m, threads_for(width), smem,
                            (cudaStream_t)stream>>>(
@@ -290,8 +457,9 @@ extern "C" int ia_k7b_compress_packed(const void* packed, void* out_col,
                                       void* out_val, void* nnz, int m,
                                       int width, int out_w, int compact,
                                       void* stream) {
-  size_t smem = smem_bytes(width);
-  cudaError_t err = allow_smem(k7b_compress_packed, k7b_smem_set, smem);
+  size_t smem = smem_bytes<float>(width);
+  cudaError_t err =
+      allow_smem<float>(k7b_compress_packed, k7b_smem_set, smem);
   if (err != cudaSuccess) return (int)err;
   k7b_compress_packed<<<m, threads_for(width), smem,
                         (cudaStream_t)stream>>>(

@@ -1,4 +1,4 @@
-// Building blocks shared by the sort kernels of bitonic.cu (K1-K4, K7)
+// Building blocks shared by the sort kernels of bitonic.cu (K1-K7)
 // and slab.cu (K8-K10): the fragment expand, the block bitonic sort in
 // shared memory (key + value, or key only), and the duplicate-sum /
 // compaction of a sorted row.
@@ -150,15 +150,17 @@ __device__ int block_exclusive_scan(int x, int* warp_tot, int* total) {
   return warp_tot[wid] + incl - x;
 }
 
-// Where compress_row writes a value: one float32 lane, or (DDOut) the
-// float32 pair hi = f32(s), lo = f32(s - hi) of a float64 sum. s - hi is
-// exact in float64 and no product is involved, so FMA contraction cannot
-// change it.
-struct F32Out {
-  float* v;
-  __device__ void put(int i, float s) const { v[i] = s; }
-  __device__ void zero(int i) const { v[i] = 0.f; }
+// Where compress_row writes a value: one lane of the sum's own type
+// (float32 or float64), or (DDOut) the float32 pair hi = f32(s),
+// lo = f32(s - hi) of a float64 sum. s - hi is exact in float64 and no
+// product is involved, so FMA contraction cannot change it.
+template <typename V>
+struct ValOut {
+  V* v;
+  __device__ void put(int i, V s) const { v[i] = s; }
+  __device__ void zero(int i) const { v[i] = V(0); }
 };
+using F32Out = ValOut<float>;
 
 struct DDOut {
   float* hi;

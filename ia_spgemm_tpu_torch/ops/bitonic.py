@@ -14,12 +14,19 @@ JAX package left to XLA (fragment tables, gathers, assembly) is plain
 torch here and runs on the operands' device. The Pallas kernels became
 CUDA kernels; on CPU tensors their plain PyTorch versions run instead.
 
-Routing by class width ``w`` (as in the JAX package):
+Routing by class width ``w`` (as in the JAX package), for float32
+operands read through the fragment gather:
 
 - ``w <= FUSED_MAX_WIDTH``: K1 (expand + sort + compress in one kernel);
 - ``FUSED_MAX_WIDTH < w <= TRANSPOSED_MAX_WIDTH``: K2 (expand + sort),
   then K3 (compress);
 - wider classes: torch expand, then K4 (sort + compress of rows).
+
+Operands of another type (float64), and the flat route's float32 plans
+outside the gather budget, take the cols layout over the torch expand
+``_expand_ell``: K5 (sort + compress) up to FUSED_MAX_WIDTH, K6 (sort)
+then K3 up to TRANSPOSED_MAX_WIDTH, K4 above; every kernel in the
+operands' type.
 """
 
 from __future__ import annotations
@@ -186,16 +193,21 @@ def _frag_totals(len_live, row_ptr, run: int):
 
 def plan_multiclass(row_lens, kb: int, *, max_classes: int = 4,
                     value_bytes: int = 4, a_col_h=None, b_len_h=None,
+                    layout: str | None = None,
                     run_override: int | None = None):
     """Per-row width classes: each row's products pad to its own pow2
     width. Two layouts compete per sub-run length: chunked (every entry
     fetches ceil(kb/run) sub-runs) and, given A's column grid `a_col_h` and
     B's row lengths `b_len_h` on the host, ragged (each entry fetches only
-    its own B row's ceil(len/run) fragments). run_override pins the
-    sub-run length. Returns (MultiClassPlan, per-row width array)."""
+    its own B row's ceil(len/run) fragments). layout "chunked" or
+    "ragged" forces one (None: the cost model decides); run_override pins
+    the sub-run length. Returns (MultiClassPlan, per-row width array)."""
+    if layout not in (None, "chunked", "ragged"):
+        raise ValueError(f"unknown layout {layout!r}")
     lens = np.asarray(row_lens, dtype=np.int64)
     full_run = max(1, _next_pow2(kb))
-    ragged_ok = a_col_h is not None and b_len_h is not None
+    ragged_ok = (a_col_h is not None and b_len_h is not None
+                 and layout != "chunked")
     ce = (_compact_entries(a_col_h, b_len_h, a_len_h=lens)
           if ragged_ok else None)
 
@@ -219,7 +231,8 @@ def plan_multiclass(row_lens, kb: int, *, max_classes: int = 4,
                 False)
         if fallback is None or cand[0] < fallback[0]:
             fallback = cand
-        if feasible(W) and (best is None or cand[0] < best[0]):
+        if layout != "ragged" and feasible(W) and (
+                best is None or cand[0] < best[0]):
             best = cand
         if ragged_ok:
             _, Fr = _frag_totals(ce[2], ce[4], run0)
@@ -354,6 +367,42 @@ def _expand_rows(table, rows, av, *, run: int, width: int):
                       torch.zeros((), dtype=torch.float32,
                                   device=table.device)).reshape(n, nf * run)
     pad = width - nf * run
+    if pad:
+        key = F.pad(key, (0, pad), value=SENTINEL)
+        val = F.pad(val, (0, pad))
+    return key.contiguous(), val.contiguous()
+
+
+def _expand_ell(a_col, a_val, b_col, b_val, *, width: int, run: int,
+                chunks: int = 1):
+    """Row-major products (m, width) for the cols layout (K5, K6 + K3)
+    and the rows layout (K4), in the operands' promoted type: the JAX
+    package's _expand_ell (bitonic.py:786). B's ELL rows, padded to
+    chunks*run and cut into `chunks` sub-rows, are gathered at A's
+    columns from a doubled table whose second half holds every sub-row
+    reversed; odd runs take the reversed half, so a row holds alternating
+    ascending / descending runs and the sort may start merging at 2*run.
+    col < 0 (an empty slot, or a padded class row) becomes SENTINEL with
+    value 0 by a select, never a multiply: padded class rows carry NaN A
+    values."""
+    m = a_col.shape[0]
+    k, kb = b_col.shape
+    cap = chunks * run
+    bc = F.pad(b_col, (0, cap - kb), value=-1).reshape(k * chunks, run)
+    bv = F.pad(b_val, (0, cap - kb)).reshape(k * chunks, run)
+    kt = k * chunks
+    a_col, a_val, ka = _chunk_entries(a_col, a_val, chunks)
+    parity = torch.arange(ka, device=a_col.device) & 1
+    rows = (a_col.clamp(0, kt - 1).to(torch.int64) + kt * parity).reshape(-1)
+    bc = torch.cat([bc, bc.flip(1)])[rows].reshape(m, ka, run)
+    bv = torch.cat([bv, bv.flip(1)])[rows].reshape(m, ka, run)
+    valid = (a_col >= 0)[:, :, None] & (bc >= 0)
+    dtype = torch.result_type(a_val, b_val)
+    key = torch.where(valid, bc, SENTINEL).reshape(m, ka * run)
+    val = torch.where(valid, a_val.to(dtype)[:, :, None] * bv.to(dtype),
+                      torch.zeros((), dtype=dtype, device=bv.device)
+                      ).reshape(m, ka * run)
+    pad = width - ka * run
     if pad:
         key = F.pad(key, (0, pad), value=SENTINEL)
         val = F.pad(val, (0, pad))
@@ -523,6 +572,19 @@ def _sort_compress_from_gather(g, avT, *, width: int, run: int, ka: int,
     return K.compress(key, val, width=width, out_w=out_w, compact=compact)
 
 
+def _sort_compress_cols(key, val, *, width: int, start_kk: int,
+                        out_width: int | None = None):
+    """The cols layout over pre-expanded rows (_expand_ell): K5 up to
+    FUSED_MAX_WIDTH, K6 then K3 above; always compacts, as in the JAX
+    package. Returns (col (m, out_w), val (m, out_w), nnz (m, 1))."""
+    out_w = width if out_width is None else min(out_width, width)
+    if width <= FUSED_MAX_WIDTH:
+        return K.sort_compress(key, val, width=width, start_kk=start_kk,
+                               out_w=out_w)
+    key, val = K.sort_only(key, val, width=width, start_kk=start_kk)
+    return K.compress(key, val, width=width, out_w=out_w)
+
+
 # ---------------------------------------------------------------- pipeline
 
 @dataclasses.dataclass
@@ -564,6 +626,7 @@ def _multiclass_fn(c: MulticlassCall):
     start_kk = 2 * run
     kt = c.table.shape[0] - 1
     lanes = c.table.shape[1]
+    f32 = c.A.dtype == torch.float32 and c.B.dtype == torch.float32
     cols_p, vals_p, nnz_p = [], [], []
     for i, w in enumerate(c.widths):
         n = c.counts[i]
@@ -586,21 +649,26 @@ def _multiclass_fn(c: MulticlassCall):
         else:
             ac = _take_rows(c.A.col_ind, c.idxs[i])[:, :c.kas[i]]
             av = _take_rows(c.A.values, c.idxs[i])[:, :c.kas[i]]
-            ac_e, av_e, ka_e = _chunk_entries(ac, av, c.chunks)
-            rows = _table_rows(ac_e, kt)
-            if w <= TRANSPOSED_MAX_WIDTH:
-                # every class of these widths takes the gather kernels:
-                # the JAX package's entry-budget gate (K5 above it) is a
-                # VMEM limit with no counterpart here, same results
+            if w <= TRANSPOSED_MAX_WIDTH and f32:
+                # every float32 class of these widths takes the gather
+                # kernels: the JAX package's entry-budget gate (K5 above
+                # it) is a VMEM limit with no counterpart here, same
+                # results
+                ac_e, av_e, ka_e = _chunk_entries(ac, av, c.chunks)
+                rows = _table_rows(ac_e, kt)
                 g = c.table[rows.T.reshape(-1)].reshape(ka_e, n, lanes)
                 out = _sort_compress_from_gather(
                     g, av_e.T.contiguous(), width=w, run=run, ka=ka_e,
                     start_kk=start_kk, out_width=out_c)
             else:
-                key, val = _expand_rows(c.table, rows, av_e, run=run,
-                                        width=w)
-                out = K.sort_compress_rows(key, val, width=w,
-                                           start_kk=start_kk)
+                key, val = _expand_ell(ac, av, c.B.col_ind, c.B.values,
+                                       width=w, run=run, chunks=c.chunks)
+                out = (_sort_compress_cols(key, val, width=w,
+                                           start_kk=start_kk,
+                                           out_width=out_c)
+                       if w <= TRANSPOSED_MAX_WIDTH else
+                       K.sort_compress_rows(key, val, width=w,
+                                            start_kk=start_kk))
         col_c, val_c, nnz_c = out
         cols_p.append(col_c[:, :out_c])
         vals_p.append(val_c[:, :out_c])
@@ -610,7 +678,7 @@ def _multiclass_fn(c: MulticlassCall):
         return _assemble_bcsr(cols_p, vals_p, nnz_p, c.idxs, c.src_full, m=m)
     dev = c.table.device
     col = torch.full((m + 1, c.out_w), -1, dtype=torch.int32, device=dev)
-    val = torch.zeros((m + 1, c.out_w), dtype=torch.float32, device=dev)
+    val = torch.zeros((m + 1, c.out_w), dtype=vals_p[0].dtype, device=dev)
     nnz = torch.zeros(m + 1, dtype=torch.int32, device=dev)
     for i in range(len(c.widths)):
         # row m collects the padded class rows and is dropped; nnz_row is
@@ -716,6 +784,7 @@ def _multiclass_build(A: ELL, B: ELL, **kw):
 
 def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
                                out_width: int | None, assemble: str,
+                               layout: str | None,
                                run_override: int | None, pregather: bool):
     if assemble not in ("ell", "bcsr"):
         raise ValueError(f"unknown assemble mode {assemble!r}")
@@ -723,17 +792,19 @@ def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
         raise ValueError(f"shape mismatch: {A.shape} @ {B.shape}")
     if A.device != B.device:
         raise ValueError(f"operands on {A.device} and {B.device}")
-    if A.dtype != torch.float32 or B.dtype != torch.float32:
-        raise NotImplementedError(
-            "the width-class route takes float32 operands; other dtypes "
-            "need K5 (_fused_kernel_t), not ported yet")
     m = A.nrows
     kb = B.max_nnz_per_row
     lens = A.nnz_row.cpu().numpy().astype(np.int64)
-    b_len_h = B.nnz_row.cpu().numpy().astype(np.int64)
+    # Operands of another type than float32 plan the chunked layout only:
+    # the ragged layout reads the float32 bit-packed table, so the JAX
+    # package gates its probe on float32 (bitonic.py:1954-1962).
+    f32 = A.dtype == torch.float32 and B.dtype == torch.float32
+    b_len_h = B.nnz_row.cpu().numpy().astype(np.int64) if f32 else None
     plan, W = plan_multiclass(lens, kb, max_classes=max_classes,
-                              a_col_h=A.col_ind.cpu().numpy(),
-                              b_len_h=b_len_h, run_override=run_override)
+                              a_col_h=A.col_ind.cpu().numpy() if f32
+                              else None,
+                              b_len_h=b_len_h, layout=layout,
+                              run_override=run_override)
     if not plan.viable:
         return None
     widths, run, chunks = plan.widths, plan.run, plan.chunks
@@ -793,8 +864,11 @@ def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
             idx_h.append(idx)
             kas.append(max(1, min(A.max_nnz_per_row, w // per_entry)))
             counts.append(int(n_pad))
-        table, _ = _build_wide_table(B.col_ind, B.values, run=run,
-                                     chunks=chunks)
+        # other types take _expand_ell: a one-row sentinel table
+        table = (_build_wide_table(B.col_ind, B.values, run=run,
+                                   chunks=chunks)[0] if f32 else
+                 torch.full((1, 128), -1, dtype=torch.int32,
+                            device=A.device))
     return _finish_build(A, B, widths=widths, kas=kas, counts=counts,
                          run=run, chunks=0 if plan.ragged else chunks,
                          out_w=out_w, ragged=plan.ragged,
@@ -805,10 +879,14 @@ def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
 def multiclass_planned(A: ELL, B: ELL, *, max_classes: int = 4,
                        out_width: int | None = None,
                        assemble: str = "ell",
+                       layout: str | None = None,
                        run_override: int | None = None,
                        pregather: bool = False):
     """Plan the width-class pipeline once and return a zero-argument
     callable (MulticlassCall) that runs it; None when not viable.
+    Operands of any one float type; float32 ones may plan the ragged
+    layout, others plan the chunked one (layout="ragged" on them is not
+    viable).
 
     assemble="ell" returns an ELL padded to the widest class (or
     out_width); "bcsr" a BlockCSR. out_width caps every class's output
@@ -816,21 +894,25 @@ def multiclass_planned(A: ELL, B: ELL, *, max_classes: int = 4,
     as the headline does with the observed width). pregather=True also
     materialises g = table[MT] at plan time (within
     PREGATHER_BUDGET_BYTES), so a call skips the fragment gather.
-    run_override pins the sub-run length. Repeat calls on the same,
-    unmodified operands return the cached plan."""
+    layout "chunked" / "ragged" forces the planner's choice (None: its
+    cost model decides); run_override pins the sub-run length. Repeat
+    calls on the same, unmodified operands with the same options return
+    the cached plan."""
     return _multiclass_build(A, B, max_classes=max_classes,
                              out_width=out_width, assemble=assemble,
-                             run_override=run_override, pregather=pregather)
+                             layout=layout, run_override=run_override,
+                             pregather=pregather)
 
 
 def spgemm_bitonic_multiclass(A: ELL, B: ELL, *, max_classes: int = 4,
                               out_width: int | None = None,
                               assemble: str = "ell",
+                              layout: str | None = None,
                               run_override: int | None = None):
     """C = A @ B through the width-class route; None when not viable."""
     call = multiclass_planned(A, B, max_classes=max_classes,
                               out_width=out_width, assemble=assemble,
-                              run_override=run_override)
+                              layout=layout, run_override=run_override)
     return call() if call is not None else None
 
 
@@ -838,13 +920,18 @@ def spgemm_bitonic(A: ELL, B: ELL, plan: BitonicPlan | None = None,
                    layout: str = "auto", out_width: int | None = None,
                    compact: bool = True, value_mode: str = "f32") -> ELL:
     """C = A @ B with one global width (flat route). Returns left-justified
-    ELL with ascending columns per row.
+    ELL with ascending columns per row, values in the operands' type.
 
-    layout "auto" takes the expand-from-gather kernels (K1 / K2 + K3) for
-    widths up to TRANSPOSED_MAX_WIDTH and K4 above; "rows" forces K4.
-    out_width caps the output width (the caller guarantees every row
-    fits); compact=False keeps survivors at their sorted slots (honoured
-    by K3 and K7b, as in the JAX package).
+    layout "auto" takes the cols layout for widths up to
+    TRANSPOSED_MAX_WIDTH and the rows layout (torch expand + K4) above;
+    "cols" or "rows" forces one. The cols layout reads float32 operands
+    within the gather budget (ka*chunks*lanes <= _EXPAND_TILE_ELEMS)
+    through the expand-from-gather kernels (K1 / K2 + K3), and everything
+    else (float64, or a wide A) through the torch expand (K5 / K6 + K3).
+    out_width caps the output width of the cols layout (the caller
+    guarantees every row fits); compact=False keeps survivors at their
+    sorted slots (honoured by K3 after K2, and by K7b, as in the JAX
+    package).
 
     value_mode="bf16", the serve lane (K7a + K7b): each product rounds to
     bfloat16 and is packed with its column into one int32 sort key; sums
@@ -891,29 +978,23 @@ def spgemm_bitonic(A: ELL, B: ELL, plan: BitonicPlan | None = None,
         return ELL(col_ind=col, values=val, nnz_row=nnz_row,
                    nnz=nnz_row.sum(dtype=torch.int32),
                    shape=(A.nrows, B.ncols))
-    if not f32:
-        raise NotImplementedError(
-            "spgemm_bitonic takes float32 operands; other dtypes need K5 "
-            "(_fused_kernel_t), not ported yet")
+    start_kk = 2 * plan.run
     if fused_expand:
         g, avT = _expand_gather_emajor(A.col_ind, A.values, B.col_ind,
                                        B.values, run=plan.run,
                                        chunks=plan.chunks)
         col, val, nnz = _sort_compress_from_gather(
             g, avT, width=plan.width, run=plan.run, ka=ka_eff,
-            start_kk=2 * plan.run, out_width=out_width, compact=compact)
-    elif use_cols:
-        raise NotImplementedError(
-            "this flat plan needs K5 (_fused_kernel_t, the cols layout "
-            "over an XLA-style expand), not ported yet")
+            start_kk=start_kk, out_width=out_width, compact=compact)
     else:
-        table, kt = _build_wide_table(B.col_ind, B.values, run=plan.run,
-                                      chunks=plan.chunks)
-        ac, av, _ = _chunk_entries(A.col_ind, A.values, plan.chunks)
-        key, v = _expand_rows(table, _table_rows(ac, kt), av,
-                              run=plan.run, width=plan.width)
-        col, val, nnz = K.sort_compress_rows(key, v, width=plan.width,
-                                             start_kk=2 * plan.run)
+        key, v = _expand_ell(A.col_ind, A.values, B.col_ind, B.values,
+                             width=plan.width, run=plan.run,
+                             chunks=plan.chunks)
+        col, val, nnz = (
+            _sort_compress_cols(key, v, width=plan.width, start_kk=start_kk,
+                                out_width=out_width) if use_cols else
+            K.sort_compress_rows(key, v, width=plan.width,
+                                 start_kk=start_kk))
     nnz_row = nnz[:, 0]
     return ELL(col_ind=col, values=val, nnz_row=nnz_row,
                nnz=nnz_row.sum(dtype=torch.int32),

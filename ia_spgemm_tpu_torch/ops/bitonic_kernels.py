@@ -5,12 +5,19 @@
  K2    expand_sort                 ops/bitonic.py:977  _expand_sort_kernel_t
  K3    compress                    ops/bitonic.py:523  _compress_kernel_t
  K4    sort_compress_rows          ops/bitonic.py:241  _kernel
+ K5    sort_compress               ops/bitonic.py:657  _fused_kernel_t
+ K6    sort_only                   ops/bitonic.py:346  _sort_only_kernel_t
  K7a   expand_sort_packed          ops/bitonic.py:1056 _expand_sort_kernel_packed
  K7b   compress_packed             ops/bitonic.py:1086 _compress_kernel_packed
 =====  ==========================  ==========================================
 
 K7a/K7b are the bf16 serve lane: each product rounds to bfloat16 and
-travels with its column in one int32 sort key (``_pack_colval``).
+travels with its column in one int32 sort key (``_pack_colval``). K5 and
+K6 sort rows the torch expand (``ops/bitonic._expand_ell``) wrote to
+device memory, the JAX package's cols layout; K5 compresses them too, K6
+leaves that to K3. K3-K6 take float32 or float64 values (a float64 key /
+value pair launches the kernel's ``_f64`` instance) and return values of
+the same type; K1, K2 and K7 take float32.
 
 (file:line of the JAX package.) Each wrapper checks its operands, then:
 on CUDA tensors it launches the hand-written kernel of
@@ -28,12 +35,15 @@ Layouts (row-major, one output row per matrix row):
 - products of fragment e occupy slots [e*run, (e+1)*run) of the row, the
   reversed half for odd e, so the row holds alternating ascending and
   descending runs and the sort may start merging at ``start_kk = 2*run``.
-- outputs: col (m, out_w) int32 (-1 = empty), val (m, out_w) float32
-  (0 = empty), nnz (m, 1) int32 = survivors per row (not capped by out_w).
+- ``key``/``val`` (m, width): pre-expanded rows in the same run layout
+  (K3-K6), SENTINEL / 0 in empty slots.
+- outputs: col (m, out_w) int32 (-1 = empty), val (m, out_w) in the
+  values' type (0 = empty), nnz (m, 1) int32 = survivors per row (not
+  capped by out_w).
 
 The plain versions sort stably (``torch.sort``) and sum duplicates with
 ``index_add_`` in slot order; the kernels' bitonic network is not stable,
-so duplicate sums agree to float32 rounding, and structure exactly.
+so duplicate sums agree to the values' rounding, and structure exactly.
 """
 
 from __future__ import annotations
@@ -87,13 +97,24 @@ def _check_gather(g, avT, ka, run, width, pack):
         raise ValueError(f"ka*run = {ka * run} > width {width}")
 
 
+_VALUE_TYPES = (torch.float32, torch.float64)
+
+
 def _check_rows(key, val, width):
+    """Pre-expanded rows: int32 keys, float32 or float64 values."""
     dev = key.device
     _check_tensor("key", key, torch.int32, 2, dev)
-    _check_tensor("val", val, torch.float32, 2, dev)
+    if val.dtype not in _VALUE_TYPES:
+        raise TypeError(f"val: want float32 or float64, got {val.dtype}")
+    _check_tensor("val", val, val.dtype, 2, dev)
     if key.shape != val.shape or key.shape[1] != width:
         raise ValueError(f"key {tuple(key.shape)} / val {tuple(val.shape)} "
                          f"must both be (m, {width})")
+
+
+def _entry(name: str, val: torch.Tensor) -> str:
+    """The C entry point of the kernel instance for val's type."""
+    return name + ("_f64" if val.dtype == torch.float64 else "")
 
 
 def _launch(name, *args, device: torch.device):
@@ -112,6 +133,15 @@ def _launch(name, *args, device: torch.device):
 def _cuda_or_raise(t: torch.Tensor):
     if t.device.type != "cuda":
         raise ValueError(f"no kernel for device {t.device}")
+
+
+def _row_outputs(val, out_w):
+    """Uninitialised (col, val, nnz) outputs for val's rows, values of
+    val's type (the kernel writes every slot)."""
+    m, dev = val.shape[0], val.device
+    return (torch.empty((m, out_w), dtype=torch.int32, device=dev),
+            torch.empty((m, out_w), dtype=val.dtype, device=dev),
+            torch.empty((m, 1), dtype=torch.int32, device=dev))
 
 
 # ---------------------------------------------------- plain PyTorch versions
@@ -152,7 +182,7 @@ def _compress_plain(key, val, out_w, compact):
     if m == 0:
         ow = out_w if compact else w
         return (torch.full((0, ow), -1, dtype=torch.int32, device=dev),
-                torch.zeros((0, ow), dtype=torch.float32, device=dev),
+                torch.zeros((0, ow), dtype=val.dtype, device=dev),
                 torch.zeros((0, 1), dtype=torch.int32, device=dev))
     change = key[:, 1:] != key[:, :-1]
     ones = torch.ones((m, 1), dtype=torch.bool, device=dev)
@@ -194,6 +224,14 @@ def compress_plain(key, val, *, width, out_w, compact=True):
 
 def sort_compress_rows_plain(key, val, *, width, start_kk):
     return _compress_plain(*_sort_plain(key, val), width, True)
+
+
+def sort_compress_plain(key, val, *, width, start_kk, out_w):
+    return _compress_plain(*_sort_plain(key, val), out_w, True)
+
+
+def sort_only_plain(key, val, *, width, start_kk):
+    return _sort_plain(key, val)
 
 
 def _pack_colval(c, prod):
@@ -291,13 +329,10 @@ def compress(key, val, *, width: int, out_w: int, compact: bool = True):
         return compress_plain(key, val, width=width, out_w=out_w,
                               compact=compact)
     _cuda_or_raise(key)
-    m = key.shape[0]
-    col = torch.empty((m, out_w), dtype=torch.int32, device=key.device)
-    out = torch.empty((m, out_w), dtype=torch.float32, device=key.device)
-    nnz = torch.empty((m, 1), dtype=torch.int32, device=key.device)
-    if m:
-        _launch("ia_k3_compress", key, val, col, out, nnz, m, width, out_w,
-                int(compact), device=key.device)
+    col, out, nnz = _row_outputs(val, out_w)
+    if col.shape[0]:
+        _launch(_entry("ia_k3_compress", val), key, val, col, out, nnz,
+                col.shape[0], width, out_w, int(compact), device=key.device)
         compress.launches += 1
     return col, out, nnz
 
@@ -311,15 +346,48 @@ def sort_compress_rows(key, val, *, width: int, start_kk: int):
         return sort_compress_rows_plain(key, val, width=width,
                                         start_kk=start_kk)
     _cuda_or_raise(key)
-    m = key.shape[0]
-    col = torch.empty((m, width), dtype=torch.int32, device=key.device)
-    out = torch.empty((m, width), dtype=torch.float32, device=key.device)
-    nnz = torch.empty((m, 1), dtype=torch.int32, device=key.device)
-    if m:
-        _launch("ia_k4_sort_compress_rows", key, val, col, out, nnz, m,
-                width, start_kk, device=key.device)
+    col, out, nnz = _row_outputs(val, width)
+    if col.shape[0]:
+        _launch(_entry("ia_k4_sort_compress_rows", val), key, val, col, out,
+                nnz, col.shape[0], width, start_kk, device=key.device)
         sort_compress_rows.launches += 1
     return col, out, nnz
+
+
+def sort_compress(key, val, *, width: int, start_kk: int, out_w: int):
+    """K5: sort + compress of pre-expanded rows (the cols layout up to
+    FUSED_MAX_WIDTH), the first out_w survivors of each row kept.
+    Returns (col (m, out_w), val, nnz)."""
+    _check_width(width, start_kk)
+    _check_rows(key, val, width)
+    if not 1 <= out_w <= width:
+        raise ValueError(f"out_w {out_w} not in [1, {width}]")
+    if key.device.type == "cpu":
+        return sort_compress_plain(key, val, width=width, start_kk=start_kk,
+                                   out_w=out_w)
+    _cuda_or_raise(key)
+    col, out, nnz = _row_outputs(val, out_w)
+    if col.shape[0]:
+        _launch(_entry("ia_k5_sort_compress", val), key, val, col, out, nnz,
+                col.shape[0], width, start_kk, out_w, device=key.device)
+        sort_compress.launches += 1
+    return col, out, nnz
+
+
+def sort_only(key, val, *, width: int, start_kk: int):
+    """K6: sort of pre-expanded rows without compress (the cols layout
+    above FUSED_MAX_WIDTH; K3 follows). Returns sorted (key, val)."""
+    _check_width(width, start_kk)
+    _check_rows(key, val, width)
+    if key.device.type == "cpu":
+        return sort_only_plain(key, val, width=width, start_kk=start_kk)
+    _cuda_or_raise(key)
+    k_s, v_s = torch.empty_like(key), torch.empty_like(val)
+    if key.shape[0]:
+        _launch(_entry("ia_k6_sort", val), key, val, k_s, v_s, key.shape[0],
+                width, start_kk, device=key.device)
+        sort_only.launches += 1
+    return k_s, v_s
 
 
 def expand_sort_packed(g, avT, *, ka: int, run: int, width: int,
@@ -370,8 +438,8 @@ def compress_packed(p, *, width: int, out_w: int, compact: bool = True):
 
 
 KERNELS = {"K1": expand_sort_compress, "K2": expand_sort, "K3": compress,
-           "K4": sort_compress_rows, "K7a": expand_sort_packed,
-           "K7b": compress_packed}
+           "K4": sort_compress_rows, "K5": sort_compress, "K6": sort_only,
+           "K7a": expand_sort_packed, "K7b": compress_packed}
 for _fn in KERNELS.values():
     _fn.launches = 0
 

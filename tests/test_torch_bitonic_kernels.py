@@ -95,3 +95,17 @@ def test_wrappers_validate_operands():
     with pytest.raises(ValueError, match="no kernel"):
         K.sort_compress_rows(meta, torch.empty((2, 128), device="meta"),
                              width=128, start_kk=2)
+    # K5 / K6: float32 or float64 values only, out_w within the width
+    key = torch.zeros((2, 128), dtype=torch.int32)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        K.sort_only(key, torch.zeros((2, 128), dtype=torch.float16),
+                    width=128, start_kk=2)
+    with pytest.raises(ValueError, match="out_w"):
+        K.sort_compress(key, torch.zeros((2, 128), dtype=torch.float64),
+                        width=128, start_kk=2, out_w=256)
+    for fn in (K.sort_only, K.sort_compress):
+        extra = {"out_w": 128} if fn is K.sort_compress else {}
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(meta, torch.empty((2, 128), dtype=torch.float64,
+                                 device="meta"),
+               width=128, start_kk=2, **extra)

@@ -1,5 +1,6 @@
-"""PyTorch port, the CUDA kernels K1-K4, K7 and K8-K12 against their
-plain PyTorch versions on the card (marked `cuda`; they skip without a GPU).
+"""PyTorch port, the CUDA kernels K1-K12 (K3-K6 in float32 and float64)
+against their plain PyTorch versions on the card (marked `cuda`; they
+skip without a GPU).
 
 This file imports no jax, so it runs on the GPU machine, where jax is
 not installed and tests/conftest.py (which imports jax) must be left out:
@@ -8,6 +9,7 @@ not installed and tests/conftest.py (which imports jax) must be left out:
         -o addopts="" -m cuda -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,8 +21,9 @@ from ia_spgemm_tpu_torch.ops import slab_kernels as SK
 from tests.torch_parity import (GATHER_CASES, RUN, assert_dd_outputs_match,
                                 assert_kernel_outputs_match,
                                 assert_tables_match, assert_values_close,
-                                ell_pair, gather_inputs, ill_conditioned,
-                                pack_fragments, slab_operands)
+                                cols_inputs, ell_pair, gather_inputs,
+                                ill_conditioned, pack_fragments,
+                                slab_operands, value_rtol)
 
 # slab-kernel inputs: (matrix, planner overrides); the headline plans
 # width 1024, the others 512
@@ -74,6 +77,62 @@ def test_k4_kernel_matches_plain(cuda_device, width):
     assert_kernel_outputs_match(
         K.sort_compress_rows(key, val, width=width, start_kk=2),
         K.sort_compress_rows_plain(key, val, width=width, start_kk=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2048, 16384])
+def test_k4_k3_float64_kernels_match_plain(cuda_device, width):
+    """K4's float64 instance (16384 needs 192 KB of shared memory), then
+    K3's on the plain-sorted rows, compacted and not."""
+    gen = torch.Generator(device=cuda_device).manual_seed(width)
+    key = torch.randint(0, 4000, (48, width), dtype=torch.int32,
+                        device=cuda_device, generator=gen)
+    key[::5, width // 3:] = K.SENTINEL
+    val = torch.randn((48, width), device=cuda_device, generator=gen,
+                      dtype=torch.float64)
+    n4 = K.sort_compress_rows.launches
+    got = K.sort_compress_rows(key, val, width=width, start_kk=2)
+    assert K.sort_compress_rows.launches == n4 + 1
+    assert got[1].dtype == torch.float64
+    assert_kernel_outputs_match(
+        got, K.sort_compress_rows_plain(key, val, width=width, start_kk=2),
+        rtol=value_rtol(val))
+    sk, sv = K.sort_only_plain(key, val, width=width, start_kk=2)
+    for compact in (True, False):
+        assert_kernel_outputs_match(
+            K.compress(sk, sv, width=width, out_w=width, compact=compact),
+            K.compress_plain(sk, sv, width=width, out_w=width,
+                             compact=compact), rtol=value_rtol(val))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("ka,out_width", [(32, None), (32, 128),
+                                          (128, None), (128, 300)])
+def test_k5_k6_k3_kernels_match_plain(cuda_device, dtype, ka, out_width):
+    """The cols layout on the torch expand's rows (padded class rows
+    included): K5 at width 256 (ka 32) and 1024 (ka 128), with and
+    without an out_w cap; K6's sorted keys equal the plain version's, K3
+    on them within the values' tolerance."""
+    key, val, width = cols_inputs(ka, dtype)
+    key, val = key.to(cuda_device), val.to(cuda_device)
+    out_w = width if out_width is None else min(out_width, width)
+    kw = dict(width=width, start_kk=2 * RUN)
+    rtol = value_rtol(val)
+    n5 = K.sort_compress.launches
+    got = K.sort_compress(key, val, out_w=out_w, **kw)
+    assert K.sort_compress.launches == n5 + 1
+    assert got[1].dtype == val.dtype and got[0].shape[1] == out_w
+    assert_kernel_outputs_match(
+        got, K.sort_compress_plain(key, val, out_w=out_w, **kw), rtol=rtol)
+    n6 = K.sort_only.launches
+    sk, sv = K.sort_only(key, val, **kw)
+    assert K.sort_only.launches == n6 + 1
+    pk, pv = K.sort_only_plain(key, val, **kw)
+    assert torch.equal(sk, pk)
+    assert_kernel_outputs_match(
+        K.compress(sk, sv, width=width, out_w=out_w),
+        K.compress_plain(pk, pv, width=width, out_w=out_w), rtol=rtol)
 
 
 def _slab_inputs(name, device):

@@ -126,8 +126,10 @@ def test_flat_spgemm_bitonic_matches_jax(seed, layout):
 
 
 def test_flat_unported_options_raise():
-    """The flat cols layout over a torch expand needs K5 (not ported);
-    the bf16 lane refuses what the JAX package refuses."""
+    """The bf16 lane refuses what the JAX package refuses (float64
+    operands, a ka outside the gather budget), and a plan that is not
+    viable raises. The cols layout that float64 and wide-ka plans take
+    otherwise is tests/test_torch_bitonic_cols.py's."""
     a = sp.random(32, 32, density=0.1, format="csr", dtype=np.float32,
                   random_state=np.random.RandomState(1))
     A = tell(a)
@@ -135,12 +137,10 @@ def test_flat_unported_options_raise():
                               check_guard=False)
     with pytest.raises(ValueError, match="fused-expand"):
         tbt.spgemm_bitonic(A64, A64, value_mode="bf16")
-    with pytest.raises(NotImplementedError, match="K5"):
-        tbt.spgemm_bitonic(A64, A64)
     dense = tell(sp.csr_matrix(np.ones((8, 100), np.float32)))
     wide = tell(sp.csr_matrix(np.ones((100, 8), np.float32)))
-    with pytest.raises(NotImplementedError, match="K5"):
-        tbt.spgemm_bitonic(dense, wide)    # ka=100 > the gather budget
+    with pytest.raises(ValueError, match="fused-expand"):
+        tbt.spgemm_bitonic(dense, wide, value_mode="bf16")
     with pytest.raises(ValueError):
         tbt.spgemm_bitonic(A, A, plan=tbt.BitonicPlan(
             width=2 * tbt.MAX_WIDTH, run=8, tile_rows=8, viable=False))
@@ -226,7 +226,7 @@ def test_cli_esc_modes_match_jax_cli(tmp_path, capsys, mode):
 @pytest.mark.parametrize("argv,pattern", [
     (["--mode", "dist"], "--mode dist is not ported"),
     (["--mode", "ring", "--no-matnet"], "--mode ring is not ported"),
-    (["--mode", "bitonic", "--isolate"], "--isolate is not ported"),
+    (["--mode", "dist", "--isolate"], "--mode dist is not ported"),
     (["--mode", "all", "--shards", "2"], "--shards is not ported"),
 ])
 def test_cli_refuses_unported(tmp_path, capsys, argv, pattern):

@@ -9,8 +9,9 @@ Tolerances: output structure (block pointers, row counts, columns) must
 be identical; values agree within 1e-5 * max(1, max|C|), because
 duplicate products are summed in another order (the port's plain
 versions sum in slot order after a stable sort, its kernels and the JAX
-kernels after an unstable network); against the scipy oracle the JAX
-package's own 1e-4 (tests/test_bitonic.py)."""
+kernels after an unstable network); float64 values within 1e-12 *
+max(1, max|C|) (F64_RTOL); against the scipy oracle the JAX package's
+own 1e-4 (tests/test_bitonic.py)."""
 
 import numpy as np
 import scipy.sparse as sp
@@ -21,21 +22,23 @@ from ia_spgemm_tpu_torch.formats.types import CSR as TCSR
 from ia_spgemm_tpu_torch.ops import bitonic as tbt
 
 VALUE_RTOL = 1e-5
+F64_RTOL = 1e-12
 ORACLE_TOL = 1e-4
 RUN = 8   # sub-run length of the kernel inputs below
 
 
-def jell(a):
-    """JAX-package ELL of a scipy matrix, float32 as the ragged paths
-    need (tests/conftest.py turns x64 on)."""
+def jell(a, dtype=np.float32):
+    """JAX-package ELL of a scipy matrix, float32 by default as the
+    ragged paths need (tests/conftest.py turns x64 on, so float64 stays
+    float64)."""
     from ia_spgemm_tpu.formats import convert as jconvert
     from ia_spgemm_tpu.formats.types import CSR as JCSR
-    return jconvert.csr_to_ell(JCSR.from_scipy(a.astype(np.float32)),
+    return jconvert.csr_to_ell(JCSR.from_scipy(a.astype(dtype)),
                                check_guard=False)
 
 
-def tell(a, device="cpu"):
-    return tconvert.csr_to_ell(TCSR.from_scipy(a.astype(np.float32),
+def tell(a, device="cpu", dtype=np.float32):
+    return tconvert.csr_to_ell(TCSR.from_scipy(a.astype(dtype),
                                                device=device),
                                check_guard=False)
 
@@ -48,22 +51,28 @@ def assert_same(got, want, msg=""):
     np.testing.assert_array_equal(host(got), host(want), err_msg=msg)
 
 
-def assert_values_close(got, want, msg=""):
+def value_rtol(x):
+    """The values' tolerance for x's type: F64_RTOL for float64,
+    VALUE_RTOL otherwise."""
+    return F64_RTOL if host(x).dtype == np.float64 else VALUE_RTOL
+
+
+def assert_values_close(got, want, msg="", rtol=VALUE_RTOL):
     got, want = host(got), host(want)
     assert got.shape == want.shape, (msg, got.shape, want.shape)
     if not want.size:
         return
     scale = max(1.0, float(np.abs(want).max()))
     err = float(np.abs(got.astype(np.float64) - want).max())
-    assert err <= VALUE_RTOL * scale, (msg, err, scale)
+    assert err <= rtol * scale, (msg, err, scale)
 
 
-def assert_kernel_outputs_match(got, want):
-    """(col, val, nnz) triples: structure exact, values within tolerance."""
+def assert_kernel_outputs_match(got, want, rtol=VALUE_RTOL):
+    """(col, val, nnz) triples: structure exact, values within rtol."""
     (c1, v1, n1), (c2, v2, n2) = got, want
     assert_same(n1, n2, "nnz")
     assert_same(c1, c2, "col")
-    assert_values_close(v1, v2, "val")
+    assert_values_close(v1, v2, "val", rtol)
 
 
 def check_oracle(a, b, C):
@@ -111,6 +120,22 @@ def gather_inputs(ka, m=200, seed=0):
                                        B.values, run=RUN)
     avT[:, ::9] = float("nan")
     return g, avT, plan.width
+
+
+def cols_inputs(ka, dtype, m=200, seed=0):
+    """The cols layout's pre-expanded rows (torch _expand_ell) of
+    kernel_operands in `dtype`, with four padded class rows appended
+    (column INT32_MIN, NaN A value; they must come out empty): (key, val,
+    width)."""
+    A, B = kernel_operands(ka, m, seed)
+    width = tbt.plan_bitonic(A, B).width
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    idx = torch.cat([torch.arange(m), torch.full((4,), m)])
+    key, val = tbt._expand_ell(
+        tbt._take_rows(A.col_ind, idx),
+        tbt._take_rows(A.values.to(tdt), idx), B.col_ind,
+        B.values.to(tdt), width=width, run=RUN)
+    return key, val, width
 
 
 def pack_fragments(g, pack):
