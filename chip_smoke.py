@@ -22,14 +22,18 @@ prints no result line:
    (float64) on the skew x band classes, K6 + K3 on the flat float64
    headline (width 1024, run 32) and on the float32 wide x band flat
    plan (width 1024, run 8), and K5 at width 1024 beside K6 + K3 on those
-   two. Structure exact, float32 values within 1e-5 * max(1, max|C|)
-   (duplicates are summed in another order), float64 values and
-   compensated hi + lo within 1e-12 * max(1, max|C|); median ms of each
-   over CUDA events, beside the plain version's, one PyTorch call
-   computing the same function where there is one (torch.sort of the
-   keys for K4-K6, torch.sparse.mm for K11), and the bound (inputs read
-   once and outputs written once at 3.35 TB/s, or K11's float32
-   operations at 67 TFLOP/s, whichever is longer);
+   two; K13 on the headline's B blocks at D = 4 and 8 shards (bit for
+   bit, the library yardstick a torch.roll of each stacked array along
+   the shard axis) and K4 on one shard's products of the D = 4 ring
+   (8192 x 1024, run 32). Structure exact, float32 values within 1e-5 *
+   max(1, max|C|) (duplicates are summed in another order), float64
+   values and compensated hi + lo within 1e-12 * max(1, max|C|), K13 bit
+   for bit; median ms of each over CUDA events, beside the plain
+   version's, one PyTorch call computing the same function where there
+   is one (torch.sort of the keys for K4-K6, torch.sparse.mm for K11,
+   torch.roll for K13), and the bound (inputs read once and outputs
+   written once at 3.35 TB/s, or K11's float32 operations at 67 TFLOP/s,
+   whichever is longer);
 4. headline: bench.headline at m=32768 (nnz 7,086,306, checksum within
    1e-4 of scipy, scipy's sparsity pattern exactly);
 5. skew: the width-class route on a row-skewed matrix whose classes need
@@ -78,19 +82,35 @@ prints no result line:
 21. the isolated watchdog: a _test_slow worker (start-up grace lowered to
     3 s) times out and is killed, then an isolated bitonic row runs ok,
     then the CLI's --mode all --isolate --no-matnet on the m=4096 .mtx:
-    rc 0, no row failed.
+    rc 0, no row failed;
+22. ring: ring_spgemm on the headline over 4 shards of the card (one
+    process), through K13 (use_rdma="auto"), through the plain hop, and
+    with a flops-balanced (permuted) B through K13: scipy's nnz
+    (7,086,306) and pattern, checksum within 1e-4, device ms per call;
+23. dist: dist_spgemm on the headline over the same 4 shards, B
+    all-gathered and B replicated, against scipy;
+24. CLI: --mode ring and --mode dist with --shards 4 on the m=4096 .mtx
+    (IA_SPGEMM_SHARDS_PER_DEVICE=4): rc 0, checksum ok;
+25. multi-process: two processes x 2 shards of the card over gloo
+    (python -m ia_spgemm_tpu_torch.parallel.multihost), MULTIPROC_OK
+    from each;
+26. scaling: bench.scaling's ring scaling on the headline at D = 1, 2, 4
+    shards of the card, reported simulated (the shards share the card).
 
-Every kernel wrapper counts its launches. Phases 4, 5, 7-10, 12-15 and
-17-19 each drive a main path on its own input: the counts are set to 0
-just before each run and read just after it. K1 must have been launched
-in phase 4, K2, K3 and K4 in phase 5, K8 and K3 in phase 7, K9 and K10
-in phase 9, K8 in the hybrid run of phase 10, K7a and K7b in phase 12,
-K12 in 13, K11 in 14, the flat route's kernels in spgemm_auto (15), K6
-and K3 in f64_flat and f32_wide_flat, K5, K6 and K3 in f64_multiclass,
-K4 in f64_skew. Phase 3's comparison launches and the CLI's are not
-counted. The line before the last two is a JSON object with one entry
-per kernel ("ms"/"plain_ms"/"library_ms"/"bound_ms": summed over its
-phase-3 shapes, "bound_by" the larger term; "launches": the sum over the
+Every kernel wrapper counts its launches. Phases 4, 5, 7-10, 12-15,
+17-19 and 22-23 each drive a main path on its own input: the counts are
+set to 0 just before each run and read just after it. K1 must have been
+launched in phase 4, K2, K3 and K4 in phase 5, K8 and K3 in phase 7, K9
+and K10 in phase 9, K8 in the hybrid run of phase 10, K7a and K7b in
+phase 12, K12 in 13, K11 in 14, the flat route's kernels in spgemm_auto
+(15), K6 and K3 in f64_flat and f32_wide_flat, K5, K6 and K3 in
+f64_multiclass, K4 in f64_skew, K13 and K4 in the K13 ring runs of 22
+(no K13 in the plain-hop run), none in the plain-torch dist runs of 23.
+Phase 3's comparison launches and those of the CLI, the workers and the
+scaling phase are not counted. The line before the last two is a JSON
+object with one entry per kernel
+("ms"/"plain_ms"/"library_ms"/"bound_ms": summed over its phase-3
+shapes, "bound_by" the larger term; "launches": the sum over the
 main-path runs, split in "launches_by_run"); then the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -127,7 +147,8 @@ LAPLACIAN_SIDE = 512     # 5-point 2-D Laplacian, m = 262,144
 SOURCES = {"bitonic": "ia_spgemm_tpu_torch/csrc/bitonic.cu",
            "slab": "ia_spgemm_tpu_torch/csrc/slab.cu",
            "dense_row": "ia_spgemm_tpu_torch/csrc/dense_row.cu",
-           "hash": "ia_spgemm_tpu_torch/csrc/hash.cu"}
+           "hash": "ia_spgemm_tpu_torch/csrc/hash.cu",
+           "ring": "ia_spgemm_tpu_torch/csrc/ring.cu"}
 REPLACES = {"K1": "ia_spgemm_tpu/ops/bitonic.py:1034",
             "K2": "ia_spgemm_tpu/ops/bitonic.py:977",
             "K3": "ia_spgemm_tpu/ops/bitonic.py:523",
@@ -140,7 +161,9 @@ REPLACES = {"K1": "ia_spgemm_tpu/ops/bitonic.py:1034",
             "K9": "ia_spgemm_tpu/ops/slab.py:306",
             "K10": "ia_spgemm_tpu/ops/slab.py:369",
             "K11": "ia_spgemm_tpu/ops/dense_row.py:35",
-            "K12": "ia_spgemm_tpu/ops/hash_spgemm.py:58"}
+            "K12": "ia_spgemm_tpu/ops/hash_spgemm.py:58",
+            "K13": "ia_spgemm_tpu/parallel/rdma_ring.py:31"}
+RING_SHARDS = 4          # the ring / dist phases: 4 shards of the one card
 
 
 def _compare(name, got, want):
@@ -507,6 +530,52 @@ def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
             (H.col_ind, H.values, H.col_ind, H.values))
 
 
+def _check_ring_kernels(H, stats, time_ms, dev):
+    """K13 on the headline's B blocks at the ring's shapes (D = 4 and 8
+    shards of the card), bit for bit against the plain hop; K4 on one
+    shard's products of the D = 4 ring."""
+    import torch
+
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
+    from ia_spgemm_tpu_torch.parallel import ring
+    from ia_spgemm_tpu_torch.parallel.mesh import make_mesh
+
+    for D in (RING_SHARDS, 2 * RING_SHARDS):
+        Bs = ring.partition_rows_ell(H, D, mesh=make_mesh(
+            devices=[dev] * D))
+        blocks = (Bs.col_ind, Bs.values)
+        got, want = RR.ring_hop_rdma(*blocks), RR.ring_hop_plain(*blocks)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for ga, wa in zip(got, want)
+                   for g, w in zip(ga, wa)):
+            raise AssertionError(f"K13 D={D}: blocks differ from the plain "
+                                 "hop")
+        stk = [torch.stack(x) for x in blocks]
+        what = (f"headline B blocks D={D} x ({Bs.rows_per_shard}, "
+                f"{Bs.width}) int32 + float32")
+        _record(stats, time_ms, dev, "K13", what, 0.0,
+                lambda: RR.ring_hop_rdma(*blocks),
+                lambda: RR.ring_hop_plain(*blocks), blocks,
+                lambda: [torch.roll(x, -1, 0) for x in stk])
+        del got, want, stk
+    mesh = make_mesh(devices=[dev] * RING_SHARDS)
+    S = ring.partition_rows_ell(H, RING_SHARDS, mesh=mesh)
+    plan = ring.plan_ring(H, H, RING_SHARDS)
+    if (plan.width, plan.run, plan.chunks) != (1024, 32, 1):
+        raise AssertionError(f"headline ring plan {plan}")
+    keys, vals = ring.ring_products(S, S, mesh, plan)
+    key, val = keys[0], vals[0]
+    kw = dict(width=plan.width, start_kk=2 * plan.run)
+    what = f"ring shard rows={key.shape[0]} width={plan.width} run=32"
+    err = _compare(f"K4 {what}", K.sort_compress_rows(key, val, **kw),
+                   K.sort_compress_rows_plain(key, val, **kw))
+    _record(stats, time_ms, dev, "K4", what, err,
+            lambda: K.sort_compress_rows(key, val, **kw),
+            lambda: K.sort_compress_rows_plain(key, val, **kw), (key, val),
+            _torch_sort(key))
+
+
 def _against_scipy(name, C, want):
     d = abs(C.to_scipy() - want)
     err = d.max() if d.nnz else 0.0
@@ -515,6 +584,144 @@ def _against_scipy(name, C, want):
         raise AssertionError(f"{name}: nnz {int(C.nnz)} vs {want.nnz}, "
                              f"max err {err} (scale {scale})")
     return err
+
+
+def _distributed_phases(A, H, ref_sum, by_run, reset_counts, counts,
+                        launched, same_pattern, time_ms, dev):
+    """Phases 22-26: the ring and dist routes on the headline over
+    RING_SHARDS shards of the card, the CLI's --mode ring / dist, two
+    processes over gloo, and the ring's scaling (simulated)."""
+    import socket
+
+    import torch
+
+    from ia_spgemm_tpu_torch.bench import scaling
+    from ia_spgemm_tpu_torch.cli import main as cli
+    from ia_spgemm_tpu_torch.formats import convert
+    from ia_spgemm_tpu_torch.formats.types import CSR
+    from ia_spgemm_tpu_torch.io import mmio
+    from ia_spgemm_tpu_torch.bench import headline
+    from ia_spgemm_tpu_torch.parallel import distributed as pdist
+    from ia_spgemm_tpu_torch.parallel import ring
+    from ia_spgemm_tpu_torch.parallel.mesh import (SHARDS_PER_DEVICE_ENV,
+                                                   make_mesh)
+
+    D = RING_SHARDS
+    mesh = make_mesh(devices=[dev] * D)
+    dist_info = {}
+
+    def route(run, fn, to_csr, kernels, no_kernels=()):
+        """One main-path run: launches, scipy's nnz and pattern, the
+        checksum within 1e-4, then the route's device ms per call."""
+        reset_counts()
+        out = fn()
+        by_run[run] = counts()
+        launched(run, kernels)
+        extra = [k for k in no_kernels if by_run[run][k]]
+        if extra:
+            raise AssertionError(f"{run} launched {extra}")
+        C = to_csr(out)
+        err = same_pattern(run, C)
+        rel = abs(float(C.checksum()) - ref_sum) / max(1.0, abs(ref_sum))
+        if not rel <= ORACLE_TOL:
+            raise AssertionError(f"{run}: checksum rel err {rel}")
+        ms = time_ms(fn, dev, 1, 10)
+        dist_info[run] = {"device_ms": ms, "nnz": int(C.nnz),
+                          "max_err": err, "checksum_rel_err": rel,
+                          "launches": by_run[run]}
+        print(f"[{run}] shards={D} nnz={int(C.nnz)} max_err={err} "
+              f"rel_err={rel} device_ms={ms} launches={by_run[run]}",
+              flush=True)
+
+    # ---- 22. the ring: K13, the plain hop, a permuted B
+    plan = ring.plan_ring(H, H, D)
+    As = ring.partition_rows_ell(H, D, mesh=mesh)
+    Bf = ring.partition_rows_ell(H, D, mesh=mesh, balance="flops", B=H)
+    ell_csr = lambda Ce: convert.ell_to_csr(  # noqa: E731
+        ring.gather_result_ell(Ce))
+    for run, Bs, rdma, want, never in (
+            ("ring", As, "auto", ["K13", "K4"], ()),
+            ("ring_plain_hop", As, False, ["K4"], ("K13",)),
+            ("ring_flops_b", Bf, "auto", ["K13", "K4"], ())):
+        route(run, lambda Bs=Bs, rdma=rdma: ring.ring_spgemm(
+            As, Bs, mesh, plan, use_rdma=rdma), ell_csr, want, never)
+    del As, Bf
+
+    # ---- 23. dist: B all-gathered, B replicated (plain torch ESC)
+    e_cap, out_cap = pdist.plan_dist_spgemm(A, A, D, balance="flops")
+    Ad = pdist.partition_rows(A, D, balance="flops", B=A, mesh=mesh)
+    Bd = pdist.partition_rows(A, D, mesh=mesh)
+    for run, Bx in (("dist_allgather", Bd), ("dist_replicated", A)):
+        route(run, lambda Bx=Bx: pdist.dist_spgemm(
+            Ad, Bx, mesh, e_cap=e_cap, out_cap=out_cap),
+            pdist.gather_result, [])
+    del Ad, Bd
+    print(json.dumps({"distributed": dist_info}), flush=True)
+
+    # ---- 24. the CLI's distributed modes
+    os.environ[SHARDS_PER_DEVICE_ENV] = str(D)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "smoke.mtx")
+            mmio.write_mtx(path, CSR.from_scipy(headline.build_matrix(
+                m=4096), device="cpu"))
+            for mode in ("ring", "dist"):
+                out = os.path.join(tmp, f"{mode}.json")
+                rc = cli.main([path, "--mode", mode, "--shards", str(D),
+                               "--device", dev.type, "--no-matnet",
+                               "--iters", "3", "--json", out])
+                with open(out) as f:
+                    rep = json.load(f)
+                if rc != 0 or not rep["checksum_rel_err"] < ORACLE_TOL:
+                    raise AssertionError(f"CLI --mode {mode}: rc {rc}, "
+                                         f"{rep}")
+                print(f"[24] CLI --mode {mode} --shards {D}: rc 0 {rep}",
+                      flush=True)
+
+        # ---- 25. two processes x 2 shards of the card over gloo
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        env[SHARDS_PER_DEVICE_ENV] = "2"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-u", "-m",
+             "ia_spgemm_tpu_torch.parallel.multihost", str(pid), "2",
+             str(port), dev.type, "gloo"], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for pid in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for pid, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or "MULTIPROC_OK" not in out:
+                raise AssertionError(f"multi-process worker {pid} rc "
+                                     f"{p.returncode}:\n{out}")
+        print(f"[25] two processes x 2 shards over gloo: MULTIPROC_OK from "
+              f"both in {time.perf_counter() - t0} s; "
+              + " | ".join(ln for out in outs for ln in out.splitlines()
+                           if " ok" in ln), flush=True)
+
+        # ---- 26. the ring's scaling over 1, 2, 4 shards of the card
+        pts = scaling.measure_ring_scaling(A, (1, 2, D), iters=5)
+        rep = scaling.report(pts, dev.type)
+        if not (rep["simulated"] and [p.devices for p in pts] == [1, 2, D]
+                and all(p.nnz_out == HEADLINE_NNZ for p in pts)):
+            raise AssertionError(f"scaling: {rep}")
+        rep["model_h100_nvlink"] = scaling.model_ring_efficiency(
+            A, (1, 2, D, 8), t1_ms=pts[0].time_ms)
+        print(json.dumps({"scaling": rep}), flush=True)
+    finally:
+        del os.environ[SHARDS_PER_DEVICE_ENV]
+    torch.cuda.synchronize()
 
 
 def main() -> int:
@@ -570,8 +777,10 @@ def main() -> int:
     from ia_spgemm_tpu_torch.ops import esc, slab
     from ia_spgemm_tpu_torch.ops import hash_kernels as HK
     from ia_spgemm_tpu_torch.ops import slab_kernels as SK
+    from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
 
-    modules = {"bitonic": K, "slab": SK, "dense_row": DK, "hash": HK}
+    modules = {"bitonic": K, "slab": SK, "dense_row": DK, "hash": HK,
+               "ring": RR}
     kernel_names = sorted((n for mod in modules.values()
                            for n in mod.KERNELS),
                           key=lambda n: (int(n[1:].rstrip("ab")), n))
@@ -653,6 +862,7 @@ def main() -> int:
                                         **kw)
         del key, val
     print(json.dumps({"k5_beside_k6_k3": split}), flush=True)
+    _check_ring_kernels(H, stats, time_ms, dev)
     missing = set(kernel_names) - set(stats)
     if missing:
         raise AssertionError(f"phase 3 never reached {sorted(missing)}")
@@ -1110,6 +1320,10 @@ def main() -> int:
     print(f"[21] CLI --mode all --isolate: rc 0 in {iso_s} s, rows=" + str(
         {r["name"]: ("ok" if r["ok"] else "skipped")
          for r in rep["results"]}), flush=True)
+
+    # ---- 22-26. the distributed paths over shards of the card
+    _distributed_phases(A, H, ref_sum, by_run, reset_counts, counts,
+                        launched, same_pattern, time_ms, dev)
 
     torch.cuda.synchronize()
     kernels = []

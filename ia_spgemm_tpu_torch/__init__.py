@@ -2,18 +2,30 @@
 
 The JAX package ``ia_spgemm_tpu`` is the reference; this package mirrors
 its module paths and names. It imports torch, numpy and scipy, never
-jax. Ported so far: the width-class bitonic route (CSR -> ELL, the
-width-class planner, fragment tables, the K1-K4 kernels of
-``csrc/bitonic.cu``, BlockCSR assembly), the flat ``spgemm_bitonic``,
-the cols layout over the torch expand (K5, K6 + K3) that float64
-operands and wide float32 rows take, the production CSR entry ``ops/esc.spgemm_csr_auto`` with its
-engines (tiled, the slab engine with K8 + K3, the slab + global hybrid,
-the global sort, workspace slicing) and the compensated route (K9 + K10
-of ``csrc/slab.cu``), the harness's ``baseline``/``bitonic``/``csr``/
-``esc``/``compensated`` rows and the same CLI modes.
+jax. Its constructors and readers put matrices on the card unless given
+``device="cpu"``, where the kernels' plain PyTorch versions run. Ported:
+
+- the width-class bitonic route (``ops/bitonic.py``: the planner,
+  fragment tables, K1-K4 of ``csrc/bitonic.cu``, BlockCSR assembly), the
+  flat ``spgemm_bitonic`` with its bf16 serve lane (K7), and the cols
+  layout over the torch expand (K5, K6 + K3) that float64 operands and
+  wide float32 rows take;
+- the production CSR entry ``ops/esc.spgemm_csr_auto`` with its engines
+  (tiled, the slab engine with K8 + K3 of ``csrc/slab.cu``, the slab +
+  global hybrid, the global sort, workspace slicing) and the compensated
+  route (K9 + K10);
+- the input-aware path: features, density images, MatNet and
+  ``autotune.spgemm_auto``, and the other accumulators (dense, dense-row
+  with K11, hash with K12, ELL, DIA, COO);
+- the distributed paths (``parallel/``): a mesh of shards that may share
+  a card, the all-gather ``dist_spgemm``, the ring ``ring_spgemm`` whose
+  blocks hop through K13 (``csrc/ring.cu``), multi-process meshes on
+  ``torch.distributed`` and ``bench/scaling.py``;
+- the harness (with the process-isolated watchdog) and the CLI, every
+  mode of the JAX package's.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 
 def __getattr__(name):
@@ -27,6 +39,16 @@ def __getattr__(name):
     if name in ("spgemm_csr_auto", "spgemm_csr_compensated"):
         from ia_spgemm_tpu_torch.ops import esc
         return getattr(esc, name)
+    if name in ("make_mesh", "partition_rows", "dist_spgemm",
+                "gather_result"):
+        from ia_spgemm_tpu_torch import parallel
+        return getattr(parallel, name)
+    if name in ("partition_rows_ell", "ring_spgemm", "gather_result_ell"):
+        from ia_spgemm_tpu_torch.parallel import ring
+        return getattr(ring, name)
+    if name == "spgemm_auto":
+        from ia_spgemm_tpu_torch.autotune import spgemm_auto
+        return spgemm_auto
     if name == "read_mtx_to_csr":
         from ia_spgemm_tpu_torch.io.mmio import read_mtx_to_csr
         return read_mtx_to_csr

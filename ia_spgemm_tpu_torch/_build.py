@@ -24,7 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 SOURCES = {"bitonic": _CSRC / "bitonic.cu", "slab": _CSRC / "slab.cu",
-           "dense_row": _CSRC / "dense_row.cu", "hash": _CSRC / "hash.cu"}
+           "dense_row": _CSRC / "dense_row.cu", "hash": _CSRC / "hash.cu",
+           "ring": _CSRC / "ring.cu"}
 HEADERS = (_CSRC / "sort_common.cuh",)
 BUILD_DIR = _PKG / "_kernels_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -32,8 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures per source: pointers and the stream as void*, sizes as
-# int; every entry point returns a cudaError_t as int.
+# int (byte counts that may pass 2^31 as long long); every entry point
+# returns a cudaError_t as int.
 SIGNATURES = {
     "bitonic": {
         "ia_k1_expand_sort_compress": [_P] * 5 + [_I] * 8 + [_P],
@@ -51,6 +54,8 @@ SIGNATURES = {
     },
     "dense_row": {"ia_k11_dense_row": [_P] * 4 + [_I] * 3 + [_P]},
     "hash": {"ia_k12_hash": [_P] * 7 + [_I] * 4 + [_P]},
+    "ring": {"ia_k13_ring_hop": [_P, _I, _L, _P],
+             "ia_k13_enable_peer_access": [_I]},
     "slab": {
         "ia_k8_expand_sort_lr": [_P] * 5 + [_I] * 7 + [_P],
         "ia_k9_expand_sort_lr_dd": [_P] * 5 + [_I] * 7 + [_P],

@@ -13,7 +13,11 @@ dense B) on ``build_matrix(m)`` with m = 16384 by default, and ``hybrid``
 on ``build_hybrid_matrix(m)``; C = A @ A in float32. ``bitonic_f64``
 (the flat ``spgemm_bitonic``: torch expand, then K6 + K3) and
 ``multiclass_f64`` (the chunked width-class route, BlockCSR out: K5 and
-K6 + K3) run C = A @ A on the headline matrix in float64. Plans the route
+K6 + K3) run C = A @ A on the headline matrix in float64. ``ring`` (the
+ring over DIST_SHARDS shards of the one card: blocks hop through K13,
+then K4 per shard) and ``dist`` (B all-gathered, the plain-torch ESC
+engine per shard, flops-balanced A) run C = A @ A on the headline in
+float32. Plans the route
 (conversions included), warms it up, and profiles ``calls`` back-to-back
 calls with one synchronise at the end.
 The profiler records device activity only, unless ``--cpu-ops`` also
@@ -48,9 +52,11 @@ from collections import defaultdict
 
 import numpy as np
 
-_KERNEL = re.compile(r"\bk(?:[1-6]|7[ab]|8|9|1[0-2])_[a-z_]+")
+_KERNEL = re.compile(r"\bk(?:[1-6]|7[ab]|8|9|1[0-3])_[a-z_]+")
 ROUTES = ("multiclass_pg", "slab", "compensated", "global", "hybrid",
-          "serve", "hash", "dense_row", "bitonic_f64", "multiclass_f64")
+          "serve", "hash", "dense_row", "bitonic_f64", "multiclass_f64",
+          "ring", "dist")
+DIST_SHARDS = 4   # the ring / dist routes' shards, all on the one card
 # the dense-row route's default size: dense B + C = 2.1 GB, within the
 # dense_bytes_budget (the headline's m = 32768 is past it)
 DENSE_ROW_M = 16384
@@ -100,6 +106,26 @@ def _plan(route: str, m: int, dev):
         call = lambda: convert.ell_to_csr(convert.compact_ell(  # noqa: E731
             hash_spgemm.spgemm_hash(H, H)))
         detail = {"ka": H.max_nnz_per_row}
+    elif route in ("ring", "dist"):
+        from ia_spgemm_tpu_torch.parallel import distributed, ring
+        from ia_spgemm_tpu_torch.parallel.mesh import make_mesh
+        D = DIST_SHARDS
+        mesh = make_mesh(devices=[dev] * D)
+        if route == "ring":
+            H = convert.csr_to_ell(A, check_guard=False)
+            plan = ring.plan_ring(H, H, D)
+            S = ring.partition_rows_ell(H, D, mesh=mesh)
+            call = lambda: ring.ring_spgemm(S, S, mesh, plan)  # noqa: E731
+            detail = {"shards": D, "width": plan.width, "run": plan.run}
+        else:
+            e_cap, out_cap = distributed.plan_dist_spgemm(A, A, D,
+                                                          balance="flops")
+            Ad = distributed.partition_rows(A, D, balance="flops", B=A,
+                                            mesh=mesh)
+            Bd = distributed.partition_rows(A, D, mesh=mesh)
+            call = lambda: distributed.dist_spgemm(  # noqa: E731
+                Ad, Bd, mesh, e_cap=e_cap, out_cap=out_cap)
+            detail = {"shards": D, "e_cap": e_cap, "out_cap": out_cap}
     elif route == "dense_row":
         Ae = convert.csr_to_ell(A, check_guard=False)
         B = convert.csr_to_dense(A)

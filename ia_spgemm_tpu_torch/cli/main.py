@@ -6,6 +6,8 @@ Usage (the JAX package's CLI, plus --device):
         [--weights Intel|Amd|P100|TPU|path.npz] [--profile cpu|gpu]
         [--imgs-dir DIR] [--no-matnet] [--device cuda|cpu] [--isolate]
         [--iters N] [--json OUT.json] [--testing]
+    python -m ia_spgemm_tpu_torch.cli A.mtx [B.mtx] --mode dist|ring
+        [--shards D] [--device cuda|cpu] [--iters N] [--json OUT.json]
 
 With one matrix the workload is C = A @ A (reference README.md:10).
 MatNet predicts the fastest algorithm first (unless --no-matnet), from
@@ -21,8 +23,14 @@ program: P100 weights, B = A^T when no B is given, 20x size guards, the
 img1.txt / img2.txt. ``--isolate`` runs every row but the baseline in
 its own process on ``--device``, killed at the row's watchdog budget
 (bench/isolated.py): a CUDA kernel cannot be cancelled in process, so
-this is the watchdog that frees the card. The distributed modes (dist,
-ring) and --shards are not ported and exit non-zero.
+this is the watchdog that frees the card. ``--mode dist`` and ``--mode
+ring`` run C = A @ B row-sharded over ``--shards`` shards of the mesh
+(``parallel/``): dist all-gathers B's row blocks, ring streams them
+between neighbours (K13 on the card). The mesh counts every visible
+device IA_SPGEMM_SHARDS_PER_DEVICE times (default 1), so
+``IA_SPGEMM_SHARDS_PER_DEVICE=4 ... --shards 4`` runs four shards on one
+card; more shards than that exit 2. With IA_SPGEMM_COORDINATOR set, the
+process joins a multi-process group first (``parallel/multihost``).
 
 Matrices are read as float32, the type the CLI runs; the float64 routes
 (the bitonic row's flat and width-class routes, K3-K6 in float64) are
@@ -39,7 +47,7 @@ import argparse
 import os
 import sys
 
-NOT_PORTED_MODES = ("dist", "ring")
+DIST_MODES = ("dist", "ring")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,10 +65,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="all (every algorithm + MatNet verdict) | autotune "
                         "(the predicted algorithm only) | baseline|csr|esc|"
                         "coo|ell|dia|dense|bitonic|dense_row|compensated|"
-                        "hash|serve, each beside the scipy baseline "
-                        "(dist|ring are not ported)")
+                        "hash|serve, each beside the scipy baseline | "
+                        "dist|ring (row-sharded over the mesh: all-gathered"
+                        " B / the ring; see --shards)")
     p.add_argument("--shards", type=int, default=None,
-                   help="mesh size for --mode dist/ring (not ported)")
+                   help="mesh size for --mode dist/ring (default: every "
+                        "visible shard, IA_SPGEMM_SHARDS_PER_DEVICE per "
+                        "device)")
     p.add_argument("--weights", default="Intel",
                    help="MatNet weight set: Intel|Amd|P100 (reference "
                         "sets), TPU (retrained on TPU winners) or a "
@@ -104,14 +115,80 @@ def _refuse(msg: str) -> int:
     return 2
 
 
+def _run_distributed(A, B, args, device) -> int:
+    """--mode dist/ring: C = A @ B row-sharded over a 1-D shard mesh, the
+    scale-out the single-process reference lacks (SURVEY.md §2.7). dist
+    all-gathers B's row blocks; ring streams them between neighbours.
+    Median device ms per call from CUDA events on the card, host ms on
+    the CPU. Exit 2 for more shards than the mesh has, 3 for a checksum
+    off scipy's by 1e-4 or more."""
+    from ia_spgemm_tpu_torch.bench.harness import time_ms
+    from ia_spgemm_tpu_torch.formats import convert
+    from ia_spgemm_tpu_torch.parallel import distributed, multihost, ring
+    from ia_spgemm_tpu_torch.parallel.mesh import make_mesh, visible_devices
+
+    if os.environ.get("IA_SPGEMM_COORDINATOR"):
+        multihost.initialize()
+    ndev = len(visible_devices(device.type))
+    D = args.shards or ndev
+    if not 1 <= D <= ndev:
+        return _refuse(f"--shards {D} > {ndev} visible shard(s) (set "
+                       "IA_SPGEMM_SHARDS_PER_DEVICE for more per device)")
+    mesh = make_mesh(D, device_type=device.type)
+    print(f"mesh: {mesh.num_shards} shard(s) on "
+          f"{sorted({str(d) for d in mesh.devices})}, route={args.mode}, "
+          "balance=flops")
+
+    if args.mode == "dist":
+        e_cap, out_cap = distributed.plan_dist_spgemm(A, B, D,
+                                                      balance="flops")
+        As = distributed.partition_rows(A, D, balance="flops", B=B,
+                                        mesh=mesh)
+        Bs = distributed.partition_rows(B, D, mesh=mesh)
+
+        def run():
+            return distributed.dist_spgemm(As, Bs, mesh, e_cap=e_cap,
+                                           out_cap=out_cap)
+
+        C = multihost.replicate_to_hosts(run())
+    else:
+        A_ell = convert.csr_to_ell(A, check_guard=False)
+        B_ell = convert.csr_to_ell(B, check_guard=False)
+        plan = ring.plan_ring(A_ell, B_ell, D)
+        As = ring.partition_rows_ell(A_ell, D, mesh=mesh)
+        Bs = ring.partition_rows_ell(B_ell, D, mesh=mesh)
+
+        def run():
+            return ring.ring_spgemm(As, Bs, mesh, plan)
+
+        C = convert.ell_to_csr(ring.gather_result_ell(run()))
+
+    wall = time_ms(run, device, 0, max(args.iters, 1))
+
+    c_ref = A.to_scipy() @ B.to_scipy()
+    ref = float(c_ref.sum())
+    rel = abs(float(C.checksum()) - ref) / max(1.0, abs(ref))
+    status = "ok" if rel < 1e-4 else f"CHECKSUM MISMATCH ({rel:.3g})"
+    print(f"C: {C.nrows}x{C.ncols} nnz={int(C.nnz)} "
+          f"verified_sum={float(C.checksum()):.10g} [{status}]")
+    print(f"run_time(ms): {wall:.3f}  ({D}-shard {args.mode})")
+    if args.json:
+        import json as _json
+        with open(args.json, "w") as f:
+            _json.dump({"mode": args.mode, "shards": D,
+                        "run_time_ms": wall, "nnz_out": int(C.nnz),
+                        "checksum_rel_err": rel}, f, indent=1)
+    return 0 if rel < 1e-4 else 3
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.testing_mode is not None and args.testing_mode not in ("0", ""):
         args.testing = True
-    if args.mode in NOT_PORTED_MODES:
-        return _refuse(f"--mode {args.mode} is not ported yet")
-    if args.shards:
-        return _refuse("--shards is not ported yet")
+    if args.shards is not None and args.mode not in DIST_MODES:
+        return _refuse("--shards applies only to --mode dist and ring")
+    if args.isolate and args.mode in DIST_MODES:
+        return _refuse(f"--isolate does not apply to --mode {args.mode}")
 
     import numpy as np
     import torch
@@ -160,7 +237,7 @@ def main(argv=None) -> int:
         _print_csr("B_csr", B)
         c_sp = (A.to_scipy() @ B.to_scipy()).tocsr()
         c_sp.sum_duplicates()
-        _print_csr("C_csr", CSR.from_scipy(c_sp))
+        _print_csr("C_csr", CSR.from_scipy(c_sp, device=device))
 
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu (plain versions)")
@@ -179,6 +256,9 @@ def main(argv=None) -> int:
             print(f"MatNet prediction: class {sel.class_index} -> {pick}")
         except FileNotFoundError:
             print("MatNet weights not found; skipping prediction")
+
+    if args.mode in DIST_MODES:
+        return _run_distributed(A, B, args, device)
 
     if args.mode == "autotune":
         C, sel = autotune.spgemm_auto(A, B, weight_name=args.weights)

@@ -18,6 +18,8 @@ drops straight into ``from_numpy``:
 ``nnz`` is a 0-d int32 tensor on the operands' device, as in the JAX
 package, so producing a result never waits on the device. Every tensor
 of one value lives on one device; ``.to(device)`` moves them together.
+The constructors put a matrix on the card (``DEFAULT_DEVICE``) unless
+given ``device="cpu"``; with no card they raise.
 
 Compensated results (``values_lo`` set) carry each value as a float32
 pair whose float64 sum ``values + values_lo`` is the value.
@@ -34,9 +36,25 @@ import torch
 Shape2 = Tuple[int, int]
 
 
+# where the constructors and readers put a matrix unless told otherwise:
+# the card, as the JAX package's arrays land on its default device
+DEFAULT_DEVICE = "cuda"
+
+
+def checked_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device with no card raises
+    rather than carrying on on the host."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA GPU is available "
+                           "(pass device='cpu' for the plain versions)")
+    return device
+
+
 def _t(x, dtype, device) -> torch.Tensor:
     """A copy of x (arrays of a JAX pytree are read-only) on device."""
-    return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+    return torch.from_numpy(np.array(x)).to(device=checked_device(device),
+                                            dtype=dtype)
 
 
 def _value_dtype(x) -> torch.dtype:
@@ -106,7 +124,7 @@ class CSR:
 
     @classmethod
     def from_numpy(cls, row_ptr, col_ind, values, nnz, shape: Shape2,
-                   device="cpu", values_lo=None) -> "CSR":
+                   device=DEFAULT_DEVICE, values_lo=None) -> "CSR":
         return cls(row_ptr=_t(row_ptr, torch.int32, device),
                    col_ind=_t(col_ind, torch.int32, device),
                    values=_t(values, _value_dtype(values), device),
@@ -117,7 +135,7 @@ class CSR:
 
     @classmethod
     def from_scipy(cls, mat, capacity: int | None = None,
-                   device="cpu") -> "CSR":
+                   device=DEFAULT_DEVICE) -> "CSR":
         m = mat.tocsr()
         m.sum_duplicates()
         nnz = int(m.nnz)
@@ -182,7 +200,7 @@ class COO:
         return self.values.device
 
     @classmethod
-    def from_scipy(cls, mat, device="cpu") -> "COO":
+    def from_scipy(cls, mat, device=DEFAULT_DEVICE) -> "COO":
         from ia_spgemm_tpu_torch.formats.convert import csr_to_coo
         return csr_to_coo(CSR.from_scipy(mat, device=device))
 
@@ -233,7 +251,7 @@ class DIA:
         return self.values.device
 
     @classmethod
-    def from_scipy(cls, mat, device="cpu") -> "DIA":
+    def from_scipy(cls, mat, device=DEFAULT_DEVICE) -> "DIA":
         from ia_spgemm_tpu_torch.formats.convert import csr_to_dia
         return csr_to_dia(CSR.from_scipy(mat, device=device),
                           check_guard=False)
@@ -297,9 +315,9 @@ class Dense:
         return torch.count_nonzero(self.values).to(torch.int32)
 
     @classmethod
-    def from_scipy(cls, mat, device="cpu") -> "Dense":
+    def from_scipy(cls, mat, device=DEFAULT_DEVICE) -> "Dense":
         return cls(values=torch.from_numpy(np.asarray(mat.toarray())).to(
-            device))
+            checked_device(device)))
 
     def to(self, device) -> "Dense":
         return Dense(values=self.values.to(device))
@@ -344,7 +362,7 @@ class ELL:
 
     @classmethod
     def from_numpy(cls, col_ind, values, nnz_row, nnz, shape: Shape2,
-                   device="cpu") -> "ELL":
+                   device=DEFAULT_DEVICE) -> "ELL":
         return cls(col_ind=_t(col_ind, torch.int32, device),
                    values=_t(values, _value_dtype(values), device),
                    nnz_row=_t(nnz_row, torch.int32, device),
@@ -352,7 +370,7 @@ class ELL:
                    shape=(int(shape[0]), int(shape[1])))
 
     @classmethod
-    def from_scipy(cls, mat, device="cpu") -> "ELL":
+    def from_scipy(cls, mat, device=DEFAULT_DEVICE) -> "ELL":
         from ia_spgemm_tpu_torch.formats.convert import csr_to_ell
         return csr_to_ell(CSR.from_scipy(mat, device=device),
                           check_guard=False)
@@ -413,7 +431,7 @@ class BlockCSR:
 
     @classmethod
     def from_numpy(cls, blk_ptr, col_blocks, val_blocks, nnz_row, nnz,
-                   shape: Shape2, device="cpu") -> "BlockCSR":
+                   shape: Shape2, device=DEFAULT_DEVICE) -> "BlockCSR":
         return cls(blk_ptr=_t(blk_ptr, torch.int32, device),
                    col_blocks=_t(col_blocks, torch.int32, device),
                    val_blocks=_t(val_blocks, _value_dtype(val_blocks),
@@ -423,7 +441,7 @@ class BlockCSR:
                    shape=(int(shape[0]), int(shape[1])))
 
     @classmethod
-    def from_scipy(cls, mat, device="cpu") -> "BlockCSR":
+    def from_scipy(cls, mat, device=DEFAULT_DEVICE) -> "BlockCSR":
         """Tight spans: row i owns ceil(nnz_i / 128) blocks."""
         m = mat.tocsr()
         m.sum_duplicates()
@@ -505,7 +523,8 @@ class SlabCSR:
 
     @classmethod
     def from_numpy(cls, keys, values, nnz_slab, slab_first_row, nnz,
-                   shape: Shape2, device="cpu", values_lo=None) -> "SlabCSR":
+                   shape: Shape2, device=DEFAULT_DEVICE,
+                   values_lo=None) -> "SlabCSR":
         return cls(keys=_t(keys, torch.int32, device),
                    values=_t(values, _value_dtype(values), device),
                    nnz_slab=_t(nnz_slab, torch.int32, device),

@@ -234,11 +234,11 @@ def coo_to_csr_arrays(nrows: int, rows: np.ndarray, cols: np.ndarray,
 
 
 def read_mtx_to_csr(path, dtype=np.float64, capacity: int | None = None,
-                    device="cpu"):
+                    device="cuda"):
     """Read a .mtx file to a CSR with symmetric expansion, the
     end-to-end equivalent of the reference's load path
     (main.cpp:143-458). Returns ia_spgemm_tpu_torch.formats.types.CSR on
-    `device`."""
+    `device` (the card unless device="cpu"; with no card it raises)."""
     from ia_spgemm_tpu_torch.formats.types import CSR
 
     header, rows, cols, vals = read_mtx(path)

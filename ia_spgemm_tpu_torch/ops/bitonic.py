@@ -394,8 +394,8 @@ def _expand_ell(a_col, a_val, b_col, b_val, *, width: int, run: int,
     a_col, a_val, ka = _chunk_entries(a_col, a_val, chunks)
     parity = torch.arange(ka, device=a_col.device) & 1
     rows = (a_col.clamp(0, kt - 1).to(torch.int64) + kt * parity).reshape(-1)
-    bc = torch.cat([bc, bc.flip(1)])[rows].reshape(m, ka, run)
-    bv = torch.cat([bv, bv.flip(1)])[rows].reshape(m, ka, run)
+    bc, bv = doubled_table_gather(bc, bv, rows, run=run,
+                                  out_shape=(m, ka, run))
     valid = (a_col >= 0)[:, :, None] & (bc >= 0)
     dtype = torch.result_type(a_val, b_val)
     key = torch.where(valid, bc, SENTINEL).reshape(m, ka * run)
@@ -407,6 +407,30 @@ def _expand_ell(a_col, a_val, b_col, b_val, *, width: int, run: int,
         key = F.pad(key, (0, pad), value=SENTINEL)
         val = F.pad(val, (0, pad))
     return key.contiguous(), val.contiguous()
+
+
+def doubled_table_gather(bc_p, bv_p, rows_flat, *, run: int, out_shape):
+    """Rows of B's (sub-)run table and of its reversed copy, the JAX
+    package's doubled_table_gather (bitonic.py:844), shared by
+    ``_expand_ell`` and the ring step (``parallel/ring.py``): a fix to
+    this motif must reach both callers.
+
+    bc_p / bv_p (kt, run): B's sub-runs; rows_flat indexes the doubled
+    table, row kt + r being row r reversed. float32 values travel beside
+    their columns as int32 bits in one (2*kt, 2*run) table, so each
+    index is one gather; other types gather the two tables apart.
+    Returns (cols, vals), each reshaped to out_shape."""
+    if bv_p.dtype == torch.float32:
+        bvb = bv_p.view(torch.int32)
+        table = torch.cat([torch.cat([bc_p, bvb], dim=1),
+                           torch.cat([bc_p.flip(1), bvb.flip(1)], dim=1)])
+        g = table[rows_flat]
+        return (g[:, :run].reshape(out_shape),
+                g[:, run:].view(torch.float32).reshape(out_shape))
+    bc_t = torch.cat([bc_p, bc_p.flip(1)])
+    bv_t = torch.cat([bv_p, bv_p.flip(1)])
+    return (bc_t[rows_flat].reshape(out_shape),
+            bv_t[rows_flat].reshape(out_shape))
 
 
 def _ragged_table(b_col, b_val, frag_src, *, run: int, cm: int):

@@ -71,7 +71,7 @@ def test_dense_row_plain_matches_jax(name, m, k, n, da, db):
     J = jdr.spgemm_dense_row(jell(a), jconvert.csr_to_dense(
         JCSR.from_scipy(b)))
     T = tdr.spgemm_dense_row(tell(a), tconvert.csr_to_dense(
-        TCSR.from_scipy(b)))
+        TCSR.from_scipy(b, device="cpu")))
     assert T.values.dtype == torch.float32
     assert_values_close(T.values, np.asarray(J.values))
     np.testing.assert_allclose(T.values.numpy(), (a @ b).toarray(),
@@ -135,7 +135,8 @@ def test_hash_guards():
     with pytest.raises(ValueError, match="SMEM"):
         thash.spgemm_hash(tell(big), tell(big))
     a = fixtures.random_csr(8, 8, density=0.5, seed=1)
-    A64 = tconvert.csr_to_ell(TCSR.from_scipy(a), check_guard=False)
+    A64 = tconvert.csr_to_ell(TCSR.from_scipy(a, device="cpu"),
+                              check_guard=False)
     assert A64.dtype == torch.float64
     with pytest.raises(ValueError, match="f32"):
         thash.spgemm_hash(A64, A64)
@@ -253,7 +254,8 @@ def test_serve_lane_rejections():
                   nnz=A.nnz, shape=(64, 40000))
     with pytest.raises(ValueError, match="15 bits"):
         tbt.spgemm_bitonic(A, wide_B, value_mode="bf16")
-    A64 = tconvert.csr_to_ell(TCSR.from_scipy(a.astype(np.float64)),
+    A64 = tconvert.csr_to_ell(TCSR.from_scipy(a.astype(np.float64),
+                                              device="cpu"),
                               check_guard=False)
     with pytest.raises(ValueError, match="fused-expand"):
         tbt.spgemm_bitonic(A64, A64, value_mode="bf16")
@@ -288,7 +290,8 @@ def test_ell_route_matches_jax(name):
 def test_dia_route_matches_jax(name):
     a = MATS[name]
     Jd = jconvert.csr_to_dia(JCSR.from_scipy(a), check_guard=False)
-    Td = tconvert.csr_to_dia(TCSR.from_scipy(a), check_guard=False)
+    Td = tconvert.csr_to_dia(TCSR.from_scipy(a, device="cpu"),
+                             check_guard=False)
     J, T = jdia.spgemm_dia(Jd, Jd), tdia.spgemm_dia(Td, Td)
     assert_same(T.offsets, J.offsets, "offsets")
     assert_same(T.diag_ind, J.diag_ind, "diag_ind")
@@ -302,7 +305,8 @@ def test_dia_compute_budget_rejects_before_dispatch():
     for nd, m in [(5, 262144), (2047, 1024), (100, 26844)]:
         assert tdia.dia_compute_viable(nd, nd, m) == \
             jdia.dia_compute_viable(nd, nd, m)
-    d = tconvert.csr_to_dia(TCSR.from_scipy(sp.eye(300, format="csr")),
+    d = tconvert.csr_to_dia(TCSR.from_scipy(sp.eye(300, format="csr"),
+                                            device="cpu"),
                             check_guard=False)
     wide = type(d)(offsets=torch.arange(1000, dtype=torch.int32) - 500,
                    values=torch.zeros((300, 1000)), diag_ind=d.diag_ind,
@@ -315,7 +319,8 @@ def test_dia_compute_budget_rejects_before_dispatch():
 def test_dense_route_matches_jax(name):
     a = MATS[name]
     J = jdense.spgemm_dense(JCSR.from_scipy(a), JCSR.from_scipy(a))
-    T = tdense.spgemm_dense(TCSR.from_scipy(a), TCSR.from_scipy(a))
+    T = tdense.spgemm_dense(TCSR.from_scipy(a, device="cpu"),
+                            TCSR.from_scipy(a, device="cpu"))
     assert T.values.dtype == torch.float32
     assert_values_close(T.values, np.asarray(J.values))
     assert torch.get_float32_matmul_precision() == "highest"
@@ -325,7 +330,7 @@ def test_dense_route_matches_jax(name):
 def test_coo_route_matches_jax(name):
     a = MATS[name]
     Jc = jconvert.csr_to_coo(JCSR.from_scipy(a))
-    Tc = tconvert.csr_to_coo(TCSR.from_scipy(a))
+    Tc = tconvert.csr_to_coo(TCSR.from_scipy(a, device="cpu"))
     J, T = jesc.spgemm_coo(Jc, Jc), tesc.spgemm_coo(Tc, Tc)
     nnz = int(J.nnz)
     assert int(T.nnz) == nnz

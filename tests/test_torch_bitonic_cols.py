@@ -356,7 +356,8 @@ def test_harness_bitonic_row_float64_matches_jax():
     menu = ("baseline", "bitonic", "csr")
     jrep = jharness.run_benchmark(JCSR.from_scipy(a), JCSR.from_scipy(a),
                                   menu, iters=1)
-    trep = tharness.run_benchmark(TCSR.from_scipy(a), TCSR.from_scipy(a),
+    trep = tharness.run_benchmark(TCSR.from_scipy(a, device="cpu"),
+                                  TCSR.from_scipy(a, device="cpu"),
                                   menu, iters=1)
     base = trep.by_name("baseline").verified_sum
     for name in menu:

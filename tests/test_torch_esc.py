@@ -64,8 +64,8 @@ DTYPES = {"f32": np.float32, "f64": np.float64}
 
 def _both(a, b, dt):
     a, b = a.astype(dt), b.astype(dt)
-    return (JCSR.from_scipy(a), JCSR.from_scipy(b), TCSR.from_scipy(a),
-            TCSR.from_scipy(b))
+    return (JCSR.from_scipy(a), JCSR.from_scipy(b),
+            TCSR.from_scipy(a, device="cpu"), TCSR.from_scipy(b, device="cpu"))
 
 
 def _assert_csr_matches(T, J, dt):
@@ -209,7 +209,7 @@ def test_sliced_mixed_dtype_matches_jax():
     a = fixtures.random_csr(40, 40, density=0.15, seed=28)
     JA32, JA64 = (JCSR.from_scipy(a.astype(d))
                   for d in (np.float32, np.float64))
-    TA32, TA64 = (TCSR.from_scipy(a.astype(d))
+    TA32, TA64 = (TCSR.from_scipy(a.astype(d), device="cpu")
                   for d in (np.float32, np.float64))
     T = tesc.spgemm_csr(TA32, TA64, tesc.plan_spgemm(TA32, TA64,
                                                      workspace_elems=150))
@@ -343,7 +343,8 @@ def test_harness_row_matches_jax(algo):
                             dtype=np.float32)
     jrep = jharness.run_benchmark(JCSR.from_scipy(a), JCSR.from_scipy(a),
                                   ("baseline", algo), iters=1)
-    trep = tharness.run_benchmark(TCSR.from_scipy(a), TCSR.from_scipy(a),
+    trep = tharness.run_benchmark(TCSR.from_scipy(a, device="cpu"),
+                                  TCSR.from_scipy(a, device="cpu"),
                                   ("baseline", algo), iters=1)
     j, t = jrep.by_name(algo), trep.by_name(algo)
     assert t.ok and j.ok and not t.error, t.error
@@ -361,7 +362,7 @@ from ia_spgemm_tpu_torch.formats.types import CSR
 from ia_spgemm_tpu_torch.ops import esc
 a = sp.random(64, 64, density=0.08, format="csr", dtype=np.float32,
               random_state=np.random.RandomState(0))
-A = CSR.from_scipy(a)
+A = CSR.from_scipy(a, device="cpu")
 route, call = esc.plan_csr_auto(A, A)
 C = esc.spgemm_csr(A, A)
 assert abs(C.to_scipy() - a @ a).max() < 1e-5

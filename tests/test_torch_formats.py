@@ -60,7 +60,7 @@ def _same_scipy(x, y):
 @pytest.mark.parametrize("fmt", ["CSR", "ELL", "BlockCSR"])
 def test_scipy_round_trip(name, fmt):
     a = MATS[name]
-    X = getattr(ttypes, fmt).from_scipy(a)
+    X = getattr(ttypes, fmt).from_scipy(a, device="cpu")
     _same_scipy(X.to_scipy(), a)
     assert int(X.nnz) == a.nnz
     assert float(X.checksum()) == pytest.approx(float(a.sum()), rel=1e-6)
@@ -71,18 +71,21 @@ def test_scipy_round_trip(name, fmt):
 def test_csr_to_ell_matches_jax(name):
     a = MATS[name]
     J = jconvert.csr_to_ell(jtypes.CSR.from_scipy(a), check_guard=False)
-    T = tconvert.csr_to_ell(ttypes.CSR.from_scipy(a), check_guard=False)
+    T = tconvert.csr_to_ell(ttypes.CSR.from_scipy(a, device="cpu"),
+                            check_guard=False)
     for f in ("col_ind", "values", "nnz_row", "nnz"):
         np.testing.assert_array_equal(_np(getattr(T, f)),
                                       np.asarray(getattr(J, f)), err_msg=f)
     # the viability guard and the width check agree too
     for ratio in (1.0, 3.0, 50.0):
         jg = jconvert.csr_to_ell(jtypes.CSR.from_scipy(a), ratio=ratio)
-        tg = tconvert.csr_to_ell(ttypes.CSR.from_scipy(a), ratio=ratio)
+        tg = tconvert.csr_to_ell(ttypes.CSR.from_scipy(a, device="cpu"),
+                                 ratio=ratio)
         assert (jg is None) == (tg is None), ratio
     if a.nnz:
         with pytest.raises(ValueError, match="truncate"):
-            tconvert.csr_to_ell(ttypes.CSR.from_scipy(a), width=0)
+            tconvert.csr_to_ell(ttypes.CSR.from_scipy(a, device="cpu"),
+                                width=0)
 
 
 @pytest.mark.parametrize("name", sorted(MATS))
@@ -91,7 +94,8 @@ def test_ell_to_csr_matches_jax(name):
     J = jconvert.ell_to_csr(
         jconvert.csr_to_ell(jtypes.CSR.from_scipy(a), check_guard=False))
     T = tconvert.ell_to_csr(
-        tconvert.csr_to_ell(ttypes.CSR.from_scipy(a), check_guard=False))
+        tconvert.csr_to_ell(ttypes.CSR.from_scipy(a, device="cpu"),
+                            check_guard=False))
     for f in ("row_ptr", "col_ind", "values", "nnz"):
         np.testing.assert_array_equal(_np(getattr(T, f)),
                                       np.asarray(getattr(J, f)), err_msg=f)
@@ -102,13 +106,13 @@ def test_ell_to_csr_matches_jax(name):
 def test_bcsr_to_csr_matches_jax(name, extra_blocks):
     """Same BlockCSR arrays into both packages' bcsr_to_csr, with tight
     spans and with dead padding blocks past blk_ptr[m]."""
-    T0 = ttypes.BlockCSR.from_scipy(MATS[name])
+    T0 = ttypes.BlockCSR.from_scipy(MATS[name], device="cpu")
     colb = np.concatenate([_np(T0.col_blocks),
                            np.full((extra_blocks, 128), -1, np.int32)])
     valb = np.concatenate([_np(T0.val_blocks),
                            np.zeros((extra_blocks, 128), np.float32)])
     arrays = (_np(T0.blk_ptr), colb, valb, _np(T0.nnz_row), _np(T0.nnz))
-    T = ttypes.BlockCSR.from_numpy(*arrays, T0.shape)
+    T = ttypes.BlockCSR.from_numpy(*arrays, T0.shape, device="cpu")
     J = jtypes.BlockCSR(blk_ptr=jnp.asarray(arrays[0]),
                         col_blocks=jnp.asarray(colb),
                         val_blocks=jnp.asarray(valb),
@@ -125,12 +129,12 @@ def test_from_numpy_takes_jax_pytree_arrays():
     a = MATS["random"]
     J = jconvert.csr_to_ell(jtypes.CSR.from_scipy(a), check_guard=False)
     T = ttypes.ELL.from_numpy(*(np.asarray(x) for x in (
-        J.col_ind, J.values, J.nnz_row, J.nnz)), J.shape)
+        J.col_ind, J.values, J.nnz_row, J.nnz)), J.shape, device="cpu")
     assert T.values.dtype == torch.float32
     _same_scipy(T.to_scipy(), J.to_scipy())
     Jc = jtypes.CSR.from_scipy(a)
     Tc = ttypes.CSR.from_numpy(*(np.asarray(x) for x in (
-        Jc.row_ptr, Jc.col_ind, Jc.values, Jc.nnz)), Jc.shape)
+        Jc.row_ptr, Jc.col_ind, Jc.values, Jc.nnz)), Jc.shape, device="cpu")
     _same_scipy(Tc.to_scipy(), Jc.to_scipy())
     np.testing.assert_array_equal(_np(Tc.nnz_row), np.diff(a.indptr))
 
@@ -147,8 +151,8 @@ def test_get_flop_matches_jax():
     a, b = MATS["long_row"], MATS["random"]
     b = sp.random(200, 90, density=0.1, format="csr",
                   random_state=np.random.RandomState(2))
-    assert tflops.get_flop(ttypes.CSR.from_scipy(a),
-                           ttypes.CSR.from_scipy(b)) == \
+    assert tflops.get_flop(ttypes.CSR.from_scipy(a, device="cpu"),
+                           ttypes.CSR.from_scipy(b, device="cpu")) == \
         jflops.get_flop(jtypes.CSR.from_scipy(a), jtypes.CSR.from_scipy(b))
 
 
@@ -156,7 +160,7 @@ def test_get_flop_matches_jax():
 def test_mmio_read_matches_jax(tmp_path, kind):
     path = fixtures.mtx_file(tmp_path, kind)
     J = jmmio.read_mtx_to_csr(path, use_native=False)
-    T = tmmio.read_mtx_to_csr(path)
+    T = tmmio.read_mtx_to_csr(path, device="cpu")
     assert T.shape == J.shape
     for f in ("row_ptr", "col_ind", "values", "nnz"):
         np.testing.assert_array_equal(_np(getattr(T, f)),
@@ -186,7 +190,8 @@ import ia_spgemm_tpu_torch as port
 from ia_spgemm_tpu_torch.formats import convert
 a = sp.random(48, 48, density=0.1, format="csr", dtype=np.float32,
               random_state=np.random.RandomState(0))
-A = convert.csr_to_ell(port.CSR.from_scipy(a), check_guard=False)
+A = convert.csr_to_ell(port.CSR.from_scipy(a, device="cpu"),
+                       check_guard=False)
 C = port.spgemm_bitonic(A, A)
 d = abs(C.to_scipy() - (a @ a))
 assert (d.max() if d.nnz else 0.0) < 1e-4
@@ -206,7 +211,7 @@ def test_scipy_round_trip_coo_dia_dense(name, fmt):
     """DIA keeps the in-band slots of its diagonals as explicit zeros, so
     the comparison drops stored zeros on both sides."""
     a = MATS[name]
-    X = getattr(ttypes, fmt).from_scipy(a)
+    X = getattr(ttypes, fmt).from_scipy(a, device="cpu")
     back = X.to_scipy().tocsr()
     back.eliminate_zeros()
     ref = a.copy()
@@ -221,7 +226,7 @@ def test_scipy_round_trip_coo_dia_dense(name, fmt):
 @pytest.mark.parametrize("name", sorted(MATS))
 def test_coo_dia_dense_conversions_match_jax(name):
     a = MATS[name]
-    JA, TA = jtypes.CSR.from_scipy(a), ttypes.CSR.from_scipy(a)
+    JA, TA = jtypes.CSR.from_scipy(a), ttypes.CSR.from_scipy(a, device="cpu")
     Jc, Tc = jconvert.csr_to_coo(JA), tconvert.csr_to_coo(TA)
     for f in ("row_offset", "row_ind", "col_ind", "values", "nnz"):
         np.testing.assert_array_equal(_np(getattr(Tc, f)),
@@ -255,7 +260,8 @@ def test_csr_to_dia_drops_entries_off_the_given_offsets():
     offs = np.array([-1, 0, 2], np.int32)
     J = jconvert.csr_to_dia(jtypes.CSR.from_scipy(a), offsets=offs,
                             check_guard=False)
-    T = tconvert.csr_to_dia(ttypes.CSR.from_scipy(a), offsets=offs,
+    T = tconvert.csr_to_dia(ttypes.CSR.from_scipy(a, device="cpu"),
+                            offsets=offs,
                             check_guard=False)
     np.testing.assert_array_equal(_np(T.values), np.asarray(J.values))
 
@@ -273,7 +279,8 @@ def test_compact_ell_matches_jax():
         nnz_row=jnp.asarray(nnz_row), nnz=jnp.asarray(nnz_row.sum()),
         shape=(30, 50)))
     T = tconvert.compact_ell(ttypes.ELL.from_numpy(col, val, nnz_row,
-                                                   nnz_row.sum(), (30, 50)))
+                                                   nnz_row.sum(), (30, 50),
+                                                   device="cpu"))
     for f in ("col_ind", "values", "nnz_row"):
         np.testing.assert_array_equal(_np(getattr(T, f)),
                                       np.asarray(getattr(J, f)), err_msg=f)
@@ -294,3 +301,33 @@ def test_size_formulas_and_guards_match_jax():
         assert getattr(tcfg.DEFAULT_CONFIG, f) == \
             getattr(jcfg.DEFAULT_CONFIG, f), f
     assert tcfg.DENSITY_IMAGE_SIZE == jcfg.DENSITY_IMAGE_SIZE
+
+
+@pytest.mark.parametrize("make", ["CSR", "COO", "DIA", "Dense", "ELL",
+                                  "BlockCSR", "CSR.from_numpy",
+                                  "read_mtx_to_csr"])
+def test_constructors_default_to_the_card(tmp_path, make):
+    """The constructors and the reader put a matrix on the card unless
+    asked for the host, as the JAX package's land on its default device;
+    with no card they raise instead of carrying on on the CPU."""
+    a = (sp.eye(5, format="csr") * 2.0).tocsr()
+    if make == "read_mtx_to_csr":
+        path = str(tmp_path / "a.mtx")
+        tmmio.write_mtx(path, ttypes.CSR.from_scipy(a, device="cpu"))
+
+        def build(**kw):
+            return tmmio.read_mtx_to_csr(path, **kw)
+    elif make == "CSR.from_numpy":
+        def build(**kw):
+            return ttypes.CSR.from_numpy(a.indptr, a.indices, a.data, a.nnz,
+                                         a.shape, **kw)
+    else:
+        def build(**kw):
+            return getattr(ttypes, make).from_scipy(a, **kw)
+    assert build(device="cpu").device == torch.device("cpu")
+    assert abs(build(device="cpu").to_scipy() - a).max() == 0
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            build()

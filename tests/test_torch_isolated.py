@@ -29,7 +29,7 @@ def _small(dtype=np.float64):
 def test_isolated_row_reports_like_in_process(name):
     """The worker's row (float64 CSR: the flat cols route for bitonic)
     has the in-process row's checksum and sizes."""
-    A = CSR.from_scipy(_small())
+    A = CSR.from_scipy(_small(), device="cpu")
     res = iso.bench_algorithm_isolated(A, A, name, timeout_s=None,
                                        iters=2, device="cpu")
     want = harness.run_benchmark(A, A, ("baseline", name), iters=1)
@@ -53,7 +53,7 @@ def test_timeout_kills_the_process_group_and_next_row_is_clean(
         return started[-1]
     monkeypatch.setattr(iso.subprocess, "Popen", spy)
     monkeypatch.setattr(iso, "STARTUP_GRACE_S", 2.0)
-    A = CSR.from_scipy(_small())
+    A = CSR.from_scipy(_small(), device="cpu")
     t0 = time.perf_counter()
     res = iso.bench_algorithm_isolated(A, A, "_test_slow", timeout_s=1.0,
                                        iters=1, device="cpu")
@@ -79,7 +79,7 @@ def test_grace_constant_sane():
 def test_run_benchmark_isolate_reports_errors_and_skips():
     """A row off the menu comes back as the worker's error, a row its
     guard skips as skipped, both without raising."""
-    A = CSR.from_scipy(_small())
+    A = CSR.from_scipy(_small(), device="cpu")
     rep = harness.run_benchmark(A, A, ("baseline", "dist", "hash"),
                                 iters=1, isolate=True,
                                 isolate_device="cpu")
@@ -96,7 +96,7 @@ def int_mtx(tmp_path):
     a.data[:] = rng.integers(-3, 4, a.nnz)
     a.eliminate_zeros()
     path = str(tmp_path / "a.mtx")
-    mmio.write_mtx(path, CSR.from_scipy(a))
+    mmio.write_mtx(path, CSR.from_scipy(a, device="cpu"))
     return path
 
 
@@ -121,4 +121,4 @@ def test_cli_isolate_runs_on_cpu(int_mtx, capsys):
 def test_cli_isolate_keeps_shards_refused(int_mtx, capsys):
     assert tcli.main([int_mtx, "--device", "cpu", "--isolate",
                       "--shards", "2"]) == 2
-    assert "--shards is not ported" in capsys.readouterr().err
+    assert "--shards applies only to" in capsys.readouterr().err

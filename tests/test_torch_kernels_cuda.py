@@ -1,6 +1,7 @@
-"""PyTorch port, the CUDA kernels K1-K12 (K3-K6 in float32 and float64)
-against their plain PyTorch versions on the card (marked `cuda`; they
-skip without a GPU).
+"""PyTorch port, the CUDA kernels K1-K13 (K3-K6 in float32 and float64)
+against their plain PyTorch versions on the card, and the ring through
+K13 (marked `cuda`; they skip without a GPU; the several-card K13 test
+also skips with one card).
 
 This file imports no jax, so it runs on the GPU machine, where jax is
 not installed and tests/conftest.py (which imports jax) must be left out:
@@ -18,12 +19,13 @@ from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
 from ia_spgemm_tpu_torch.ops import dense_row_kernels as DK
 from ia_spgemm_tpu_torch.ops import hash_kernels as HK
 from ia_spgemm_tpu_torch.ops import slab_kernels as SK
+from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
 from tests.torch_parity import (GATHER_CASES, RUN, assert_dd_outputs_match,
                                 assert_kernel_outputs_match,
                                 assert_tables_match, assert_values_close,
                                 cols_inputs, ell_pair, gather_inputs,
                                 ill_conditioned, pack_fragments,
-                                slab_operands, value_rtol)
+                                slab_operands, tell, value_rtol)
 
 # slab-kernel inputs: (matrix, planner overrides); the headline plans
 # width 1024, the others 512
@@ -225,3 +227,96 @@ def test_k12_kernel_matches_plain(cuda_device, m, k, n, density, table_size):
     assert HK.hash_accumulate.launches == n12 + 1
     assert_tables_match(got, HK.hash_accumulate_plain(*args, table_size=H),
                         (m, n))
+
+
+def _assert_hops_equal(got, want, sources):
+    """K13's output against the plain version's, bit for bit, and never
+    the storage of a source block."""
+    torch.cuda.synchronize()
+    ptrs = {b.data_ptr() for arr in sources for b in arr}
+    for g_arr, w_arr in zip(got, want):
+        for g, w in zip(g_arr, w_arr):
+            assert g.dtype == w.dtype and g.device == w.device
+            assert torch.equal(g, w) and g.data_ptr() not in ptrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.float64])
+def test_k13_ring_hop_matches_plain(cuda_device, D, dtype):
+    """A ring step's two arrays (the ring's column and value blocks) in
+    one launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    cols = [torch.randint(-1, 8192, (37, 29), generator=gen,
+                          device=cuda_device, dtype=torch.int32)
+            for _ in range(D)]
+    vals = [(torch.randn((37, 29), generator=gen, device=cuda_device)
+             * 100).to(dtype) for _ in range(D)]
+    n13 = RR.ring_hop_rdma.launches
+    got = RR.ring_hop_rdma(cols, vals)
+    assert RR.ring_hop_rdma.launches == n13 + 1
+    _assert_hops_equal(got, RR.ring_hop_plain(cols, vals), (cols, vals))
+
+
+@pytest.mark.cuda
+def test_k13_odd_bytes_unaligned_and_large_blocks(cuda_device):
+    """An odd byte count, blocks off the 16-byte grid (the narrow tail
+    path), and blocks past the grid's stride (9.6 MB each)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    raw = torch.randint(0, 256, (4, 1004), generator=gen, device=cuda_device,
+                        dtype=torch.uint8)
+    odd = [raw[d, 3:] for d in range(4)]              # 1001 bytes each
+    flat = torch.randint(-9, 9, (4 * 1000 + 1,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    unaligned = [flat[1 + 1000 * d:1 + 1000 * (d + 1)] for d in range(4)]
+    big = [torch.randn((300000, 8), generator=gen, device=cuda_device)
+           for _ in range(4)]
+    for arrays in ((odd, unaligned), (big,)):
+        n13 = RR.ring_hop_rdma.launches
+        got = RR.ring_hop_rdma(*arrays)
+        assert RR.ring_hop_rdma.launches == n13 + 1
+        _assert_hops_equal(got, RR.ring_hop_plain(*arrays), arrays)
+
+
+@pytest.mark.cuda
+def test_k13_across_cards(cuda_device):
+    """Several cards in one process: each source card's launch stores
+    into its neighbour's memory (peer access). Skips with one card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards in one process")
+    from ia_spgemm_tpu_torch.parallel.mesh import make_mesh
+    devs = [torch.device("cuda", d % n) for d in range(2 * n)]
+    assert RR.rdma_available(make_mesh(devices=devs))
+    blocks = [torch.full((5000, 29), float(d), device=dv)
+              for d, dv in enumerate(devs)]
+    n13 = RR.ring_hop_rdma.launches
+    got = RR.ring_hop_rdma(blocks)
+    assert RR.ring_hop_rdma.launches == n13 + n      # one per source card
+    _assert_hops_equal(got, RR.ring_hop_plain(blocks), (blocks,))
+
+
+@pytest.mark.cuda
+def test_ring_on_the_card_launches_k13_and_k4(cuda_device):
+    """The ring on 4 shards of one card: through K13 it gives the plain
+    hop's result bit for bit, D - 1 K13 launches and one K4 per shard."""
+    from ia_spgemm_tpu_torch.parallel import ring
+    from ia_spgemm_tpu_torch.parallel.mesh import make_mesh
+    a = build_matrix(m=1024).astype(np.float32)
+    A = tell(a, cuda_device)
+    mesh = make_mesh(devices=[cuda_device] * 4)
+    S = ring.partition_rows_ell(A, 4, mesh=mesh)
+    plan = ring.plan_ring(A, A, 4)
+    n13, n4 = RR.ring_hop_rdma.launches, K.sort_compress_rows.launches
+    C1 = ring.gather_result_ell(ring.ring_spgemm(S, S, mesh, plan))
+    assert RR.ring_hop_rdma.launches == n13 + 3
+    assert K.sort_compress_rows.launches == n4 + 4
+    C0 = ring.gather_result_ell(ring.ring_spgemm(S, S, mesh, plan,
+                                                 use_rdma=False))
+    assert RR.ring_hop_rdma.launches == n13 + 3
+    for f in ("col_ind", "values", "nnz_row"):
+        assert torch.equal(getattr(C1, f), getattr(C0, f)), f
+    want = (a.astype(np.float64) @ a.astype(np.float64)).tocsr()
+    got = C1.to_scipy()
+    assert got.nnz == want.nnz
+    assert abs(got - want).max() < 1e-4 * abs(want).max()

@@ -48,7 +48,7 @@ WEIGHT_FILES = sorted(os.path.basename(p) for p in glob.glob(
 
 def _both(a):
     a = a.astype(np.float32)
-    return JCSR.from_scipy(a), TCSR.from_scipy(a)
+    return JCSR.from_scipy(a), TCSR.from_scipy(a, device="cpu")
 
 
 @pytest.mark.parametrize("name", sorted(MATS))
@@ -217,7 +217,7 @@ def test_spgemm_auto_guard_falls_back_to_csr(monkeypatch):
 
     from ia_spgemm_tpu_torch import config as tcfg
     a = fixtures.banded_csr(48, bandwidth=2, seed=9).astype(np.float32)
-    T = TCSR.from_scipy(a)
+    T = TCSR.from_scipy(a, device="cpu")
     monkeypatch.setattr(tcfg, "DEFAULT_CONFIG", dataclasses.replace(
         tcfg.DEFAULT_CONFIG, dense_bytes_budget=64.0))
     C, sel = tauto.spgemm_auto(T, T, class_menu=("dense_row",) * 5)

@@ -101,8 +101,8 @@ PLAN_CASES = [(name, {}) for name in PAIRS] + [
 
 
 def _ports(a, b):
-    return (TCSR.from_scipy(a.astype(np.float32)),
-            TCSR.from_scipy(b.astype(np.float32)))
+    return (TCSR.from_scipy(a.astype(np.float32), device="cpu"),
+            TCSR.from_scipy(b.astype(np.float32), device="cpu"))
 
 
 def _jaxes(a, b):
@@ -167,7 +167,7 @@ def test_slab_planner_declines_as_jax():
     """float64 operands, and a row whose padded products exceed the slab
     width cap: both planners return None (the JAX package's routing)."""
     a = fixtures.random_csr(32, 32, density=0.1, seed=1)
-    A64 = TCSR.from_scipy(a.astype(np.float64))
+    A64 = TCSR.from_scipy(a.astype(np.float64), device="cpu")
     assert tslab.plan_slab_csr(A64, A64) is None
     assert jslab.plan_slab_csr(JCSR.from_scipy(a), JCSR.from_scipy(a)) \
         is None
@@ -343,14 +343,14 @@ def test_jax_results_load_through_from_numpy(jax_slab, dd):
     J = jax_slab("random200", dd=dd)
     T = SlabCSR.from_numpy(
         J.keys, J.values, J.nnz_slab, J.slab_first_row, J.nnz, J.shape,
-        values_lo=None if J.values_lo is None else J.values_lo)
+        values_lo=None if J.values_lo is None else J.values_lo, device="cpu")
     assert (T.values_lo is None) == (not dd)
     assert abs(T.to_scipy() - J.to_scipy()).max() == 0
     assert float(T.checksum()) == pytest.approx(float(J.checksum()),
                                                 rel=1e-6)
     Jf = jslab.slab_to_csr(J)
     Tf = TCSR.from_numpy(Jf.row_ptr, Jf.col_ind, Jf.values, Jf.nnz,
-                         Jf.shape, values_lo=Jf.values_lo)
+                         Jf.shape, values_lo=Jf.values_lo, device="cpu")
     assert abs(Tf.to_scipy() - Jf.to_scipy()).max() == 0
     assert_same(Tf.values_f64(), Jf.values_f64())
 
@@ -485,7 +485,7 @@ from ia_spgemm_tpu_torch.formats.types import CSR
 from ia_spgemm_tpu_torch.ops import slab, slab_kernels
 from tests.torch_parity import ill_conditioned
 a = ill_conditioned(m=48, seed=2)
-A = CSR.from_scipy(a)
+A = CSR.from_scipy(a, device="cpu")
 C = slab.spgemm_csr_slab(A, A)
 want = a.astype(np.float64) @ a.astype(np.float64)
 assert abs(C.to_scipy() - want).max() < 1e-5 * abs(want).max()

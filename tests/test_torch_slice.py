@@ -133,7 +133,8 @@ def test_flat_unported_options_raise():
     a = sp.random(32, 32, density=0.1, format="csr", dtype=np.float32,
                   random_state=np.random.RandomState(1))
     A = tell(a)
-    A64 = tconvert.csr_to_ell(TCSR.from_scipy(a.astype(np.float64)),
+    A64 = tconvert.csr_to_ell(TCSR.from_scipy(a.astype(np.float64),
+                                              device="cpu"),
                               check_guard=False)
     with pytest.raises(ValueError, match="fused-expand"):
         tbt.spgemm_bitonic(A64, A64, value_mode="bf16")
@@ -151,7 +152,8 @@ def test_harness_bitonic_row_matches_jax():
                             dtype=np.float32)
     jrep = jharness.run_benchmark(JCSR.from_scipy(a), JCSR.from_scipy(a),
                                   ("baseline", "bitonic"), iters=1)
-    trep = tharness.run_benchmark(TCSR.from_scipy(a), TCSR.from_scipy(a),
+    trep = tharness.run_benchmark(TCSR.from_scipy(a, device="cpu"),
+                                  TCSR.from_scipy(a, device="cpu"),
                                   ("baseline", "bitonic"), iters=1)
     assert trep.flops == jrep.flops
     for name in ("baseline", "bitonic"):
@@ -162,7 +164,8 @@ def test_harness_bitonic_row_matches_jax():
     # a name off the menu is an error row, as in the JAX harness
     jrep = jharness.run_benchmark(JCSR.from_scipy(a), JCSR.from_scipy(a),
                                   ("baseline", "dist"), iters=1)
-    trep = tharness.run_benchmark(TCSR.from_scipy(a), TCSR.from_scipy(a),
+    trep = tharness.run_benchmark(TCSR.from_scipy(a, device="cpu"),
+                                  TCSR.from_scipy(a, device="cpu"),
                                   ("baseline", "dist"), iters=1)
     for rep in (jrep, trep):
         assert "unknown algorithm" in rep.by_name("dist").error
@@ -186,7 +189,7 @@ def test_cli_bitonic_matches_jax_cli(tmp_path, capsys):
     a.data[:] = rng.integers(-3, 4, a.nnz)
     a.eliminate_zeros()
     path = str(tmp_path / "a.mtx")
-    tmmio.write_mtx(path, TCSR.from_scipy(a))
+    tmmio.write_mtx(path, TCSR.from_scipy(a, device="cpu"))
     args = [path, "--mode", "bitonic", "--no-matnet", "--iters", "1"]
     assert jcli.main(args) == 0
     jsums = _verified_sums(capsys.readouterr().out)
@@ -209,7 +212,7 @@ def test_cli_esc_modes_match_jax_cli(tmp_path, capsys, mode):
     a.data[:] = rng.integers(-3, 4, a.nnz)
     a.eliminate_zeros()
     path = str(tmp_path / "a.mtx")
-    tmmio.write_mtx(path, TCSR.from_scipy(a))
+    tmmio.write_mtx(path, TCSR.from_scipy(a, device="cpu"))
     args = [path, "--mode", mode, "--no-matnet", "--iters", "1"]
     assert jcli.main(args) == 0
     jsums = _verified_sums(capsys.readouterr().out)
@@ -224,14 +227,17 @@ def test_cli_esc_modes_match_jax_cli(tmp_path, capsys, mode):
 
 
 @pytest.mark.parametrize("argv,pattern", [
-    (["--mode", "dist"], "--mode dist is not ported"),
-    (["--mode", "ring", "--no-matnet"], "--mode ring is not ported"),
-    (["--mode", "dist", "--isolate"], "--mode dist is not ported"),
-    (["--mode", "all", "--shards", "2"], "--shards is not ported"),
+    (["--mode", "dist", "--shards", "2"], r"--shards 2 > 1 visible shard"),
+    (["--mode", "ring", "--no-matnet", "--shards", "3"],
+     r"--shards 3 > 1 visible shard"),
+    (["--mode", "dist", "--isolate"], "--isolate does not apply"),
+    (["--mode", "all", "--shards", "2"], "--shards applies only to"),
 ])
-def test_cli_refuses_unported(tmp_path, capsys, argv, pattern):
+def test_cli_refuses_unported(tmp_path, capsys, monkeypatch, argv, pattern):
+    monkeypatch.delenv("IA_SPGEMM_SHARDS_PER_DEVICE", raising=False)
     path = str(tmp_path / "a.mtx")
-    tmmio.write_mtx(path, TCSR.from_scipy(sp.eye(4, format="csr")))
+    tmmio.write_mtx(path, TCSR.from_scipy(sp.eye(4, format="csr"),
+                                          device="cpu"))
     assert tcli.main([path, "--device", "cpu"] + argv) != 0
     assert re.search(pattern, capsys.readouterr().err)
 
@@ -240,7 +246,8 @@ def test_cli_cuda_device_needs_a_gpu(tmp_path, capsys, monkeypatch):
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     path = str(tmp_path / "a.mtx")
-    tmmio.write_mtx(path, TCSR.from_scipy(sp.eye(4, format="csr")))
+    tmmio.write_mtx(path, TCSR.from_scipy(sp.eye(4, format="csr"),
+                                          device="cpu"))
     assert tcli.main([path, "--mode", "bitonic", "--no-matnet"]) == 2
     assert "no CUDA GPU" in capsys.readouterr().err
 
@@ -277,7 +284,8 @@ def all_menu_reports():
     kw = dict(iters=1, matnet_pick="csr")
     return (jharness.run_benchmark(JCSR.from_scipy(a), JCSR.from_scipy(a),
                                    tharness.PORTED_ALGORITHMS, **kw),
-            tharness.run_benchmark(TCSR.from_scipy(a), TCSR.from_scipy(a),
+            tharness.run_benchmark(TCSR.from_scipy(a, device="cpu"),
+                                   TCSR.from_scipy(a, device="cpu"),
                                    tharness.PORTED_ALGORITHMS, **kw))
 
 
@@ -317,7 +325,7 @@ def int_mtx(tmp_path):
     a.data[:] = rng.integers(-3, 4, a.nnz)
     a.eliminate_zeros()
     path = str(tmp_path / "a.mtx")
-    tmmio.write_mtx(path, TCSR.from_scipy(a))
+    tmmio.write_mtx(path, TCSR.from_scipy(a, device="cpu"))
     return path
 
 

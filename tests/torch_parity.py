@@ -182,8 +182,8 @@ def slab_operands(a, b=None, *, width=None, run=None):
     """The port's slab plan of C = a @ b (b = a by default, float32) and
     the kernels' inputs at the plan's shapes: (plan, g, avT, lrT, kw)."""
     from ia_spgemm_tpu_torch.ops import slab
-    A = TCSR.from_scipy(a.astype(np.float32))
-    B = A if b is None else TCSR.from_scipy(b.astype(np.float32))
+    A = TCSR.from_scipy(a.astype(np.float32), device="cpu")
+    B = A if b is None else TCSR.from_scipy(b.astype(np.float32), device="cpu")
     p = slab._plan_slab_csr_uncached(A, B, width=width, run=run).plan
     F_c = p.width // p.run
     g = p.table[p.mt.reshape(-1).long()].reshape(F_c, p.n_slabs,
