@@ -31,9 +31,14 @@ prints no result line:
    for bit; median ms of each over CUDA events, beside the plain
    version's, one PyTorch call computing the same function where there
    is one (torch.sort of the keys for K4-K6, torch.sparse.mm for K11,
-   torch.roll for K13), and the bound (inputs read once and outputs
+   K1 and K12, torch.roll for K13), and the bound (inputs read once and outputs
    written once at 3.35 TB/s, or K11's float32 operations at 67 TFLOP/s,
-   whichever is longer);
+   whichever is longer); K13 also into receivers passed in (the ring's
+   way), with the host's microseconds per call (time.perf_counter around
+   unsynchronised calls) beside each CUDA-event time and the kernel's own
+   device time (torch.profiler); then cuSPARSE's CSR @ CSR of the
+   headline (torch.sparse.mm), the library time of K12 and of K1 (beside
+   the headline's K1 launches; that plan also launches K2 + K3);
 4. headline: bench.headline at m=32768 (nnz 7,086,306, checksum within
    1e-4 of scipy, scipy's sparsity pattern exactly);
 5. skew: the width-class route on a row-skewed matrix whose classes need
@@ -532,10 +537,13 @@ def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
 
 def _check_ring_kernels(H, stats, time_ms, dev):
     """K13 on the headline's B blocks at the ring's shapes (D = 4 and 8
-    shards of the card), bit for bit against the plain hop; K4 on one
-    shard's products of the D = 4 ring."""
+    shards of the card), bit for bit against the plain hop, a public call
+    (fresh receivers) and the ring's (receivers passed in), with the
+    host's microseconds per call and the kernel's own device time; K4 on
+    one shard's products of the D = 4 ring."""
     import torch
 
+    from ia_spgemm_tpu_torch.bench.kernels import host_us, kernel_us
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
     from ia_spgemm_tpu_torch.parallel import ring
@@ -551,14 +559,35 @@ def _check_ring_kernels(H, stats, time_ms, dev):
                    for g, w in zip(ga, wa)):
             raise AssertionError(f"K13 D={D}: blocks differ from the plain "
                                  "hop")
+        # the ring's way: a hop of the previous hop's receivers into the
+        # other set of two made once
+        sets = [RR.alloc_receivers(*blocks) for _ in range(2)]
+        first = RR.ring_hop_rdma(*blocks, out=sets[0])
+        got = RR.ring_hop_rdma(*first, out=sets[1])
+        want = RR.ring_hop_plain(*RR.ring_hop_plain(*blocks))
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for ga, wa in zip(got, want)
+                   for g, w in zip(ga, wa)):
+            raise AssertionError(f"K13 D={D} into reused receivers: blocks "
+                                 "differ from the plain hop")
         stk = [torch.stack(x) for x in blocks]
         what = (f"headline B blocks D={D} x ({Bs.rows_per_shard}, "
                 f"{Bs.width}) int32 + float32")
-        _record(stats, time_ms, dev, "K13", what, 0.0,
-                lambda: RR.ring_hop_rdma(*blocks),
-                lambda: RR.ring_hop_plain(*blocks), blocks,
-                lambda: [torch.roll(x, -1, 0) for x in stk])
-        del got, want, stk
+        call = lambda: RR.ring_hop_rdma(*blocks)  # noqa: E731
+        ring_call = lambda: RR.ring_hop_rdma(  # noqa: E731
+            *first, out=sets[1])
+        roll = lambda: [torch.roll(x, -1, 0) for x in stk]  # noqa: E731
+        _record(stats, time_ms, dev, "K13", what, 0.0, call,
+                lambda: RR.ring_hop_plain(*blocks), blocks, roll)
+        host = {"D": D, "call_event_ms": time_ms(call, dev, 2, 20),
+                "call_host_us": host_us(call),
+                "ring_call_event_ms": time_ms(ring_call, dev, 2, 20),
+                "ring_call_host_us": host_us(ring_call),
+                "roll_event_ms": time_ms(roll, dev, 2, 20),
+                "roll_host_us": host_us(roll),
+                "kernel_us": kernel_us(ring_call, "k13_ring_hop")}
+        print(f"  K13 D={D} host: {json.dumps(host)}", flush=True)
+        del got, want, stk, sets, first
     mesh = make_mesh(devices=[dev] * RING_SHARDS)
     S = ring.partition_rows_ell(H, RING_SHARDS, mesh=mesh)
     plan = ring.plan_ring(H, H, RING_SHARDS)
@@ -832,6 +861,8 @@ def main() -> int:
     _check_kernels(bt.multiclass_planned(H, H, assemble="bcsr",
                                          pregather=True, run_override=8),
                    stats, "headline", time_ms, dev)
+    headline_ms = {n: stats[n]["ms"] for n in ("K1", "K2", "K3")
+                   if n in stats}
     skew = headline.build_skew_matrix()
     S = ell(skew)
     _check_kernels(bt.multiclass_planned(S, S, assemble="bcsr"), stats,
@@ -863,6 +894,27 @@ def main() -> int:
         del key, val
     print(json.dumps({"k5_beside_k6_k3": split}), flush=True)
     _check_ring_kernels(H, stats, time_ms, dev)
+    # cuSPARSE CSR @ CSR of the headline (torch.sparse.mm), the library
+    # yardstick of the whole product: for K12 (the hash route computes
+    # all of it) and for K1 beside the headline's K1 launches (its plan
+    # also launches K2 + K3 for the 224 rows of its 1024 class)
+    nnz_a = int(A.nnz)
+    a_sp = torch.sparse_csr_tensor(A.row_ptr, A.col_ind[:nnz_a],
+                                   A.values[:nnz_a], size=A.shape)
+    c_sp = torch.sparse.mm(a_sp, a_sp)
+    torch.cuda.synchronize()
+    if not (c_sp.shape == A.shape and c_sp._nnz() >= HEADLINE_NNZ
+            and bool(torch.isfinite(c_sp.values()).all())):
+        raise AssertionError(f"cuSPARSE headline: nnz {c_sp._nnz()}")
+    cus_ms = time_ms(lambda: torch.sparse.mm(a_sp, a_sp), dev, 2, 20)
+    stats["K1"]["library_ms"] = stats["K12"]["library_ms"] = cus_ms
+    print(json.dumps({"cusparse": {
+        "headline_csr_at_csr_ms": cus_ms, "nnz": c_sp._nnz(),
+        "headline_k1_ms": headline_ms.get("K1"),
+        "headline_k2_k3_ms": (headline_ms.get("K2", 0.0)
+                              + headline_ms.get("K3", 0.0)),
+        "k12_ms": stats["K12"]["ms"]}}), flush=True)
+    del a_sp, c_sp
     missing = set(kernel_names) - set(stats)
     if missing:
         raise AssertionError(f"phase 3 never reached {sorted(missing)}")

@@ -33,10 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_longlong
 # C signatures per source: pointers and the stream as void*, sizes as
-# int (byte counts that may pass 2^31 as long long); every entry point
-# returns a cudaError_t as int.
+# int (K13's copy table: the address of a host array of long long);
+# every entry point returns a cudaError_t as int.
 SIGNATURES = {
     "bitonic": {
         "ia_k1_expand_sort_compress": [_P] * 5 + [_I] * 8 + [_P],
@@ -54,7 +53,7 @@ SIGNATURES = {
     },
     "dense_row": {"ia_k11_dense_row": [_P] * 4 + [_I] * 3 + [_P]},
     "hash": {"ia_k12_hash": [_P] * 7 + [_I] * 4 + [_P]},
-    "ring": {"ia_k13_ring_hop": [_P, _I, _L, _P],
+    "ring": {"ia_k13_ring_hop": [_P, _I, _P],
              "ia_k13_enable_peer_access": [_I]},
     "slab": {
         "ia_k8_expand_sort_lr": [_P] * 5 + [_I] * 7 + [_P],

@@ -11,8 +11,9 @@
 //   K7b ia_k7b_compress_packed     <- _compress_kernel_packed        (:1086)
 // (an _f64 entry is the float64-value instance of the same kernel)
 //
-// They compute what the Pallas kernels compute, not how: one thread block
-// owns one output row, keeps the row's `width` (key, value) products in
+// They compute what the Pallas kernels compute, not how: in K1-K3 and
+// K5-K7 one thread block owns one output row, keeps the row's `width`
+// (key, value) products in
 // shared memory, sorts them with a bitonic network (partner i ^ s, no
 // rolls), sums duplicate-column runs, and writes each survivor straight
 // to its rank, found by one block-wide exclusive scan. Hopper stores at
@@ -42,8 +43,9 @@
 // runs them. Bound on this card: bytes would allow 12 * width * 2 per row
 // (read the pair, write it or its compacted survivors) at 3.35 TB/s, but
 // the same barrier-separated network passes as K1/K2 hold them back; K5
-// saves K6 + K3's extra write and read of the sorted row. K4 and K5 share
-// one device function (sort_compress_row); K5 adds the out_w cap.
+// saves K6 + K3's extra write and read of the sorted row. K4 (the wide
+// classes and the ring's shards) keeps its row in registers instead:
+// the register network of sort_common.cuh, below.
 //
 // Conventions and building blocks: sort_common.cuh.
 
@@ -130,8 +132,8 @@ __global__ void k3_compress(const int* __restrict__ key,
                k + width);
 }
 
-// K4 and K5: sort one pre-expanded row, sum duplicates, write the first
-// out_w survivors (K4: out_w == width).
+// K5: sort one pre-expanded row, sum duplicates, write the first out_w
+// survivors.
 template <typename V>
 __device__ void sort_compress_row(const int* __restrict__ key,
                                   const V* __restrict__ val,
@@ -149,15 +151,159 @@ __device__ void sort_compress_row(const int* __restrict__ key,
                k + width);
 }
 
+// ---- K4: the register network (sort_common.cuh, building block 4) -------
+// One row per block for rows of more than 32E slots (T = W / E threads),
+// several rows per 128-thread block below that. Each thread loads its E
+// slots with 16-byte vector loads (scalar where a pointer is off the
+// 16-byte grid), sorts and compresses them in registers, and stores E
+// slots of the compacted row (staged through shared memory) with 16-byte
+// vector stores: survivors written straight to their ranks would leave a
+// warp's stores scattered over 32 sectors each. Bound on this card:
+// bytes, 2 x 8 x W per row for float32 values (read the pair, write col
+// and val), at 3.35 TB/s; the design keeps the row between that one read
+// and one write in registers, with block barriers only for the sort's
+// strides of 32E and more (two per such stage) and three in the compress
+// (one where a row is a warp or less).
+
+template <int E>
+__device__ __forceinline__ void load_keys(int (&k)[E], const int* p,
+                                          bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q) {
+      const int4 x = __ldg(reinterpret_cast<const int4*>(p) + q);
+      k[4 * q] = x.x;
+      k[4 * q + 1] = x.y;
+      k[4 * q + 2] = x.z;
+      k[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) k[r] = p[r];
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void load_vals(float (&v)[E], const float* p,
+                                          bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(p) + q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) v[r] = p[r];
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void load_vals(double (&v)[E], const double* p,
+                                          bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < E / 2; ++q) {
+      const double2 x = __ldg(reinterpret_cast<const double2*>(p) + q);
+      v[2 * q] = x.x;
+      v[2 * q + 1] = x.y;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) v[r] = p[r];
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void store_row(int* out_col, const int (&k)[E],
+                                          bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q)
+      reinterpret_cast<int4*>(out_col)[q] =
+          make_int4(k[4 * q], k[4 * q + 1], k[4 * q + 2], k[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) out_col[r] = k[r];
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void store_row(float* out, const float (&v)[E],
+                                          bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q)
+      reinterpret_cast<float4*>(out)[q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) out[r] = v[r];
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void store_row(double* out, const double (&v)[E],
+                                          bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < E / 2; ++q)
+      reinterpret_cast<double2*>(out)[q] = make_double2(v[2 * q],
+                                                         v[2 * q + 1]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) out[r] = v[r];
+  }
+}
+
+// Shared memory of a K4 block: W value and W key slots per row (the sort's
+// exchanges, then the compacted row), and the compress's scratch.
 template <typename V>
-__global__ void k4_sort_compress_rows(const int* __restrict__ key,
-                                      const V* __restrict__ val,
-                                      int* __restrict__ out_col,
-                                      V* __restrict__ out_val,
-                                      int* __restrict__ nnz, int width,
-                                      int start_kk) {
-  sort_compress_row(key, val, out_col, out_val, nnz, width, start_kk,
-                    width);
+inline size_t k4_smem_bytes(int width, int rows_per_block) {
+  return (size_t)rows_per_block * width * (sizeof(V) + sizeof(int))
+         + sizeof(RowScratch<V>);
+}
+
+template <typename V, int E, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads)
+k4_sort_compress_rows(const int* __restrict__ key, const V* __restrict__ val,
+                      int* __restrict__ out_col, V* __restrict__ out_val,
+                      int* __restrict__ nnz, int m, int width, int start_kk,
+                      int rows_per_block, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const RowShape<E> sh(width);
+  const int seg = threadIdx.x / sh.T;        // the block's row
+  const int tid = threadIdx.x - seg * sh.T;  // the thread's index in it
+  const int row = blockIdx.x * rows_per_block + seg;
+  const bool live = row < m;
+  const size_t off = (size_t)(live ? row : 0) * width;
+  int k[E];
+  V v[E];
+  if (live) {
+    load_keys<E>(k, key + off + (size_t)tid * E, vec != 0);
+    load_vals<E>(v, val + off + (size_t)tid * E, vec != 0);
+  } else {                 // a padding row of the last block
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      k[r] = kSentinel;
+      v[r] = V(0);
+    }
+  }
+  V* v_all = reinterpret_cast<V*>(smem_raw);
+  int* k_all = reinterpret_cast<int*>(v_all + (size_t)rows_per_block * width);
+  V* vs = v_all + (size_t)seg * width;
+  int* ks = k_all + (size_t)seg * width;
+  RowScratch<V>* sc = reinterpret_cast<RowScratch<V>*>(
+      k_all + (size_t)rows_per_block * width);
+  row_net_sort<E, V>(k, v, ks, vs, tid, start_kk, sh);
+  const int total = row_net_compress<E, V>(k, v, tid, sh, sc, ks, vs);
+  if (!live) return;
+  store_row<E>(out_col + off + (size_t)tid * E, k, vec != 0);
+  store_row<E>(out_val + off + (size_t)tid * E, v, vec != 0);
+  if (tid == 0) nnz[row] = total;
 }
 
 // ---- K5, K6: the cols layout over the torch expand --------------------------
@@ -256,8 +402,8 @@ __global__ void k7b_compress_packed(const int* __restrict__ packed,
                smem + 2 * width);
 }
 
-// Allow more than 48 KB of dynamic shared memory (K4 at width 16384 uses
-// 128 KB with float32 values, 192 KB with float64). Set once per kernel
+// Allow more than 48 KB of dynamic shared memory (K5 / K6 at width 16384
+// use 128 KB with float32 values, 192 KB with float64). Set once per kernel
 // instance and device, to what its widest row needs, on the device the
 // caller made current; later launches skip it.
 constexpr int kMaxDevices = 64;
@@ -297,19 +443,54 @@ int launch_k3(const void* key, const void* val, void* out_col,
   return (int)cudaGetLastError();
 }
 
+// K4's launches. E = 16 at width 16384 (1024 threads), 8 below, each
+// instance's launch bound the widest row it takes (so that rows up to
+// 2048 slots keep their registers). Rows of at most 32E slots (T <= 32
+// threads) share a 128-thread block.
+template <typename V, int E, int kMaxThreads>
+int launch_k4_net(const void* key, const void* val, void* out_col,
+                  void* out_val, void* nnz, int m, int width, int start_kk,
+                  void* stream) {
+  static bool done[kMaxDevices];
+  const int T = width / E;
+  const int rows_per_block = T <= 32 ? 128 / T : 1;
+  const size_t smem = k4_smem_bytes<V>(width, rows_per_block);
+  if (smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (!done[dev]) {
+      err = cudaFuncSetAttribute(
+          k4_sort_compress_rows<V, E, kMaxThreads>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)k4_smem_bytes<V>(kMaxThreads * E, 1));
+      if (err != cudaSuccess) return (int)err;
+      done[dev] = true;
+    }
+  }
+  const int vec = (((uintptr_t)key | (uintptr_t)val | (uintptr_t)out_col
+                     | (uintptr_t)out_val) & 15) == 0;
+  const int grid = (m + rows_per_block - 1) / rows_per_block;
+  k4_sort_compress_rows<V, E, kMaxThreads>
+      <<<grid, T * rows_per_block, smem, (cudaStream_t)stream>>>(
+          (const int*)key, (const V*)val, (int*)out_col, (V*)out_val,
+          (int*)nnz, m, width, start_kk, rows_per_block, vec);
+  return (int)cudaGetLastError();
+}
+
 template <typename V>
 int launch_k4(const void* key, const void* val, void* out_col,
               void* out_val, void* nnz, int m, int width, int start_kk,
               void* stream) {
-  static bool done[kMaxDevices];
-  size_t smem = smem_bytes<V>(width);
-  cudaError_t err = allow_smem<V>(k4_sort_compress_rows<V>, done, smem);
-  if (err != cudaSuccess) return (int)err;
-  k4_sort_compress_rows<V><<<m, threads_for(width), smem,
-                             (cudaStream_t)stream>>>(
-      (const int*)key, (const V*)val, (int*)out_col, (V*)out_val,
-      (int*)nnz, width, start_kk);
-  return (int)cudaGetLastError();
+#define IA_K4(E_, THREADS)                                                \
+  launch_k4_net<V, E_, THREADS>(key, val, out_col, out_val, nnz, m, width, \
+                                start_kk, stream)
+  if (width == kMaxWidth) return IA_K4(16, 1024);
+  if (width <= 2048) return IA_K4(8, 256);
+  if (width == 4096) return IA_K4(8, 512);
+  return IA_K4(8, 1024);
+#undef IA_K4
 }
 
 template <typename V>

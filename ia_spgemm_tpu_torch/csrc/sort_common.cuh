@@ -1,7 +1,8 @@
 // Building blocks shared by the sort kernels of bitonic.cu (K1-K7)
 // and slab.cu (K8-K10): the fragment expand, the block bitonic sort in
 // shared memory (key + value, or key only), and the duplicate-sum /
-// compaction of a sorted row.
+// compaction of a sorted row; and the register network with its
+// register compress (K4 alone).
 //
 // Conventions shared with the JAX package: SENTINEL = INT32_MAX marks an
 // empty product slot and sorts last (signed int32 compares); empty output
@@ -216,6 +217,291 @@ __device__ void compress_row(const int* k, const V* v, int width, int out_w,
     }
   }
   if (threadIdx.x == 0) *nnz = total;
+}
+
+// ---- building block 4: the register network (K4) --------------------------
+// A row of W slots (W a power of two, 128..16384) is held E slots per
+// thread in registers, T = W / E threads per row: E = 8, or 16 at 16384
+// so that a row stays at 1024 threads. In the normal layout row thread t
+// (lane = t % 32) holds slots t*E .. t*E + E - 1. A bitonic stage kk
+// compares strides kk/2 .. 1:
+//   - strides below E inside a thread (registers, no synchronisation);
+//   - strides E .. 16E between the lanes of a warp (__shfl_xor_sync);
+//   - strides of 32E and more (rows of more than one warp) in the
+//     transposed layout, whose slot order swaps the index's top wb bits
+//     (the warp bits, wb = log2(W) - log2(E) - 5) with its bottom wb bits:
+//     one exchange through shared memory behind one barrier into it, the
+//     stage's large strides there as register / lane strides, one
+//     exchange back. Each thread writes only the shared slots it read in
+//     the previous exchange, so one barrier per exchange suffices.
+// tests/test_torch_k4_network.py models this schedule step for step.
+// Rows of at most 32E slots are one warp's work or less (T <= 32), sort
+// without shared memory, and share a block (rows_per_block).
+// Shared slots are XOR-swizzled within each 32-word line (swz), which
+// keeps both layouts' accesses free of bank conflicts up to W = 8192; swz
+// and the transposed order are linear in the slot's bits, so a thread's
+// E addresses are its first one XORed with per-register constants.
+// Splitting a row over a thread-block cluster (its slots spread over the
+// blocks' shared memory, strides across blocks exchanged through
+// distributed shared memory) was measured for the launches of fewer rows
+// than SMs and lost to one block per row (PERF.md, PR 6).
+
+template <int E>
+struct RowShape {
+  int W, T, L, nw;   // slots, threads, lanes per segment, warps per row
+  int n_bits, wb;    // log2(W), warp bits
+  __device__ RowShape(int width) : W(width), T(width / E) {
+    L = T < 32 ? T : 32;
+    nw = T / L;
+    n_bits = 31 - __clz(width);
+    wb = n_bits - (31 - __clz(E)) - 5;
+  }
+};
+
+__device__ __forceinline__ int swz(int i) {
+  return i ^ (((i >> 5) ^ (i >> 8)) & 31);
+}
+
+// The row slot at position p of the transposed layout (an involution).
+__device__ __forceinline__ int transposed_slot(int p, int n_bits, int wb) {
+  const int lo_mask = (1 << wb) - 1;
+  const int shift = n_bits - wb;
+  return ((p & lo_mask) << shift) | (p & ((1 << shift) - 1) & ~lo_mask)
+         | (p >> shift);
+}
+
+template <typename V>
+__device__ __forceinline__ void cmp_swap(int& ka, V& va, int& kb, V& vb,
+                                         bool asc) {
+  const int lo = min(ka, kb), hi = max(ka, kb);
+  const int na = asc ? lo : hi;
+  const bool sw = na != ka;
+  kb = asc ? hi : lo;
+  ka = na;
+  const V tv = sw ? vb : va;
+  vb = sw ? va : vb;
+  va = tv;
+}
+
+// Compares of one stage from stride jhi down to 1, positions base + r
+// (base = t*E in the thread's layout): position p meets p + j where bit
+// j of p is clear, ascending where p & dirbit == 0.
+template <int E, typename V>
+__device__ __forceinline__ void row_net_steps(int (&k)[E], V (&v)[E],
+                                              int base, int dirbit, int jhi,
+                                              int L) {
+  for (int j = jhi; j >= E; j >>= 1) {
+    const bool lower = (base & j) == 0;
+    const bool keep_min = lower == ((base & dirbit) == 0);
+    const int m = j / E;
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      const int pk = __shfl_xor_sync(0xffffffffu, k[r], m, L);
+      const V pv = __shfl_xor_sync(0xffffffffu, v[r], m, L);
+      const int nk = keep_min ? min(k[r], pk) : max(k[r], pk);
+      v[r] = nk != k[r] ? pv : v[r];
+      k[r] = nk;
+    }
+  }
+#pragma unroll
+  for (int jj = E / 2; jj > 0; jj >>= 1) {
+    if (jj > jhi) continue;
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      if (r & jj) continue;
+      cmp_swap(k[r], v[r], k[r + jj], v[r + jj], ((base + r) & dirbit) == 0);
+    }
+  }
+}
+
+// One exchange between the normal and the transposed layout: write the
+// thread's slots at the `from` layout's shared addresses, barrier, read
+// them back at the `to` layout's.
+template <int E, typename V>
+__device__ __forceinline__ void row_net_exchange(
+    int (&k)[E], V (&v)[E], int* ks, V* vs, int base, bool to_transposed,
+    const RowShape<E>& sh) {
+  constexpr int kBits = E == 16 ? 4 : 3;
+  // swizzled addresses: normal swz(base) ^ r; transposed the same XOR of
+  // its first address with each register bit's image
+  const int an = swz(base);
+  const int at = swz(transposed_slot(base, sh.n_bits, sh.wb));
+  int bt[kBits];
+#pragma unroll
+  for (int b = 0; b < kBits; ++b)
+    bt[b] = swz(transposed_slot(1 << b, sh.n_bits, sh.wb));
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    int a_t = at;
+#pragma unroll
+    for (int b = 0; b < kBits; ++b)
+      if ((r >> b) & 1) a_t ^= bt[b];
+    const int a = to_transposed ? (an ^ r) : a_t;
+    ks[a] = k[r];
+    vs[a] = v[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    int a_t = at;
+#pragma unroll
+    for (int b = 0; b < kBits; ++b)
+      if ((r >> b) & 1) a_t ^= bt[b];
+    const int a = to_transposed ? a_t : (an ^ r);
+    k[r] = ks[a];
+    v[r] = vs[a];
+  }
+}
+
+// The sort: stages start_kk .. W over the thread's slots (normal layout
+// in and out). ks / vs: the row's W shared slots (rows of more than one
+// warp). tid: the thread's index in its row.
+template <int E, typename V>
+__device__ __forceinline__ void row_net_sort(int (&k)[E], V (&v)[E],
+                                             int* ks, V* vs, int tid,
+                                             int start_kk,
+                                             const RowShape<E>& sh) {
+  const int base = tid * E;
+  const int big = 32 * E;
+  for (int kk = start_kk; kk <= sh.W; kk <<= 1) {
+    int j = kk >> 1;
+    if (j >= big) {
+      const int kt = kk >> (sh.n_bits - sh.wb);
+      row_net_exchange(k, v, ks, vs, base, true, sh);
+      row_net_steps(k, v, base, kk < sh.W ? kt : 0, kt >> 1, 32);
+      row_net_exchange(k, v, ks, vs, base, false, sh);
+      j = big >> 1;
+    }
+    row_net_steps(k, v, base, kk, j, sh.L);
+  }
+}
+
+// Shared scratch of the compress (rows of more than one warp): per warp
+// its first and last key, and its (head seen, trailing run sum,
+// survivors) aggregate.
+template <typename V>
+struct RowScratch {
+  V sum[32];
+  int first[32], last[32], flag[32], cnt[32];
+};
+
+// The sorted row (normal layout, in registers) -> duplicate sums, nnz and
+// the survivors compacted left, as the JAX kernel's segmented scan does
+// it (bitonic.py:253-265): per-thread segmented sums, a lane scan of
+// (head seen, trailing run sum, survivors) by shuffles, the warps'
+// aggregates scanned through shared memory (two barriers). Each
+// survivor goes to
+// its rank in the row's W shared slots (ks / vs, free once the sort is
+// done), and after one more barrier every thread takes back its own E
+// slots (-1 / 0 past the survivors) into k / v, for coalesced stores by
+// the caller. Returns the row's survivors.
+template <int E, typename V>
+__device__ __forceinline__ int row_net_compress(
+    int (&k)[E], V (&v)[E], int tid, const RowShape<E>& sh,
+    RowScratch<V>* sc, int* ks, V* vs) {
+  const unsigned full = 0xffffffffu;
+  const int L = sh.L;
+  const int lane = tid % L, wr = tid / L;
+  int prev = __shfl_up_sync(full, k[E - 1], 1, L);
+  int next = __shfl_down_sync(full, k[0], 1, L);
+  bool has_prev = lane > 0, has_next = lane < L - 1;
+  if (sh.nw > 1) {
+    if (lane == 0) sc->first[wr] = k[0];
+    if (lane == L - 1) sc->last[wr] = k[E - 1];
+    __syncthreads();
+    if (lane == 0 && wr > 0) {
+      prev = sc->last[wr - 1];
+      has_prev = true;
+    }
+    if (lane == L - 1 && wr < sh.nw - 1) {
+      next = sc->first[wr + 1];
+      has_next = true;
+    }
+  }
+  unsigned head = 0, emit = 0;
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const bool h = r == 0 ? (!has_prev || k[0] != prev) : k[r] != k[r - 1];
+    const bool l = r == E - 1 ? (!has_next || k[E - 1] != next)
+                              : k[r] != k[r + 1];
+    head |= (unsigned)h << r;
+    emit |= (unsigned)(l && k[r] != kSentinel) << r;
+  }
+#pragma unroll
+  for (int r = 1; r < E; ++r)        // per-thread segmented sums, in place
+    if (!((head >> r) & 1)) v[r] += v[r - 1];
+  int fi = head != 0, ci = __popc(emit);
+  V ai = v[E - 1];
+  for (int d = 1; d < L; d <<= 1) {
+    const int fo = __shfl_up_sync(full, fi, d, L);
+    const V ao = __shfl_up_sync(full, ai, d, L);
+    const int co = __shfl_up_sync(full, ci, d, L);
+    if (lane >= d) {
+      ai = fi ? ai : ao + ai;
+      fi |= fo;
+      ci += co;
+    }
+  }
+  int fx = __shfl_up_sync(full, fi, 1, L);
+  V ax = __shfl_up_sync(full, ai, 1, L);
+  int cx = __shfl_up_sync(full, ci, 1, L);
+  if (lane == 0) {
+    fx = 0;
+    ax = V(0);
+    cx = 0;
+  }
+  int total = __shfl_sync(full, ci, L - 1, L);
+  if (sh.nw > 1) {
+    if (lane == L - 1) {
+      sc->flag[wr] = fi;
+      sc->sum[wr] = ai;
+      sc->cnt[wr] = ci;
+    }
+    __syncthreads();
+    // every warp scans the warps' aggregates (nw <= 32) itself
+    int wf = lane < sh.nw ? sc->flag[lane] : 0;
+    V wa = lane < sh.nw ? sc->sum[lane] : V(0);
+    int wc = lane < sh.nw ? sc->cnt[lane] : 0;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int fo = __shfl_up_sync(full, wf, d);
+      const V ao = __shfl_up_sync(full, wa, d);
+      const int co = __shfl_up_sync(full, wc, d);
+      if (lane >= d) {
+        wa = wf ? wa : ao + wa;
+        wf |= fo;
+        wc += co;
+      }
+    }
+    total = __shfl_sync(full, wc, sh.nw - 1);
+    const int pf = __shfl_sync(full, wf, (wr + 31) & 31);
+    const V pa = __shfl_sync(full, wa, (wr + 31) & 31);
+    const int pc = __shfl_sync(full, wc, (wr + 31) & 31);
+    if (wr > 0) {          // the warps before this one, then the lanes
+      ax = fx ? ax : pa + ax;
+      fx |= pf;
+      cx += pc;
+    }
+  }
+  int pos = cx;
+  bool seen = false;
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    seen |= (head >> r) & 1;
+    if ((emit >> r) & 1) {
+      ks[swz(pos)] = k[r];
+      vs[swz(pos)] = seen ? v[r] : ax + v[r];
+      ++pos;
+    }
+  }
+  __syncthreads();
+  const int an = swz(tid * E);
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int p = tid * E + r;
+    k[r] = p < total ? ks[an ^ r] : -1;
+    v[r] = p < total ? vs[an ^ r] : V(0);
+  }
+  return total;
 }
 
 }  // namespace

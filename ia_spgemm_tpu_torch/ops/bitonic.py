@@ -191,25 +191,50 @@ def _frag_totals(len_live, row_ptr, run: int):
     return frag, cs[row_ptr[1:]] - cs[row_ptr[:-1]]
 
 
+def _frag_rows_dev_multi(a_col, b_len, runs):
+    """Every run candidate's per-row ragged fragment totals, computed on
+    A's device with one (m, ka) gather of B's row lengths: (len(runs), m)
+    int64 on the host."""
+    lens = b_len.to(torch.int64)[a_col.clamp(0, b_len.shape[0] - 1)
+                                 .to(torch.int64)].clamp(min=0)
+    live = a_col >= 0
+    return torch.stack([
+        torch.where(live, _cdiv_pos(lens, r).clamp(min=1), 0).sum(dim=1)
+        for r in runs]).cpu().numpy()
+
+
 def plan_multiclass(row_lens, kb: int, *, max_classes: int = 4,
                     value_bytes: int = 4, a_col_h=None, b_len_h=None,
+                    a_col_dev=None, b_len_dev=None,
                     layout: str | None = None,
                     run_override: int | None = None):
     """Per-row width classes: each row's products pad to its own pow2
     width. Two layouts compete per sub-run length: chunked (every entry
-    fetches ceil(kb/run) sub-runs) and, given A's column grid `a_col_h` and
-    B's row lengths `b_len_h` on the host, ragged (each entry fetches only
-    its own B row's ceil(len/run) fragments). layout "chunked" or
+    fetches ceil(kb/run) sub-runs) and, given A's column grid and B's row
+    lengths, ragged (each entry fetches only its own B row's
+    ceil(len/run) fragments). Those two come as host arrays (`a_col_h`,
+    `b_len_h`) or as tensors (`a_col_dev`, `b_len_dev`, which take
+    precedence: the fragment totals of every candidate are then counted
+    on their device, the JAX package's device probe). layout "chunked" or
     "ragged" forces one (None: the cost model decides); run_override pins
     the sub-run length. Returns (MultiClassPlan, per-row width array)."""
     if layout not in (None, "chunked", "ragged"):
         raise ValueError(f"unknown layout {layout!r}")
     lens = np.asarray(row_lens, dtype=np.int64)
     full_run = max(1, _next_pow2(kb))
-    ragged_ok = (a_col_h is not None and b_len_h is not None
-                 and layout != "chunked")
+    use_dev = a_col_dev is not None and b_len_dev is not None
+    ragged_ok = (use_dev or (a_col_h is not None and b_len_h is not None)
+                 ) and layout != "chunked"
     ce = (_compact_entries(a_col_h, b_len_h, a_len_h=lens)
-          if ragged_ok else None)
+          if ragged_ok and not use_dev else None)
+    F_by_run = {}
+    if ragged_ok and use_dev:
+        cand_runs = [r for r in (full_run >> s for s in range(64))
+                     if r >= min(4, full_run)
+                     and (run_override is None or r == run_override)]
+        if cand_runs:
+            F_by_run = dict(zip(cand_runs, _frag_rows_dev_multi(
+                a_col_dev, b_len_dev, cand_runs)))
 
     def feasible(W):
         return (int(W.max(initial=128)) <= MAX_WIDTH
@@ -235,7 +260,8 @@ def plan_multiclass(row_lens, kb: int, *, max_classes: int = 4,
                 best is None or cand[0] < best[0]):
             best = cand
         if ragged_ok:
-            _, Fr = _frag_totals(ce[2], ce[4], run0)
+            Fr = (F_by_run[run0] if use_dev
+                  else _frag_totals(ce[2], ce[4], run0)[1])
             Wr = np.maximum(128, _next_pow2_arr(np.maximum(Fr, 1) * run0))
             cand_r = ((_candidate_time_ps(Wr, run0), -run0), run0, 0, Wr,
                       True)
@@ -619,8 +645,10 @@ class MulticlassCall:
     with m to ``counts[c]`` (int64, index-only); for the ragged layout
     ``frags[c]`` the fragment table rows MT (F_c, n_pad) or, pregathered,
     g = table[MT] (lane-packed for K1 classes), and ``avts[c]`` the
-    fragments' A values (F_c, n_pad). ``src_full``/``blk_ptr`` are the
-    BlockCSR assembly map and spans (assemble="bcsr")."""
+    fragments' A values (F_c, n_pad); with ``plan_device`` both lists
+    are empty and every call builds them on the device. ``src_full`` /
+    ``blk_ptr`` are the BlockCSR assembly map and spans
+    (assemble="bcsr")."""
 
     A: ELL
     B: ELL
@@ -639,6 +667,7 @@ class MulticlassCall:
     table: torch.Tensor
     src_full: torch.Tensor | None = None
     blk_ptr: torch.Tensor | None = None
+    plan_device: bool = False
 
     def __call__(self):
         return _results(self, _multiclass_fn(self))
@@ -651,22 +680,31 @@ def _multiclass_fn(c: MulticlassCall):
     kt = c.table.shape[0] - 1
     lanes = c.table.shape[1]
     f32 = c.A.dtype == torch.float32 and c.B.dtype == torch.float32
+    frags, avts = c.frags, c.avts
+    if c.plan_device:
+        # the fragment matrices built on the device in every call, the
+        # JAX package's in-graph plan_device path
+        frags, avts = zip(*(
+            _pregather_class(c.A.col_ind, c.A.values, c.B.nnz_row,
+                             c.idxs[i], c.table, run=run, F_c=c.kas[i],
+                             F_B=kt, m=c.A.nrows, gather=False)
+            for i in range(len(c.widths))))
     cols_p, vals_p, nnz_p = [], [], []
     for i, w in enumerate(c.widths):
         n = c.counts[i]
         out_c = min(c.out_w, w)
         if c.ragged:
-            F_c, avT = c.kas[i], c.avts[i]
+            F_c, avT = c.kas[i], avts[i]
             if w <= TRANSPOSED_MAX_WIDTH:
-                g = c.frags[i] if c.pregather else c.table[
-                    c.frags[i].reshape(-1).to(torch.int64)
+                g = frags[i] if c.pregather else c.table[
+                    frags[i].reshape(-1).to(torch.int64)
                 ].reshape(F_c, n, lanes)
                 out = _sort_compress_from_gather(
                     g, avT, width=w, run=run, ka=F_c, start_kk=start_kk,
                     out_width=out_c,
                     pack=_pg_pack(run, w) if c.pregather else 1)
             else:
-                key, val = _expand_rows(c.table, c.frags[i].T, avT.T,
+                key, val = _expand_rows(c.table, frags[i].T, avT.T,
                                         run=run, width=w)
                 out = K.sort_compress_rows(key, val, width=w,
                                            start_kk=start_kk)
@@ -727,7 +765,8 @@ def _assemble_bcsr(cols_p, vals_p, nnz_p, idxs, src_full, *, m: int):
 
 
 def _finish_build(A, B, *, widths, kas, counts, run, chunks, out_w, ragged,
-                  assemble, pregather, idxs, idx_h, frags, avts, table):
+                  assemble, pregather, idxs, idx_h, frags, avts, table,
+                  plan_device=False):
     """BlockCSR assembly map (host, m-sized) and the runnable call.
     Row r owns ocs[class(r)]/128 blocks, 0 when its A row is empty."""
     src_full = blk_ptr = None
@@ -756,7 +795,7 @@ def _finish_build(A, B, *, widths, kas, counts, run, chunks, out_w, ragged,
                           out_w=out_w, ragged=ragged, assemble=assemble,
                           pregather=pregather, idxs=idxs, frags=frags,
                           avts=avts, table=table, src_full=src_full,
-                          blk_ptr=blk_ptr)
+                          blk_ptr=blk_ptr, plan_device=plan_device)
 
 
 def _results(call: MulticlassCall, out):
@@ -809,7 +848,8 @@ def _multiclass_build(A: ELL, B: ELL, **kw):
 def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
                                out_width: int | None, assemble: str,
                                layout: str | None,
-                               run_override: int | None, pregather: bool):
+                               run_override: int | None, pregather: bool,
+                               plan_device: bool):
     if assemble not in ("ell", "bcsr"):
         raise ValueError(f"unknown assemble mode {assemble!r}")
     if A.ncols != B.nrows:
@@ -823,11 +863,13 @@ def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
     # the ragged layout reads the float32 bit-packed table, so the JAX
     # package gates its probe on float32 (bitonic.py:1954-1962).
     f32 = A.dtype == torch.float32 and B.dtype == torch.float32
+    # plan_device: the candidates' fragment totals are counted on the
+    # device too, so only m-sized arrays come to the host
     b_len_h = B.nnz_row.cpu().numpy().astype(np.int64) if f32 else None
+    probe = (dict(a_col_dev=A.col_ind, b_len_dev=B.nnz_row) if plan_device
+             else dict(a_col_h=A.col_ind.cpu().numpy(), b_len_h=b_len_h))
     plan, W = plan_multiclass(lens, kb, max_classes=max_classes,
-                              a_col_h=A.col_ind.cpu().numpy() if f32
-                              else None,
-                              b_len_h=b_len_h, layout=layout,
+                              **(probe if f32 else {}), layout=layout,
                               run_override=run_override)
     if not plan.viable:
         return None
@@ -864,6 +906,7 @@ def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
         table = _ragged_table(B.col_ind, B.values,
                               torch.from_numpy(frag_src).to(A.device),
                               run=run, cm=cm)
+        pregather = pregather and not plan_device
         if pregather:
             lanes = int(table.shape[1])
             g_bytes = sum(-(-kas[c] // _pg_pack(run, int(widths[c])))
@@ -873,7 +916,9 @@ def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
             if g_bytes > PREGATHER_BUDGET_BYTES or not any(
                     int(w) <= TRANSPOSED_MAX_WIDTH for w in widths):
                 pregather = False
-        if pregather:
+        if plan_device:
+            pass    # every call builds them (_multiclass_fn)
+        elif pregather:
             frags, avts = _pregather_fragments_device(
                 A, B, widths, run, idxs, kas, table, m)
         else:
@@ -897,7 +942,8 @@ def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
                          run=run, chunks=0 if plan.ragged else chunks,
                          out_w=out_w, ragged=plan.ragged,
                          assemble=assemble, pregather=pregather, idxs=idxs,
-                         idx_h=idx_h, frags=frags, avts=avts, table=table)
+                         idx_h=idx_h, frags=frags, avts=avts, table=table,
+                         plan_device=plan_device and plan.ragged)
 
 
 def multiclass_planned(A: ELL, B: ELL, *, max_classes: int = 4,
@@ -905,7 +951,8 @@ def multiclass_planned(A: ELL, B: ELL, *, max_classes: int = 4,
                        assemble: str = "ell",
                        layout: str | None = None,
                        run_override: int | None = None,
-                       pregather: bool = False):
+                       pregather: bool = False,
+                       plan_device: bool = False):
     """Plan the width-class pipeline once and return a zero-argument
     callable (MulticlassCall) that runs it; None when not viable.
     Operands of any one float type; float32 ones may plan the ragged
@@ -918,6 +965,10 @@ def multiclass_planned(A: ELL, B: ELL, *, max_classes: int = 4,
     as the headline does with the observed width). pregather=True also
     materialises g = table[MT] at plan time (within
     PREGATHER_BUDGET_BYTES), so a call skips the fragment gather.
+    plan_device=True builds the ragged layout's fragment matrices on the
+    device in every call instead of on the host at plan time (one-shot
+    calls with no plan reuse; pregather is then off), and counts the
+    planner's fragment totals on the device.
     layout "chunked" / "ragged" forces the planner's choice (None: its
     cost model decides); run_override pins the sub-run length. Repeat
     calls on the same, unmodified operands with the same options return
@@ -925,18 +976,20 @@ def multiclass_planned(A: ELL, B: ELL, *, max_classes: int = 4,
     return _multiclass_build(A, B, max_classes=max_classes,
                              out_width=out_width, assemble=assemble,
                              layout=layout, run_override=run_override,
-                             pregather=pregather)
+                             pregather=pregather, plan_device=plan_device)
 
 
 def spgemm_bitonic_multiclass(A: ELL, B: ELL, *, max_classes: int = 4,
                               out_width: int | None = None,
                               assemble: str = "ell",
                               layout: str | None = None,
-                              run_override: int | None = None):
+                              run_override: int | None = None,
+                              plan_device: bool = False):
     """C = A @ B through the width-class route; None when not viable."""
     call = multiclass_planned(A, B, max_classes=max_classes,
                               out_width=out_width, assemble=assemble,
-                              layout=layout, run_override=run_override)
+                              layout=layout, run_override=run_override,
+                              plan_device=plan_device)
     return call() if call is not None else None
 
 

@@ -118,14 +118,17 @@ def _entry(name: str, val: torch.Tensor) -> str:
 
 
 def _launch(name, *args, device: torch.device):
-    """Call a C entry point on ``device`` (made current for the call):
-    tensors pass as their device pointers, then the device's current
-    stream; raise on a CUDA error."""
+    """Call a C entry point on ``device`` (made current for the call
+    where it is not already): tensors pass as their device pointers, then
+    the device's current stream; raise on a CUDA error."""
     from ia_spgemm_tpu_torch import _build
     fn = _build.load()[name]
-    with torch.cuda.device(device):
-        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args), torch.cuda.current_stream().cuda_stream)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    if torch.cuda.current_device() == device.index:
+        err = fn(*ptrs, torch.cuda.current_stream(device.index).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 

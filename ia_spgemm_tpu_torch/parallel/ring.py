@@ -25,7 +25,8 @@ whichever step fills them, so the product buffer is allocated once and
 steps only select into it. The JAX loop hops D times and never uses the
 last hop's blocks; this loop skips that hop, so a ring call makes D - 1
 hops (none at D = 1), each one K13 launch on one card carrying the
-column and value blocks together.
+column and value blocks together. The hops write into two sets of
+receivers allocated once per call and alternated.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ from ia_spgemm_tpu_torch.ops import bitonic
 from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
 from ia_spgemm_tpu_torch.parallel.distributed import _placement
 from ia_spgemm_tpu_torch.parallel.mesh import Mesh, comm_device, gather_shards
-from ia_spgemm_tpu_torch.parallel.rdma_ring import (rdma_available,
+from ia_spgemm_tpu_torch.parallel.rdma_ring import (alloc_receivers,
+                                                    rdma_available,
                                                     ring_hop_plain,
                                                     ring_hop_rdma)
 
@@ -275,6 +277,11 @@ def ring_products(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
                                 device=dev))
 
     bc, bv = list(B.col_ind), list(B.values)
+    # two sets of receivers, made once and alternated: step s's hop
+    # writes the set that step s - 1 read (rdma_ring.ring_hop_rdma)
+    hop = ring_hop_rdma if use_rdma else ring_hop_plain
+    recv = ([alloc_receivers(bc, bv) for _ in range(2)]
+            if D > 1 and not mesh.spans_processes else None)
     pad_b = chunks * run - kb
     for s in range(D):
         for i, d in enumerate(A.shards):
@@ -292,10 +299,8 @@ def ring_products(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
             break      # the last hop's blocks would go unused
         if mesh.spans_processes:
             bc, bv = _hop_processes(mesh, bc, bv)
-        elif use_rdma:
-            bc, bv = ring_hop_rdma(bc, bv)
         else:
-            bc, bv = ring_hop_plain(bc, bv)
+            bc, bv = hop(bc, bv, out=recv[s % 2])
 
     pad = width - ke * run
     return ([F.pad(k.reshape(m_loc, ke * run), (0, pad),

@@ -11,7 +11,9 @@ import bench
 from ia_spgemm_tpu.ops import bitonic as jbt
 from ia_spgemm_tpu_torch.ops import bitonic as tbt
 from tests.test_bitonic import _skewed
-from tests.torch_parity import assert_same, host, jax_call_state, jell, tell
+from tests.torch_parity import (assert_same, assert_values_close,
+                                check_oracle, host, jax_call_state, jell,
+                                tell)
 
 
 def _random_pair(m, k, n, da, db, seed):
@@ -128,3 +130,77 @@ def test_plan_cache_hit_eviction_and_in_place_edit():
     assert len(tbt._BUILD_CACHE) <= tbt._BUILD_CACHE_MAX
     assert tbt.multiclass_planned(A, A, assemble="bcsr") is not call2
     tbt.clear_plan_cache()
+
+
+def _assert_results_equal(T, U):
+    """Two port results (ELL or BlockCSR) identical field by field."""
+    assert type(T) is type(U) and T.shape == U.shape
+    for f in ("col_ind", "values", "nnz_row", "blk_ptr", "col_blocks",
+              "val_blocks"):
+        if hasattr(T, f):
+            assert_same(getattr(T, f), getattr(U, f), f)
+
+
+def _assert_matches_jax(T, J):
+    """Structure exact, values within 1e-6 * max(1, max|C|)."""
+    assert T.shape == J.shape
+    assert_same(T.nnz_row, J.nnz_row, "nnz_row")
+    vals = ("col_ind", "values") if hasattr(T, "col_ind") else (
+        "col_blocks", "val_blocks")
+    if not hasattr(T, "col_ind"):
+        assert_same(T.blk_ptr, J.blk_ptr, "blk_ptr")
+    assert_same(getattr(T, vals[0]), getattr(J, vals[0]), vals[0])
+    assert host(getattr(T, vals[1])).dtype == np.float32
+    assert_values_close(getattr(T, vals[1]), getattr(J, vals[1]), vals[1],
+                        1e-6)
+
+
+@pytest.mark.parametrize("assemble", ["ell", "bcsr"])
+def test_multiclass_plan_device_matches_host_and_jax(assemble):
+    """plan_device=True (fragment matrices built on the device in every
+    call, the planner's fragment totals counted there) gives the host
+    plan's result exactly, and the JAX package's plan_device=True result
+    (tests/test_bitonic.py:411's ragged B-skew input; both sides float32)."""
+    a = _skewed(29, 224, heavy_every=56, heavy=120, light=5)
+    A = tell(a)
+    tbt.clear_plan_cache()
+    dev = tbt.multiclass_planned(A, A, assemble=assemble, plan_device=True,
+                                 pregather=True)
+    assert dev.ragged and dev.plan_device and not dev.pregather
+    assert dev.frags == [] and dev.avts == []
+    C_dev = tbt.spgemm_bitonic_multiclass(A, A, assemble=assemble,
+                                          plan_device=True)
+    C_host = tbt.spgemm_bitonic_multiclass(A, A, assemble=assemble,
+                                           plan_device=False)
+    _assert_results_equal(C_dev, C_host)
+    _assert_results_equal(dev(), C_host)
+    J = jbt.spgemm_bitonic_multiclass(jell(a), jell(a), assemble=assemble,
+                                      plan_device=True)
+    _assert_matches_jax(C_dev, J)
+    _assert_matches_jax(C_host, J)
+    check_oracle(a, a, C_dev)
+    tbt.clear_plan_cache()
+
+
+@pytest.mark.parametrize("name", ["skew_b", "skew_a", "headline256"])
+@pytest.mark.parametrize("run_override", [None, 8])
+def test_plan_multiclass_device_probe_matches_host(name, run_override):
+    """The planner's device probe (a_col_dev / b_len_dev) plans exactly
+    what the host arrays plan, and what the JAX package's probe plans."""
+    a, b = PAIRS[name]
+    A, B = tell(a), tell(b)
+    lens = host(A.nnz_row)
+    kw = dict(run_override=run_override)
+    p_dev, W_dev = tbt.plan_multiclass(lens, B.max_nnz_per_row,
+                                       a_col_dev=A.col_ind,
+                                       b_len_dev=B.nnz_row, **kw)
+    p_host, W_host = tbt.plan_multiclass(
+        lens, B.max_nnz_per_row, a_col_h=host(A.col_ind),
+        b_len_h=host(B.nnz_row).astype(np.int64), **kw)
+    JA, JB = jell(a), jell(b)
+    p_jax, W_jax = jbt.plan_multiclass(
+        np.asarray(JA.nnz_row), JB.max_nnz_per_row, a_col_dev=JA.col_ind,
+        b_len_dev=JB.nnz_row, **kw)
+    assert p_dev.__dict__ == p_host.__dict__ == p_jax.__dict__
+    assert_same(W_dev, W_host)
+    assert_same(W_dev, np.asarray(W_jax))

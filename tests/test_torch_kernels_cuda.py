@@ -107,6 +107,102 @@ def test_k4_k3_float64_kernels_match_plain(cuda_device, width):
                              compact=compact), rtol=value_rtol(val))
 
 
+K4_WIDTHS = [128, 256, 512, 1024, 2048, 4096, 8192, 16384]
+
+
+def _k4_rows(m, width, start_kk, dtype, seed=0, kind="random"):
+    """Rows in K4's input layout for start_kk (sorted runs of start_kk / 2
+    slots, ascending and descending in turn), built with numpy: random
+    keys with duplicates and SENTINEL slots, or one key, or SENTINEL
+    only, or duplicate runs that straddle register (8 / 16 slots), warp
+    (256 / 512) and block boundaries."""
+    rng = np.random.default_rng(seed + width)
+    v = rng.standard_normal((m, width)).astype(dtype)
+    if kind == "one_key":
+        k = np.full((m, width), 5, np.int64)
+    elif kind == "sentinel":
+        k = np.full((m, width), K.SENTINEL, np.int64)
+    elif kind == "straddling":
+        lens = [11, 4, 261, 1, 7, 517, 3]
+        ks = np.concatenate([np.full(n, i) for i, n in
+                             enumerate(lens * width)])[:width]
+        k = np.tile(ks, (m, 1))
+        k[:, width - width // 5:] = K.SENTINEL
+        k = np.ascontiguousarray(k[:, rng.permutation(width)])
+    else:
+        k = rng.integers(0, max(4, width // 3), (m, width))
+        k[rng.random((m, width)) < 0.1] = K.SENTINEL
+    half = start_kk // 2
+    if half > 1:
+        kr = k.reshape(m, width // half, half)
+        order = np.argsort(kr, axis=2, kind="stable")
+        order[:, 1::2] = order[:, 1::2, ::-1]
+        k = np.take_along_axis(kr, order, 2).reshape(m, width)
+        v = np.take_along_axis(v.reshape(m, width // half, half), order,
+                               2).reshape(m, width)
+    return torch.from_numpy(k.astype(np.int32)), torch.from_numpy(v)
+
+
+def _check_k4(key, val, width, start_kk):
+    n4 = K.sort_compress_rows.launches
+    got = K.sort_compress_rows(key, val, width=width, start_kk=start_kk)
+    assert K.sort_compress_rows.launches == n4 + 1
+    assert got[1].dtype == val.dtype
+    assert_kernel_outputs_match(
+        got, K.sort_compress_rows_plain(key, val, width=width,
+                                        start_kk=start_kk),
+        rtol=value_rtol(val))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", K4_WIDTHS)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("start", ["full", "runs"])
+def test_k4_network_every_width(cuda_device, width, dtype, start):
+    """The register network at every width, both value types, from
+    start_kk 2 (a full sort) and 2 * run (alternating runs of 8)."""
+    start_kk = 2 if start == "full" else 2 * RUN
+    key, val = _k4_rows(48, width, start_kk, dtype)
+    _check_k4(key.to(cuda_device), val.to(cuda_device), width, start_kk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 1024, 8192])
+@pytest.mark.parametrize("m", [1, 20, 131, 133, 300])
+def test_k4_row_counts(cuda_device, width, m):
+    """Row counts below and above the card's 132 SMs, and the last
+    block's padding rows where rows share a block (width 128: 8 a
+    block)."""
+    key, val = _k4_rows(m, width, 2, np.float32, seed=m)
+    _check_k4(key.to(cuda_device), val.to(cuda_device), width, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 1024, 16384])
+@pytest.mark.parametrize("kind", ["one_key", "sentinel", "straddling"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k4_adversarial_rows(cuda_device, width, kind, dtype):
+    key, val = _k4_rows(5, width, 2, dtype, kind=kind)
+    _check_k4(key.to(cuda_device), val.to(cuda_device), width, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k4_rows_off_the_vector_grid(cuda_device, dtype):
+    """Rows starting 4 (keys) or 8 (values) bytes past a 16-byte boundary
+    take the scalar loads."""
+    m, width = 7, 2048
+    key0, val0 = _k4_rows(m, width, 2, np.float64)
+    kbuf = torch.empty(m * width + 1, dtype=torch.int32, device=cuda_device)
+    vbuf = torch.empty(m * width + 1, dtype=dtype, device=cuda_device)
+    key = kbuf[1:].view(m, width)
+    val = vbuf[1:].view(m, width)
+    key.copy_(key0)
+    val.copy_(val0)
+    assert key.data_ptr() % 16 and val.data_ptr() % 16
+    _check_k4(key, val, width, 2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("ka,out_width", [(32, None), (32, 128),
@@ -231,13 +327,14 @@ def test_k12_kernel_matches_plain(cuda_device, m, k, n, density, table_size):
 
 def _assert_hops_equal(got, want, sources):
     """K13's output against the plain version's, bit for bit, and never
-    the storage of a source block."""
+    the storage of a source block (empty blocks have no storage)."""
     torch.cuda.synchronize()
-    ptrs = {b.data_ptr() for arr in sources for b in arr}
+    ptrs = {b.data_ptr() for arr in sources for b in arr if b.numel()}
     for g_arr, w_arr in zip(got, want):
         for g, w in zip(g_arr, w_arr):
             assert g.dtype == w.dtype and g.device == w.device
-            assert torch.equal(g, w) and g.data_ptr() not in ptrs
+            assert torch.equal(g, w)
+            assert not g.numel() or g.data_ptr() not in ptrs
 
 
 @pytest.mark.cuda
@@ -272,6 +369,72 @@ def test_k13_odd_bytes_unaligned_and_large_blocks(cuda_device):
     big = [torch.randn((300000, 8), generator=gen, device=cuda_device)
            for _ in range(4)]
     for arrays in ((odd, unaligned), (big,)):
+        n13 = RR.ring_hop_rdma.launches
+        got = RR.ring_hop_rdma(*arrays)
+        assert RR.ring_hop_rdma.launches == n13 + 1
+        _assert_hops_equal(got, RR.ring_hop_plain(*arrays), arrays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 4, 8])
+def test_k13_reused_receivers(cuda_device, D):
+    """The ring's way: two sets of receivers made once, alternated over
+    D - 1 hops, each hop's blocks the previous hop's receivers; bit for
+    bit the plain hop's result at every step, in place, one launch each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    cols = [torch.randint(-1, 8192, (4096 // D, 29), generator=gen,
+                          device=cuda_device, dtype=torch.int32)
+            for _ in range(D)]
+    vals = [torch.randn((4096 // D, 29), generator=gen, device=cuda_device)
+            for _ in range(D)]
+    recv = [RR.alloc_receivers(cols, vals) for _ in range(2)]
+    ptrs = [[[t.data_ptr() for t in arr] for arr in r] for r in recv]
+    bc, bv = cols, vals
+    for s in range(D - 1):
+        want = RR.ring_hop_plain(bc, bv)
+        n13 = RR.ring_hop_rdma.launches
+        got = RR.ring_hop_rdma(bc, bv, out=recv[s % 2])
+        assert RR.ring_hop_rdma.launches == n13 + 1
+        assert [[t.data_ptr() for t in arr] for arr in got] == ptrs[s % 2]
+        _assert_hops_equal(got, want, (bc, bv) if s == 0 else ())
+        bc, bv = got
+
+
+@pytest.mark.cuda
+def test_k13_more_copies_than_one_launch(cuda_device):
+    """150 copies (3 arrays x 50 shards) go out as two launches (the
+    kernel's parameter struct holds 128)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    arrays = [[torch.randint(0, 99, (n, 3), generator=gen,
+                             device=cuda_device, dtype=torch.int32)
+               for _ in range(50)] for n in (1, 17, 64)]
+    n13 = RR.ring_hop_rdma.launches
+    got = RR.ring_hop_rdma(*arrays)
+    assert RR.ring_hop_rdma.launches == n13 + 2
+    _assert_hops_equal(got, RR.ring_hop_plain(*arrays), arrays)
+
+
+@pytest.mark.cuda
+def test_k13_zero_size_and_unaligned_blocks(cuda_device):
+    """Zero-size blocks are left out of the launch (and a hop of only
+    empty blocks launches nothing); blocks off the 16-byte grid, of odd
+    byte counts, beside aligned ones in one launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    empty = [torch.zeros((0, 29), device=cuda_device) for _ in range(4)]
+    n13 = RR.ring_hop_rdma.launches
+    got = RR.ring_hop_rdma(empty)
+    assert RR.ring_hop_rdma.launches == n13
+    assert [tuple(t.shape) for t in got[0]] == [(0, 29)] * 4
+    flat = torch.randint(-9, 9, (4 * 333 + 3,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    unaligned = [flat[3 + 333 * d:3 + 333 * (d + 1)] for d in range(4)]
+    raw = torch.randint(0, 256, (4, 40), generator=gen, device=cuda_device,
+                        dtype=torch.uint8)
+    odd = [raw[d, 1:] for d in range(4)]                  # 39 bytes each
+    # zero-size blocks beside 1.4 MB ones: receivers of both shapes
+    mixed = [torch.randn((n, 5), generator=gen, device=cuda_device)
+             for n in (0, 70000, 70000, 0)]
+    for arrays in ((unaligned, odd), (mixed,)):
         n13 = RR.ring_hop_rdma.launches
         got = RR.ring_hop_rdma(*arrays)
         assert RR.ring_hop_rdma.launches == n13 + 1

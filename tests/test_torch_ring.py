@@ -216,6 +216,8 @@ def test_k13_wrapper_checks_its_blocks():
         rdma_ring.ring_hop_rdma([torch.zeros(4, 4).T, torch.zeros(4, 4)])
     with pytest.raises(ValueError, match="3 devices for 2"):
         rdma_ring.ring_hop_rdma(a, devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="no blocks"):
+        rdma_ring.ring_hop_rdma()
 
 
 def test_rdma_needs_cards_in_one_process(mesh):
@@ -266,3 +268,153 @@ def test_ring_rejects_nonviable_plan(mesh):
     with pytest.raises(ValueError, match="not viable"):
         tring.ring_spgemm(S, S, mesh, bad)
 
+
+
+ALT_CASES = ("square", "permuted_b", "permuted_b_uneven", "subrun_split")
+
+
+@pytest.fixture(scope="module")
+def jmesh4():
+    if len(jax.devices()) < 4:
+        pytest.skip("needs 4 virtual devices")
+    return jmake_mesh(4)
+
+
+@pytest.mark.parametrize("shards", [4, 8])
+@pytest.mark.parametrize("name", ALT_CASES)
+def test_ring_alternating_receivers_matches_jax(monkeypatch, jmesh, jmesh4,
+                                                shards, name):
+    """The ring's hops write into two sets of receivers made once per
+    call, step s into set s % 2 (the set step s - 1 read), on 4- and
+    8-shard CPU meshes; the result is the JAX ring's (a permuted B and
+    chunks > 1 among the cases)."""
+    a, b, ba, bb = _case(name)
+    tm = make_mesh(shards, devices=["cpu"] * shards)
+    jm = jmesh if shards == 8 else jmesh4
+    hops = []
+    real = rdma_ring.ring_hop_plain
+
+    def spy(*arrays, out=None, **kw):
+        hops.append((out, [[t.data_ptr() for t in arr] for arr in arrays]))
+        return real(*arrays, out=out, **kw)
+
+    monkeypatch.setattr(tring, "ring_hop_plain", spy)
+    JA, JB, TA, TB = jell(a), jell(b), tell(a), tell(b)
+    jplan, tplan = jring.plan_ring(JA, JB, shards), tring.plan_ring(TA, TB,
+                                                                      shards)
+    if name == "subrun_split":
+        assert tplan.chunks > 1
+    Jc = jring.ring_spgemm(
+        jring.partition_rows_ell(JA, shards, mesh=jm, balance=ba),
+        jring.partition_rows_ell(JB, shards, mesh=jm, balance=bb), jm, jplan)
+    Tc = tring.ring_spgemm(
+        tring.partition_rows_ell(TA, shards, mesh=tm, balance=ba),
+        tring.partition_rows_ell(TB, shards, mesh=tm, balance=bb), tm, tplan)
+    # D - 1 hops, alternating between two receiver sets; from the second
+    # hop on, the blocks hopped are the previous hop's receivers
+    assert len(hops) == shards - 1
+    sets = [out for out, _ in hops]
+    assert all(isinstance(o, rdma_ring.Receivers) for o in sets)
+    assert sets[0] is not sets[1]
+    assert all(sets[s] is sets[s % 2] for s in range(len(sets)))
+    for s in range(1, len(hops)):
+        assert hops[s][1] == [[t.data_ptr() for t in arr]
+                              for arr in sets[s - 1]]
+    J, T = jring.gather_result_ell(Jc), tring.gather_result_ell(Tc)
+    assert_same(T.nnz_row, np.asarray(J.nnz_row), "nnz_row")
+    assert_same(T.col_ind, np.asarray(J.col_ind), "col_ind")
+    assert_values_close(T.values, np.asarray(J.values), "values", RING_RTOL)
+
+
+def _blocks(D, dtype=torch.float32, rows=13, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.standard_normal((rows, 29)) * 100)
+                             .astype(np.float32)).to(dtype)
+            for _ in range(D)]
+
+
+@pytest.mark.parametrize("fn", ["ring_hop_rdma", "ring_hop_plain"])
+def test_k13_public_call_returns_fresh_tensors(fn):
+    """Without out=, every call returns new tensors: never a source's
+    storage, nor an earlier call's."""
+    hop = getattr(rdma_ring, fn)
+    bc, bv = _blocks(4, torch.int32), _blocks(4, seed=1)
+    first = hop(bc, bv)
+    second = hop(bc, bv)
+    src = {t.data_ptr() for arr in (bc, bv) for t in arr}
+    seen = [{t.data_ptr() for arr in res for t in arr}
+            for res in (first, second)]
+    assert not (seen[0] & src) and not (seen[1] & src)
+    assert not (seen[0] & seen[1])
+    for res in (first, second):
+        for arr, got in zip((bc, bv), res):
+            for d in range(4):
+                assert torch.equal(got[d], arr[(d + 1) % 4])
+
+
+def test_k13_receivers_reused_in_place():
+    """out= writes into the given receivers (one buffer per array and
+    device) and returns their lists; receivers of another layout, or a
+    plain list, are refused."""
+    bc, bv = _blocks(4, torch.int32), _blocks(4, seed=1)
+    recv = rdma_ring.alloc_receivers(bc, bv)
+    assert len({t.untyped_storage().data_ptr() for t in recv[0]}) == 1
+    assert len({t.untyped_storage().data_ptr() for t in recv[1]}) == 1
+    ptrs = [[t.data_ptr() for t in arr] for arr in recv]
+    for hop in (rdma_ring.ring_hop_rdma, rdma_ring.ring_hop_plain):
+        got = hop(bc, bv, out=recv)
+        assert [[t.data_ptr() for t in arr] for arr in got] == ptrs
+        assert all(g is r for g, r in zip(got, recv))
+        for arr, res in zip((bc, bv), got):
+            for d in range(4):
+                assert torch.equal(res[d], arr[(d + 1) % 4])
+        # the receivers as the next hop's blocks: their layout is known
+        assert rdma_ring._layout(tuple(got), None) is recv.own
+    other = rdma_ring.alloc_receivers(_blocks(4, rows=7), _blocks(4, rows=7))
+    with pytest.raises(ValueError, match="alloc_receivers"):
+        rdma_ring.ring_hop_rdma(bc, bv, out=other)
+    with pytest.raises(ValueError, match="alloc_receivers"):
+        rdma_ring.ring_hop_plain(bc, bv, out=[list(bc), list(bv)])
+
+
+def test_k13_layout_checked_once_and_cached():
+    bc = _blocks(4)
+    first = rdma_ring._layout((bc,), None)
+    assert rdma_ring._layout((list(bc),), None) is first
+    # another shape is another layout; a non-contiguous block is refused
+    assert rdma_ring._layout((_blocks(4, rows=5),), None) is not first
+    with pytest.raises(ValueError, match="contiguous"):
+        rdma_ring._layout(([torch.zeros(29, 13).T] * 4,), None)
+    key, targets, plan, recv, same = first
+    assert same and recv == [[(torch.device("cpu"), [0, 1, 2, 3],
+                               torch.Size([13, 29]), torch.float32)]]
+    (srcs, dsts, table, remote), = plan.values()
+    assert srcs == [1, 2, 3, 0] and dsts == [0, 1, 2, 3] and remote == []
+    assert table == [0, 0, 13 * 29 * 4] * 4
+
+
+def test_k13_zero_byte_blocks_left_out_of_the_plan():
+    blocks = [torch.zeros(0, 29), torch.zeros(3, 29), torch.zeros(0, 29)]
+    _, _, plan, recv, same = rdma_ring._layout((blocks,), None)
+    assert not same and len(recv[0]) == 3       # one receiver per block
+    (srcs, dsts, table, _), = plan.values()
+    assert srcs == [1] and dsts == [0] and table == [0, 0, 3 * 29 * 4]
+    got = rdma_ring.ring_hop_rdma(blocks)
+    assert [tuple(t.shape) for t in got[0]] == [(3, 29), (0, 29), (0, 29)]
+
+
+@pytest.mark.parametrize("copies,sizes", [
+    (1, [1]), (16, [16]), (128, [128]), (129, [128, 1]),
+    (300, [128, 128, 44]), (0, [])])
+def test_k13_pack_launches(copies, sizes):
+    """The copy triples go out as launches of at most 128 copies (what
+    the kernel's parameter struct holds), in order, as int64 tables."""
+    flat = [x for i in range(copies)
+            for x in (1000 + i, 2**40 + i, 16 * (i + 1))]
+    got = rdma_ring.pack_launches(flat)
+    assert [n for _, n in got] == sizes
+    assert all(t.typecode == "q" and t.itemsize == 8 for t, _ in got)
+    assert [x for t, _ in got for x in t] == flat
+    assert rdma_ring.MAX_COPIES == 128
+    with pytest.raises(ValueError, match="triples"):
+        rdma_ring.pack_launches(flat + [1])
