@@ -16,7 +16,8 @@ prints no result line:
    slab plan, K9 + K10 on its compensated slab plan, K7a + K7b on the
    headline's flat plan (width 1024, run 32; sorted packed keys
    bit-identical), K11 on build_matrix(m=16384) (A as ELL times dense B,
-   16384 x 16384), K12 on the headline ELL pair (Ka = Kb = 29, H = 2048;
+   16384 x 16384; bit for bit, and its float64 instance bit for bit on
+   build_matrix(m=4096)), K12 on the headline ELL pair (Ka = Kb = 29, H = 2048;
    each row's slots compared sorted by column); K5 and K6 + K3 (float64)
    on the float64 headline's chunked width classes, K5, K6 + K3 and K4
    (float64) on the skew x band classes, K6 + K3 on the flat float64
@@ -82,8 +83,8 @@ prints no result line:
 19. f32_wide_flat: the flat route on build_matrix(extra_per_row=60)
     (rows of up to ~100 entries) times the band, float32, outside the
     gather budget (ka * 128 > 8192): K6 + K3, within 1e-4 of scipy;
-20. the harness's baseline, bitonic and csr rows on the m=4096 CLI
-    input in float64, each ok within the 1e-9 gate;
+20. the harness's baseline, bitonic, csr and dense_row rows on the
+    m=4096 CLI input in float64, each ok within the 1e-9 gate;
 21. the isolated watchdog: a _test_slow worker (start-up grace lowered to
     3 s) times out and is killed, then an isolated bitonic row runs ok,
     then the CLI's --mode all --isolate --no-matnet on the m=4096 .mtx:
@@ -455,6 +456,16 @@ def _values_err(name, got, want, tol):
     return err
 
 
+def _same_bits(name, got, want):
+    """Bit for bit (K11 on an ELL built from canonical CSR): returns 0."""
+    import torch
+    torch.cuda.synchronize()
+    if not (got.dtype == want.dtype and torch.equal(got, want)):
+        err = (got.double() - want.double()).abs().max().item()
+        raise AssertionError(f"{name}: not bit for bit (max |dval| {err})")
+    return 0.0
+
+
 def _sorted_tables(col, val):
     """Hash tables with each row's slots sorted by column (empty slots
     last): the kernel's hash order and the plain version's column order
@@ -471,6 +482,9 @@ def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
     at those shapes."""
     import torch
 
+    from ia_spgemm_tpu_torch.bench.headline import build_matrix
+    from ia_spgemm_tpu_torch.formats import convert
+    from ia_spgemm_tpu_torch.formats.types import CSR
     from ia_spgemm_tpu_torch.ops import bitonic as bt
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.ops import dense_row_kernels as DK
@@ -506,8 +520,7 @@ def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
     f = lambda fn: fn(A16_ell.col_ind, A16_ell.values, B16)  # noqa: E731
     shape = (f"A ELL {tuple(A16_ell.col_ind.shape)} x dense B "
              f"{tuple(B16.shape)}")
-    err = _values_err(f"K11 {shape}", f(DK.dense_row), f(DK.dense_row_plain),
-                      TOL)
+    err = _same_bits(f"K11 {shape}", f(DK.dense_row), f(DK.dense_row_plain))
     # cuSPARSE SpMM (torch.sparse.mm of A as sparse CSR), the yardstick
     nnz16 = int(A16.nnz)
     a16_sp = torch.sparse_csr_tensor(A16.row_ptr, A16.col_ind[:nnz16],
@@ -517,6 +530,20 @@ def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
             (A16_ell.col_ind, A16_ell.values, B16),
             lambda: torch.sparse.mm(a16_sp, B16),
             flops=2.0 * nnz16 * B16.shape[1])
+    del a16_sp
+    # the float64 instance (the harness's dense_row row on a float64 CSR)
+    A4 = CSR.from_scipy(build_matrix(m=4096), device=A16.device)
+    E4 = convert.csr_to_ell(A4, check_guard=False)
+    B4 = convert.csr_to_dense(A4).values
+    f = lambda fn: fn(E4.col_ind, E4.values, B4)  # noqa: E731
+    got = f(DK.dense_row)
+    _same_bits("K11 float64", got, f(DK.dense_row_plain))
+    print(f"  K11 float64 A ELL {tuple(E4.col_ind.shape)} x dense B "
+          f"{tuple(B4.shape)}: bit for bit, ms="
+          f"{time_ms(lambda: f(DK.dense_row), dev, 2, 20)} plain_ms="
+          f"{time_ms(lambda: f(DK.dense_row_plain), dev, 2, 20)}",
+          flush=True)
+    del A4, E4, B4, got
 
     Hs = hash_spgemm._next_pow2(2 * ka * ka)
     if Hs != 2048 or not hash_spgemm.hash_viable(ka, ka, H.ncols):
@@ -1323,7 +1350,8 @@ def main() -> int:
 
     # ---- 20. the harness on a float64 CSR (1e-9 gate)
     A4 = CSR.from_scipy(a4096, device=dev)
-    rep = harness.run_benchmark(A4, A4, ("baseline", "bitonic", "csr"))
+    rep = harness.run_benchmark(A4, A4, ("baseline", "bitonic", "csr",
+                                         "dense_row"))
     bad = [r.name for r in rep.results if r.error or not r.ok]
     if bad:
         raise AssertionError(f"float64 harness rows failed: "

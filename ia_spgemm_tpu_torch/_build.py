@@ -51,7 +51,8 @@ SIGNATURES = {
         "ia_k7a_expand_sort_packed": [_P] * 3 + [_I] * 6 + [_P],
         "ia_k7b_compress_packed": [_P] * 4 + [_I] * 4 + [_P],
     },
-    "dense_row": {"ia_k11_dense_row": [_P] * 4 + [_I] * 3 + [_P]},
+    "dense_row": {"ia_k11_dense_row": [_P] * 4 + [_I] * 3 + [_P],
+                  "ia_k11_dense_row_f64": [_P] * 4 + [_I] * 3 + [_P]},
     "hash": {"ia_k12_hash": [_P] * 7 + [_I] * 4 + [_P]},
     "ring": {"ia_k13_ring_hop": [_P, _I, _P],
              "ia_k13_enable_peer_access": [_I]},

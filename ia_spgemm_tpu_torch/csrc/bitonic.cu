@@ -11,8 +11,8 @@
 //   K7b ia_k7b_compress_packed     <- _compress_kernel_packed        (:1086)
 // (an _f64 entry is the float64-value instance of the same kernel)
 //
-// They compute what the Pallas kernels compute, not how: in K1-K3 and
-// K5-K7 one thread block owns one output row, keeps the row's `width`
+// They compute what the Pallas kernels compute, not how: in K1-K3, K5
+// and K7 one thread block owns one output row, keeps the row's `width`
 // (key, value) products in
 // shared memory, sorts them with a bitonic network (partner i ^ s, no
 // rolls), sums duplicate-column runs, and writes each survivor straight
@@ -37,21 +37,24 @@
 // already written to device memory: (m, width) int32 keys and float32 or
 // float64 values, each row alternating ascending / descending runs of
 // `run`. The TPU split them at FUSED_MAX_WIDTH (sort + compress in one
-// kernel below it, sort then K3 above) because of its scoped VMEM; here
-// one block per row holds up to 12 * width bytes of shared memory either
-// way, and the split is kept so both kernels run where the JAX package
-// runs them. Bound on this card: bytes would allow 12 * width * 2 per row
-// (read the pair, write it or its compacted survivors) at 3.35 TB/s, but
-// the same barrier-separated network passes as K1/K2 hold them back; K5
-// saves K6 + K3's extra write and read of the sorted row. K4 (the wide
-// classes and the ring's shards) keeps its row in registers instead:
-// the register network of sort_common.cuh, below.
+// kernel below it, sort then K3 above) because of its scoped VMEM; the
+// split is kept so both kernels run where the JAX package runs them. K5
+// holds a row in shared memory (12 * width bytes at most) and sorts it
+// with the barriered network above. K4 (the wide classes and the ring's
+// shards) and K6 keep the row in registers instead: the register network
+// of sort_common.cuh (building block 4), K6 without the compress. Bound
+// on this card: bytes, 2 x (4 + sizeof(V)) x width per row (read the
+// pair, write it or its compacted survivors) at 3.35 TB/s; the register
+// network leaves them instruction-bound, a few times above it.
 //
 // Conventions and building blocks: sort_common.cuh.
 
 #include "sort_common.cuh"
 
 namespace {
+
+constexpr int kMaxDevices = 64;
+constexpr int kMaxWidth = 16384;
 
 // values + keys + 32 warp totals + 1 block total (values first, so a
 // float64 lane stays 8-byte aligned)
@@ -151,14 +154,15 @@ __device__ void sort_compress_row(const int* __restrict__ key,
                k + width);
 }
 
-// ---- K4: the register network (sort_common.cuh, building block 4) -------
+// ---- K4, K6: the register network (sort_common.cuh, building block 4) ---
 // One row per block for rows of more than 32E slots (T = W / E threads),
 // several rows per 128-thread block below that. Each thread loads its E
 // slots with 16-byte vector loads (scalar where a pointer is off the
-// 16-byte grid), sorts and compresses them in registers, and stores E
-// slots of the compacted row (staged through shared memory) with 16-byte
-// vector stores: survivors written straight to their ranks would leave a
-// warp's stores scattered over 32 sectors each. Bound on this card:
+// 16-byte grid), sorts them in registers and stores E slots with 16-byte
+// vector stores: K6 the sorted row; K4 compresses first and stores the
+// compacted row (staged through shared memory): survivors written
+// straight to their ranks would leave a warp's stores scattered over 32
+// sectors each. Bound on this card:
 // bytes, 2 x 8 x W per row for float32 values (read the pair, write col
 // and val), at 3.35 TB/s; the design keeps the row between that one read
 // and one write in registers, with block barriers only for the sort's
@@ -259,20 +263,25 @@ __device__ __forceinline__ void store_row(double* out, const double (&v)[E],
   }
 }
 
-// Shared memory of a K4 block: W value and W key slots per row (the sort's
-// exchanges, then the compacted row), and the compress's scratch.
-template <typename V>
-inline size_t k4_smem_bytes(int width, int rows_per_block) {
+// Shared memory of a block of the register network: W value and W key
+// slots per row (the sort's exchanges; K4's compacted row) and K4's
+// compress scratch. K6 uses the slots only for rows of more than a warp.
+template <typename V, bool kCompress>
+inline size_t net_smem_bytes(int width, int rows_per_block) {
+  if (!kCompress && width / (width == kMaxWidth ? 16 : 8) <= 32) return 0;
   return (size_t)rows_per_block * width * (sizeof(V) + sizeof(int))
-         + sizeof(RowScratch<V>);
+         + (kCompress ? sizeof(RowScratch<V>) : 0);
 }
 
-template <typename V, int E, int kMaxThreads>
-__global__ void __launch_bounds__(kMaxThreads)
-k4_sort_compress_rows(const int* __restrict__ key, const V* __restrict__ val,
-                      int* __restrict__ out_col, V* __restrict__ out_val,
-                      int* __restrict__ nnz, int m, int width, int start_kk,
-                      int rows_per_block, int vec) {
+// One block's rows through the register network: load, sort from
+// start_kk, then K4 (kCompress) compresses and stores the compacted row,
+// col -1 / 0 past the survivors, and its nnz; K6 stores the sorted row.
+template <typename V, int E, bool kCompress>
+__device__ __forceinline__ void row_net_rows(
+    const int* __restrict__ key, const V* __restrict__ val,
+    int* __restrict__ out_col, V* __restrict__ out_val,
+    int* __restrict__ nnz, int m, int width, int start_kk,
+    int rows_per_block, int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const RowShape<E> sh(width);
   const int seg = threadIdx.x / sh.T;        // the block's row
@@ -296,14 +305,27 @@ k4_sort_compress_rows(const int* __restrict__ key, const V* __restrict__ val,
   int* k_all = reinterpret_cast<int*>(v_all + (size_t)rows_per_block * width);
   V* vs = v_all + (size_t)seg * width;
   int* ks = k_all + (size_t)seg * width;
-  RowScratch<V>* sc = reinterpret_cast<RowScratch<V>*>(
-      k_all + (size_t)rows_per_block * width);
   row_net_sort<E, V>(k, v, ks, vs, tid, start_kk, sh);
-  const int total = row_net_compress<E, V>(k, v, tid, sh, sc, ks, vs);
+  int total = 0;
+  if constexpr (kCompress) {
+    RowScratch<V>* sc = reinterpret_cast<RowScratch<V>*>(
+        k_all + (size_t)rows_per_block * width);
+    total = row_net_compress<E, V>(k, v, tid, sh, sc, ks, vs);
+  }
   if (!live) return;
   store_row<E>(out_col + off + (size_t)tid * E, k, vec != 0);
   store_row<E>(out_val + off + (size_t)tid * E, v, vec != 0);
-  if (tid == 0) nnz[row] = total;
+  if (kCompress && tid == 0) nnz[row] = total;
+}
+
+template <typename V, int E, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads)
+k4_sort_compress_rows(const int* __restrict__ key, const V* __restrict__ val,
+                      int* __restrict__ out_col, V* __restrict__ out_val,
+                      int* __restrict__ nnz, int m, int width, int start_kk,
+                      int rows_per_block, int vec) {
+  row_net_rows<V, E, true>(key, val, out_col, out_val, nnz, m, width,
+                           start_kk, rows_per_block, vec);
 }
 
 // ---- K5, K6: the cols layout over the torch expand --------------------------
@@ -319,19 +341,16 @@ __global__ void k5_sort_compress(const int* __restrict__ key,
                     out_w);
 }
 
-template <typename V>
-__global__ void k6_sort(const int* __restrict__ key,
-                        const V* __restrict__ val, int* __restrict__ out_k,
-                        V* __restrict__ out_v, int width, int start_kk) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int row = blockIdx.x;
-  V* v;
-  int* k = load_row(key, val, smem_raw, &v, row, width);
-  block_sort(k, v, width, start_kk);
-  for (int p = threadIdx.x; p < width; p += blockDim.x) {
-    out_k[(size_t)row * width + p] = k[p];
-    out_v[(size_t)row * width + p] = v[p];
-  }
+// K6: K4's register network without the compress (the sorted row goes
+// out as it is, in the normal layout, for K3). nnz is unused.
+template <typename V, int E, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads)
+k6_sort_rows(const int* __restrict__ key, const V* __restrict__ val,
+             int* __restrict__ out_k, V* __restrict__ out_v,
+             int* __restrict__ nnz, int m, int width, int start_kk,
+             int rows_per_block, int vec) {
+  row_net_rows<V, E, false>(key, val, out_k, out_v, nnz, m, width, start_kk,
+                            rows_per_block, vec);
 }
 
 // ---- K7: the bf16 serve lane ---------------------------------------------
@@ -402,12 +421,10 @@ __global__ void k7b_compress_packed(const int* __restrict__ packed,
                smem + 2 * width);
 }
 
-// Allow more than 48 KB of dynamic shared memory (K5 / K6 at width 16384
-// use 128 KB with float32 values, 192 KB with float64). Set once per kernel
+// Allow more than 48 KB of dynamic shared memory (K5 at width 16384
+// uses 128 KB with float32 values, 192 KB with float64). Set once per kernel
 // instance and device, to what its widest row needs, on the device the
 // caller made current; later launches skip it.
-constexpr int kMaxDevices = 64;
-constexpr int kMaxWidth = 16384;
 
 template <typename V, typename Kernel>
 cudaError_t allow_smem(Kernel kernel, bool* done, size_t smem) {
@@ -443,18 +460,21 @@ int launch_k3(const void* key, const void* val, void* out_col,
   return (int)cudaGetLastError();
 }
 
-// K4's launches. E = 16 at width 16384 (1024 threads), 8 below, each
-// instance's launch bound the widest row it takes (so that rows up to
-// 2048 slots keep their registers). Rows of at most 32E slots (T <= 32
-// threads) share a 128-thread block.
-template <typename V, int E, int kMaxThreads>
-int launch_k4_net(const void* key, const void* val, void* out_col,
-                  void* out_val, void* nnz, int m, int width, int start_kk,
-                  void* stream) {
+// The register network's launches (K4, K6). E = 16 at width 16384 (1024
+// threads), 8 below, each instance's launch bound the widest row it takes
+// (so that rows up to 2048 slots keep their registers). Rows of at most
+// 32E slots (T <= 32 threads) share a 128-thread block.
+template <typename V, int E, int kMaxThreads, bool kCompress>
+int launch_row_net(const void* key, const void* val, void* out_col,
+                   void* out_val, void* nnz, int m, int width, int start_kk,
+                   void* stream) {
   static bool done[kMaxDevices];
+  void (*kernel)(const int*, const V*, int*, V*, int*, int, int, int, int,
+                 int) = kCompress ? &k4_sort_compress_rows<V, E, kMaxThreads>
+                                  : &k6_sort_rows<V, E, kMaxThreads>;
   const int T = width / E;
   const int rows_per_block = T <= 32 ? 128 / T : 1;
-  const size_t smem = k4_smem_bytes<V>(width, rows_per_block);
+  const size_t smem = net_smem_bytes<V, kCompress>(width, rows_per_block);
   if (smem > 48 * 1024) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -462,9 +482,8 @@ int launch_k4_net(const void* key, const void* val, void* out_col,
     if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
     if (!done[dev]) {
       err = cudaFuncSetAttribute(
-          k4_sort_compress_rows<V, E, kMaxThreads>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)k4_smem_bytes<V>(kMaxThreads * E, 1));
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)net_smem_bytes<V, kCompress>(kMaxThreads * E, 1));
       if (err != cudaSuccess) return (int)err;
       done[dev] = true;
     }
@@ -472,25 +491,24 @@ int launch_k4_net(const void* key, const void* val, void* out_col,
   const int vec = (((uintptr_t)key | (uintptr_t)val | (uintptr_t)out_col
                      | (uintptr_t)out_val) & 15) == 0;
   const int grid = (m + rows_per_block - 1) / rows_per_block;
-  k4_sort_compress_rows<V, E, kMaxThreads>
-      <<<grid, T * rows_per_block, smem, (cudaStream_t)stream>>>(
-          (const int*)key, (const V*)val, (int*)out_col, (V*)out_val,
-          (int*)nnz, m, width, start_kk, rows_per_block, vec);
+  kernel<<<grid, T * rows_per_block, smem, (cudaStream_t)stream>>>(
+      (const int*)key, (const V*)val, (int*)out_col, (V*)out_val, (int*)nnz,
+      m, width, start_kk, rows_per_block, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename V>
-int launch_k4(const void* key, const void* val, void* out_col,
-              void* out_val, void* nnz, int m, int width, int start_kk,
-              void* stream) {
-#define IA_K4(E_, THREADS)                                                \
-  launch_k4_net<V, E_, THREADS>(key, val, out_col, out_val, nnz, m, width, \
-                                start_kk, stream)
-  if (width == kMaxWidth) return IA_K4(16, 1024);
-  if (width <= 2048) return IA_K4(8, 256);
-  if (width == 4096) return IA_K4(8, 512);
-  return IA_K4(8, 1024);
-#undef IA_K4
+template <typename V, bool kCompress>
+int launch_rows(const void* key, const void* val, void* out_col,
+                void* out_val, void* nnz, int m, int width, int start_kk,
+                void* stream) {
+#define IA_NET(E_, THREADS)                                                 \
+  launch_row_net<V, E_, THREADS, kCompress>(key, val, out_col, out_val, nnz, \
+                                            m, width, start_kk, stream)
+  if (width == kMaxWidth) return IA_NET(16, 1024);
+  if (width <= 2048) return IA_NET(8, 256);
+  if (width == 4096) return IA_NET(8, 512);
+  return IA_NET(8, 1024);
+#undef IA_NET
 }
 
 template <typename V>
@@ -505,19 +523,6 @@ int launch_k5(const void* key, const void* val, void* out_col,
                         (cudaStream_t)stream>>>(
       (const int*)key, (const V*)val, (int*)out_col, (V*)out_val,
       (int*)nnz, width, start_kk, out_w);
-  return (int)cudaGetLastError();
-}
-
-template <typename V>
-int launch_k6(const void* key, const void* val, void* out_k, void* out_v,
-              int m, int width, int start_kk, void* stream) {
-  static bool done[kMaxDevices];
-  size_t smem = smem_bytes<V>(width);
-  cudaError_t err = allow_smem<V>(k6_sort<V>, done, smem);
-  if (err != cudaSuccess) return (int)err;
-  k6_sort<V><<<m, threads_for(width), smem, (cudaStream_t)stream>>>(
-      (const int*)key, (const V*)val, (int*)out_k, (V*)out_v, width,
-      start_kk);
   return (int)cudaGetLastError();
 }
 
@@ -575,8 +580,8 @@ extern "C" int ia_k4_sort_compress_rows(const void* key, const void* val,
                                         void* out_col, void* out_val,
                                         void* nnz, int m, int width,
                                         int start_kk, void* stream) {
-  return launch_k4<float>(key, val, out_col, out_val, nnz, m, width,
-                          start_kk, stream);
+  return launch_rows<float, true>(key, val, out_col, out_val, nnz, m, width,
+                                  start_kk, stream);
 }
 
 extern "C" int ia_k4_sort_compress_rows_f64(const void* key,
@@ -584,8 +589,8 @@ extern "C" int ia_k4_sort_compress_rows_f64(const void* key,
                                             void* out_val, void* nnz, int m,
                                             int width, int start_kk,
                                             void* stream) {
-  return launch_k4<double>(key, val, out_col, out_val, nnz, m, width,
-                           start_kk, stream);
+  return launch_rows<double, true>(key, val, out_col, out_val, nnz, m,
+                                   width, start_kk, stream);
 }
 
 extern "C" int ia_k5_sort_compress(const void* key, const void* val,
@@ -608,15 +613,15 @@ extern "C" int ia_k5_sort_compress_f64(const void* key, const void* val,
 extern "C" int ia_k6_sort(const void* key, const void* val, void* out_k,
                           void* out_v, int m, int width, int start_kk,
                           void* stream) {
-  return launch_k6<float>(key, val, out_k, out_v, m, width, start_kk,
-                          stream);
+  return launch_rows<float, false>(key, val, out_k, out_v, nullptr, m, width,
+                                   start_kk, stream);
 }
 
 extern "C" int ia_k6_sort_f64(const void* key, const void* val, void* out_k,
                               void* out_v, int m, int width, int start_kk,
                               void* stream) {
-  return launch_k6<double>(key, val, out_k, out_v, m, width, start_kk,
-                           stream);
+  return launch_rows<double, false>(key, val, out_k, out_v, nullptr, m,
+                                    width, start_kk, stream);
 }
 
 extern "C" int ia_k7a_expand_sort_packed(const void* g, const void* avT,

@@ -1,8 +1,8 @@
 // Building blocks shared by the sort kernels of bitonic.cu (K1-K7)
 // and slab.cu (K8-K10): the fragment expand, the block bitonic sort in
 // shared memory (key + value, or key only), and the duplicate-sum /
-// compaction of a sorted row; and the register network with its
-// register compress (K4 alone).
+// compaction of a sorted row; and the register network (K4, K6) with its
+// register compress (K4).
 //
 // Conventions shared with the JAX package: SENTINEL = INT32_MAX marks an
 // empty product slot and sorts last (signed int32 compares); empty output
@@ -219,7 +219,7 @@ __device__ void compress_row(const int* k, const V* v, int width, int out_w,
   if (threadIdx.x == 0) *nnz = total;
 }
 
-// ---- building block 4: the register network (K4) --------------------------
+// ---- building block 4: the register network (K4, K6) ----------------------
 // A row of W slots (W a power of two, 128..16384) is held E slots per
 // thread in registers, T = W / E threads per row: E = 8, or 16 at 16384
 // so that a row stays at 1024 threads. In the normal layout row thread t
@@ -234,7 +234,8 @@ __device__ void compress_row(const int* k, const V* v, int width, int out_w,
 //     stage's large strides there as register / lane strides, one
 //     exchange back. Each thread writes only the shared slots it read in
 //     the previous exchange, so one barrier per exchange suffices.
-// tests/test_torch_k4_network.py models this schedule step for step.
+// tests/test_torch_k4_network.py models this schedule step for step. K6
+// is the same sort without the compress.
 // Rows of at most 32E slots are one warp's work or less (T <= 32), sort
 // without shared memory, and share a block (rows_per_block).
 // Shared slots are XOR-swizzled within each 32-word line (swz), which

@@ -1,6 +1,6 @@
-"""PyTorch port, the CUDA kernels K1-K13 (K3-K6 in float32 and float64)
-against their plain PyTorch versions on the card, and the ring through
-K13 (marked `cuda`; they skip without a GPU; the several-card K13 test
+"""PyTorch port, the CUDA kernels K1-K13 (K3-K6 and K11 in float32 and
+float64) against their plain PyTorch versions on the card, and the ring
+through K13 (marked `cuda`; they skip without a GPU; the several-card K13 test
 also skips with one card).
 
 This file imports no jax, so it runs on the GPU machine, where jax is
@@ -12,6 +12,7 @@ not installed and tests/conftest.py (which imports jax) must be left out:
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from ia_spgemm_tpu_torch.bench.headline import build_matrix
@@ -111,11 +112,12 @@ K4_WIDTHS = [128, 256, 512, 1024, 2048, 4096, 8192, 16384]
 
 
 def _k4_rows(m, width, start_kk, dtype, seed=0, kind="random"):
-    """Rows in K4's input layout for start_kk (sorted runs of start_kk / 2
-    slots, ascending and descending in turn), built with numpy: random
-    keys with duplicates and SENTINEL slots, or one key, or SENTINEL
-    only, or duplicate runs that straddle register (8 / 16 slots), warp
-    (256 / 512) and block boundaries."""
+    """Rows in the register network's input layout for start_kk (sorted
+    runs of start_kk / 2 slots, ascending and descending in turn), built
+    with numpy: random keys with duplicates and SENTINEL slots, or one
+    key, or SENTINEL only, or duplicate runs that straddle register (8 /
+    16 slots), warp (256 / 512) and block boundaries, or a row already
+    sorted."""
     rng = np.random.default_rng(seed + width)
     v = rng.standard_normal((m, width)).astype(dtype)
     if kind == "one_key":
@@ -129,6 +131,8 @@ def _k4_rows(m, width, start_kk, dtype, seed=0, kind="random"):
         k = np.tile(ks, (m, 1))
         k[:, width - width // 5:] = K.SENTINEL
         k = np.ascontiguousarray(k[:, rng.permutation(width)])
+    elif kind == "sorted":
+        k = np.sort(rng.integers(0, max(4, width // 3), (m, width)), axis=1)
     else:
         k = rng.integers(0, max(4, width // 3), (m, width))
         k[rng.random((m, width)) < 0.1] = K.SENTINEL
@@ -154,6 +158,25 @@ def _check_k4(key, val, width, start_kk):
         rtol=value_rtol(val))
 
 
+def _check_k6(key, val, width, start_kk):
+    """K6: the sorted keys equal the plain version's; values within a
+    duplicate run may sit in another order, so the run sums (the plain
+    compress of each) are compared."""
+    n6 = K.sort_only.launches
+    sk, sv = K.sort_only(key, val, width=width, start_kk=start_kk)
+    assert K.sort_only.launches == n6 + 1
+    assert sv.dtype == val.dtype
+    pk, pv = K.sort_only_plain(key, val, width=width, start_kk=start_kk)
+    assert torch.equal(sk, pk)
+    assert_kernel_outputs_match(
+        K.compress_plain(sk, sv, width=width, out_w=width),
+        K.compress_plain(pk, pv, width=width, out_w=width),
+        rtol=value_rtol(val))
+
+
+NET_CHECKS = {"K4": _check_k4, "K6": _check_k6}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", K4_WIDTHS)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -167,31 +190,36 @@ def test_k4_network_every_width(cuda_device, width, dtype, start):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [128, 1024, 8192])
+@pytest.mark.parametrize("kernel", sorted(NET_CHECKS))
+@pytest.mark.parametrize("width", [128, 512, 1024, 8192])
 @pytest.mark.parametrize("m", [1, 20, 131, 133, 300])
-def test_k4_row_counts(cuda_device, width, m):
-    """Row counts below and above the card's 132 SMs, and the last
-    block's padding rows where rows share a block (width 128: 8 a
-    block)."""
+def test_k4_row_counts(cuda_device, width, m, kernel):
+    """K4 and K6 (the register network with and without the compress):
+    row counts below and above the card's 132 SMs, and the last block's
+    padding rows where rows share a block (width 128: 8 a block)."""
     key, val = _k4_rows(m, width, 2, np.float32, seed=m)
-    _check_k4(key.to(cuda_device), val.to(cuda_device), width, 2)
+    NET_CHECKS[kernel](key.to(cuda_device), val.to(cuda_device), width, 2)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [128, 1024, 16384])
-@pytest.mark.parametrize("kind", ["one_key", "sentinel", "straddling"])
+@pytest.mark.parametrize("kernel", sorted(NET_CHECKS))
+@pytest.mark.parametrize("width", [128, 512, 1024, 16384])
+@pytest.mark.parametrize("kind", ["one_key", "sentinel", "straddling",
+                                  "sorted"])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_k4_adversarial_rows(cuda_device, width, kind, dtype):
+def test_k4_adversarial_rows(cuda_device, width, kind, dtype, kernel):
     key, val = _k4_rows(5, width, 2, dtype, kind=kind)
-    _check_k4(key.to(cuda_device), val.to(cuda_device), width, 2)
+    NET_CHECKS[kernel](key.to(cuda_device), val.to(cuda_device), width, 2)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(NET_CHECKS))
+@pytest.mark.parametrize("width", [1024, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_k4_rows_off_the_vector_grid(cuda_device, dtype):
+def test_k4_rows_off_the_vector_grid(cuda_device, dtype, width, kernel):
     """Rows starting 4 (keys) or 8 (values) bytes past a 16-byte boundary
-    take the scalar loads."""
-    m, width = 7, 2048
+    take the scalar loads (K4 and K6)."""
+    m = 7
     key0, val0 = _k4_rows(m, width, 2, np.float64)
     kbuf = torch.empty(m * width + 1, dtype=torch.int32, device=cuda_device)
     vbuf = torch.empty(m * width + 1, dtype=dtype, device=cuda_device)
@@ -200,22 +228,42 @@ def test_k4_rows_off_the_vector_grid(cuda_device, dtype):
     key.copy_(key0)
     val.copy_(val0)
     assert key.data_ptr() % 16 and val.data_ptr() % 16
-    _check_k4(key, val, width, 2)
+    NET_CHECKS[kernel](key, val, width, 2)
+
+
+def _in_runs(key, val, start_kk):
+    """Rows re-laid into sorted runs of start_kk / 2 slots, ascending and
+    descending in turn (any row is valid input for start_kk = 2)."""
+    if start_kk <= 2 * RUN:
+        return key, val
+    m, width = key.shape
+    half = start_kk // 2
+    kr = key.reshape(m, width // half, half)
+    order = torch.sort(kr, dim=2, stable=True).indices
+    order[:, 1::2] = order[:, 1::2].flip(2)
+    return (torch.gather(kr, 2, order).reshape(m, width).contiguous(),
+            torch.gather(val.reshape(m, width // half, half), 2, order)
+            .reshape(m, width).contiguous())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("start_kk", [2, 2 * RUN, 64])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("ka,out_width", [(32, None), (32, 128),
-                                          (128, None), (128, 300)])
-def test_k5_k6_k3_kernels_match_plain(cuda_device, dtype, ka, out_width):
+                                          (64, None), (128, None),
+                                          (128, 300)])
+def test_k5_k6_k3_kernels_match_plain(cuda_device, dtype, ka, out_width,
+                                      start_kk):
     """The cols layout on the torch expand's rows (padded class rows
-    included): K5 at width 256 (ka 32) and 1024 (ka 128), with and
-    without an out_w cap; K6's sorted keys equal the plain version's, K3
-    on them within the values' tolerance."""
+    included): K5 and K6 at width 256 (ka 32), 512 (ka 64) and 1024 (ka
+    128), from start_kk 2 (a full sort), 16 (the rows' runs of 8) and 64
+    (re-laid into runs of 32); K5 with and without an out_w cap; K6's
+    sorted keys equal the plain version's, its run sums and K3 on them
+    within the values' tolerance."""
     key, val, width = cols_inputs(ka, dtype)
-    key, val = key.to(cuda_device), val.to(cuda_device)
+    key, val = _in_runs(key.to(cuda_device), val.to(cuda_device), start_kk)
     out_w = width if out_width is None else min(out_width, width)
-    kw = dict(width=width, start_kk=2 * RUN)
+    kw = dict(width=width, start_kk=start_kk)
     rtol = value_rtol(val)
     n5 = K.sort_compress.launches
     got = K.sort_compress(key, val, out_w=out_w, **kw)
@@ -223,11 +271,9 @@ def test_k5_k6_k3_kernels_match_plain(cuda_device, dtype, ka, out_width):
     assert got[1].dtype == val.dtype and got[0].shape[1] == out_w
     assert_kernel_outputs_match(
         got, K.sort_compress_plain(key, val, out_w=out_w, **kw), rtol=rtol)
-    n6 = K.sort_only.launches
+    _check_k6(key, val, width, start_kk)
     sk, sv = K.sort_only(key, val, **kw)
-    assert K.sort_only.launches == n6 + 1
     pk, pv = K.sort_only_plain(key, val, **kw)
-    assert torch.equal(sk, pk)
     assert_kernel_outputs_match(
         K.compress(sk, sv, width=width, out_w=out_w),
         K.compress_plain(pk, pv, width=width, out_w=out_w), rtol=rtol)
@@ -292,18 +338,73 @@ def test_k7_kernels_match_plain(cuda_device, ka):
                                     compact=compact))
 
 
+def _k11_inputs(case, device):
+    """(a_col, a_val, b, exact) for K11: ELL from canonical CSR (rows
+    ascending) unless the case says otherwise; exact: bit for bit against
+    the plain version, else within the values' tolerance."""
+    m, k, n, density, dtype = K11_CASES[case]
+    rng = np.random.default_rng(m + k + n)
+    a = sp.random(m, k, density=density, format="csr", random_state=rng)
+    a.data = rng.standard_normal(a.nnz)
+    if case == "empty_rows":
+        a = a.tolil()
+        a[:6, :] = 0
+        a[m - 1, :] = 0
+        a = a.tocsr()
+        a.eliminate_zeros()
+    a.sort_indices()
+    E = tell(a, dtype=dtype)
+    a_col, a_val = E.col_ind, E.values
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(dtype))
+    if case == "inf_row":
+        # a stored 0 against the inf (NaN, as the plain multiply gives),
+        # the other rows referencing that B row get +-inf
+        r = int((a_col[:, 0] >= 0).nonzero()[0, 0])
+        b[int(a_col[r, 0]), ::7] = float("inf")
+        a_val[r, 0] = 0.0
+    exact = not case.endswith("unsorted")
+    if not exact:    # shuffled slots, an empty slot between live ones
+        p = torch.from_numpy(np.argsort(rng.random(a_col.shape), axis=1))
+        a_col[::3, 1] = -1
+        a_col = torch.gather(a_col, 1, p).contiguous()
+        a_val = torch.gather(a_val, 1, p).contiguous()
+    return a_col.to(device), a_val.to(device), b.to(device), exact
+
+
+# (m, k, n, density, value type): n not a multiple of the 1024- (float32)
+# or 512-column (float64) chunk and m not one of the 8-row tile; n below
+# one chunk; n odd (scalar segments and stores); rows of up to ~100
+# entries (K > 32: several passes); empty rows; a B row of inf; float64
+K11_CASES = {"rect": (300, 200, 2500, 0.05, np.float32),
+             "wide_b": (64, 4096, 16384, 0.004, np.float32),
+             "n_below_chunk": (37, 50, 100, 0.1, np.float32),
+             "n_odd": (45, 60, 517, 0.1, np.float32),
+             "long_rows": (50, 300, 600, 0.3, np.float32),
+             "empty_rows": (33, 80, 1000, 0.1, np.float32),
+             "inf_row": (40, 30, 700, 0.2, np.float32),
+             "unsorted": (70, 120, 530, 0.1, np.float32),
+             "f64": (300, 200, 1100, 0.05, np.float64),
+             "f64_n_odd": (41, 90, 257, 0.4, np.float64),
+             "f64_unsorted": (70, 120, 530, 0.1, np.float64)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,density", [(300, 200, 2500, 0.05),
-                                           (64, 4096, 16384, 0.004)])
-def test_k11_kernel_matches_plain(cuda_device, m, k, n, density):
-    """n not a multiple of the 1024-column chunk, and a wide B."""
-    A, _, a, _ = ell_pair(m, k, 8, density, seed=m, device=cuda_device)
-    gen = torch.Generator(device=cuda_device).manual_seed(n)
-    b = torch.randn((k, n), device=cuda_device, generator=gen)
+@pytest.mark.parametrize("case", sorted(K11_CASES))
+def test_k11_kernel_matches_plain(cuda_device, case):
+    """Bit for bit on canonical ELL (NaN where the plain version has
+    NaN), within the values' tolerance on unsorted rows."""
+    a_col, a_val, b, exact = _k11_inputs(case, cuda_device)
     n11 = DK.dense_row.launches
-    got = DK.dense_row(A.col_ind, A.values, b)
+    got = DK.dense_row(a_col, a_val, b)
     assert DK.dense_row.launches == n11 + 1
-    assert_values_close(got, DK.dense_row_plain(A.col_ind, A.values, b))
+    assert got.dtype == b.dtype
+    want = DK.dense_row_plain(a_col, a_val, b)
+    if exact:
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan], want[~nan])
+    else:
+        assert_values_close(got, want, rtol=value_rtol(want))
 
 
 @pytest.mark.cuda
