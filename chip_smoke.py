@@ -37,7 +37,9 @@ prints no result line:
    whichever is longer); K13 also into receivers passed in (the ring's
    way), with the host's microseconds per call (time.perf_counter around
    unsynchronised calls) beside each CUDA-event time and the kernel's own
-   device time (torch.profiler); then cuSPARSE's CSR @ CSR of the
+   device time (torch.profiler); K1 and K3 (the register network) with
+   the same two beside each shape's CUDA-event time (a k1_k3_split JSON
+   line); then cuSPARSE's CSR @ CSR of the
    headline (torch.sparse.mm), the library time of K12 and of K1 (beside
    the headline's K1 launches; that plan also launches K2 + K3);
 4. headline: bench.headline at m=32768 (nnz 7,086,306, checksum within
@@ -105,11 +107,11 @@ prints no result line:
 
 Every kernel wrapper counts its launches. Phases 4, 5, 7-10, 12-15,
 17-19 and 22-23 each drive a main path on its own input: the counts are
-set to 0 just before each run and read just after it. K1 must have been
-launched in phase 4, K2, K3 and K4 in phase 5, K8 and K3 in phase 7, K9
-and K10 in phase 9, K8 in the hybrid run of phase 10, K7a and K7b in
-phase 12, K12 in 13, K11 in 14, the flat route's kernels in spgemm_auto
-(15), K6 and K3 in f64_flat and f32_wide_flat, K5, K6 and K3 in
+set to 0 just before each run and read just after it. K1, K2 and K3
+must have been launched in phase 4, K2, K3 and K4 in phase 5, K8 and K3
+in phase 7, K9 and K10 in phase 9, K8 in the hybrid run of phase 10, K7a
+and K7b in phase 12, K12 in 13, K11 in 14, the flat route's kernels in
+spgemm_auto (15), K6 and K3 in f64_flat and f32_wide_flat, K5, K6 and K3 in
 f64_multiclass, K4 in f64_skew, K13 and K4 in the K13 ring runs of 22
 (no K13 in the plain-hop run), none in the plain-torch dist runs of 23.
 Phase 3's comparison launches and those of the CLI, the workers and the
@@ -117,8 +119,9 @@ scaling phase are not counted. The line before the last two is a JSON
 object with one entry per kernel
 ("ms"/"plain_ms"/"library_ms"/"bound_ms": summed over its phase-3
 shapes, "bound_by" the larger term; "launches": the sum over the
-main-path runs, split in "launches_by_run"); then the nvidia-smi line;
-the last line is {"ok": true, "device": {...}}.
+main-path runs, split in "launches_by_run"; K1's and K3's
+"kernel_alone_ms": the kernel alone, summed over their shapes); then the
+nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -134,9 +137,10 @@ DD_TOL = 1e-12      # compensated hi + lo, relative to max(1, max|C|)
 ORACLE_TOL = 1e-4   # against scipy, as the JAX package's tests
 F64_ORACLE_TOL = 1e-9   # float64 routes against scipy (the harness's gate)
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory, and
-# float32 outside the tensor cores
+# float32 and float64 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12   # float64 outside the tensor cores
 HEADLINE_NNZ = 7_086_306
 # the route the JAX package's cost model (esc.predict_csr_route_ms) ranks
 # first on the m=32768 headline (tests/test_torch_esc.py checks it)
@@ -170,6 +174,9 @@ REPLACES = {"K1": "ia_spgemm_tpu/ops/bitonic.py:1034",
             "K12": "ia_spgemm_tpu/ops/hash_spgemm.py:58",
             "K13": "ia_spgemm_tpu/parallel/rdma_ring.py:31"}
 RING_SHARDS = 4          # the ring / dist phases: 4 shards of the one card
+# the kernels whose phase-3 shapes also record the kernel alone and the
+# host's share (the profiler's name of each kernel)
+SPLIT_NAMES = {"K1": "k1_expand_sort_compress", "K3": "k3_compress"}
 
 
 def _compare(name, got, want):
@@ -225,7 +232,10 @@ def _record(stats, time_ms, dev, kname, what, err, kern, plain, ins,
     `library` (one PyTorch call computing the same function, or None);
     and the bound's two terms: the inputs `ins` read once plus the
     kernel's outputs written once at PEAK_BYTES_PER_S, and `flops` (the
-    float32 operations these inputs need) at PEAK_F32_FLOPS."""
+    float32 operations these inputs need) at PEAK_F32_FLOPS. For the
+    kernels of SPLIT_NAMES also the kernel alone (torch.profiler, us per
+    launch) and the host's us per call (unsynchronised calls), summed
+    into "kernel_alone_ms" and listed per shape under "split"."""
     bytes_ms = (_nbytes(ins) + _nbytes(kern())) / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_F32_FLOPS * 1e3
     ms, pms = time_ms(kern, dev, 2, 20), time_ms(plain, dev, 2, 20)
@@ -240,8 +250,18 @@ def _record(stats, time_ms, dev, kname, what, err, kern, plain, ins,
     if lms is not None:
         s["library_ms"] = (s["library_ms"] or 0.0) + lms
     s["max_abs_err"] = max(s["max_abs_err"], err)
+    split = ""
+    if kname in SPLIT_NAMES:
+        from ia_spgemm_tpu_torch.bench.kernels import host_us, kernel_us
+        k_us, h_us = kernel_us(kern, SPLIT_NAMES[kname]), host_us(kern)
+        s["kernel_alone_ms"] = s.get("kernel_alone_ms", 0.0) + k_us / 1e3
+        s.setdefault("split", []).append({
+            "shape": what, "ms": ms, "kernel_us": k_us, "host_us": h_us,
+            "bound_ms": max(bytes_ms, ops_ms), "plain_ms": pms})
+        split = f" kernel_us={k_us} host_us={h_us}"
     print(f"  {kname} {what}: max_abs_err={err} ms={ms} plain_ms={pms} "
-          f"library_ms={lms} bound_ms={max(bytes_ms, ops_ms)}", flush=True)
+          f"library_ms={lms} bound_ms={max(bytes_ms, ops_ms)}{split}",
+          flush=True)
 
 
 def _torch_sort(key):
@@ -538,12 +558,22 @@ def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
     f = lambda fn: fn(E4.col_ind, E4.values, B4)  # noqa: E731
     got = f(DK.dense_row)
     _same_bits("K11 float64", got, f(DK.dense_row_plain))
+    # its bound (bytes, or float64 operations at PEAK_F64_FLOPS) and
+    # cuSPARSE SpMM in float64 on the same input
+    nnz4 = int(A4.nnz)
+    a4_sp = torch.sparse_csr_tensor(A4.row_ptr, A4.col_ind[:nnz4],
+                                    A4.values[:nnz4], size=A4.shape)
+    bound4 = max((_nbytes((E4.col_ind, E4.values, B4)) + _nbytes(got))
+                 / PEAK_BYTES_PER_S,
+                 2.0 * nnz4 * B4.shape[1] / PEAK_F64_FLOPS) * 1e3
     print(f"  K11 float64 A ELL {tuple(E4.col_ind.shape)} x dense B "
           f"{tuple(B4.shape)}: bit for bit, ms="
           f"{time_ms(lambda: f(DK.dense_row), dev, 2, 20)} plain_ms="
-          f"{time_ms(lambda: f(DK.dense_row_plain), dev, 2, 20)}",
-          flush=True)
-    del A4, E4, B4, got
+          f"{time_ms(lambda: f(DK.dense_row_plain), dev, 2, 20)} "
+          f"library_ms="
+          f"{time_ms(lambda: torch.sparse.mm(a4_sp, B4), dev, 2, 20)} "
+          f"bound_ms={bound4}", flush=True)
+    del A4, E4, B4, got, a4_sp
 
     Hs = hash_spgemm._next_pow2(2 * ka * ka)
     if Hs != 2048 or not hash_spgemm.hash_viable(ka, ka, H.ncols):
@@ -942,6 +972,8 @@ def main() -> int:
                               + headline_ms.get("K3", 0.0)),
         "k12_ms": stats["K12"]["ms"]}}), flush=True)
     del a_sp, c_sp
+    print(json.dumps({"k1_k3_split": {n: stats[n]["split"]
+                                      for n in SPLIT_NAMES}}), flush=True)
     missing = set(kernel_names) - set(stats)
     if missing:
         raise AssertionError(f"phase 3 never reached {sorted(missing)}")
@@ -963,7 +995,7 @@ def main() -> int:
     if not (np.array_equal(got.indptr, c_ref.indptr)
             and np.array_equal(got.indices, c_ref.indices)):
         raise AssertionError("headline sparsity pattern differs from scipy")
-    launched("headline", ["K1"])
+    launched("headline", ["K1", "K2", "K3"])
     print(f"[4] headline: device_ms={det['device_ms']} "
           f"GFLOPS={result['value']} scipy_ms={det['scipy_ms']} "
           f"rel_err={det['checksum_rel_err']} widths={det['widths']} "
@@ -1419,7 +1451,9 @@ def main() -> int:
             "bound_ms": max(st["bytes_ms"], st["ops_ms"]),
             "bound_by": ("operations" if st["ops_ms"] > st["bytes_ms"]
                          else "bytes"),
-            "library_ms": st["library_ms"]})
+            "library_ms": st["library_ms"],
+            **({"kernel_alone_ms": st["kernel_alone_ms"]}
+               if "kernel_alone_ms" in st else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""K4, K6, K11 and K13 on the card at the shapes of ``chip_smoke.py``
-phase 3, on inputs made from a seed: for each, the wrapper's call time
+"""K1, K3, K4, K6, K11 and K13 on the card at the shapes of
+``chip_smoke.py`` phase 3, on inputs made from a seed: for each, the
+wrapper's call time
 (CUDA events, median of 20), the host's microseconds per call
 (``time.perf_counter`` around unsynchronised calls), the kernel's own
 device time per launch (``torch.profiler``), and beside them the PyTorch
@@ -10,9 +11,17 @@ against the plain version first (structure exact, values within 1e-5 /
 K11 and K13 bit for bit).
 
     python -m ia_spgemm_tpu_torch.bench.kernels [--json PATH]
+                                                [--only K1,K3,...]
 
 Prints one JSON line: the card's name and power limit, then one entry per
-shape. K4's and K6's inputs are rows in their input layout (sorted runs
+shape. K1's and K3's inputs are the ones phase 3 gives them: K1 the
+headline's width classes up to FUSED_MAX_WIDTH (the tuned 512) on its
+pregathered plan and the skew matrix's 128 class; K3 the rows K2 sorts
+for the headline's 1024 class (compact and not), the rows K8 sorts on
+the headline's slab plan, and the rows K6 sorts on the float64
+headline's flat plan, its float64 1024 class and the float32 wide x
+band flat plan; each beside its bytes bound (inputs read once, outputs
+written once, at 3.35 TB/s). K4's and K6's inputs are rows in their input layout (sorted runs
 of start_kk / 2 slots, ascending and descending in turn; keys uniform
 below 32768, a fifth SENTINEL); K11's A is ``build_matrix(m=16384)`` as
 ELL (16384, 29) times itself dense; K13's the headline's B block shapes (32768 / D rows
@@ -47,6 +56,8 @@ K6_SHAPES = (("f32 wide x band flat", 32768, 1024, 16, "float32"),
 DENSE_ROW_M = 16384
 K13_SHARDS = (4, 8)
 HEADLINE_ROWS, HEADLINE_KB = 32768, 29
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
+KERNEL_NAMES = ("K1", "K3", "K4", "K6", "K11", "K13")
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -63,23 +74,28 @@ def host_us(fn, calls: int = 200) -> float:
     return us
 
 
-def kernel_us(fn, name: str, calls: int = 20) -> float:
+def kernel_us(fn, name: str, calls: int = 20, tries: int = 3) -> float:
     """Device microseconds per launch of the kernels whose name holds
-    `name`, from torch.profiler over `calls` calls of fn."""
+    `name`, from torch.profiler over `calls` calls of fn. The profiler
+    now and then records none of a window's launches (torch 2.11 on an
+    H100): such a window is profiled again, up to `tries` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    durs = [e.time_range.end - e.time_range.start for e in prof.events()
-            if e.device_type == DeviceType.CUDA and name in e.name]
-    if not durs:
-        raise RuntimeError(f"the profiler saw no {name} launch")
-    return sum(durs) / len(durs)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        durs = [e.time_range.end - e.time_range.start
+                for e in prof.events()
+                if e.device_type == DeviceType.CUDA and name in e.name]
+        if durs:
+            return sum(durs) / len(durs)
+    raise RuntimeError(f"the profiler saw no {name} launch in {tries} "
+                       "windows")
 
 
 def k4_rows(m, width, start_kk, dtype, seed=0):
@@ -187,16 +203,205 @@ def _measure_k11(dev) -> dict:
             **_timings(call, lambda: torch.sparse.mm(a_sp, B),
                        "k11_dense_row", dev)}
 
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
-def measure(dev) -> dict:
+
+def _gather_cases(call, label):
+    """K1 and K3 of one ragged multiclass call, as phase 3 reaches them:
+    (kernel, shape, kernel call, plain call, input tensors) per class of
+    at most TRANSPOSED_MAX_WIDTH slots; K3's rows are K2's sorted
+    output."""
+    from ia_spgemm_tpu_torch.ops import bitonic as bt
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    run = call.run
+    for i, w in enumerate(call.widths):
+        if w > bt.TRANSPOSED_MAX_WIDTH:
+            continue
+        n = call.counts[i]
+        pack = bt._pg_pack(run, w) if call.pregather else 1
+        g = call.frags[i] if call.pregather else call.table[
+            call.frags[i].reshape(-1).long()].reshape(
+                call.kas[i], n, call.table.shape[1])
+        avT = call.avts[i]
+        kw = dict(ka=call.kas[i], run=run, width=w, start_kk=2 * run,
+                  pack=pack)
+        shape = f"{label} {n} x {w} run={run} pack={pack}"
+        if w <= bt.FUSED_MAX_WIDTH:
+            yield ("K1", shape,
+                   lambda g=g, avT=avT, kw=kw, w=w: K.expand_sort_compress(
+                       g, avT, out_w=w, **kw),
+                   lambda g=g, avT=avT, kw=kw, w=w:
+                   K.expand_sort_compress_plain(g, avT, out_w=w, **kw),
+                   (g, avT))
+            continue
+        key, val = K.expand_sort(g, avT, **kw)
+        for compact in (True, False):
+            yield ("K3", f"{shape} compact={compact}",
+                   lambda key=key, val=val, w=w, c=compact: K.compress(
+                       key, val, width=w, out_w=w, compact=c),
+                   lambda key=key, val=val, w=w, c=compact:
+                   K.compress_plain(key, val, width=w, out_w=w, compact=c),
+                   (key, val))
+
+
+def _k3_case(label, key, val, width):
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    return ("K3", f"{label} {key.shape[0]} x {width} "
+                  f"{str(val.dtype)[6:]} compact=True",
+            lambda: K.compress(key, val, width=width, out_w=width),
+            lambda: K.compress_plain(key, val, width=width, out_w=width),
+            (key, val))
+
+
+def k1_k3_cases(dev, m=HEADLINE_ROWS):
+    """K1's and K3's phase-3 shapes (see the module's docstring), one at a
+    time, so that the float64 rows of one shape are freed before the
+    next is built; ``m`` the headline's rows (a smaller m rehearses the
+    cases on the CPU)."""
+    from ia_spgemm_tpu_torch.bench import headline
+    from ia_spgemm_tpu_torch.formats import convert
+    from ia_spgemm_tpu_torch.formats.types import CSR
+    from ia_spgemm_tpu_torch.ops import bitonic as bt
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    from ia_spgemm_tpu_torch.ops import slab
+    from ia_spgemm_tpu_torch.ops import slab_kernels as SK
+
+    def ell(a, dtype=np.float32):
+        return convert.csr_to_ell(CSR.from_scipy(a.astype(dtype),
+                                                 device=dev),
+                                  check_guard=False)
+
+    a64 = headline.build_matrix(m=m)
+    H = ell(a64)
+    yield from _gather_cases(bt.multiclass_planned(
+        H, H, assemble="bcsr", pregather=True, run_override=8), "headline")
+    S = ell(headline.build_skew_matrix())
+    yield from _gather_cases(bt.multiclass_planned(S, S, assemble="bcsr"),
+                             "skew")
+    del S
+    p = slab.plan_slab_csr(CSR.from_scipy(a64.astype(np.float32),
+                                          device=dev),
+                           CSR.from_scipy(a64.astype(np.float32),
+                                          device=dev)).plan
+    g = p.table[p.mt.reshape(-1).long()].reshape(
+        p.width // p.run, p.n_slabs, p.table.shape[1])
+    key, val = SK.expand_sort_lr(g, p.avt, p.lrt, ka=p.width // p.run,
+                                 run=p.run, width=p.width, n=p.n,
+                                 start_kk=2 * p.run)
+    yield _k3_case("headline slabs", key, val, p.width)
+    del g, key, val, p
+    H64 = ell(a64, np.float64)
+    plan = bt.plan_bitonic(H64, H64)
+    key, val = bt._expand_ell(H64.col_ind, H64.values, H64.col_ind,
+                              H64.values, width=plan.width, run=plan.run,
+                              chunks=plan.chunks)
+    key, val = K.sort_only(key, val, width=plan.width,
+                           start_kk=2 * plan.run)
+    yield _k3_case(f"f64 headline flat run={plan.run}", key, val,
+                   plan.width)
+    del key, val
+    call = bt.multiclass_planned(H64, H64, assemble="bcsr")
+    for i, w in enumerate(call.widths):
+        if not bt.FUSED_MAX_WIDTH < w <= bt.TRANSPOSED_MAX_WIDTH:
+            continue
+        ac = bt._take_rows(call.A.col_ind, call.idxs[i])[:, :call.kas[i]]
+        av = bt._take_rows(call.A.values, call.idxs[i])[:, :call.kas[i]]
+        key, val = bt._expand_ell(ac, av, call.B.col_ind, call.B.values,
+                                  width=w, run=call.run, chunks=call.chunks)
+        key, val = K.sort_only(key, val, width=w, start_kk=2 * call.run)
+        yield _k3_case(f"f64 headline class run={call.run}", key, val, w)
+        del key, val
+    del call, H64
+    WA = ell(headline.build_matrix(m=m, extra_per_row=60))
+    WB = ell(headline.build_matrix(m=m, band=3, extra_per_row=0))
+    plan = bt.plan_bitonic(WA, WB)
+    key, val = bt._expand_ell(WA.col_ind, WA.values, WB.col_ind, WB.values,
+                              width=plan.width, run=plan.run,
+                              chunks=plan.chunks)
+    key, val = K.sort_only(key, val, width=plan.width,
+                           start_kk=2 * plan.run)
+    yield _k3_case(f"f32 wide x band flat run={plan.run}", key, val,
+                   plan.width)
+
+
+_PROFILE_NAME = {"K1": "k1_expand_sort_compress", "K3": "k3_compress"}
+
+
+def _measure_k1_k3(dev, only) -> dict:
+    """Each K1 / K3 case against its plain version, then its call ms,
+    host us and kernel us, and its bytes bound."""
+    from ia_spgemm_tpu_torch.bench.harness import time_ms
+    out = {name: [] for name in ("K1", "K3") if name in only}
+    for name, shape, call, plain, ins in k1_k3_cases(dev):
+        if name not in only:
+            continue
+        got, want = call(), plain()
+        err = _check_k4(got, want, str(want[1].dtype)[6:], name)
+        bound_ms = (_nbytes(*ins) + _nbytes(*got)) / PEAK_BYTES_PER_S * 1e3
+        del got, want
+        out[name].append({
+            "shape": shape, "max_abs_err": err,
+            "call_ms": time_ms(call, dev, 2, 20),
+            "call_host_us": host_us(call),
+            "kernel_us": kernel_us(call, _PROFILE_NAME[name]),
+            "bound_ms": bound_ms})
+        print(json.dumps({name: out[name][-1]}), file=sys.stderr,
+              flush=True)
+    return out
+
+
+def host_split(dev, m=224, width=1024) -> dict:
+    """Where a K3 wrapper call's host microseconds go, at the headline's
+    1024 class (224 rows): the operand checks, the output allocations,
+    the stream lookup, the ctypes launch into outputs made once, and the
+    whole call; each over unsynchronised calls."""
+    import torch
+
+    from ia_spgemm_tpu_torch import _build
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    key, val = (t.to(dev) for t in k4_rows(m, width, 2, "float32"))
+    key, val = K.sort_only_plain(key, val, width=width, start_kk=2)
+    col, out, nnz = K._row_outputs(m, width, val.dtype, dev)
+    fn = _build.load()["ia_k3_compress"]
+    ptrs = [t.data_ptr() for t in (key, val, col, out, nnz)]
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+
+    def checks():
+        K._check_width(width)
+        K._check_rows(key, val, width)
+
+    return {
+        "shape": f"K3 {m} x {width} float32",
+        "checks_us": host_us(checks),
+        "outputs_us": host_us(
+            lambda: K._row_outputs(m, width, val.dtype, dev)),
+        "stream_us": host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index)),
+        "ctypes_launch_us": host_us(
+            lambda: fn(*ptrs, m, width, width, 1, stream)),
+        "launch_us": host_us(lambda: K._launch(
+            "ia_k3_compress", key, val, col, out, nnz, m, width, width, 1,
+            device=dev)),
+        "call_us": host_us(lambda: K.compress(key, val, width=width,
+                                              out_w=width))}
+
+
+def measure(dev, only=KERNEL_NAMES) -> dict:
     import torch
 
     from ia_spgemm_tpu_torch.bench.harness import time_ms
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
 
-    out = {"K4": [], "K6": [], "K11": [], "K13": []}
-    for label, m, width, start_kk, dtype in K4_SHAPES:
+    out = {name: [] for name in only}
+    if "K1" in only or "K3" in only:
+        out.update(_measure_k1_k3(dev, only))
+    if "K3" in only:
+        out["K3_host_split"] = host_split(dev)
+        print(json.dumps(out["K3_host_split"]), file=sys.stderr, flush=True)
+    for label, m, width, start_kk, dtype in (K4_SHAPES if "K4" in only
+                                             else ()):
         key, val = (t.to(dev) for t in k4_rows(m, width, start_kk, dtype))
         call = lambda: K.sort_compress_rows(  # noqa: E731
             key, val, width=width, start_kk=start_kk)
@@ -211,7 +416,8 @@ def measure(dev) -> dict:
             "torch_sort_ms": time_ms(sort, dev, 2, 20),
             "torch_sort_host_us": host_us(sort)})
         print(json.dumps(out["K4"][-1]), file=sys.stderr, flush=True)
-    for label, m, width, start_kk, dtype in K6_SHAPES:
+    for label, m, width, start_kk, dtype in (K6_SHAPES if "K6" in only
+                                             else ()):
         key, val = (t.to(dev) for t in k4_rows(m, width, start_kk, dtype))
         call = lambda: K.sort_only(  # noqa: E731
             key, val, width=width, start_kk=start_kk)
@@ -224,10 +430,11 @@ def measure(dev) -> dict:
                 "k6_sort_rows", dev)})
         print(json.dumps(out["K6"][-1]), file=sys.stderr, flush=True)
         del key, val
-    out["K11"].append(_measure_k11(dev))
-    print(json.dumps(out["K11"][-1]), file=sys.stderr, flush=True)
+    if "K11" in only:
+        out["K11"].append(_measure_k11(dev))
+        print(json.dumps(out["K11"][-1]), file=sys.stderr, flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for D in K13_SHARDS:
+    for D in (K13_SHARDS if "K13" in only else ()):
         rows = HEADLINE_ROWS // D
         cols = [torch.randint(-1, HEADLINE_ROWS, (rows, HEADLINE_KB),
                               generator=gen, device=dev, dtype=torch.int32)
@@ -262,7 +469,16 @@ def measure(dev) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write the result here")
+    ap.add_argument("--only", default=",".join(KERNEL_NAMES),
+                    help="comma-separated kernels to measure "
+                         f"(default: all of {','.join(KERNEL_NAMES)})")
     args = ap.parse_args(argv)
+    only = tuple(args.only.split(","))
+    if set(only) - set(KERNEL_NAMES):
+        ap.error(f"--only: unknown kernels {sorted(set(only) - set(KERNEL_NAMES))}")
+    # the tuned fused width must be set before ops.bitonic is imported
+    from ia_spgemm_tpu_torch.bench import headline
+    headline.apply_bench_tuning()
     import torch
     if not torch.cuda.is_available():
         print(json.dumps({"error": "no CUDA device"}))
@@ -271,7 +487,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    res = {"card": card, **measure(torch.device("cuda", 0))}
+    res = {"card": card, **measure(torch.device("cuda", 0), only)}
     line = json.dumps(res)
     print(line)
     if args.json:

@@ -11,43 +11,46 @@
 //   K7b ia_k7b_compress_packed     <- _compress_kernel_packed        (:1086)
 // (an _f64 entry is the float64-value instance of the same kernel)
 //
-// They compute what the Pallas kernels compute, not how: in K1-K3, K5
-// and K7 one thread block owns one output row, keeps the row's `width`
-// (key, value) products in
-// shared memory, sorts them with a bitonic network (partner i ^ s, no
-// rolls), sums duplicate-column runs, and writes each survivor straight
-// to its rank, found by one block-wide exclusive scan. Hopper stores at
+// They compute what the Pallas kernels compute, not how: each owns whole
+// output rows, sorts a row's (key, value) products with a bitonic network
+// (partner i ^ s, no rolls), sums duplicate-column runs, and writes each
+// survivor to its rank, found by a scan over the row. Hopper stores at
 // data-dependent offsets, so the TPU's omega-network compaction and its
-// (width, 128-row) transposed tiles are gone.
+// (width, 128-row) transposed tiles are gone. Two designs, on the
+// building blocks of sort_common.cuh:
 //
-// What bounds them on this card: device memory traffic is small (K1 reads
-// ka*4*run*4 B of fragments + ka*4 B of A values per row, writes
-// out_w*8 B), while the sort makes log2(w)*(log2(w)+1)/2 shared-memory
-// passes over 8*w bytes with a block barrier each. For the narrow
-// headline classes (w <= 512) the barriers and the few threads per block
-// (w/2) bound the kernels, not bytes. The design keeps everything a row
-// needs in shared memory between one read and one write of device
-// memory; making the sort cheaper (warp-level sorts for narrow classes,
-// several rows per block, cp.async/TMA fragment reads, fusing K2 and K3)
-// is later work. K7 (the bf16 serve lane) moves one int32 key per product
-// through the network instead of a (key, value) pair: half the shared
-// memory and half the exchanges of K2, at bf16 precision per product.
+// - The register network (building block 4): K1, K3, K4 and K6. A row of
+//   W slots is held E = 8 (16 at W = 16384) slots a thread in registers;
+//   strides below 32E need no barrier, rows of at most 32E slots share a
+//   128-thread block, and the compress is a segmented scan over warp
+//   shuffles. K1 gathers its products straight into registers (the expand
+//   of building block 1, slot by slot) and sorts and compresses them; K3
+//   compresses rows K2, K6 or K8 sorted, with no sort; K4 sorts and
+//   compresses pre-expanded rows (the wide classes, the ring's shards); K6
+//   sorts them only, for K3. Bound: bytes (read the row or its fragments
+//   once, write out_w slots once, at 3.35 TB/s); the network leaves them
+//   instruction-bound, a few times above it.
+// - The shared-memory network (building blocks 1-3): K2, K5, K7a/b (and
+//   K8-K10 in slab.cu). One thread block owns one output row, keeps its
+//   `width` products in shared memory, sorts them with one block barrier
+//   per stride (log2(w)*(log2(w)+1)/2 passes over 8*w bytes), and
+//   compresses them with one block-wide scan; the barriers and the few
+//   threads per block (w/2), not bytes, bound them. K7 (the bf16 serve
+//   lane) moves one int32 key per product through the network instead of
+//   a (key, value) pair. Moving them to the register network is later
+//   work.
 //
 // K5 and K6 take rows the torch expand (ops/bitonic.py _expand_ell) has
 // already written to device memory: (m, width) int32 keys and float32 or
 // float64 values, each row alternating ascending / descending runs of
 // `run`. The TPU split them at FUSED_MAX_WIDTH (sort + compress in one
 // kernel below it, sort then K3 above) because of its scoped VMEM; the
-// split is kept so both kernels run where the JAX package runs them. K5
-// holds a row in shared memory (12 * width bytes at most) and sorts it
-// with the barriered network above. K4 (the wide classes and the ring's
-// shards) and K6 keep the row in registers instead: the register network
-// of sort_common.cuh (building block 4), K6 without the compress. Bound
-// on this card: bytes, 2 x (4 + sizeof(V)) x width per row (read the
-// pair, write it or its compacted survivors) at 3.35 TB/s; the register
-// network leaves them instruction-bound, a few times above it.
+// split is kept so both kernels run where the JAX package runs them, as
+// is K1's (below FUSED_MAX_WIDTH) against K2 + K3.
 //
 // Conventions and building blocks: sort_common.cuh.
+
+#include <type_traits>
 
 #include "sort_common.cuh"
 
@@ -56,31 +59,15 @@ namespace {
 constexpr int kMaxDevices = 64;
 constexpr int kMaxWidth = 16384;
 
-// values + keys + 32 warp totals + 1 block total (values first, so a
-// float64 lane stays 8-byte aligned)
+// Shared memory of the shared-memory network (K2, K5, K7): values + keys
+// + 32 warp totals + 1 block total (values first, so a float64 lane stays
+// 8-byte aligned)
 template <typename V>
 inline size_t smem_bytes(int width) {
   return (size_t)width * (sizeof(V) + sizeof(int)) + 33 * sizeof(int);
 }
 
-// ---- K1-K4 ----------------------------------------------------------------
-
-__global__ void k1_expand_sort_compress(
-    const int32_t* __restrict__ g, const float* __restrict__ avT,
-    int* __restrict__ out_col, float* __restrict__ out_val,
-    int* __restrict__ nnz, int m, int ka, int lanes, int run, int pack,
-    int width, int start_kk, int out_w) {
-  extern __shared__ int smem[];
-  int* k = smem;
-  float* v = reinterpret_cast<float*>(smem + width);
-  const int row = blockIdx.x;
-  expand_row<float, false>(g, avT, nullptr, 0, k, v, row, m, ka, lanes,
-                           run, pack, width);
-  block_sort(k, v, width, start_kk);
-  compress_row(k, v, width, out_w, true, out_col + (size_t)row * out_w,
-               F32Out{out_val + (size_t)row * out_w}, nnz + row,
-               smem + 2 * width);
-}
+// ---- K2, K5: the shared-memory network -------------------------------
 
 __global__ void k2_expand_sort(const int32_t* __restrict__ g,
                                const float* __restrict__ avT,
@@ -118,32 +105,15 @@ __device__ int* load_row(const int* __restrict__ key,
   return ks;
 }
 
-template <typename V>
-__global__ void k3_compress(const int* __restrict__ key,
-                            const V* __restrict__ val,
-                            int* __restrict__ out_col,
-                            V* __restrict__ out_val, int* __restrict__ nnz,
-                            int width, int out_w, int compact) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int row = blockIdx.x;
-  V* v;
-  int* k = load_row(key, val, smem_raw, &v, row, width);
-  __syncthreads();
-  compress_row(k, v, width, out_w, compact != 0,
-               out_col + (size_t)row * out_w,
-               ValOut<V>{out_val + (size_t)row * out_w}, nnz + row,
-               k + width);
-}
-
 // K5: sort one pre-expanded row, sum duplicates, write the first out_w
 // survivors.
 template <typename V>
-__device__ void sort_compress_row(const int* __restrict__ key,
-                                  const V* __restrict__ val,
-                                  int* __restrict__ out_col,
-                                  V* __restrict__ out_val,
-                                  int* __restrict__ nnz, int width,
-                                  int start_kk, int out_w) {
+__global__ void k5_sort_compress(const int* __restrict__ key,
+                                 const V* __restrict__ val,
+                                 int* __restrict__ out_col,
+                                 V* __restrict__ out_val,
+                                 int* __restrict__ nnz, int width,
+                                 int start_kk, int out_w) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int row = blockIdx.x;
   V* v;
@@ -154,20 +124,23 @@ __device__ void sort_compress_row(const int* __restrict__ key,
                k + width);
 }
 
-// ---- K4, K6: the register network (sort_common.cuh, building block 4) ---
+// ---- K1, K3, K4, K6: the register network (building block 4) -------------
 // One row per block for rows of more than 32E slots (T = W / E threads),
-// several rows per 128-thread block below that. Each thread loads its E
-// slots with 16-byte vector loads (scalar where a pointer is off the
-// 16-byte grid), sorts them in registers and stores E slots with 16-byte
-// vector stores: K6 the sorted row; K4 compresses first and stores the
-// compacted row (staged through shared memory): survivors written
-// straight to their ranks would leave a warp's stores scattered over 32
-// sectors each. Bound on this card:
-// bytes, 2 x 8 x W per row for float32 values (read the pair, write col
-// and val), at 3.35 TB/s; the design keeps the row between that one read
-// and one write in registers, with block barriers only for the sort's
-// strides of 32E and more (two per such stage) and three in the compress
-// (one where a row is a warp or less).
+// several rows per 128-thread block below that. Each thread brings its E
+// slots into registers (K3, K4, K6: 16-byte vector loads of the row, scalar
+// where a pointer is off the 16-byte grid; K1: the expand, below), sorts
+// them there (K1, K4, K6), compresses them (K1, K3, K4) and stores E slots
+// of the row with 16-byte vector stores where the row pointers and out_w
+// allow them. K6 stores the sorted row; K1, K3 and K4 the compacted row
+// (staged through shared memory: survivors written straight to their
+// ranks would leave a warp's stores scattered over 32 sectors each), its
+// first out_w slots; K3 with compact=False each survivor at its sorted
+// slot, holes -1 / 0, straight from registers. Bound on this card: bytes,
+// read the row (K1: its fragments and A values) once and write out_w
+// slots, at 3.35 TB/s. The design keeps the row between that one read and
+// one write in registers, with block barriers only for the sort's strides
+// of 32E and more (two per such stage) and three in the compress (one, or
+// none in K3's sparse mode, where a row is a warp or less).
 
 template <int E>
 __device__ __forceinline__ void load_keys(int (&k)[E], const int* p,
@@ -221,136 +194,259 @@ __device__ __forceinline__ void load_vals(double (&v)[E], const double* p,
   }
 }
 
-template <int E>
-__device__ __forceinline__ void store_row(int* out_col, const int (&k)[E],
-                                          bool vec) {
+// Four values at p (16-byte aligned): one float4, or two double2.
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(double* p, const double* v) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+// The thread's slots base .. base + E - 1, those below out_w, into the
+// row's out_col / out_val. vec: both row pointers on the 16-byte grid
+// and out_w a multiple of 4, so that each quad of slots is wholly below
+// out_w or wholly past it.
+template <int E, typename V>
+__device__ __forceinline__ void store_slots(int* out_col, V* out_val,
+                                            const int (&k)[E],
+                                            const V (&v)[E], int base,
+                                            int out_w, bool vec) {
   if (vec) {
 #pragma unroll
-    for (int q = 0; q < E / 4; ++q)
-      reinterpret_cast<int4*>(out_col)[q] =
+    for (int q = 0; q < E / 4; ++q) {
+      if (base + 4 * q >= out_w) continue;
+      *reinterpret_cast<int4*>(out_col + base + 4 * q) =
           make_int4(k[4 * q], k[4 * q + 1], k[4 * q + 2], k[4 * q + 3]);
+      store4(out_val + base + 4 * q, v + 4 * q);
+    }
   } else {
 #pragma unroll
-    for (int r = 0; r < E; ++r) out_col[r] = k[r];
+    for (int r = 0; r < E; ++r) {
+      if (base + r >= out_w) continue;
+      out_col[base + r] = k[r];
+      out_val[base + r] = v[r];
+    }
   }
 }
 
+// Where a block's rows come from. RowsIn: (m, width) keys and values in
+// device memory (K3, K4, K6). GatherIn: K1's fragment gather g (ceil(ka /
+// pack), m, lanes) and A values avT (ka, m), expanded on the way in.
+template <typename V>
+struct RowsIn {
+  const int* key;
+  const V* val;
+  int vec;      // key and val on the 16-byte grid
+};
+
+struct GatherIn {
+  const int32_t* g;
+  const float* avT;
+  int ka, lanes, run, pack;
+  int vec;      // g on the 16-byte grid and lanes a multiple of 4
+};
+
+template <int E, typename V>
+__device__ __forceinline__ void load_slots(int (&k)[E], V (&v)[E],
+                                           const RowsIn<V>& in, int m,
+                                           int width, int row, int base) {
+  const size_t off = (size_t)row * width + base;
+  load_keys<E>(k, in.key + off, in.vec != 0);
+  load_vals<E>(v, in.val + off, in.vec != 0);
+}
+
+// K1's expand into registers, expand_row's conventions slot by slot: slot
+// p is position p % run of fragment e = p / run, which sits in packed row
+// e / pack of g at lane offset (e % pack) * 4 * run, plus 2 * run for odd
+// e (the reversed half); its value is avT[e] * the B value. A column < 0
+// and every slot past ka * run become SENTINEL / 0 by a select (padded
+// class rows carry NaN A values). Where run is a multiple of E, the
+// thread's E slots are E neighbouring lanes of one fragment: one A value,
+// E columns and E value bits, by 16-byte loads where in.vec allows; else
+// (run < E) each slot finds its own fragment. The product rounds once
+// (__fmul_rn, never contracted into the sums), as the plain version's.
 template <int E>
-__device__ __forceinline__ void store_row(float* out, const float (&v)[E],
-                                          bool vec) {
-  if (vec) {
+__device__ __forceinline__ void load_slots(int (&k)[E], float (&v)[E],
+                                           const GatherIn& in, int m,
+                                           int width, int row, int base) {
+  if (in.run % E == 0) {
+    const int e = base / in.run;
+    if (e >= in.ka) {
 #pragma unroll
-    for (int q = 0; q < E / 4; ++q)
-      reinterpret_cast<float4*>(out)[q] =
-          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-  } else {
+      for (int r = 0; r < E; ++r) {
+        k[r] = kSentinel;
+        v[r] = 0.f;
+      }
+      return;
+    }
+    const int ep = e / in.pack;
+    const int off = (e - ep * in.pack) * 4 * in.run
+                    + ((e & 1) ? 2 * in.run : 0) + (base - e * in.run);
+    const int32_t* src = in.g + ((size_t)ep * m + row) * in.lanes + off;
+    const float a = __ldg(in.avT + (size_t)e * m + row);
+    int b[E];
+    load_keys<E>(k, src, in.vec != 0);
+    load_keys<E>(b, src + in.run, in.vec != 0);
 #pragma unroll
-    for (int r = 0; r < E; ++r) out[r] = v[r];
+    for (int r = 0; r < E; ++r) {
+      const bool ok = k[r] >= 0;
+      v[r] = ok ? __fmul_rn(a, __int_as_float(b[r])) : 0.f;
+      k[r] = ok ? k[r] : kSentinel;
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int p = base + r;
+    const int e = p / in.run;
+    k[r] = kSentinel;
+    v[r] = 0.f;
+    if (e < in.ka) {
+      const int ep = e / in.pack;
+      const int off = (e - ep * in.pack) * 4 * in.run
+                      + ((e & 1) ? 2 * in.run : 0) + (p - e * in.run);
+      const int32_t* src = in.g + ((size_t)ep * m + row) * in.lanes + off;
+      const int c = __ldg(src);
+      if (c >= 0) {
+        k[r] = c;
+        v[r] = __fmul_rn(__ldg(in.avT + (size_t)e * m + row),
+                         __int_as_float(__ldg(src + in.run)));
+      }
+    }
   }
 }
 
-template <int E>
-__device__ __forceinline__ void store_row(double* out, const double (&v)[E],
-                                          bool vec) {
-  if (vec) {
-#pragma unroll
-    for (int q = 0; q < E / 2; ++q)
-      reinterpret_cast<double2*>(out)[q] = make_double2(v[2 * q],
-                                                         v[2 * q + 1]);
-  } else {
-#pragma unroll
-    for (int r = 0; r < E; ++r) out[r] = v[r];
-  }
+// What a network kernel leaves in its outputs: the sorted row (K6), the
+// compacted row's first out_w slots (K1, K3, K4), or each survivor at its
+// sorted slot (K3's compact=False).
+enum class NetOut { kSorted, kCompact, kInPlace };
+
+// Shared memory of a block of the register network: the compress's
+// scratch first (K1, K3, K4), then W value and W key slots per row where
+// the sort exchanges through them (rows of more than a warp) or the
+// compress stages the compacted row.
+template <typename V>
+inline size_t net_smem_bytes(int width, int rows_per_block, bool sort,
+                             NetOut out) {
+  const int T = width / (width == kMaxWidth ? 16 : 8);
+  const bool slots = out == NetOut::kCompact || (sort && T > 32);
+  return (out != NetOut::kSorted ? sizeof(RowScratch<V>) : 0)
+         + (slots ? (size_t)rows_per_block * width * (sizeof(V) + sizeof(int))
+                  : 0);
 }
 
-// Shared memory of a block of the register network: W value and W key
-// slots per row (the sort's exchanges; K4's compacted row) and K4's
-// compress scratch. K6 uses the slots only for rows of more than a warp.
-template <typename V, bool kCompress>
-inline size_t net_smem_bytes(int width, int rows_per_block) {
-  if (!kCompress && width / (width == kMaxWidth ? 16 : 8) <= 32) return 0;
-  return (size_t)rows_per_block * width * (sizeof(V) + sizeof(int))
-         + (kCompress ? sizeof(RowScratch<V>) : 0);
-}
-
-// One block's rows through the register network: load, sort from
-// start_kk, then K4 (kCompress) compresses and stores the compacted row,
-// col -1 / 0 past the survivors, and its nnz; K6 stores the sorted row.
-template <typename V, int E, bool kCompress>
+// One block's rows through the register network: load (or expand), sort
+// from start_kk (kSort), compress (kOut), store. The last block's
+// padding rows (row >= m) run SENTINEL rows through every step, so that
+// every thread reaches every barrier, and store nothing. Output rows are
+// out_w slots apart.
+template <typename V, int E, bool kSort, NetOut kOut, typename In>
 __device__ __forceinline__ void row_net_rows(
-    const int* __restrict__ key, const V* __restrict__ val,
-    int* __restrict__ out_col, V* __restrict__ out_val,
-    int* __restrict__ nnz, int m, int width, int start_kk,
-    int rows_per_block, int vec) {
+    const In& in, int* __restrict__ out_col, V* __restrict__ out_val,
+    int* __restrict__ nnz, int m, int width, int start_kk, int out_w,
+    int rows_per_block, int vec_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const RowShape<E> sh(width);
   const int seg = threadIdx.x / sh.T;        // the block's row
   const int tid = threadIdx.x - seg * sh.T;  // the thread's index in it
   const int row = blockIdx.x * rows_per_block + seg;
   const bool live = row < m;
-  const size_t off = (size_t)(live ? row : 0) * width;
   int k[E];
   V v[E];
   if (live) {
-    load_keys<E>(k, key + off + (size_t)tid * E, vec != 0);
-    load_vals<E>(v, val + off + (size_t)tid * E, vec != 0);
-  } else {                 // a padding row of the last block
+    load_slots<E>(k, v, in, m, width, row, tid * E);
+  } else {
 #pragma unroll
     for (int r = 0; r < E; ++r) {
       k[r] = kSentinel;
       v[r] = V(0);
     }
   }
-  V* v_all = reinterpret_cast<V*>(smem_raw);
+  RowScratch<V>* sc = reinterpret_cast<RowScratch<V>*>(smem_raw);
+  V* v_all = reinterpret_cast<V*>(
+      smem_raw + (kOut != NetOut::kSorted ? sizeof(RowScratch<V>) : 0));
   int* k_all = reinterpret_cast<int*>(v_all + (size_t)rows_per_block * width);
   V* vs = v_all + (size_t)seg * width;
   int* ks = k_all + (size_t)seg * width;
-  row_net_sort<E, V>(k, v, ks, vs, tid, start_kk, sh);
+  if constexpr (kSort) row_net_sort<E, V>(k, v, ks, vs, tid, start_kk, sh);
   int total = 0;
-  if constexpr (kCompress) {
-    RowScratch<V>* sc = reinterpret_cast<RowScratch<V>*>(
-        k_all + (size_t)rows_per_block * width);
+  if constexpr (kOut == NetOut::kCompact)
     total = row_net_compress<E, V>(k, v, tid, sh, sc, ks, vs);
-  }
+  else if constexpr (kOut == NetOut::kInPlace)
+    total = row_net_mark<E, V>(k, v, tid, sh, sc);
   if (!live) return;
-  store_row<E>(out_col + off + (size_t)tid * E, k, vec != 0);
-  store_row<E>(out_val + off + (size_t)tid * E, v, vec != 0);
-  if (kCompress && tid == 0) nnz[row] = total;
+  const size_t o = (size_t)row * out_w;
+  store_slots<E, V>(out_col + o, out_val + o, k, v, tid * E, out_w,
+                    vec_out != 0);
+  if (kOut != NetOut::kSorted && tid == 0) nnz[row] = total;
+}
+
+// The kernels, one instance per (E, launch bound): E = 16 at width 16384
+// (1024 threads), 8 below, the launch bound the widest row the instance
+// takes (so that rows up to 2048 slots keep their registers).
+
+// K1: expand + sort + compress of one width class from the gather.
+template <int E, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads)
+k1_expand_sort_compress(GatherIn in, int* __restrict__ out_col,
+                        float* __restrict__ out_val, int* __restrict__ nnz,
+                        int m, int width, int start_kk, int out_w,
+                        int rows_per_block, int vec_out) {
+  row_net_rows<float, E, true, NetOut::kCompact>(
+      in, out_col, out_val, nnz, m, width, start_kk, out_w, rows_per_block,
+      vec_out);
+}
+
+// K3: the compress alone, of rows K2, K6 or K8 sorted; kOut kCompact or
+// kInPlace (compact=False). start_kk is unused.
+template <typename V, int E, int kMaxThreads, NetOut kOut>
+__global__ void __launch_bounds__(kMaxThreads)
+k3_compress(RowsIn<V> in, int* __restrict__ out_col,
+            V* __restrict__ out_val, int* __restrict__ nnz, int m,
+            int width, int start_kk, int out_w, int rows_per_block,
+            int vec_out) {
+  row_net_rows<V, E, false, kOut>(in, out_col, out_val, nnz, m, width,
+                                  start_kk, out_w, rows_per_block, vec_out);
 }
 
 template <typename V, int E, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads)
-k4_sort_compress_rows(const int* __restrict__ key, const V* __restrict__ val,
-                      int* __restrict__ out_col, V* __restrict__ out_val,
-                      int* __restrict__ nnz, int m, int width, int start_kk,
-                      int rows_per_block, int vec) {
-  row_net_rows<V, E, true>(key, val, out_col, out_val, nnz, m, width,
-                           start_kk, rows_per_block, vec);
+k4_sort_compress_rows(RowsIn<V> in, int* __restrict__ out_col,
+                      V* __restrict__ out_val, int* __restrict__ nnz, int m,
+                      int width, int start_kk, int out_w,
+                      int rows_per_block, int vec_out) {
+  row_net_rows<V, E, true, NetOut::kCompact>(in, out_col, out_val, nnz, m,
+                                             width, start_kk, out_w,
+                                             rows_per_block, vec_out);
 }
 
-// ---- K5, K6: the cols layout over the torch expand --------------------------
-
-template <typename V>
-__global__ void k5_sort_compress(const int* __restrict__ key,
-                                 const V* __restrict__ val,
-                                 int* __restrict__ out_col,
-                                 V* __restrict__ out_val,
-                                 int* __restrict__ nnz, int width,
-                                 int start_kk, int out_w) {
-  sort_compress_row(key, val, out_col, out_val, nnz, width, start_kk,
-                    out_w);
-}
-
-// K6: K4's register network without the compress (the sorted row goes
-// out as it is, in the normal layout, for K3). nnz is unused.
+// K6: the sort alone (the sorted row goes out as it is, in the normal
+// layout, for K3). nnz is unused.
 template <typename V, int E, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads)
-k6_sort_rows(const int* __restrict__ key, const V* __restrict__ val,
-             int* __restrict__ out_k, V* __restrict__ out_v,
+k6_sort_rows(RowsIn<V> in, int* __restrict__ out_k, V* __restrict__ out_v,
              int* __restrict__ nnz, int m, int width, int start_kk,
-             int rows_per_block, int vec) {
-  row_net_rows<V, E, false>(key, val, out_k, out_v, nnz, m, width, start_kk,
-                            rows_per_block, vec);
+             int out_w, int rows_per_block, int vec_out) {
+  row_net_rows<V, E, true, NetOut::kSorted>(in, out_k, out_v, nnz, m, width,
+                                            start_kk, out_w, rows_per_block,
+                                            vec_out);
+}
+
+// The kernel of a (value type, E, launch bound, sort, output, source):
+// K1 for the gather, K3 without the sort, K6 for the sorted row, K4.
+template <typename V, int E, int kMaxThreads, bool kSort, NetOut kOut,
+          typename In>
+auto net_kernel() {
+  if constexpr (std::is_same_v<In, GatherIn>)
+    return &k1_expand_sort_compress<E, kMaxThreads>;
+  else if constexpr (!kSort)
+    return &k3_compress<V, E, kMaxThreads, kOut>;
+  else if constexpr (kOut == NetOut::kSorted)
+    return &k6_sort_rows<V, E, kMaxThreads>;
+  else
+    return &k4_sort_compress_rows<V, E, kMaxThreads>;
 }
 
 // ---- K7: the bf16 serve lane ---------------------------------------------
@@ -441,40 +537,25 @@ cudaError_t allow_smem(Kernel kernel, bool* done, size_t smem) {
   return err;
 }
 
-bool k1_smem_set[kMaxDevices], k2_smem_set[kMaxDevices],
+bool k2_smem_set[kMaxDevices],
     k7a_smem_set[kMaxDevices], k7b_smem_set[kMaxDevices];
 
-// The launches of the kernels with a float and a double instance; each
-// instance keeps its own shared-memory flags (the static locals).
-template <typename V>
-int launch_k3(const void* key, const void* val, void* out_col,
-              void* out_val, void* nnz, int m, int width, int out_w,
-              int compact, void* stream) {
-  static bool done[kMaxDevices];
-  size_t smem = smem_bytes<V>(width);
-  cudaError_t err = allow_smem<V>(k3_compress<V>, done, smem);
-  if (err != cudaSuccess) return (int)err;
-  k3_compress<V><<<m, threads_for(width), smem, (cudaStream_t)stream>>>(
-      (const int*)key, (const V*)val, (int*)out_col, (V*)out_val,
-      (int*)nnz, width, out_w, compact);
-  return (int)cudaGetLastError();
-}
-
-// The register network's launches (K4, K6). E = 16 at width 16384 (1024
-// threads), 8 below, each instance's launch bound the widest row it takes
-// (so that rows up to 2048 slots keep their registers). Rows of at most
-// 32E slots (T <= 32 threads) share a 128-thread block.
-template <typename V, int E, int kMaxThreads, bool kCompress>
-int launch_row_net(const void* key, const void* val, void* out_col,
-                   void* out_val, void* nnz, int m, int width, int start_kk,
+// The register network's launches (K1, K3, K4, K6): the instance for the
+// row's width (E = 16 at 16384, 8 below; the launch bound the widest row
+// it takes), rows of at most 32E slots (T <= 32 threads) sharing a
+// 128-thread block. Each instance raises its own shared-memory limit once
+// per device (the static local), to what its widest row needs.
+template <typename V, int E, int kMaxThreads, bool kSort, NetOut kOut,
+          typename In>
+int launch_row_net(const In& in, void* out_col, void* out_val, void* nnz,
+                   int m, int width, int start_kk, int out_w,
                    void* stream) {
   static bool done[kMaxDevices];
-  void (*kernel)(const int*, const V*, int*, V*, int*, int, int, int, int,
-                 int) = kCompress ? &k4_sort_compress_rows<V, E, kMaxThreads>
-                                  : &k6_sort_rows<V, E, kMaxThreads>;
+  const auto kernel = net_kernel<V, E, kMaxThreads, kSort, kOut, In>();
   const int T = width / E;
   const int rows_per_block = T <= 32 ? 128 / T : 1;
-  const size_t smem = net_smem_bytes<V, kCompress>(width, rows_per_block);
+  const size_t smem =
+      net_smem_bytes<V>(width, rows_per_block, kSort, kOut);
   if (smem > 48 * 1024) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -483,32 +564,53 @@ int launch_row_net(const void* key, const void* val, void* out_col,
     if (!done[dev]) {
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)net_smem_bytes<V, kCompress>(kMaxThreads * E, 1));
+          (int)net_smem_bytes<V>(kMaxThreads * E, 1, kSort, kOut));
       if (err != cudaSuccess) return (int)err;
       done[dev] = true;
     }
   }
-  const int vec = (((uintptr_t)key | (uintptr_t)val | (uintptr_t)out_col
-                     | (uintptr_t)out_val) & 15) == 0;
+  const int vec_out = (((uintptr_t)out_col | (uintptr_t)out_val) & 15) == 0
+                      && out_w % 4 == 0;
   const int grid = (m + rows_per_block - 1) / rows_per_block;
   kernel<<<grid, T * rows_per_block, smem, (cudaStream_t)stream>>>(
-      (const int*)key, (const V*)val, (int*)out_col, (V*)out_val, (int*)nnz,
-      m, width, start_kk, rows_per_block, vec);
+      in, (int*)out_col, (V*)out_val, (int*)nnz, m, width, start_kk, out_w,
+      rows_per_block, vec_out);
   return (int)cudaGetLastError();
 }
 
-template <typename V, bool kCompress>
-int launch_rows(const void* key, const void* val, void* out_col,
-                void* out_val, void* nnz, int m, int width, int start_kk,
-                void* stream) {
-#define IA_NET(E_, THREADS)                                                 \
-  launch_row_net<V, E_, THREADS, kCompress>(key, val, out_col, out_val, nnz, \
-                                            m, width, start_kk, stream)
+template <typename V, bool kSort, NetOut kOut, typename In>
+int launch_rows(const In& in, void* out_col, void* out_val, void* nnz, int m,
+                int width, int start_kk, int out_w, void* stream) {
+#define IA_NET(E_, THREADS)                                             \
+  launch_row_net<V, E_, THREADS, kSort, kOut>(in, out_col, out_val, nnz, \
+                                              m, width, start_kk, out_w, \
+                                              stream)
   if (width == kMaxWidth) return IA_NET(16, 1024);
   if (width <= 2048) return IA_NET(8, 256);
   if (width == 4096) return IA_NET(8, 512);
   return IA_NET(8, 1024);
 #undef IA_NET
+}
+
+// Pre-expanded rows as a network source: vector loads where both
+// pointers are on the 16-byte grid (a row of width >= 128 slots keeps
+// every row there).
+template <typename V>
+RowsIn<V> rows_in(const void* key, const void* val) {
+  return {(const int*)key, (const V*)val,
+          (((uintptr_t)key | (uintptr_t)val) & 15) == 0};
+}
+
+template <typename V>
+int launch_k3(const void* key, const void* val, void* out_col,
+              void* out_val, void* nnz, int m, int width, int out_w,
+              int compact, void* stream) {
+  const RowsIn<V> in = rows_in<V>(key, val);
+  return compact ? launch_rows<V, false, NetOut::kCompact>(
+                       in, out_col, out_val, nnz, m, width, 2, out_w, stream)
+                 : launch_rows<V, false, NetOut::kInPlace>(
+                       in, out_col, out_val, nnz, m, width, 2, width,
+                       stream);
 }
 
 template <typename V>
@@ -536,15 +638,10 @@ extern "C" int ia_k1_expand_sort_compress(
     const void* g, const void* avT, void* out_col, void* out_val,
     void* nnz, int m, int ka, int lanes, int run, int pack, int width,
     int start_kk, int out_w, void* stream) {
-  size_t smem = smem_bytes<float>(width);
-  cudaError_t err =
-      allow_smem<float>(k1_expand_sort_compress, k1_smem_set, smem);
-  if (err != cudaSuccess) return (int)err;
-  k1_expand_sort_compress<<<m, threads_for(width), smem,
-                            (cudaStream_t)stream>>>(
-      (const int32_t*)g, (const float*)avT, (int*)out_col, (float*)out_val,
-      (int*)nnz, m, ka, lanes, run, pack, width, start_kk, out_w);
-  return (int)cudaGetLastError();
+  const GatherIn in{(const int32_t*)g, (const float*)avT, ka, lanes, run,
+                    pack, ((uintptr_t)g & 15) == 0 && lanes % 4 == 0};
+  return launch_rows<float, true, NetOut::kCompact>(
+      in, out_col, out_val, nnz, m, width, start_kk, out_w, stream);
 }
 
 extern "C" int ia_k2_expand_sort(const void* g, const void* avT,
@@ -580,8 +677,9 @@ extern "C" int ia_k4_sort_compress_rows(const void* key, const void* val,
                                         void* out_col, void* out_val,
                                         void* nnz, int m, int width,
                                         int start_kk, void* stream) {
-  return launch_rows<float, true>(key, val, out_col, out_val, nnz, m, width,
-                                  start_kk, stream);
+  return launch_rows<float, true, NetOut::kCompact>(
+      rows_in<float>(key, val), out_col, out_val, nnz, m, width, start_kk,
+      width, stream);
 }
 
 extern "C" int ia_k4_sort_compress_rows_f64(const void* key,
@@ -589,8 +687,9 @@ extern "C" int ia_k4_sort_compress_rows_f64(const void* key,
                                             void* out_val, void* nnz, int m,
                                             int width, int start_kk,
                                             void* stream) {
-  return launch_rows<double, true>(key, val, out_col, out_val, nnz, m,
-                                   width, start_kk, stream);
+  return launch_rows<double, true, NetOut::kCompact>(
+      rows_in<double>(key, val), out_col, out_val, nnz, m, width, start_kk,
+      width, stream);
 }
 
 extern "C" int ia_k5_sort_compress(const void* key, const void* val,
@@ -613,15 +712,17 @@ extern "C" int ia_k5_sort_compress_f64(const void* key, const void* val,
 extern "C" int ia_k6_sort(const void* key, const void* val, void* out_k,
                           void* out_v, int m, int width, int start_kk,
                           void* stream) {
-  return launch_rows<float, false>(key, val, out_k, out_v, nullptr, m, width,
-                                   start_kk, stream);
+  return launch_rows<float, true, NetOut::kSorted>(
+      rows_in<float>(key, val), out_k, out_v, nullptr, m, width, start_kk,
+      width, stream);
 }
 
 extern "C" int ia_k6_sort_f64(const void* key, const void* val, void* out_k,
                               void* out_v, int m, int width, int start_kk,
                               void* stream) {
-  return launch_rows<double, false>(key, val, out_k, out_v, nullptr, m,
-                                    width, start_kk, stream);
+  return launch_rows<double, true, NetOut::kSorted>(
+      rows_in<double>(key, val), out_k, out_v, nullptr, m, width, start_kk,
+      width, stream);
 }
 
 extern "C" int ia_k7a_expand_sort_packed(const void* g, const void* avT,

@@ -1,8 +1,8 @@
 // Building blocks shared by the sort kernels of bitonic.cu (K1-K7)
 // and slab.cu (K8-K10): the fragment expand, the block bitonic sort in
 // shared memory (key + value, or key only), and the duplicate-sum /
-// compaction of a sorted row; and the register network (K4, K6) with its
-// register compress (K4).
+// compaction of a sorted row (K2, K5, K7, K8-K10); and the register
+// network with its register compress (K1, K3, K4, K6).
 //
 // Conventions shared with the JAX package: SENTINEL = INT32_MAX marks an
 // empty product slot and sorts last (signed int32 compares); empty output
@@ -219,7 +219,7 @@ __device__ void compress_row(const int* k, const V* v, int width, int out_w,
   if (threadIdx.x == 0) *nnz = total;
 }
 
-// ---- building block 4: the register network (K4, K6) ----------------------
+// ---- building block 4: the register network (K1, K3, K4, K6) -------------
 // A row of W slots (W a power of two, 128..16384) is held E slots per
 // thread in registers, T = W / E threads per row: E = 8, or 16 at 16384
 // so that a row stays at 1024 threads. In the normal layout row thread t
@@ -234,8 +234,11 @@ __device__ void compress_row(const int* k, const V* v, int width, int out_w,
 //     stage's large strides there as register / lane strides, one
 //     exchange back. Each thread writes only the shared slots it read in
 //     the previous exchange, so one barrier per exchange suffices.
-// tests/test_torch_k4_network.py models this schedule step for step. K6
-// is the same sort without the compress.
+// tests/test_torch_k4_network.py models this schedule step for step, and
+// tests/test_torch_k1_k3_network.py K1's gather into registers and K3's
+// compress alone. K6 is the sort without the compress, K3 the compress
+// without the sort, K1 the sort and compress of slots gathered straight
+// into registers.
 // Rows of at most 32E slots are one warp's work or less (T <= 32), sort
 // without shared memory, and share a block (rows_per_block).
 // Shared slots are XOR-swizzled within each 32-word line (swz), which
@@ -386,20 +389,28 @@ struct RowScratch {
   int first[32], last[32], flag[32], cnt[32];
 };
 
-// The sorted row (normal layout, in registers) -> duplicate sums, nnz and
-// the survivors compacted left, as the JAX kernel's segmented scan does
-// it (bitonic.py:253-265): per-thread segmented sums, a lane scan of
-// (head seen, trailing run sum, survivors) by shuffles, the warps'
-// aggregates scanned through shared memory (two barriers). Each
-// survivor goes to
-// its rank in the row's W shared slots (ks / vs, free once the sort is
-// done), and after one more barrier every thread takes back its own E
-// slots (-1 / 0 past the survivors) into k / v, for coalesced stores by
-// the caller. Returns the row's survivors.
+// What the compress's scan leaves each thread: which of its slots head a
+// run and which end one that survives (bit r for slot r), the run sum
+// carried into its first slot from the threads before it, the survivors
+// before it and in the whole row.
+template <typename V>
+struct RunScan {
+  unsigned head, emit;
+  V ax;
+  int cx, total;
+};
+
+// The scan of a sorted row (normal layout, in registers), as the JAX
+// kernel's segmented scan does it (bitonic.py:253-265): per-thread
+// segmented sums (in place in v), a lane scan of (head seen, trailing run
+// sum, survivors) by shuffles, the warps' aggregates scanned through
+// shared memory (two barriers; none where a row is a warp or less). A
+// survivor's run sum is then v[r] where a head precedes it in its
+// thread, ax + v[r] otherwise.
 template <int E, typename V>
-__device__ __forceinline__ int row_net_compress(
-    int (&k)[E], V (&v)[E], int tid, const RowShape<E>& sh,
-    RowScratch<V>* sc, int* ks, V* vs) {
+__device__ __forceinline__ RunScan<V> row_net_scan(
+    const int (&k)[E], V (&v)[E], int tid, const RowShape<E>& sh,
+    RowScratch<V>* sc) {
   const unsigned full = 0xffffffffu;
   const int L = sh.L;
   const int lane = tid % L, wr = tid / L;
@@ -483,14 +494,28 @@ __device__ __forceinline__ int row_net_compress(
       cx += pc;
     }
   }
-  int pos = cx;
+  return {head, emit, ax, cx, total};
+}
+
+// The sorted row -> duplicate sums, nnz and the survivors compacted left
+// (K1, K3, K4): each survivor goes to its rank in the row's W shared
+// slots (ks / vs, free once the sort is done), and after one more barrier
+// every thread takes back its own E slots (-1 / 0 past the survivors)
+// into k / v, for coalesced stores by the caller. Returns the row's
+// survivors.
+template <int E, typename V>
+__device__ __forceinline__ int row_net_compress(
+    int (&k)[E], V (&v)[E], int tid, const RowShape<E>& sh,
+    RowScratch<V>* sc, int* ks, V* vs) {
+  const RunScan<V> s = row_net_scan<E, V>(k, v, tid, sh, sc);
+  int pos = s.cx;
   bool seen = false;
 #pragma unroll
   for (int r = 0; r < E; ++r) {
-    seen |= (head >> r) & 1;
-    if ((emit >> r) & 1) {
+    seen |= (s.head >> r) & 1;
+    if ((s.emit >> r) & 1) {
       ks[swz(pos)] = k[r];
-      vs[swz(pos)] = seen ? v[r] : ax + v[r];
+      vs[swz(pos)] = seen ? v[r] : s.ax + v[r];
       ++pos;
     }
   }
@@ -499,10 +524,30 @@ __device__ __forceinline__ int row_net_compress(
 #pragma unroll
   for (int r = 0; r < E; ++r) {
     const int p = tid * E + r;
-    k[r] = p < total ? ks[an ^ r] : -1;
-    v[r] = p < total ? vs[an ^ r] : V(0);
+    k[r] = p < s.total ? ks[an ^ r] : -1;
+    v[r] = p < s.total ? vs[an ^ r] : V(0);
   }
-  return total;
+  return s.total;
+}
+
+// The sorted row -> duplicate sums and nnz, each survivor left at its
+// sorted slot with its run's sum and -1 / 0 in every other slot (K3's
+// sparse mode, compact=False): no shared slots, no staging. Returns the
+// row's survivors.
+template <int E, typename V>
+__device__ __forceinline__ int row_net_mark(int (&k)[E], V (&v)[E], int tid,
+                                            const RowShape<E>& sh,
+                                            RowScratch<V>* sc) {
+  const RunScan<V> s = row_net_scan<E, V>(k, v, tid, sh, sc);
+  bool seen = false;
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    seen |= (s.head >> r) & 1;
+    const bool e = (s.emit >> r) & 1;
+    v[r] = e ? (seen ? v[r] : s.ax + v[r]) : V(0);
+    k[r] = e ? k[r] : -1;
+  }
+  return s.total;
 }
 
 }  // namespace

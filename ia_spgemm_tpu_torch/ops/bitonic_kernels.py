@@ -120,15 +120,18 @@ def _entry(name: str, val: torch.Tensor) -> str:
 def _launch(name, *args, device: torch.device):
     """Call a C entry point on ``device`` (made current for the call
     where it is not already): tensors pass as their device pointers, then
-    the device's current stream; raise on a CUDA error."""
+    the device's current stream (its raw handle: building a
+    torch.cuda.Stream to read it costs several us of host time a call);
+    raise on a CUDA error."""
     from ia_spgemm_tpu_torch import _build
     fn = _build.load()[name]
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     if torch.cuda.current_device() == device.index:
-        err = fn(*ptrs, torch.cuda.current_stream(device.index).cuda_stream)
+        err = fn(*ptrs, torch._C._cuda_getCurrentRawStream(device.index))
     else:
         with torch.cuda.device(device):
-            err = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
+            err = fn(*ptrs,
+                     torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -138,13 +141,12 @@ def _cuda_or_raise(t: torch.Tensor):
         raise ValueError(f"no kernel for device {t.device}")
 
 
-def _row_outputs(val, out_w):
-    """Uninitialised (col, val, nnz) outputs for val's rows, values of
-    val's type (the kernel writes every slot)."""
-    m, dev = val.shape[0], val.device
-    return (torch.empty((m, out_w), dtype=torch.int32, device=dev),
-            torch.empty((m, out_w), dtype=val.dtype, device=dev),
-            torch.empty((m, 1), dtype=torch.int32, device=dev))
+def _row_outputs(m, out_w, dtype, device):
+    """Uninitialised (col, val, nnz) outputs for m rows (the kernel
+    writes every slot), values of ``dtype``."""
+    return (torch.empty((m, out_w), dtype=torch.int32, device=device),
+            torch.empty((m, out_w), dtype=dtype, device=device),
+            torch.empty((m, 1), dtype=torch.int32, device=device))
 
 
 # ---------------------------------------------------- plain PyTorch versions
@@ -288,9 +290,7 @@ def expand_sort_compress(g, avT, *, ka: int, run: int, width: int,
                                           out_w=out_w, pack=pack)
     _cuda_or_raise(avT)
     m = avT.shape[1]
-    col = torch.empty((m, out_w), dtype=torch.int32, device=avT.device)
-    val = torch.empty((m, out_w), dtype=torch.float32, device=avT.device)
-    nnz = torch.empty((m, 1), dtype=torch.int32, device=avT.device)
+    col, val, nnz = _row_outputs(m, out_w, torch.float32, avT.device)
     if m:
         _launch("ia_k1_expand_sort_compress", g, avT, col, val, nnz, m, ka,
                 g.shape[2], run, pack, width, start_kk, out_w,
@@ -332,7 +332,8 @@ def compress(key, val, *, width: int, out_w: int, compact: bool = True):
         return compress_plain(key, val, width=width, out_w=out_w,
                               compact=compact)
     _cuda_or_raise(key)
-    col, out, nnz = _row_outputs(val, out_w)
+    col, out, nnz = _row_outputs(key.shape[0], out_w, val.dtype,
+                                 key.device)
     if col.shape[0]:
         _launch(_entry("ia_k3_compress", val), key, val, col, out, nnz,
                 col.shape[0], width, out_w, int(compact), device=key.device)
@@ -349,7 +350,8 @@ def sort_compress_rows(key, val, *, width: int, start_kk: int):
         return sort_compress_rows_plain(key, val, width=width,
                                         start_kk=start_kk)
     _cuda_or_raise(key)
-    col, out, nnz = _row_outputs(val, width)
+    col, out, nnz = _row_outputs(key.shape[0], width, val.dtype,
+                                 key.device)
     if col.shape[0]:
         _launch(_entry("ia_k4_sort_compress_rows", val), key, val, col, out,
                 nnz, col.shape[0], width, start_kk, device=key.device)
@@ -369,7 +371,8 @@ def sort_compress(key, val, *, width: int, start_kk: int, out_w: int):
         return sort_compress_plain(key, val, width=width, start_kk=start_kk,
                                    out_w=out_w)
     _cuda_or_raise(key)
-    col, out, nnz = _row_outputs(val, out_w)
+    col, out, nnz = _row_outputs(key.shape[0], out_w, val.dtype,
+                                 key.device)
     if col.shape[0]:
         _launch(_entry("ia_k5_sort_compress", val), key, val, col, out, nnz,
                 col.shape[0], width, start_kk, out_w, device=key.device)

@@ -120,11 +120,14 @@ def _shfl_up(x, d, L):
     return out
 
 
-def compress_model(k, v):
-    """The compress of sorted rows as the kernel does it in registers:
-    per-thread segmented sums, a lane scan of (head seen, trailing run
-    sum, survivor count) by shuffles, warp aggregates scanned through
-    shared memory; survivors at their ranks. Returns (col, val, nnz)."""
+def scan_model(k, v):
+    """The compress's scan of sorted rows as the kernel does it in
+    registers (sort_common.cuh row_net_scan): per-thread segmented sums,
+    a lane scan of (head seen, trailing run sum, survivor count) by
+    shuffles, warp aggregates scanned through shared memory. Returns
+    (keys, emit, sums, rank) per (row, thread, register) and each row's
+    survivors: emit marks a run's last slot, sums holds its run's sum
+    there, rank the survivor's place in the compacted row."""
     m, width = k.shape
     E = elems_per_thread(width)
     T = width // E
@@ -183,11 +186,19 @@ def compress_model(k, v):
     carry = np.where(fx, ax, pa[:, warp] + ax)
     base = pc[:, warp] + cx
     total = pc[:, -1] + wc[:, -1]
-    col = np.full((m, width), -1, np.int64)
-    val = np.zeros((m, width))
     seen = np.cumsum(head, axis=2) > 0
     sums = np.where(seen, s, carry[:, :, None] + s)
     rank = base[:, :, None] + np.cumsum(emit, axis=2) - emit
+    return kt, emit, sums, rank, total
+
+
+def compress_model(k, v):
+    """The compress of sorted rows (sort_common.cuh row_net_compress):
+    the scan, then each survivor at its rank. Returns (col, val, nnz)."""
+    m, width = k.shape
+    kt, emit, sums, rank, total = scan_model(k, v)
+    col = np.full((m, width), -1, np.int64)
+    val = np.zeros((m, width))
     rows = np.broadcast_to(np.arange(m)[:, None, None], emit.shape)
     col[rows[emit], rank[emit]] = kt[emit]
     val[rows[emit], rank[emit]] = sums[emit]

@@ -21,12 +21,14 @@ from ia_spgemm_tpu_torch.ops import dense_row_kernels as DK
 from ia_spgemm_tpu_torch.ops import hash_kernels as HK
 from ia_spgemm_tpu_torch.ops import slab_kernels as SK
 from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
-from tests.torch_parity import (GATHER_CASES, RUN, assert_dd_outputs_match,
+from tests.torch_parity import (GATHER_CASES, GATHER_RUNS, RUN,
+                                assert_dd_outputs_match,
                                 assert_kernel_outputs_match,
                                 assert_tables_match, assert_values_close,
-                                cols_inputs, ell_pair, gather_inputs,
-                                ill_conditioned, pack_fragments,
-                                slab_operands, tell, value_rtol)
+                                cols_inputs, ell_pair, fragment_gather,
+                                gather_inputs, ill_conditioned,
+                                pack_fragments, slab_operands, tell,
+                                value_rtol)
 
 # slab-kernel inputs: (matrix, planner overrides); the headline plans
 # width 1024, the others 512
@@ -229,6 +231,165 @@ def test_k4_rows_off_the_vector_grid(cuda_device, dtype, width, kernel):
     val.copy_(val0)
     assert key.data_ptr() % 16 and val.data_ptr() % 16
     NET_CHECKS[kernel](key, val, width, 2)
+
+
+# ---- K1 and K3 on the register network
+
+def _check_k1(g, avT, *, ka, run, width, pack, out_w):
+    kw = dict(ka=ka, run=run, width=width, start_kk=2 * run, out_w=out_w,
+              pack=pack)
+    n1 = K.expand_sort_compress.launches
+    got = K.expand_sort_compress(g, avT, **kw)
+    assert K.expand_sort_compress.launches == n1 + 1
+    assert_kernel_outputs_match(got,
+                                K.expand_sort_compress_plain(g, avT, **kw))
+
+
+def _k1_case(dev, m, width, run, pack, *, short=False, kind="random",
+             seed=0, lanes=None):
+    """A K1 input on the card: ka = width / run fragments, or a few fewer
+    (slots past ka * run are padding)."""
+    ka = max(1, width // run - (3 if short else 0))
+    g, avT = fragment_gather(m, ka, run, pack, kind=kind, seed=seed,
+                             lanes=lanes)
+    return g.to(dev), avT.to(dev), ka
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", K4_WIDTHS)
+@pytest.mark.parametrize("run", GATHER_RUNS)
+@pytest.mark.parametrize("short", [False, True])
+def test_k1_network_every_width_and_run(cuda_device, width, run, short):
+    """K1 at every width and every fragment run: run 8 and 32 take the
+    vector gather (E slots of one fragment), runs below E (and run 8 at
+    16384, E = 16) slot by slot; classes full or a few fragments short;
+    lane packing 1, 2 and 4; NaN A values on empty fragments."""
+    pack = 4 if width >= 4096 else (1, 2, 4)[GATHER_RUNS.index(run) % 3]
+    m = 37 if width <= 2048 else 3
+    g, avT, ka = _k1_case(cuda_device, m, width, run, pack, short=short,
+                          seed=width + run)
+    _check_k1(g, avT, ka=ka, run=run, width=width, pack=pack, out_w=width)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256, 512, 1024])
+@pytest.mark.parametrize("m", [1, 13, 133])
+@pytest.mark.parametrize("out_w", ["width", 100, 130, 64])
+def test_k1_out_w_and_row_counts(cuda_device, width, m, out_w):
+    """out_w caps off the multiple-of-4 grid (scalar stores of rows that
+    start off the 16-byte grid) and on it, and row counts that leave
+    padding rows in the last block (8 rows a block at 128, 4 at 256)."""
+    out_w = width if out_w == "width" else min(out_w, width)
+    g, avT, ka = _k1_case(cuda_device, m, width, 8, 4, seed=m)
+    _check_k1(g, avT, ka=ka, run=8, width=width, pack=4, out_w=out_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 512, 2048, 16384])
+@pytest.mark.parametrize("kind", ["one_key", "sentinel", "mixed"])
+@pytest.mark.parametrize("run", [4, 8, 32])
+def test_k1_adversarial_rows(cuda_device, width, kind, run):
+    """Rows of one long duplicate run (every product column 5), rows of
+    SENTINEL only (every A value NaN), and a mix."""
+    m = 9 if width <= 2048 else 3
+    g, avT, ka = _k1_case(cuda_device, m, width, run, 1, kind=kind)
+    _check_k1(g, avT, ka=ka, run=run, width=width, pack=1, out_w=width)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [8, 32])
+def test_k1_gather_off_the_vector_grid(cuda_device, run):
+    """g starting 4 bytes past a 16-byte boundary, and 130 lanes a row
+    (not a multiple of 4): the scalar gather."""
+    width, m = 512, 11
+    for lanes, offset in ((128, 1), (130, 0)):
+        g0, avT, ka = _k1_case(cuda_device, m, width, run, 1, lanes=lanes)
+        buf = torch.empty(g0.numel() + offset, dtype=torch.int32,
+                          device=cuda_device)
+        g = buf[offset:].view(g0.shape)
+        g.copy_(g0)
+        assert (g.data_ptr() % 16 != 0) == (offset == 1)
+        _check_k1(g, avT, ka=ka, run=run, width=width, pack=1, out_w=width)
+
+
+def _check_k3(key, val, width, out_w, compact):
+    n3 = K.compress.launches
+    got = K.compress(key, val, width=width, out_w=out_w, compact=compact)
+    assert K.compress.launches == n3 + 1
+    assert got[1].dtype == val.dtype
+    assert_kernel_outputs_match(
+        got, K.compress_plain(key, val, width=width, out_w=out_w,
+                              compact=compact), rtol=value_rtol(val))
+
+
+def _sorted_rows(dev, m, width, dtype, kind="random", seed=0):
+    key, val = _k4_rows(m, width, 2, dtype, seed=seed, kind=kind)
+    key, val = K.sort_only_plain(key, val, width=width, start_kk=2)
+    return key.to(dev), val.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", K4_WIDTHS)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("compact", [True, False])
+def test_k3_network_every_width(cuda_device, width, dtype, compact):
+    """K3 (the register compress without a sort) at every width, both
+    value types, compacted and in place (compact=False)."""
+    key, val = _sorted_rows(cuda_device, 37 if width <= 2048 else 5, width,
+                            dtype, seed=width)
+    _check_k3(key, val, width, width, compact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256, 1024, 4096])
+@pytest.mark.parametrize("out_w", [100, 130, 64, 1])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k3_out_w_off_the_grid(cuda_device, width, out_w, dtype):
+    """Compacted rows cut to out_w slots, out_w off the multiple-of-4
+    grid (rows start off the 16-byte grid) or on it."""
+    key, val = _sorted_rows(cuda_device, 21, width, dtype, seed=out_w)
+    _check_k3(key, val, width, min(out_w, width), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256, 1024])
+@pytest.mark.parametrize("m", [1, 13, 131, 133])
+@pytest.mark.parametrize("compact", [True, False])
+def test_k3_row_counts(cuda_device, width, m, compact):
+    key, val = _sorted_rows(cuda_device, m, width, np.float32, seed=m)
+    _check_k3(key, val, width, width, compact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 512, 1024, 16384])
+@pytest.mark.parametrize("kind", ["one_key", "sentinel", "straddling",
+                                  "sorted"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("compact", [True, False])
+def test_k3_adversarial_rows(cuda_device, width, kind, dtype, compact):
+    """Rows of one key (one long duplicate run), of SENTINEL only, with
+    runs straddling register, warp and block boundaries, and sorted
+    rows with many short runs."""
+    key, val = _sorted_rows(cuda_device, 5, width, dtype, kind=kind)
+    _check_k3(key, val, width, width, compact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("compact", [True, False])
+def test_k3_rows_off_the_vector_grid(cuda_device, dtype, compact):
+    """Rows starting 4 (keys) or 8 (values) bytes past a 16-byte
+    boundary take the scalar loads."""
+    m, width = 7, 1024
+    key0, val0 = _sorted_rows(cuda_device, m, width, np.float64)
+    kbuf = torch.empty(m * width + 1, dtype=torch.int32, device=cuda_device)
+    vbuf = torch.empty(m * width + 1, dtype=dtype, device=cuda_device)
+    key = kbuf[1:].view(m, width)
+    val = vbuf[1:].view(m, width)
+    key.copy_(key0)
+    val.copy_(val0)
+    assert key.data_ptr() % 16 and val.data_ptr() % 16
+    _check_k3(key, val, width, width, compact)
 
 
 def _in_runs(key, val, start_kk):

@@ -157,6 +157,50 @@ def pack_fragments(g, pack):
 GATHER_CASES = [(16, 1, None), (16, 4, None), (32, 4, None), (32, 4, 128),
                 (64, 1, None), (128, 1, None), (128, 1, 256)]
 
+# K1's fragment runs: every power of two the planner may choose
+# (ops/bitonic.py plan_bitonic_dims), at every width the wrapper takes
+GATHER_RUNS = [1, 2, 4, 8, 16, 32]
+
+
+def fragment_gather(m, ka, run, pack=1, *, kind="random", seed=0,
+                    lanes=None):
+    """A fragment gather in K1's input layout, built with numpy: g
+    (ceil(ka / pack), m, lanes) int32 (lanes at least 128 and pack * 4 *
+    run) and avT (ka, m) float32. Fragment e of a row holds up to `run`
+    sorted columns (forward run: columns then -1; the reversed half the
+    same run backwards) in packed row e // pack at lane offset (e % pack)
+    * 4 * run, as ops/bitonic.py's pregather lays them out. kind: "random"
+    (fragments of 0..run columns drawn from few, so rows hold duplicate
+    runs), "one_key" (every slot column 5: one run over the whole row),
+    "sentinel" (no column at all), "mixed" (a row each of the three). A
+    fragment without columns gets a NaN A value, as a padded class row
+    does: a kernel must select it away, never multiply it by a mask."""
+    rng = np.random.default_rng(seed)
+    lanes = max(128, pack * 4 * run) if lanes is None else lanes
+    ncols = max(4, ka * run // 3)
+    cols = np.sort(rng.integers(0, ncols, (ka, m, run)), axis=2)
+    n = rng.integers(0, run + 1, (ka, m))
+    if kind in ("one_key", "mixed"):
+        one = slice(None) if kind == "one_key" else slice(1, None, 3)
+        cols[:, one] = 5
+        n[:, one] = run
+    if kind in ("sentinel", "mixed"):
+        n[:, slice(None) if kind == "sentinel" else slice(2, None, 3)] = 0
+    cols = np.where(np.arange(run) < n[:, :, None], cols, -1)
+    vals = rng.standard_normal((ka, m, run)).astype(np.float32)
+    avT = rng.standard_normal((ka, m)).astype(np.float32)
+    avT[n == 0] = np.nan
+    g = np.full((-(-ka // pack), m, lanes), -1, np.int32)
+    for e in range(ka):
+        off = (e % pack) * 4 * run
+        blk = g[e // pack, :, off:off + 4 * run]
+        blk[:, :run] = cols[e]
+        blk[:, run:2 * run] = vals[e].view(np.int32)
+        blk[:, 2 * run:3 * run] = cols[e][:, ::-1]
+        blk[:, 3 * run:] = vals[e][:, ::-1].view(np.int32)
+    return torch.from_numpy(g), torch.from_numpy(avT)
+
+
 DD_RTOL = 1e-12   # compensated values against float64, relative to max|C|
 
 
