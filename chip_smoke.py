@@ -11,37 +11,44 @@ prints no result line:
 2. build: compiles csrc/*.cu for sm_90a, one nvcc per source, in
    parallel (ia_spgemm_tpu_torch/_build.py);
 3. kernels against their plain PyTorch versions on the card, on the
-   inputs the main paths give them: K1-K4 on the headline's width
-   classes and the skew matrix's wide classes, K8 + K3 on the headline's
-   slab plan, K9 + K10 on its compensated slab plan, K7a + K7b on the
-   headline's flat plan (width 1024, run 32; sorted packed keys
-   bit-identical), K11 on build_matrix(m=16384) (A as ELL times dense B,
-   16384 x 16384; bit for bit, and its float64 instance bit for bit on
-   build_matrix(m=4096)), K12 on the headline ELL pair (Ka = Kb = 29, H = 2048;
-   each row's slots compared sorted by column); K5 and K6 + K3 (float64)
-   on the float64 headline's chunked width classes, K5, K6 + K3 and K4
-   (float64) on the skew x band classes, K6 + K3 on the flat float64
+   inputs the main paths give them: first K1 and K3 at every case of
+   ia_spgemm_tpu_torch.bench.kernels.k1_k3_cases (the one definition of
+   their shapes, which bench/kernels.py measures too: K1 on the
+   headline's and the skew matrix's classes, K3 on the rows that K2, K8
+   and K6 sort for the inputs named next); then K2 and K4 on the
+   headline's width classes and the skew matrix's wide classes, K8 on
+   the headline's slab plan, K9 + K10 on its compensated slab plan, K7a
+   + K7b on the headline's flat plan (width 1024, run 32; sorted packed
+   keys bit-identical), K11 on build_matrix(m=16384) (A as ELL times
+   dense B, 16384 x 16384; bit for bit, and its float64 instance bit for
+   bit on build_matrix(m=4096)), K12 on the headline ELL pair (Ka = Kb =
+   29, H = 2048; each row's slots compared sorted by column); K5 and K6
+   (float64) on the float64 headline's chunked width classes, K5, K6 and
+   K4 (float64) on the skew x band classes, K6 on the flat float64
    headline (width 1024, run 32) and on the float32 wide x band flat
-   plan (width 1024, run 8), and K5 at width 1024 beside K6 + K3 on those
-   two; K13 on the headline's B blocks at D = 4 and 8 shards (bit for
-   bit, the library yardstick a torch.roll of each stacked array along
-   the shard axis) and K4 on one shard's products of the D = 4 ring
-   (8192 x 1024, run 32). Structure exact, float32 values within 1e-5 *
-   max(1, max|C|) (duplicates are summed in another order), float64
-   values and compensated hi + lo within 1e-12 * max(1, max|C|), K13 bit
-   for bit; median ms of each over CUDA events, beside the plain
-   version's, one PyTorch call computing the same function where there
-   is one (torch.sort of the keys for K4-K6, torch.sparse.mm for K11,
-   K1 and K12, torch.roll for K13), and the bound (inputs read once and outputs
-   written once at 3.35 TB/s, or K11's float32 operations at 67 TFLOP/s,
-   whichever is longer); K13 also into receivers passed in (the ring's
-   way), with the host's microseconds per call (time.perf_counter around
-   unsynchronised calls) beside each CUDA-event time and the kernel's own
-   device time (torch.profiler); K1 and K3 (the register network) with
-   the same two beside each shape's CUDA-event time (a k1_k3_split JSON
-   line); then cuSPARSE's CSR @ CSR of the
-   headline (torch.sparse.mm), the library time of K12 and of K1 (beside
-   the headline's K1 launches; that plan also launches K2 + K3);
+   plan (width 1024, run 8), and K5 at width 1024 beside K6 + K3 on
+   those two; K13 on the headline's B blocks at D = 4 and 8 shards (bit
+   for bit, the library yardstick a torch.roll of each stacked array
+   along the shard axis) and K4 on one shard's products of the D = 4
+   ring (8192 x 1024, run 32). Structure exact, float32 values within
+   1e-5 * max(1, max|C|) (duplicates are summed in another order),
+   float64 values and compensated hi + lo within 1e-12 * max(1,
+   max|C|), K13 bit for bit; median ms of each over CUDA events, beside
+   the plain version's, one PyTorch call computing the same function
+   where there is one (torch.sort of the keys for K4-K6,
+   torch.sparse.mm for K11, K1 and K12, torch.roll for K13), and the
+   bound (what the kernel must read, once, and its outputs written once
+   at 3.35 TB/s, or K11's float32 operations at 67 TFLOP/s, whichever
+   is longer; of g, the gather kernels K1, K2, K7a, K8 and K9 read only
+   each fragment's 2 * run lanes: bench.kernels.gather_bytes); K13 also
+   into receivers passed in (the ring's way), with the host's
+   microseconds per call (time.perf_counter around unsynchronised
+   calls) beside each CUDA-event time and the kernel's own device time
+   (torch.profiler); K1 and K3 (the register network) with the same two
+   beside each shape's CUDA-event time (a k1_k3_split JSON line); then
+   cuSPARSE's CSR @ CSR of the headline (torch.sparse.mm), the library
+   time of K12 and of K1 (beside the headline's K1 launches; that plan
+   also launches K2 + K3);
 4. headline: bench.headline at m=32768 (nnz 7,086,306, checksum within
    1e-4 of scipy, scipy's sparsity pattern exactly);
 5. skew: the width-class route on a row-skewed matrix whose classes need
@@ -136,11 +143,6 @@ F64_TOL = 1e-12     # float64 values, relative to max(1, max|C|)
 DD_TOL = 1e-12      # compensated hi + lo, relative to max(1, max|C|)
 ORACLE_TOL = 1e-4   # against scipy, as the JAX package's tests
 F64_ORACLE_TOL = 1e-9   # float64 routes against scipy (the harness's gate)
-# H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory, and
-# float32 and float64 outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-PEAK_F64_FLOPS = 34e12   # float64 outside the tensor cores
 HEADLINE_NNZ = 7_086_306
 # the route the JAX package's cost model (esc.predict_csr_route_ms) ranks
 # first on the m=32768 headline (tests/test_torch_esc.py checks it)
@@ -174,9 +176,6 @@ REPLACES = {"K1": "ia_spgemm_tpu/ops/bitonic.py:1034",
             "K12": "ia_spgemm_tpu/ops/hash_spgemm.py:58",
             "K13": "ia_spgemm_tpu/parallel/rdma_ring.py:31"}
 RING_SHARDS = 4          # the ring / dist phases: 4 shards of the one card
-# the kernels whose phase-3 shapes also record the kernel alone and the
-# host's share (the profiler's name of each kernel)
-SPLIT_NAMES = {"K1": "k1_expand_sort_compress", "K3": "k3_compress"}
 
 
 def _compare(name, got, want):
@@ -217,8 +216,11 @@ def _compare_dd(name, got, want):
 
 
 def _nbytes(x):
-    """Bytes of the tensors in x (a tensor or nested tuples of them)."""
+    """Bytes of the tensors in x (a tensor or nested tuples of them), or
+    x itself where it is already a count of bytes."""
     import torch
+    if isinstance(x, int):
+        return x
     if isinstance(x, torch.Tensor):
         return x.numel() * x.element_size()
     if isinstance(x, (tuple, list)):
@@ -230,12 +232,18 @@ def _record(stats, time_ms, dev, kname, what, err, kern, plain, ins,
             library=None, flops=0.0):
     """Into stats: median ms of the kernel, of its plain version and of
     `library` (one PyTorch call computing the same function, or None);
-    and the bound's two terms: the inputs `ins` read once plus the
-    kernel's outputs written once at PEAK_BYTES_PER_S, and `flops` (the
-    float32 operations these inputs need) at PEAK_F32_FLOPS. For the
-    kernels of SPLIT_NAMES also the kernel alone (torch.profiler, us per
-    launch) and the host's us per call (unsynchronised calls), summed
-    into "kernel_alone_ms" and listed per shape under "split"."""
+    and the bound's two terms: what the kernel must read, `ins` (the
+    input tensors, each read once, or a count of bytes) plus its outputs
+    written once, at PEAK_BYTES_PER_S, and `flops` (the float32
+    operations these inputs need) at PEAK_F32_FLOPS. For the kernels of
+    PROFILE_NAMES also the kernel alone (torch.profiler, us per launch)
+    and the host's us per call (unsynchronised calls), summed into
+    "kernel_alone_ms" and listed per shape under "split". Returns the
+    kernel's ms."""
+    from ia_spgemm_tpu_torch.bench.kernels import (PEAK_BYTES_PER_S,
+                                                   PEAK_F32_FLOPS,
+                                                   PROFILE_NAMES, host_us,
+                                                   kernel_us)
     bytes_ms = (_nbytes(ins) + _nbytes(kern())) / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_F32_FLOPS * 1e3
     ms, pms = time_ms(kern, dev, 2, 20), time_ms(plain, dev, 2, 20)
@@ -251,9 +259,8 @@ def _record(stats, time_ms, dev, kname, what, err, kern, plain, ins,
         s["library_ms"] = (s["library_ms"] or 0.0) + lms
     s["max_abs_err"] = max(s["max_abs_err"], err)
     split = ""
-    if kname in SPLIT_NAMES:
-        from ia_spgemm_tpu_torch.bench.kernels import host_us, kernel_us
-        k_us, h_us = kernel_us(kern, SPLIT_NAMES[kname]), host_us(kern)
+    if kname in PROFILE_NAMES:
+        k_us, h_us = kernel_us(kern, PROFILE_NAMES[kname]), host_us(kern)
         s["kernel_alone_ms"] = s.get("kernel_alone_ms", 0.0) + k_us / 1e3
         s.setdefault("split", []).append({
             "shape": what, "ms": ms, "kernel_us": k_us, "host_us": h_us,
@@ -262,6 +269,7 @@ def _record(stats, time_ms, dev, kname, what, err, kern, plain, ins,
     print(f"  {kname} {what}: max_abs_err={err} ms={ms} plain_ms={pms} "
           f"library_ms={lms} bound_ms={max(bytes_ms, ops_ms)}{split}",
           flush=True)
+    return ms
 
 
 def _torch_sort(key):
@@ -275,7 +283,8 @@ def _check_cols(stats, label, time_ms, dev, key, val, *, width, start_kk,
                 out_w=None):
     """The kernels of pre-expanded rows (the torch _expand_ell's) against
     their plain versions, routed as the main paths route them: K5 up to
-    FUSED_MAX_WIDTH, K6 + K3 up to TRANSPOSED_MAX_WIDTH, K4 above."""
+    FUSED_MAX_WIDTH, K6 up to TRANSPOSED_MAX_WIDTH (K3 on K6's rows is a
+    case of bench.kernels.k1_k3_cases), K4 above."""
     import torch
 
     from ia_spgemm_tpu_torch.ops import bitonic as bt
@@ -314,10 +323,6 @@ def _check_cols(stats, label, time_ms, dev, key, val, *, width, start_kk,
         _record(stats, time_ms, dev, "K6", what, err,
                 lambda: K.sort_only(key, val, **kw),
                 lambda: K.sort_only_plain(key, val, **kw), (key, val), lib)
-        f = lambda fn: fn(sk, sv, width=width, out_w=out_w)  # noqa: E731
-        err = _compare(f"K3 {what}", f(K.compress), f(K.compress_plain))
-        _record(stats, time_ms, dev, "K3", what, err, lambda: f(K.compress),
-                lambda: f(K.compress_plain), (sk, sv))
 
 
 def _k5_beside_k6_k3(key, val, *, width, start_kk, time_ms, dev):
@@ -336,49 +341,37 @@ def _k5_beside_k6_k3(key, val, *, width, start_kk, time_ms, dev):
 def _check_kernels(call, stats, label, time_ms, dev):
     """Each class of a planned call: its kernel(s) against the plain
     version(s) on the class's own inputs. A ragged (float32) call's
-    classes take the gather kernels; a chunked float64 call's the cols
-    layout over the torch expand."""
+    classes take the gather kernels (K2 here; K1, and K3 on K2's rows,
+    are cases of bench.kernels.k1_k3_cases) and K4; a chunked float64
+    call's the cols layout over the torch expand."""
     import torch
 
+    from ia_spgemm_tpu_torch.bench import kernels as KB
     from ia_spgemm_tpu_torch.ops import bitonic as bt
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
 
     def record(kname, shape, err, kern, plain, ins, library=None):
-        _record(stats, time_ms, dev, kname, f"{label} {shape}", err, kern,
-                plain, ins, library)
+        return _record(stats, time_ms, dev, kname, f"{label} {shape}", err,
+                       kern, plain, ins, library)
 
     run = call.run
     if not call.ragged:
         if call.A.dtype == torch.float32:
             raise AssertionError(f"{label}: a chunked float32 call")
         for i, w in enumerate(call.widths):
-            ac = bt._take_rows(call.A.col_ind, call.idxs[i])[:, :call.kas[i]]
-            av = bt._take_rows(call.A.values, call.idxs[i])[:, :call.kas[i]]
-            key, val = bt._expand_ell(ac, av, call.B.col_ind, call.B.values,
-                                      width=w, run=run, chunks=call.chunks)
+            key, val = KB.chunked_class_rows(call, i)
             _check_cols(stats, f"{label} run={run}", time_ms, dev, key, val,
                         width=w, start_kk=2 * run,
                         out_w=min(call.out_w, w))
-        return
+        return {}
+    ms = {}
     for i, w in enumerate(call.widths):
         n = call.counts[i]
         shape = f"width={w} rows={n} run={run}"
+        if w <= bt.FUSED_MAX_WIDTH:
+            continue
         if w <= bt.TRANSPOSED_MAX_WIDTH:
-            pack = bt._pg_pack(run, w) if call.pregather else 1
-            g = call.frags[i] if call.pregather else call.table[
-                call.frags[i].reshape(-1).long()].reshape(
-                    call.kas[i], n, call.table.shape[1])
-            avT = call.avts[i]
-            kw = dict(ka=call.kas[i], run=run, width=w, start_kk=2 * run,
-                      pack=pack)
-            if w <= bt.FUSED_MAX_WIDTH:
-                f = lambda fn: fn(g, avT, out_w=w, **kw)  # noqa: E731
-                err = _compare(f"K1 {shape}", f(K.expand_sort_compress),
-                               f(K.expand_sort_compress_plain))
-                record("K1", f"{shape} pack={pack}", err,
-                       lambda: f(K.expand_sort_compress),
-                       lambda: f(K.expand_sort_compress_plain), (g, avT))
-                continue
+            g, avT, kw = KB.gather_inputs(call, i)
             key, val = K.expand_sort(g, avT, **kw)
             pkey, pval = K.expand_sort_plain(g, avT, **kw)
             torch.cuda.synchronize()
@@ -389,16 +382,10 @@ def _check_kernels(call, stats, label, time_ms, dev):
             err = _compare(f"K2 {shape}",
                            K.compress_plain(key, val, width=w, out_w=w),
                            K.compress_plain(pkey, pval, width=w, out_w=w))
-            record("K2", shape, err, lambda: K.expand_sort(g, avT, **kw),
-                   lambda: K.expand_sort_plain(g, avT, **kw), (g, avT))
-            for compact in (True, False):
-                f = lambda fn: fn(key, val, width=w, out_w=w,  # noqa: E731
-                                  compact=compact)
-                err = _compare(f"K3 {shape} compact={compact}",
-                               f(K.compress), f(K.compress_plain))
-                record("K3", f"{shape} compact={compact}", err,
-                       lambda: f(K.compress), lambda: f(K.compress_plain),
-                       (key, val))
+            ms["K2"] = ms.get("K2", 0.0) + record(
+                "K2", shape, err, lambda: K.expand_sort(g, avT, **kw),
+                lambda: K.expand_sort_plain(g, avT, **kw),
+                KB.gather_bytes(run, avT))
         else:
             key, val = bt._expand_rows(call.table, call.frags[i].T,
                                        call.avts[i].T, run=run, width=w)
@@ -409,13 +396,31 @@ def _check_kernels(call, stats, label, time_ms, dev):
             record("K4", shape, err, lambda: f(K.sort_compress_rows),
                    lambda: f(K.sort_compress_rows_plain), (key, val),
                    _torch_sort(key))
+    return ms
+
+
+def _check_k1_k3(stats, time_ms, dev):
+    """K1 and K3 against their plain versions at every case of
+    bench.kernels.k1_k3_cases (the main paths' shapes); returns their ms
+    on the headline's pregathered classes."""
+    from ia_spgemm_tpu_torch.bench import kernels as KB
+    ms = {}
+    for c in KB.k1_k3_cases(dev):
+        err = _compare(f"{c.kernel} {c.shape}", c.call(), c.plain())
+        t = _record(stats, time_ms, dev, c.kernel, c.shape, err, c.call,
+                    c.plain, c.read_bytes)
+        if c.source == "headline":
+            ms[c.kernel] = ms.get(c.kernel, 0.0) + t
+    return ms
 
 
 def _check_slab_kernels(A, stats, time_ms, dev):
-    """K8 + K3 on the slab plan of C = A @ A, K9 + K10 on its compensated
-    plan, each against its plain version at the plan's shapes."""
+    """K8 on the slab plan of C = A @ A (K3 on K8's rows is a case of
+    bench.kernels.k1_k3_cases), K9 + K10 on its compensated plan, each
+    against its plain version at the plan's shapes."""
     import torch
 
+    from ia_spgemm_tpu_torch.bench import kernels as KB
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.ops import slab
     from ia_spgemm_tpu_torch.ops import slab_kernels as SK
@@ -423,8 +428,7 @@ def _check_slab_kernels(A, stats, time_ms, dev):
     for dd in (False, True):
         p = slab.plan_slab_csr(A, A, dd=dd).plan
         w, F_c = p.width, p.width // p.run
-        g = p.table[p.mt.reshape(-1).long()].reshape(F_c, p.n_slabs,
-                                                     p.table.shape[1])
+        g = KB.slab_gather(p)
         kw = dict(ka=F_c, run=p.run, width=w, n=p.n, start_kk=2 * p.run)
         shape = f"headline slabs={p.n_slabs} width={w} run={p.run}"
         exp, exp_plain = ((SK.expand_sort_lr_dd, SK.expand_sort_lr_dd_plain)
@@ -448,7 +452,8 @@ def _check_slab_kernels(A, stats, time_ms, dev):
                            K.compress_plain(pkey, pval, width=w, out_w=w))
         _record(stats, time_ms, dev, name, shape, err,
                 lambda: exp(g, p.avt, p.lrt, **kw),
-                lambda: exp_plain(g, p.avt, p.lrt, **kw), (g, p.avt, p.lrt))
+                lambda: exp_plain(g, p.avt, p.lrt, **kw),
+                KB.gather_bytes(p.run, p.avt, p.lrt))
         if dd:
             f = lambda fn: fn(key, val, width=w)  # noqa: E731
             err = _compare_dd(f"K10 {shape}", f(SK.compress_dd),
@@ -456,13 +461,6 @@ def _check_slab_kernels(A, stats, time_ms, dev):
             _record(stats, time_ms, dev, "K10", shape, err,
                     lambda: f(SK.compress_dd),
                     lambda: f(SK.compress_dd_plain), (key, val))
-        else:
-            f = lambda fn: fn(key, val, width=w, out_w=w)  # noqa: E731
-            err = _compare(f"K3 {shape}", f(K.compress),
-                           f(K.compress_plain))
-            _record(stats, time_ms, dev, "K3", shape, err,
-                    lambda: f(K.compress), lambda: f(K.compress_plain),
-                    (key, val))
 
 
 def _values_err(name, got, want, tol):
@@ -502,6 +500,7 @@ def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
     at those shapes."""
     import torch
 
+    from ia_spgemm_tpu_torch.bench import kernels as KB
     from ia_spgemm_tpu_torch.bench.headline import build_matrix
     from ia_spgemm_tpu_torch.formats import convert
     from ia_spgemm_tpu_torch.formats.types import CSR
@@ -526,7 +525,8 @@ def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
         raise AssertionError(f"K7a {shape}: sorted packed keys differ")
     _record(stats, time_ms, dev, "K7a", shape, 0.0,
             lambda: K.expand_sort_packed(g, avT, **kw),
-            lambda: K.expand_sort_packed_plain(g, avT, **kw), (g, avT))
+            lambda: K.expand_sort_packed_plain(g, avT, **kw),
+            KB.gather_bytes(plan.run, avT))
     for compact in (False, True):
         f = lambda fn: fn(p, width=plan.width,  # noqa: E731
                           out_w=plan.width, compact=compact)
@@ -558,14 +558,14 @@ def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
     f = lambda fn: fn(E4.col_ind, E4.values, B4)  # noqa: E731
     got = f(DK.dense_row)
     _same_bits("K11 float64", got, f(DK.dense_row_plain))
-    # its bound (bytes, or float64 operations at PEAK_F64_FLOPS) and
+    # its bound (bytes, or float64 operations at KB.PEAK_F64_FLOPS) and
     # cuSPARSE SpMM in float64 on the same input
     nnz4 = int(A4.nnz)
     a4_sp = torch.sparse_csr_tensor(A4.row_ptr, A4.col_ind[:nnz4],
                                     A4.values[:nnz4], size=A4.shape)
     bound4 = max((_nbytes((E4.col_ind, E4.values, B4)) + _nbytes(got))
-                 / PEAK_BYTES_PER_S,
-                 2.0 * nnz4 * B4.shape[1] / PEAK_F64_FLOPS) * 1e3
+                 / KB.PEAK_BYTES_PER_S,
+                 2.0 * nnz4 * B4.shape[1] / KB.PEAK_F64_FLOPS) * 1e3
     print(f"  K11 float64 A ELL {tuple(E4.col_ind.shape)} x dense B "
           f"{tuple(B4.shape)}: bit for bit, ms="
           f"{time_ms(lambda: f(DK.dense_row), dev, 2, 20)} plain_ms="
@@ -852,6 +852,7 @@ def main() -> int:
               .strip() if _build.build_seconds is not None
               else "[2] (prebuilt)")
 
+    from ia_spgemm_tpu_torch.bench import kernels as KB
     from ia_spgemm_tpu_torch.bench.harness import time_ms
     from ia_spgemm_tpu_torch.cli import main as cli
     from ia_spgemm_tpu_torch.formats import convert
@@ -914,12 +915,11 @@ def main() -> int:
     print(f"[3] kernel vs plain (FUSED_MAX_WIDTH={bt.FUSED_MAX_WIDTH})",
           flush=True)
     stats = {}
+    headline_ms = _check_k1_k3(stats, time_ms, dev)
     H = ell(a32)
-    _check_kernels(bt.multiclass_planned(H, H, assemble="bcsr",
-                                         pregather=True, run_override=8),
-                   stats, "headline", time_ms, dev)
-    headline_ms = {n: stats[n]["ms"] for n in ("K1", "K2", "K3")
-                   if n in stats}
+    headline_ms.update(_check_kernels(bt.multiclass_planned(
+        H, H, assemble="bcsr", pregather=True, run_override=8), stats,
+        "headline", time_ms, dev))
     skew = headline.build_skew_matrix()
     S = ell(skew)
     _check_kernels(bt.multiclass_planned(S, S, assemble="bcsr"), stats,
@@ -939,10 +939,7 @@ def main() -> int:
     split = {}
     for label, (X, Y) in {"headline f64 flat": (H64, H64),
                           "wide x band f32 flat": (WA, WB)}.items():
-        plan = bt.plan_bitonic(X, Y)
-        key, val = bt._expand_ell(X.col_ind, X.values, Y.col_ind, Y.values,
-                                  width=plan.width, run=plan.run,
-                                  chunks=plan.chunks)
+        plan, key, val = KB.flat_rows(X, Y)
         kw = dict(width=plan.width, start_kk=2 * plan.run)
         _check_cols(stats, f"{label} run={plan.run}", time_ms, dev, key, val,
                     **kw)
@@ -973,7 +970,8 @@ def main() -> int:
         "k12_ms": stats["K12"]["ms"]}}), flush=True)
     del a_sp, c_sp
     print(json.dumps({"k1_k3_split": {n: stats[n]["split"]
-                                      for n in SPLIT_NAMES}}), flush=True)
+                                      for n in KB.PROFILE_NAMES}}),
+          flush=True)
     missing = set(kernel_names) - set(stats)
     if missing:
         raise AssertionError(f"phase 3 never reached {sorted(missing)}")

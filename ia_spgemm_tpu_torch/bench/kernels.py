@@ -1,33 +1,30 @@
 """K1, K3, K4, K6, K11 and K13 on the card at the shapes of
 ``chip_smoke.py`` phase 3, on inputs made from a seed: for each, the
-wrapper's call time
-(CUDA events, median of 20), the host's microseconds per call
-(``time.perf_counter`` around unsynchronised calls), the kernel's own
-device time per launch (``torch.profiler``), and beside them the PyTorch
-call computing the same function (``torch.sort`` of the keys,
-``torch.sparse.mm``, two ``torch.roll``s). Every output is checked
+wrapper's call time (CUDA events, median of 20), the host's microseconds
+per call (``time.perf_counter`` around unsynchronised calls), the
+kernel's own device time per launch (``torch.profiler``), and beside
+them the PyTorch call computing the same function (``torch.sort`` of the
+keys, ``torch.sparse.mm``, two ``torch.roll``s). Every output is checked
 against the plain version first (structure exact, values within 1e-5 /
 1e-12 of max(1, max|C|); K6's sorted keys exactly and its run sums;
 K11 and K13 bit for bit).
 
     python -m ia_spgemm_tpu_torch.bench.kernels [--json PATH]
-                                                [--only K1,K3,...]
 
 Prints one JSON line: the card's name and power limit, then one entry per
-shape. K1's and K3's inputs are the ones phase 3 gives them: K1 the
-headline's width classes up to FUSED_MAX_WIDTH (the tuned 512) on its
-pregathered plan and the skew matrix's 128 class; K3 the rows K2 sorts
-for the headline's 1024 class (compact and not), the rows K8 sorts on
-the headline's slab plan, and the rows K6 sorts on the float64
-headline's flat plan, its float64 1024 class and the float32 wide x
-band flat plan; each beside its bytes bound (inputs read once, outputs
-written once, at 3.35 TB/s). K4's and K6's inputs are rows in their input layout (sorted runs
-of start_kk / 2 slots, ascending and descending in turn; keys uniform
-below 32768, a fifth SENTINEL); K11's A is ``build_matrix(m=16384)`` as
-ELL (16384, 29) times itself dense; K13's the headline's B block shapes (32768 / D rows
-of 29 int32 columns and 29 float32 values) at D = 4 and 8 shards of one
-card, as a public call (fresh receivers) and as the ring calls it (the
-previous hop's receivers hopped into the other set).
+shape. K1's and K3's cases are ``k1_k3_cases``, which ``chip_smoke.py``
+phase 3 also runs: K1 on the headline's and the skew matrix's width
+classes up to FUSED_MAX_WIDTH (the tuned 512), K3 on the rows K2, K8 and
+K6 sort for the main paths' 1024-slot rows; each beside its bytes bound
+(what the kernel must read, once, and its outputs written once, at 3.35
+TB/s; ``gather_bytes`` for K1). K4's and K6's inputs are rows in their
+input layout (sorted runs of start_kk / 2 slots, ascending and
+descending in turn; keys uniform below 32768, a fifth SENTINEL); K11's A
+is ``build_matrix(m=16384)`` as ELL (16384, 29) times itself dense;
+K13's the headline's B block shapes (32768 / D rows of 29 int32 columns
+and 29 float32 values) at D = 4 and 8 shards of one card, as a public
+call (fresh receivers) and as the ring calls it (the previous hop's
+receivers hopped into the other set).
 """
 
 from __future__ import annotations
@@ -37,6 +34,8 @@ import json
 import subprocess
 import sys
 import time
+from functools import partial
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -56,8 +55,14 @@ K6_SHAPES = (("f32 wide x band flat", 32768, 1024, 16, "float32"),
 DENSE_ROW_M = 16384
 K13_SHARDS = (4, 8)
 HEADLINE_ROWS, HEADLINE_KB = 32768, 29
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
-KERNEL_NAMES = ("K1", "K3", "K4", "K6", "K11", "K13")
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory, and
+# float32 and float64 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
+# the kernels measured alone at each of their shapes, by the name the
+# profiler gives each
+PROFILE_NAMES = {"K1": "k1_expand_sort_compress", "K3": "k3_compress"}
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -203,67 +208,133 @@ def _measure_k11(dev) -> dict:
             **_timings(call, lambda: torch.sparse.mm(a_sp, B),
                        "k11_dense_row", dev)}
 
+
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _gather_cases(call, label):
-    """K1 and K3 of one ragged multiclass call, as phase 3 reaches them:
-    (kernel, shape, kernel call, plain call, input tensors) per class of
-    at most TRANSPOSED_MAX_WIDTH slots; K3's rows are K2's sorted
-    output."""
+def gather_bytes(run, avT, *more) -> int:
+    """Bytes a fragment-gather kernel (K1, K2, K7a, K8, K9) must read:
+    of each of the avT.shape[0] x avT.shape[1] fragments its run columns
+    and run value bits (one half of the fragment's 4 * run lanes of g,
+    the forward half for even fragments and the reversed half for odd;
+    the other half and the lanes padding g's rows to 128 are never
+    read), then avT and the per-fragment arrays ``more``, each once."""
+    return avT.numel() * 2 * run * 4 + _nbytes(avT, *more)
+
+
+def gather_inputs(call, i):
+    """(g, avT, kw) of class i of a ragged multiclass call, as K1 and K2
+    take them: the pregathered (lane-packed) g, or the table rows of the
+    class's fragments."""
+    from ia_spgemm_tpu_torch.ops import bitonic as bt
+    run, w = call.run, call.widths[i]
+    pack = bt._pg_pack(run, w) if call.pregather else 1
+    g = call.frags[i] if call.pregather else call.table[
+        call.frags[i].reshape(-1).long()].reshape(
+            call.kas[i], call.counts[i], call.table.shape[1])
+    return g, call.avts[i], dict(ka=call.kas[i], run=run, width=w,
+                                 start_kk=2 * run, pack=pack)
+
+
+def chunked_class_rows(call, i):
+    """Class i of a chunked (float64) multiclass call as the torch
+    ``_expand_ell`` expands it: (key, val), each (rows, width)."""
+    from ia_spgemm_tpu_torch.ops import bitonic as bt
+    ac = bt._take_rows(call.A.col_ind, call.idxs[i])[:, :call.kas[i]]
+    av = bt._take_rows(call.A.values, call.idxs[i])[:, :call.kas[i]]
+    return bt._expand_ell(ac, av, call.B.col_ind, call.B.values,
+                          width=call.widths[i], run=call.run,
+                          chunks=call.chunks)
+
+
+def flat_rows(X, Y):
+    """The flat plan of X @ Y and its rows as ``_expand_ell`` expands
+    them: (plan, key, val)."""
+    from ia_spgemm_tpu_torch.ops import bitonic as bt
+    plan = bt.plan_bitonic(X, Y)
+    key, val = bt._expand_ell(X.col_ind, X.values, Y.col_ind, Y.values,
+                              width=plan.width, run=plan.run,
+                              chunks=plan.chunks)
+    return plan, key, val
+
+
+def slab_gather(p):
+    """A slab plan's fragment gather g (width / run, n_slabs, lanes), as
+    K8 and K9 take it."""
+    return p.table[p.mt.reshape(-1).long()].reshape(
+        p.width // p.run, p.n_slabs, p.table.shape[1])
+
+
+class Case(NamedTuple):
+    """One kernel at one phase-3 shape: its wrapper call and its plain
+    version on the same inputs, and the bytes it must read (what it
+    writes is counted from what it returns)."""
+    kernel: str
+    source: str
+    shape: str
+    call: Callable
+    plain: Callable
+    read_bytes: int
+
+
+def _k3_case(source, shape, key, val, width, out_w, compact=True):
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    kw = dict(width=width, out_w=out_w, compact=compact)
+    return Case("K3", source, f"{shape} compact={compact}",
+                partial(K.compress, key, val, **kw),
+                partial(K.compress_plain, key, val, **kw), _nbytes(key, val))
+
+
+def _ragged_cases(call, source):
+    """K1 on each class of at most FUSED_MAX_WIDTH slots; K3, compacted
+    and in place, on the rows K2 sorts for each class above it, up to
+    TRANSPOSED_MAX_WIDTH (K4 takes the wider ones)."""
     from ia_spgemm_tpu_torch.ops import bitonic as bt
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
-    run = call.run
     for i, w in enumerate(call.widths):
         if w > bt.TRANSPOSED_MAX_WIDTH:
             continue
-        n = call.counts[i]
-        pack = bt._pg_pack(run, w) if call.pregather else 1
-        g = call.frags[i] if call.pregather else call.table[
-            call.frags[i].reshape(-1).long()].reshape(
-                call.kas[i], n, call.table.shape[1])
-        avT = call.avts[i]
-        kw = dict(ka=call.kas[i], run=run, width=w, start_kk=2 * run,
-                  pack=pack)
-        shape = f"{label} {n} x {w} run={run} pack={pack}"
+        g, avT, kw = gather_inputs(call, i)
+        shape = f"{source} width={w} rows={call.counts[i]} run={call.run}"
         if w <= bt.FUSED_MAX_WIDTH:
-            yield ("K1", shape,
-                   lambda g=g, avT=avT, kw=kw, w=w: K.expand_sort_compress(
-                       g, avT, out_w=w, **kw),
-                   lambda g=g, avT=avT, kw=kw, w=w:
-                   K.expand_sort_compress_plain(g, avT, out_w=w, **kw),
-                   (g, avT))
+            yield Case("K1", source, f"{shape} pack={kw['pack']}",
+                       partial(K.expand_sort_compress, g, avT, out_w=w,
+                               **kw),
+                       partial(K.expand_sort_compress_plain, g, avT,
+                               out_w=w, **kw),
+                       gather_bytes(call.run, avT))
             continue
         key, val = K.expand_sort(g, avT, **kw)
         for compact in (True, False):
-            yield ("K3", f"{shape} compact={compact}",
-                   lambda key=key, val=val, w=w, c=compact: K.compress(
-                       key, val, width=w, out_w=w, compact=c),
-                   lambda key=key, val=val, w=w, c=compact:
-                   K.compress_plain(key, val, width=w, out_w=w, compact=c),
-                   (key, val))
+            yield _k3_case(source, shape, key, val, w, w, compact)
 
 
-def _k3_case(label, key, val, width):
+def _cols_cases(source, key, val, *, width, start_kk, out_w):
+    """K3 on the rows K6 sorts, where the main paths route pre-expanded
+    rows to K6 + K3 (FUSED_MAX_WIDTH < width <= TRANSPOSED_MAX_WIDTH)."""
+    from ia_spgemm_tpu_torch.ops import bitonic as bt
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
-    return ("K3", f"{label} {key.shape[0]} x {width} "
-                  f"{str(val.dtype)[6:]} compact=True",
-            lambda: K.compress(key, val, width=width, out_w=width),
-            lambda: K.compress_plain(key, val, width=width, out_w=width),
-            (key, val))
+    if not bt.FUSED_MAX_WIDTH < width <= bt.TRANSPOSED_MAX_WIDTH:
+        return
+    key, val = K.sort_only(key, val, width=width, start_kk=start_kk)
+    yield _k3_case(source, f"{source} rows={key.shape[0]} width={width} "
+                   f"{str(val.dtype)[6:]}", key, val, width, out_w)
 
 
 def k1_k3_cases(dev, m=HEADLINE_ROWS):
-    """K1's and K3's phase-3 shapes (see the module's docstring), one at a
-    time, so that the float64 rows of one shape are freed before the
-    next is built; ``m`` the headline's rows (a smaller m rehearses the
-    cases on the CPU)."""
+    """K1's and K3's phase-3 cases, one at a time, so that the float64
+    rows of one shape are freed before the next is built: K1 on the
+    headline's classes (pregathered, run 8) and the skew matrix's; K3 on
+    the rows that K2 sorts for their 1024 classes, that K8 sorts on the
+    headline's slab plan, and that K6 sorts for the float64 headline's
+    and the skew x band float64 chunked 1024 classes and on the float64
+    headline's and the float32 wide x band flat plans. ``m`` is the
+    headline's rows (a smaller m rehearses the cases on the CPU)."""
     from ia_spgemm_tpu_torch.bench import headline
     from ia_spgemm_tpu_torch.formats import convert
     from ia_spgemm_tpu_torch.formats.types import CSR
     from ia_spgemm_tpu_torch.ops import bitonic as bt
-    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.ops import slab
     from ia_spgemm_tpu_torch.ops import slab_kernels as SK
 
@@ -274,134 +345,81 @@ def k1_k3_cases(dev, m=HEADLINE_ROWS):
 
     a64 = headline.build_matrix(m=m)
     H = ell(a64)
-    yield from _gather_cases(bt.multiclass_planned(
+    yield from _ragged_cases(bt.multiclass_planned(
         H, H, assemble="bcsr", pregather=True, run_override=8), "headline")
-    S = ell(headline.build_skew_matrix())
-    yield from _gather_cases(bt.multiclass_planned(S, S, assemble="bcsr"),
+    del H
+    skew = headline.build_skew_matrix()
+    S = ell(skew)
+    yield from _ragged_cases(bt.multiclass_planned(S, S, assemble="bcsr"),
                              "skew")
     del S
-    p = slab.plan_slab_csr(CSR.from_scipy(a64.astype(np.float32),
-                                          device=dev),
-                           CSR.from_scipy(a64.astype(np.float32),
-                                          device=dev)).plan
-    g = p.table[p.mt.reshape(-1).long()].reshape(
-        p.width // p.run, p.n_slabs, p.table.shape[1])
-    key, val = SK.expand_sort_lr(g, p.avt, p.lrt, ka=p.width // p.run,
-                                 run=p.run, width=p.width, n=p.n,
-                                 start_kk=2 * p.run)
-    yield _k3_case("headline slabs", key, val, p.width)
-    del g, key, val, p
+    A = CSR.from_scipy(a64.astype(np.float32), device=dev)
+    p = slab.plan_slab_csr(A, A).plan
+    key, val = SK.expand_sort_lr(slab_gather(p), p.avt, p.lrt,
+                                 ka=p.width // p.run, run=p.run,
+                                 width=p.width, n=p.n, start_kk=2 * p.run)
+    yield _k3_case("headline slabs", f"headline slabs={p.n_slabs} "
+                   f"width={p.width} run={p.run}", key, val, p.width,
+                   p.width)
+    del A, p, key, val
     H64 = ell(a64, np.float64)
-    plan = bt.plan_bitonic(H64, H64)
-    key, val = bt._expand_ell(H64.col_ind, H64.values, H64.col_ind,
-                              H64.values, width=plan.width, run=plan.run,
-                              chunks=plan.chunks)
-    key, val = K.sort_only(key, val, width=plan.width,
-                           start_kk=2 * plan.run)
-    yield _k3_case(f"f64 headline flat run={plan.run}", key, val,
-                   plan.width)
-    del key, val
-    call = bt.multiclass_planned(H64, H64, assemble="bcsr")
-    for i, w in enumerate(call.widths):
-        if not bt.FUSED_MAX_WIDTH < w <= bt.TRANSPOSED_MAX_WIDTH:
-            continue
-        ac = bt._take_rows(call.A.col_ind, call.idxs[i])[:, :call.kas[i]]
-        av = bt._take_rows(call.A.values, call.idxs[i])[:, :call.kas[i]]
-        key, val = bt._expand_ell(ac, av, call.B.col_ind, call.B.values,
-                                  width=w, run=call.run, chunks=call.chunks)
-        key, val = K.sort_only(key, val, width=w, start_kk=2 * call.run)
-        yield _k3_case(f"f64 headline class run={call.run}", key, val, w)
+    for source, X, Y in (
+            ("headline f64", H64, H64),
+            ("skew x band f64", ell(skew, np.float64),
+             ell(headline.build_matrix(m=skew.shape[0], band=3,
+                                       extra_per_row=0), np.float64))):
+        call = bt.multiclass_planned(X, Y, assemble="bcsr")
+        for i, w in enumerate(call.widths):
+            key, val = chunked_class_rows(call, i)
+            yield from _cols_cases(f"{source} run={call.run}", key, val,
+                                   width=w, start_kk=2 * call.run,
+                                   out_w=min(call.out_w, w))
+            del key, val
+        del call, X, Y
+    for source, X, Y in (
+            ("headline f64 flat", H64, H64),
+            ("wide x band f32 flat",
+             ell(headline.build_matrix(m=m, extra_per_row=60)),
+             ell(headline.build_matrix(m=m, band=3, extra_per_row=0)))):
+        plan, key, val = flat_rows(X, Y)
+        del X, Y
+        yield from _cols_cases(f"{source} run={plan.run}", key, val,
+                               width=plan.width, start_kk=2 * plan.run,
+                               out_w=plan.width)
         del key, val
-    del call, H64
-    WA = ell(headline.build_matrix(m=m, extra_per_row=60))
-    WB = ell(headline.build_matrix(m=m, band=3, extra_per_row=0))
-    plan = bt.plan_bitonic(WA, WB)
-    key, val = bt._expand_ell(WA.col_ind, WA.values, WB.col_ind, WB.values,
-                              width=plan.width, run=plan.run,
-                              chunks=plan.chunks)
-    key, val = K.sort_only(key, val, width=plan.width,
-                           start_kk=2 * plan.run)
-    yield _k3_case(f"f32 wide x band flat run={plan.run}", key, val,
-                   plan.width)
+    del H64
 
 
-_PROFILE_NAME = {"K1": "k1_expand_sort_compress", "K3": "k3_compress"}
-
-
-def _measure_k1_k3(dev, only) -> dict:
+def _measure_k1_k3(dev) -> dict:
     """Each K1 / K3 case against its plain version, then its call ms,
     host us and kernel us, and its bytes bound."""
     from ia_spgemm_tpu_torch.bench.harness import time_ms
-    out = {name: [] for name in ("K1", "K3") if name in only}
-    for name, shape, call, plain, ins in k1_k3_cases(dev):
-        if name not in only:
-            continue
-        got, want = call(), plain()
-        err = _check_k4(got, want, str(want[1].dtype)[6:], name)
-        bound_ms = (_nbytes(*ins) + _nbytes(*got)) / PEAK_BYTES_PER_S * 1e3
+    out = {"K1": [], "K3": []}
+    for c in k1_k3_cases(dev):
+        got, want = c.call(), c.plain()
+        err = _check_k4(got, want, str(want[1].dtype)[6:], c.kernel)
+        bound_ms = (c.read_bytes + _nbytes(*got)) / PEAK_BYTES_PER_S * 1e3
         del got, want
-        out[name].append({
-            "shape": shape, "max_abs_err": err,
-            "call_ms": time_ms(call, dev, 2, 20),
-            "call_host_us": host_us(call),
-            "kernel_us": kernel_us(call, _PROFILE_NAME[name]),
+        out[c.kernel].append({
+            "shape": c.shape, "max_abs_err": err,
+            "call_ms": time_ms(c.call, dev, 2, 20),
+            "call_host_us": host_us(c.call),
+            "kernel_us": kernel_us(c.call, PROFILE_NAMES[c.kernel]),
             "bound_ms": bound_ms})
-        print(json.dumps({name: out[name][-1]}), file=sys.stderr,
+        print(json.dumps({c.kernel: out[c.kernel][-1]}), file=sys.stderr,
               flush=True)
     return out
 
 
-def host_split(dev, m=224, width=1024) -> dict:
-    """Where a K3 wrapper call's host microseconds go, at the headline's
-    1024 class (224 rows): the operand checks, the output allocations,
-    the stream lookup, the ctypes launch into outputs made once, and the
-    whole call; each over unsynchronised calls."""
-    import torch
-
-    from ia_spgemm_tpu_torch import _build
-    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
-    key, val = (t.to(dev) for t in k4_rows(m, width, 2, "float32"))
-    key, val = K.sort_only_plain(key, val, width=width, start_kk=2)
-    col, out, nnz = K._row_outputs(m, width, val.dtype, dev)
-    fn = _build.load()["ia_k3_compress"]
-    ptrs = [t.data_ptr() for t in (key, val, col, out, nnz)]
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-
-    def checks():
-        K._check_width(width)
-        K._check_rows(key, val, width)
-
-    return {
-        "shape": f"K3 {m} x {width} float32",
-        "checks_us": host_us(checks),
-        "outputs_us": host_us(
-            lambda: K._row_outputs(m, width, val.dtype, dev)),
-        "stream_us": host_us(
-            lambda: torch._C._cuda_getCurrentRawStream(dev.index)),
-        "ctypes_launch_us": host_us(
-            lambda: fn(*ptrs, m, width, width, 1, stream)),
-        "launch_us": host_us(lambda: K._launch(
-            "ia_k3_compress", key, val, col, out, nnz, m, width, width, 1,
-            device=dev)),
-        "call_us": host_us(lambda: K.compress(key, val, width=width,
-                                              out_w=width))}
-
-
-def measure(dev, only=KERNEL_NAMES) -> dict:
+def measure(dev) -> dict:
     import torch
 
     from ia_spgemm_tpu_torch.bench.harness import time_ms
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
 
-    out = {name: [] for name in only}
-    if "K1" in only or "K3" in only:
-        out.update(_measure_k1_k3(dev, only))
-    if "K3" in only:
-        out["K3_host_split"] = host_split(dev)
-        print(json.dumps(out["K3_host_split"]), file=sys.stderr, flush=True)
-    for label, m, width, start_kk, dtype in (K4_SHAPES if "K4" in only
-                                             else ()):
+    out = {**_measure_k1_k3(dev), "K4": [], "K6": [], "K11": [], "K13": []}
+    for label, m, width, start_kk, dtype in K4_SHAPES:
         key, val = (t.to(dev) for t in k4_rows(m, width, start_kk, dtype))
         call = lambda: K.sort_compress_rows(  # noqa: E731
             key, val, width=width, start_kk=start_kk)
@@ -416,8 +434,7 @@ def measure(dev, only=KERNEL_NAMES) -> dict:
             "torch_sort_ms": time_ms(sort, dev, 2, 20),
             "torch_sort_host_us": host_us(sort)})
         print(json.dumps(out["K4"][-1]), file=sys.stderr, flush=True)
-    for label, m, width, start_kk, dtype in (K6_SHAPES if "K6" in only
-                                             else ()):
+    for label, m, width, start_kk, dtype in K6_SHAPES:
         key, val = (t.to(dev) for t in k4_rows(m, width, start_kk, dtype))
         call = lambda: K.sort_only(  # noqa: E731
             key, val, width=width, start_kk=start_kk)
@@ -430,11 +447,10 @@ def measure(dev, only=KERNEL_NAMES) -> dict:
                 "k6_sort_rows", dev)})
         print(json.dumps(out["K6"][-1]), file=sys.stderr, flush=True)
         del key, val
-    if "K11" in only:
-        out["K11"].append(_measure_k11(dev))
-        print(json.dumps(out["K11"][-1]), file=sys.stderr, flush=True)
+    out["K11"].append(_measure_k11(dev))
+    print(json.dumps(out["K11"][-1]), file=sys.stderr, flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for D in (K13_SHARDS if "K13" in only else ()):
+    for D in K13_SHARDS:
         rows = HEADLINE_ROWS // D
         cols = [torch.randint(-1, HEADLINE_ROWS, (rows, HEADLINE_KB),
                               generator=gen, device=dev, dtype=torch.int32)
@@ -469,13 +485,7 @@ def measure(dev, only=KERNEL_NAMES) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write the result here")
-    ap.add_argument("--only", default=",".join(KERNEL_NAMES),
-                    help="comma-separated kernels to measure "
-                         f"(default: all of {','.join(KERNEL_NAMES)})")
     args = ap.parse_args(argv)
-    only = tuple(args.only.split(","))
-    if set(only) - set(KERNEL_NAMES):
-        ap.error(f"--only: unknown kernels {sorted(set(only) - set(KERNEL_NAMES))}")
     # the tuned fused width must be set before ops.bitonic is imported
     from ia_spgemm_tpu_torch.bench import headline
     headline.apply_bench_tuning()
@@ -487,7 +497,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    res = {"card": card, **measure(torch.device("cuda", 0), only)}
+    res = {"card": card, **measure(torch.device("cuda", 0))}
     line = json.dumps(res)
     print(line)
     if args.json:

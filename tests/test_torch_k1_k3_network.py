@@ -320,3 +320,59 @@ def test_k3_model_float64_matches_jax():
     assert_kernel_outputs_match(
         (col.astype(np.int32), out, nnz[:, None].astype(np.int32)), want,
         rtol=F64_RTOL)
+
+
+# ------------------------------------------------- the bound and the cases
+
+@pytest.mark.parametrize("run", GATHER_RUNS)
+@pytest.mark.parametrize("pack", PACKS)
+def test_gather_bytes_counts_the_lanes_k1_reads(run, pack):
+    """bench.kernels.gather_bytes (the bytes K1's bound counts) is what
+    the expand reads: every lane of g outside each fragment's 2 * run
+    read lanes (the other half, the unused packed slots, the padding to
+    128 lanes) may be overwritten without changing K._expand_plain's
+    products; overwriting the read lanes changes them; and the read
+    lanes of every row plus avT are gather_bytes."""
+    from ia_spgemm_tpu_torch.bench.kernels import gather_bytes
+    width, m = 512, 3
+    ka = width // run - 1
+    g, avT = fragment_gather(m, ka, run, pack, seed=run + pack)
+    read = np.zeros(g.shape[::2], bool)           # (packed row, lane)
+    for e in range(ka):
+        off = (e % pack) * 4 * run + (e & 1) * 2 * run
+        read[e // pack, off:off + 2 * run] = True
+    assert read.sum() == ka * 2 * run
+    assert gather_bytes(run, avT) == (read.sum() * m * 4
+                                      + avT.numel() * 4)
+    want = K._expand_plain(g, avT, ka, run, width, pack)
+    rng = np.random.default_rng(run * pack)
+    noise = torch.from_numpy(rng.integers(0, 2**31 - 1, g.shape,
+                                          dtype=np.int32))
+    mask = torch.from_numpy(read)[:, None, :]
+    got = K._expand_plain(torch.where(mask, g, noise), avT, ka, run, width,
+                          pack)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    got = K._expand_plain(torch.where(mask, noise, g), avT, ka, run, width,
+                          pack)
+    assert not torch.equal(got[0], want[0])
+
+
+def test_k1_k3_cases_rehearse_on_cpu():
+    """bench.kernels.k1_k3_cases (the shapes at which chip_smoke.py phase
+    3 and bench/kernels.py hold K1 and K3) at m = 1024 on the CPU: every
+    source gives its cases, and each case's wrapper call (the plain
+    version on the CPU) equals its plain call."""
+    from ia_spgemm_tpu_torch.bench import kernels as KB
+    sources = {}
+    for c in KB.k1_k3_cases(torch.device("cpu"), m=1024):
+        sources.setdefault(c.source.split(" run=")[0], set()).add(c.kernel)
+        got, want = c.call(), c.plain()
+        assert len(got) == 3
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert c.read_bytes > 0
+    assert sources == {"headline": {"K1", "K3"}, "skew": {"K1", "K3"},
+                       "headline slabs": {"K3"}, "headline f64": {"K3"},
+                       "skew x band f64": {"K3"},
+                       "headline f64 flat": {"K3"},
+                       "wide x band f32 flat": {"K3"}}
