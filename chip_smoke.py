@@ -11,13 +11,14 @@ prints no result line:
 2. build: compiles csrc/*.cu for sm_90a, one nvcc per source, in
    parallel (ia_spgemm_tpu_torch/_build.py);
 3. kernels against their plain PyTorch versions on the card, on the
-   inputs the main paths give them: first K1 and K3 at every case of
-   ia_spgemm_tpu_torch.bench.kernels.k1_k3_cases (the one definition of
-   their shapes, which bench/kernels.py measures too: K1 on the
-   headline's and the skew matrix's classes, K3 on the rows that K2, K8
-   and K6 sort for the inputs named next); then K2 and K4 on the
-   headline's width classes and the skew matrix's wide classes, K8 on
-   the headline's slab plan, K9 + K10 on its compensated slab plan, K7a
+   inputs the main paths give them: first K1, K3, K8 and K9 at every
+   case of ia_spgemm_tpu_torch.bench.kernels.network_cases (the one
+   definition of the register network's shapes, which bench/kernels.py
+   measures too: K1 on the headline's and the skew matrix's classes, K8
+   and K9 on the headline's slab plan, sorted keys exactly and run sums
+   within tolerance, K3 on the rows that K2, K8 and K6 sort for the
+   inputs named next); then K2 and K4 on the headline's width classes
+   and the skew matrix's wide classes, K10 on K9's sorted slabs, K7a
    + K7b on the headline's flat plan (width 1024, run 32; sorted packed
    keys bit-identical), K11 on build_matrix(m=16384) (A as ELL times
    dense B, 16384 x 16384; bit for bit, and its float64 instance bit for
@@ -39,13 +40,16 @@ prints no result line:
    torch.sparse.mm for K11, K1 and K12, torch.roll for K13), and the
    bound (what the kernel must read, once, and its outputs written once
    at 3.35 TB/s, or K11's float32 operations at 67 TFLOP/s, whichever
-   is longer; of g, the gather kernels K1, K2, K7a, K8 and K9 read only
-   each fragment's 2 * run lanes: bench.kernels.gather_bytes); K13 also
-   into receivers passed in (the ring's way), with the host's
-   microseconds per call (time.perf_counter around unsynchronised
-   calls) beside each CUDA-event time and the kernel's own device time
-   (torch.profiler); K1 and K3 (the register network) with the same two
-   beside each shape's CUDA-event time (a k1_k3_split JSON line); then
+   is longer; of g, the gather kernels K1, K2 and K7a read only each
+   fragment's 2 * run lanes: bench.kernels.gather_bytes; K8 and K9 read
+   each table half a fragment names once, and mt, avT and lrT:
+   bench.kernels.slab_read_bytes); K13 also into receivers passed in
+   (the ring's way), with the host's microseconds per call
+   (time.perf_counter around unsynchronised calls) beside each
+   CUDA-event time and the kernel's own device time (torch.profiler);
+   the kernels of bench.kernels.PROFILE_NAMES (K1-K3, K5, K7a, K7b,
+   K8-K10, K12) with the same two beside each shape's CUDA-event time (a
+   kernel_split JSON line); then
    cuSPARSE's CSR @ CSR of the headline (torch.sparse.mm), the library
    time of K12 and of K1 (beside the headline's K1 launches; that plan
    also launches K2 + K3);
@@ -126,8 +130,9 @@ scaling phase are not counted. The line before the last two is a JSON
 object with one entry per kernel
 ("ms"/"plain_ms"/"library_ms"/"bound_ms": summed over its phase-3
 shapes, "bound_by" the larger term; "launches": the sum over the
-main-path runs, split in "launches_by_run"; K1's and K3's
-"kernel_alone_ms": the kernel alone, summed over their shapes); then the
+main-path runs, split in "launches_by_run"; "kernel_alone_ms" for the
+kernels of PROFILE_NAMES: the kernel alone, summed over its shapes); then
+the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -284,7 +289,7 @@ def _check_cols(stats, label, time_ms, dev, key, val, *, width, start_kk,
     """The kernels of pre-expanded rows (the torch _expand_ell's) against
     their plain versions, routed as the main paths route them: K5 up to
     FUSED_MAX_WIDTH, K6 up to TRANSPOSED_MAX_WIDTH (K3 on K6's rows is a
-    case of bench.kernels.k1_k3_cases), K4 above."""
+    case of bench.kernels.network_cases), K4 above."""
     import torch
 
     from ia_spgemm_tpu_torch.ops import bitonic as bt
@@ -342,7 +347,7 @@ def _check_kernels(call, stats, label, time_ms, dev):
     """Each class of a planned call: its kernel(s) against the plain
     version(s) on the class's own inputs. A ragged (float32) call's
     classes take the gather kernels (K2 here; K1, and K3 on K2's rows,
-    are cases of bench.kernels.k1_k3_cases) and K4; a chunked float64
+    are cases of bench.kernels.network_cases) and K4; a chunked float64
     call's the cols layout over the torch expand."""
     import torch
 
@@ -399,14 +404,14 @@ def _check_kernels(call, stats, label, time_ms, dev):
     return ms
 
 
-def _check_k1_k3(stats, time_ms, dev):
-    """K1 and K3 against their plain versions at every case of
-    bench.kernels.k1_k3_cases (the main paths' shapes); returns their ms
-    on the headline's pregathered classes."""
+def _check_network(stats, time_ms, dev):
+    """K1, K3, K8 and K9 against their plain versions at every case of
+    bench.kernels.network_cases (the main paths' shapes); returns their
+    ms on the headline's pregathered classes."""
     from ia_spgemm_tpu_torch.bench import kernels as KB
     ms = {}
-    for c in KB.k1_k3_cases(dev):
-        err = _compare(f"{c.kernel} {c.shape}", c.call(), c.plain())
+    for c in KB.network_cases(dev):
+        err = KB.check_case(c, c.call(), c.plain())
         t = _record(stats, time_ms, dev, c.kernel, c.shape, err, c.call,
                     c.plain, c.read_bytes)
         if c.source == "headline":
@@ -414,53 +419,23 @@ def _check_k1_k3(stats, time_ms, dev):
     return ms
 
 
-def _check_slab_kernels(A, stats, time_ms, dev):
-    """K8 on the slab plan of C = A @ A (K3 on K8's rows is a case of
-    bench.kernels.k1_k3_cases), K9 + K10 on its compensated plan, each
-    against its plain version at the plan's shapes."""
-    import torch
-
+def _check_k10(A, stats, time_ms, dev):
+    """K10 on K9's sorted slabs of the compensated plan of C = A @ A
+    against its plain version (K8 and K9 are cases of
+    bench.kernels.network_cases)."""
     from ia_spgemm_tpu_torch.bench import kernels as KB
-    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.ops import slab
     from ia_spgemm_tpu_torch.ops import slab_kernels as SK
 
-    for dd in (False, True):
-        p = slab.plan_slab_csr(A, A, dd=dd).plan
-        w, F_c = p.width, p.width // p.run
-        g = KB.slab_gather(p)
-        kw = dict(ka=F_c, run=p.run, width=w, n=p.n, start_kk=2 * p.run)
-        shape = f"headline slabs={p.n_slabs} width={w} run={p.run}"
-        exp, exp_plain = ((SK.expand_sort_lr_dd, SK.expand_sort_lr_dd_plain)
-                          if dd else (SK.expand_sort_lr,
-                                      SK.expand_sort_lr_plain))
-        key, val = exp(g, p.avt, p.lrt, **kw)
-        pkey, pval = exp_plain(g, p.avt, p.lrt, **kw)
-        torch.cuda.synchronize()
-        name = "K9" if dd else "K8"
-        if not torch.equal(key, pkey):
-            raise AssertionError(f"{name} {shape}: sorted keys differ")
-        # values within a duplicate run may sit in another order:
-        # compare the run sums
-        if dd:
-            err = _compare_dd(f"K9 {shape}",
-                              SK.compress_dd_plain(key, val, width=w),
-                              SK.compress_dd_plain(pkey, pval, width=w))
-        else:
-            err = _compare(f"K8 {shape}",
-                           K.compress_plain(key, val, width=w, out_w=w),
-                           K.compress_plain(pkey, pval, width=w, out_w=w))
-        _record(stats, time_ms, dev, name, shape, err,
-                lambda: exp(g, p.avt, p.lrt, **kw),
-                lambda: exp_plain(g, p.avt, p.lrt, **kw),
-                KB.gather_bytes(p.run, p.avt, p.lrt))
-        if dd:
-            f = lambda fn: fn(key, val, width=w)  # noqa: E731
-            err = _compare_dd(f"K10 {shape}", f(SK.compress_dd),
-                              f(SK.compress_dd_plain))
-            _record(stats, time_ms, dev, "K10", shape, err,
-                    lambda: f(SK.compress_dd),
-                    lambda: f(SK.compress_dd_plain), (key, val))
+    p = slab.plan_slab_csr(A, A, dd=True).plan
+    ops, kw = KB.slab_operands(p)
+    key, val = SK.expand_sort_lr_dd(*ops, **kw)
+    shape = f"headline slabs={p.n_slabs} width={p.width} run={p.run}"
+    f = lambda fn: fn(key, val, width=p.width)  # noqa: E731
+    err = _compare_dd(f"K10 {shape}", f(SK.compress_dd),
+                      f(SK.compress_dd_plain))
+    _record(stats, time_ms, dev, "K10", shape, err, lambda: f(SK.compress_dd),
+            lambda: f(SK.compress_dd_plain), (key, val))
 
 
 def _values_err(name, got, want, tol):
@@ -915,7 +890,7 @@ def main() -> int:
     print(f"[3] kernel vs plain (FUSED_MAX_WIDTH={bt.FUSED_MAX_WIDTH})",
           flush=True)
     stats = {}
-    headline_ms = _check_k1_k3(stats, time_ms, dev)
+    headline_ms = _check_network(stats, time_ms, dev)
     H = ell(a32)
     headline_ms.update(_check_kernels(bt.multiclass_planned(
         H, H, assemble="bcsr", pregather=True, run_override=8), stats,
@@ -925,7 +900,7 @@ def main() -> int:
     _check_kernels(bt.multiclass_planned(S, S, assemble="bcsr"), stats,
                    "skew", time_ms, dev)
     del S
-    _check_slab_kernels(A, stats, time_ms, dev)
+    _check_k10(A, stats, time_ms, dev)
     a16 = headline.build_matrix(m=DENSE_ROW_M).astype(np.float32)
     A16 = CSR.from_scipy(a16, device=dev)
     A16_ell = convert.csr_to_ell(A16, check_guard=False)
@@ -969,8 +944,8 @@ def main() -> int:
                               + headline_ms.get("K3", 0.0)),
         "k12_ms": stats["K12"]["ms"]}}), flush=True)
     del a_sp, c_sp
-    print(json.dumps({"k1_k3_split": {n: stats[n]["split"]
-                                      for n in KB.PROFILE_NAMES}}),
+    print(json.dumps({"kernel_split": {n: stats[n]["split"]
+                                       for n in KB.PROFILE_NAMES}}),
           flush=True)
     missing = set(kernel_names) - set(stats)
     if missing:

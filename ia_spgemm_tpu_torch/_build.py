@@ -57,8 +57,8 @@ SIGNATURES = {
     "ring": {"ia_k13_ring_hop": [_P, _I, _P],
              "ia_k13_enable_peer_access": [_I]},
     "slab": {
-        "ia_k8_expand_sort_lr": [_P] * 5 + [_I] * 7 + [_P],
-        "ia_k9_expand_sort_lr_dd": [_P] * 5 + [_I] * 7 + [_P],
+        "ia_k8_expand_sort_lr": [_P] * 6 + [_I] * 7 + [_P],
+        "ia_k9_expand_sort_lr_dd": [_P] * 6 + [_I] * 7 + [_P],
         "ia_k10_compress_dd": [_P] * 6 + [_I] * 2 + [_P],
     },
 }

@@ -1,4 +1,4 @@
-"""K1, K3, K4, K6, K11 and K13 on the card at the shapes of
+"""K1, K3, K4, K6, K8, K9, K11 and K13 on the card at the shapes of
 ``chip_smoke.py`` phase 3, on inputs made from a seed: for each, the
 wrapper's call time (CUDA events, median of 20), the host's microseconds
 per call (``time.perf_counter`` around unsynchronised calls), the
@@ -6,18 +6,20 @@ kernel's own device time per launch (``torch.profiler``), and beside
 them the PyTorch call computing the same function (``torch.sort`` of the
 keys, ``torch.sparse.mm``, two ``torch.roll``s). Every output is checked
 against the plain version first (structure exact, values within 1e-5 /
-1e-12 of max(1, max|C|); K6's sorted keys exactly and its run sums;
-K11 and K13 bit for bit).
+1e-12 of max(1, max|C|); K6's, K8's and K9's sorted keys exactly and
+their run sums; K11 and K13 bit for bit).
 
     python -m ia_spgemm_tpu_torch.bench.kernels [--json PATH]
 
 Prints one JSON line: the card's name and power limit, then one entry per
-shape. K1's and K3's cases are ``k1_k3_cases``, which ``chip_smoke.py``
-phase 3 also runs: K1 on the headline's and the skew matrix's width
-classes up to FUSED_MAX_WIDTH (the tuned 512), K3 on the rows K2, K8 and
-K6 sort for the main paths' 1024-slot rows; each beside its bytes bound
-(what the kernel must read, once, and its outputs written once, at 3.35
-TB/s; ``gather_bytes`` for K1). K4's and K6's inputs are rows in their
+shape. K1's, K3's, K8's and K9's cases are ``network_cases``, which
+``chip_smoke.py`` phase 3 also runs: K1 on the headline's and the skew
+matrix's width classes up to FUSED_MAX_WIDTH (the tuned 512), K3 on the
+rows K2, K8 and K6 sort for the main paths' 1024-slot rows, K8 and K9 on
+the headline's slab plan; each beside its bytes bound (what the kernel
+must read, once, and its outputs written once, at 3.35 TB/s;
+``gather_bytes`` for K1, ``slab_read_bytes`` for K8 and K9). K4's and
+K6's inputs are rows in their
 input layout (sorted runs of start_kk / 2 slots, ascending and
 descending in turn; keys uniform below 32768, a fifth SENTINEL); K11's A
 is ``build_matrix(m=16384)`` as ELL (16384, 29) times itself dense;
@@ -25,6 +27,12 @@ K13's the headline's B block shapes (32768 / D rows of 29 int32 columns
 and 29 float32 values) at D = 4 and 8 shards of one card, as a public
 call (fresh receivers) and as the ring calls it (the previous hop's
 receivers hopped into the other set).
+
+``PROFILE_NAMES`` names the kernels whose own device time (and host us
+per call) is recorded at each shape, here and in ``chip_smoke.py`` phase
+3: the register network's K1, K3, K8 and K9, and the shared-memory
+kernels still queued for a redesign (K2, K5, K7a, K7b, K10, K12), whose
+calls sit near the host floor of a wrapper call at small shapes.
 """
 
 from __future__ import annotations
@@ -62,7 +70,14 @@ PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
 # the kernels measured alone at each of their shapes, by the name the
 # profiler gives each
-PROFILE_NAMES = {"K1": "k1_expand_sort_compress", "K3": "k3_compress"}
+PROFILE_NAMES = {"K1": "k1_expand_sort_compress", "K2": "k2_expand_sort",
+                 "K3": "k3_compress", "K5": "k5_sort_compress",
+                 "K7a": "k7a_expand_sort_packed",
+                 "K7b": "k7b_compress_packed", "K8": "k8_expand_sort_lr",
+                 "K9": "k9_expand_sort_lr_dd", "K10": "k10_compress_dd",
+                 "K12": "k12_hash"}
+# the network kernels whose output is the sorted row, not the compress
+SORTED_CASES = ("K8", "K9")
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -134,7 +149,7 @@ def _check_k4(got, want, dtype, name="K4"):
     return err
 
 
-def _check_k6(got, want, width, dtype):
+def _check_sorted(got, want, width, dtype, name="K6"):
     """Sorted keys equal; values within a duplicate run may sit in
     another order, so the run sums (the plain compress) are compared."""
     import torch
@@ -142,10 +157,11 @@ def _check_k6(got, want, width, dtype):
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     torch.cuda.synchronize()
     if not torch.equal(got[0], want[0]):
-        raise AssertionError("K6 sorted keys differ from the plain version")
+        raise AssertionError(f"{name} sorted keys differ from the plain "
+                             "version")
     return _check_k4(K.compress_plain(*got, width=width, out_w=width),
                      K.compress_plain(*want, width=width, out_w=width),
-                     dtype, "K6")
+                     dtype, name)
 
 
 def _timings(call, library, kernel_name, dev):
@@ -213,14 +229,27 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def gather_bytes(run, avT, *more) -> int:
-    """Bytes a fragment-gather kernel (K1, K2, K7a, K8, K9) must read:
-    of each of the avT.shape[0] x avT.shape[1] fragments its run columns
-    and run value bits (one half of the fragment's 4 * run lanes of g,
-    the forward half for even fragments and the reversed half for odd;
-    the other half and the lanes padding g's rows to 128 are never
-    read), then avT and the per-fragment arrays ``more``, each once."""
-    return avT.numel() * 2 * run * 4 + _nbytes(avT, *more)
+def gather_bytes(run, avT) -> int:
+    """Bytes a fragment-gather kernel (K1, K2, K7a) must read: of each of
+    the avT.shape[0] x avT.shape[1] fragments its run columns and run
+    value bits (one half of the fragment's 4 * run lanes of g, the
+    forward half for even fragments and the reversed half for odd; the
+    other half and the lanes padding g's rows to 128 are never read),
+    then avT once."""
+    return avT.numel() * 2 * run * 4 + _nbytes(avT)
+
+
+def slab_read_bytes(table, mt, avT, lrT, run) -> int:
+    """Bytes K8 and K9 must read: mt, avT and lrT once, and of the packed
+    table each half (2 * run lanes: run columns and run value bits) that
+    some fragment reads, once: fragment e of mt reads table row mt[e] at
+    its forward half for even e and its reversed half for odd e (the fill
+    row of empty and padding slots included). The table stays in L2, so
+    this counts each read half once however many slabs read it."""
+    import torch
+    half = torch.arange(mt.shape[0], device=mt.device)[:, None] & 1
+    read = torch.unique(mt.long() * 2 + half).numel()
+    return read * 2 * run * table.element_size() + _nbytes(mt, avT, lrT)
 
 
 def gather_inputs(call, i):
@@ -259,11 +288,12 @@ def flat_rows(X, Y):
     return plan, key, val
 
 
-def slab_gather(p):
-    """A slab plan's fragment gather g (width / run, n_slabs, lanes), as
-    K8 and K9 take it."""
-    return p.table[p.mt.reshape(-1).long()].reshape(
-        p.width // p.run, p.n_slabs, p.table.shape[1])
+def slab_operands(p):
+    """A slab plan's kernel operands ((table, mt, avT, lrT), kw), as K8
+    and K9 take them."""
+    return ((p.table, p.mt, p.avt, p.lrt),
+            dict(ka=p.width // p.run, run=p.run, width=p.width, n=p.n,
+                 start_kk=2 * p.run))
 
 
 class Case(NamedTuple):
@@ -322,15 +352,17 @@ def _cols_cases(source, key, val, *, width, start_kk, out_w):
                    f"{str(val.dtype)[6:]}", key, val, width, out_w)
 
 
-def k1_k3_cases(dev, m=HEADLINE_ROWS):
-    """K1's and K3's phase-3 cases, one at a time, so that the float64
-    rows of one shape are freed before the next is built: K1 on the
-    headline's classes (pregathered, run 8) and the skew matrix's; K3 on
-    the rows that K2 sorts for their 1024 classes, that K8 sorts on the
-    headline's slab plan, and that K6 sorts for the float64 headline's
-    and the skew x band float64 chunked 1024 classes and on the float64
-    headline's and the float32 wide x band flat plans. ``m`` is the
-    headline's rows (a smaller m rehearses the cases on the CPU)."""
+def network_cases(dev, m=HEADLINE_ROWS):
+    """The register network's phase-3 cases (K1, K3, K8, K9), one at a
+    time, so that the float64 rows of one shape are freed before the
+    next is built: K1 on the headline's classes (pregathered, run 8) and
+    the skew matrix's; K8 and K9 on the headline's slab plan (the slab
+    and compensated routes); K3 on the rows that K2 sorts for their 1024
+    classes, that K8 sorts on the headline's slab plan, and that K6 sorts
+    for the float64 headline's and the skew x band float64 chunked 1024
+    classes and on the float64 headline's and the float32 wide x band
+    flat plans. ``m`` is the headline's rows (a smaller m rehearses the
+    cases on the CPU)."""
     from ia_spgemm_tpu_torch.bench import headline
     from ia_spgemm_tpu_torch.formats import convert
     from ia_spgemm_tpu_torch.formats.types import CSR
@@ -355,13 +387,18 @@ def k1_k3_cases(dev, m=HEADLINE_ROWS):
     del S
     A = CSR.from_scipy(a64.astype(np.float32), device=dev)
     p = slab.plan_slab_csr(A, A).plan
-    key, val = SK.expand_sort_lr(slab_gather(p), p.avt, p.lrt,
-                                 ka=p.width // p.run, run=p.run,
-                                 width=p.width, n=p.n, start_kk=2 * p.run)
-    yield _k3_case("headline slabs", f"headline slabs={p.n_slabs} "
-                   f"width={p.width} run={p.run}", key, val, p.width,
-                   p.width)
-    del A, p, key, val
+    ops, kw = slab_operands(p)
+    shape = f"headline slabs={p.n_slabs} width={p.width} run={p.run}"
+    read = slab_read_bytes(*ops, p.run)
+    for name, fn, plain in (
+            ("K8", SK.expand_sort_lr, SK.expand_sort_lr_plain),
+            ("K9", SK.expand_sort_lr_dd, SK.expand_sort_lr_dd_plain)):
+        yield Case(name, "headline slabs",
+                   shape + (" float64" if name == "K9" else ""),
+                   partial(fn, *ops, **kw), partial(plain, *ops, **kw), read)
+    key, val = SK.expand_sort_lr(*ops, **kw)
+    yield _k3_case("headline slabs", shape, key, val, p.width, p.width)
+    del A, p, ops, key, val
     H64 = ell(a64, np.float64)
     for source, X, Y in (
             ("headline f64", H64, H64),
@@ -390,14 +427,26 @@ def k1_k3_cases(dev, m=HEADLINE_ROWS):
     del H64
 
 
-def _measure_k1_k3(dev) -> dict:
-    """Each K1 / K3 case against its plain version, then its call ms,
+def check_case(c, got, want) -> float:
+    """A network case's output against its plain version's: K1 and K3
+    structure exact and values within 1e-5 (float32) / 1e-12 (float64)
+    of max(1, max|C|); K8 and K9 (the sorted slab) sorted keys exactly
+    and their run sums within the same. Returns the largest value
+    error."""
+    dtype = str(want[1].dtype)[6:]
+    if c.kernel in SORTED_CASES:
+        return _check_sorted(got, want, want[0].shape[1], dtype, c.kernel)
+    return _check_k4(got, want, dtype, c.kernel)
+
+
+def _measure_network(dev) -> dict:
+    """Each network case against its plain version, then its call ms,
     host us and kernel us, and its bytes bound."""
     from ia_spgemm_tpu_torch.bench.harness import time_ms
-    out = {"K1": [], "K3": []}
-    for c in k1_k3_cases(dev):
+    out = {"K1": [], "K3": [], "K8": [], "K9": []}
+    for c in network_cases(dev):
         got, want = c.call(), c.plain()
-        err = _check_k4(got, want, str(want[1].dtype)[6:], c.kernel)
+        err = check_case(c, got, want)
         bound_ms = (c.read_bytes + _nbytes(*got)) / PEAK_BYTES_PER_S * 1e3
         del got, want
         out[c.kernel].append({
@@ -418,7 +467,8 @@ def measure(dev) -> dict:
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
 
-    out = {**_measure_k1_k3(dev), "K4": [], "K6": [], "K11": [], "K13": []}
+    out = {**_measure_network(dev), "K4": [], "K6": [], "K11": [],
+           "K13": []}
     for label, m, width, start_kk, dtype in K4_SHAPES:
         key, val = (t.to(dev) for t in k4_rows(m, width, start_kk, dtype))
         call = lambda: K.sort_compress_rows(  # noqa: E731
@@ -438,7 +488,7 @@ def measure(dev) -> dict:
         key, val = (t.to(dev) for t in k4_rows(m, width, start_kk, dtype))
         call = lambda: K.sort_only(  # noqa: E731
             key, val, width=width, start_kk=start_kk)
-        err = _check_k6(call(), K.sort_only_plain(
+        err = _check_sorted(call(), K.sort_only_plain(
             key, val, width=width, start_kk=start_kk), width, dtype)
         out["K6"].append({
             "shape": f"{label} {m} x {width} {dtype} start_kk={start_kk}",

@@ -19,19 +19,20 @@
 // (width, 128-row) transposed tiles are gone. Two designs, on the
 // building blocks of sort_common.cuh:
 //
-// - The register network (building block 4): K1, K3, K4 and K6. A row of
-//   W slots is held E = 8 (16 at W = 16384) slots a thread in registers;
+// - The register network (building block 4): K1, K3, K4 and K6 (and K8,
+//   K9 in slab.cu). A row of W slots is held E = 8 (16 at W = 16384)
+//   slots a thread in registers;
 //   strides below 32E need no barrier, rows of at most 32E slots share a
 //   128-thread block, and the compress is a segmented scan over warp
-//   shuffles. K1 gathers its products straight into registers (the expand
-//   of building block 1, slot by slot) and sorts and compresses them; K3
+//   shuffles. K1 gathers its products straight into registers
+//   (expand_slots) and sorts and compresses them; K3
 //   compresses rows K2, K6 or K8 sorted, with no sort; K4 sorts and
 //   compresses pre-expanded rows (the wide classes, the ring's shards); K6
 //   sorts them only, for K3. Bound: bytes (read the row or its fragments
 //   once, write out_w slots once, at 3.35 TB/s); the network leaves them
 //   instruction-bound, a few times above it.
 // - The shared-memory network (building blocks 1-3): K2, K5, K7a/b (and
-//   K8-K10 in slab.cu). One thread block owns one output row, keeps its
+//   K10 in slab.cu). One thread block owns one output row, keeps its
 //   `width` products in shared memory, sorts them with one block barrier
 //   per stride (log2(w)*(log2(w)+1)/2 passes over 8*w bytes), and
 //   compresses them with one block-wide scan; the barriers and the few
@@ -57,7 +58,6 @@
 namespace {
 
 constexpr int kMaxDevices = 64;
-constexpr int kMaxWidth = 16384;
 
 // Shared memory of the shared-memory network (K2, K5, K7): values + keys
 // + 32 warp totals + 1 block total (values first, so a float64 lane stays
@@ -79,8 +79,7 @@ __global__ void k2_expand_sort(const int32_t* __restrict__ g,
   int* k = smem;
   float* v = reinterpret_cast<float*>(smem + width);
   const int row = blockIdx.x;
-  expand_row<float, false>(g, avT, nullptr, 0, k, v, row, m, ka, lanes,
-                           run, pack, width);
+  expand_row(g, avT, k, v, row, m, ka, lanes, run, pack, width);
   block_sort(k, v, width, start_kk);
   for (int p = threadIdx.x; p < width; p += blockDim.x) {
     out_k[(size_t)row * width + p] = k[p];
@@ -125,263 +124,10 @@ __global__ void k5_sort_compress(const int* __restrict__ key,
 }
 
 // ---- K1, K3, K4, K6: the register network (building block 4) -------------
-// One row per block for rows of more than 32E slots (T = W / E threads),
-// several rows per 128-thread block below that. Each thread brings its E
-// slots into registers (K3, K4, K6: 16-byte vector loads of the row, scalar
-// where a pointer is off the 16-byte grid; K1: the expand, below), sorts
-// them there (K1, K4, K6), compresses them (K1, K3, K4) and stores E slots
-// of the row with 16-byte vector stores where the row pointers and out_w
-// allow them. K6 stores the sorted row; K1, K3 and K4 the compacted row
-// (staged through shared memory: survivors written straight to their
-// ranks would leave a warp's stores scattered over 32 sectors each), its
-// first out_w slots; K3 with compact=False each survivor at its sorted
-// slot, holes -1 / 0, straight from registers. Bound on this card: bytes,
-// read the row (K1: its fragments and A values) once and write out_w
-// slots, at 3.35 TB/s. The design keeps the row between that one read and
-// one write in registers, with block barriers only for the sort's strides
-// of 32E and more (two per such stage) and three in the compress (one, or
-// none in K3's sparse mode, where a row is a warp or less).
-
-template <int E>
-__device__ __forceinline__ void load_keys(int (&k)[E], const int* p,
-                                          bool vec) {
-  if (vec) {
-#pragma unroll
-    for (int q = 0; q < E / 4; ++q) {
-      const int4 x = __ldg(reinterpret_cast<const int4*>(p) + q);
-      k[4 * q] = x.x;
-      k[4 * q + 1] = x.y;
-      k[4 * q + 2] = x.z;
-      k[4 * q + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < E; ++r) k[r] = p[r];
-  }
-}
-
-template <int E>
-__device__ __forceinline__ void load_vals(float (&v)[E], const float* p,
-                                          bool vec) {
-  if (vec) {
-#pragma unroll
-    for (int q = 0; q < E / 4; ++q) {
-      const float4 x = __ldg(reinterpret_cast<const float4*>(p) + q);
-      v[4 * q] = x.x;
-      v[4 * q + 1] = x.y;
-      v[4 * q + 2] = x.z;
-      v[4 * q + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < E; ++r) v[r] = p[r];
-  }
-}
-
-template <int E>
-__device__ __forceinline__ void load_vals(double (&v)[E], const double* p,
-                                          bool vec) {
-  if (vec) {
-#pragma unroll
-    for (int q = 0; q < E / 2; ++q) {
-      const double2 x = __ldg(reinterpret_cast<const double2*>(p) + q);
-      v[2 * q] = x.x;
-      v[2 * q + 1] = x.y;
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < E; ++r) v[r] = p[r];
-  }
-}
-
-// Four values at p (16-byte aligned): one float4, or two double2.
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(double* p, const double* v) {
-  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
-  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
-}
-
-// The thread's slots base .. base + E - 1, those below out_w, into the
-// row's out_col / out_val. vec: both row pointers on the 16-byte grid
-// and out_w a multiple of 4, so that each quad of slots is wholly below
-// out_w or wholly past it.
-template <int E, typename V>
-__device__ __forceinline__ void store_slots(int* out_col, V* out_val,
-                                            const int (&k)[E],
-                                            const V (&v)[E], int base,
-                                            int out_w, bool vec) {
-  if (vec) {
-#pragma unroll
-    for (int q = 0; q < E / 4; ++q) {
-      if (base + 4 * q >= out_w) continue;
-      *reinterpret_cast<int4*>(out_col + base + 4 * q) =
-          make_int4(k[4 * q], k[4 * q + 1], k[4 * q + 2], k[4 * q + 3]);
-      store4(out_val + base + 4 * q, v + 4 * q);
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < E; ++r) {
-      if (base + r >= out_w) continue;
-      out_col[base + r] = k[r];
-      out_val[base + r] = v[r];
-    }
-  }
-}
-
-// Where a block's rows come from. RowsIn: (m, width) keys and values in
-// device memory (K3, K4, K6). GatherIn: K1's fragment gather g (ceil(ka /
-// pack), m, lanes) and A values avT (ka, m), expanded on the way in.
-template <typename V>
-struct RowsIn {
-  const int* key;
-  const V* val;
-  int vec;      // key and val on the 16-byte grid
-};
-
-struct GatherIn {
-  const int32_t* g;
-  const float* avT;
-  int ka, lanes, run, pack;
-  int vec;      // g on the 16-byte grid and lanes a multiple of 4
-};
-
-template <int E, typename V>
-__device__ __forceinline__ void load_slots(int (&k)[E], V (&v)[E],
-                                           const RowsIn<V>& in, int m,
-                                           int width, int row, int base) {
-  const size_t off = (size_t)row * width + base;
-  load_keys<E>(k, in.key + off, in.vec != 0);
-  load_vals<E>(v, in.val + off, in.vec != 0);
-}
-
-// K1's expand into registers, expand_row's conventions slot by slot: slot
-// p is position p % run of fragment e = p / run, which sits in packed row
-// e / pack of g at lane offset (e % pack) * 4 * run, plus 2 * run for odd
-// e (the reversed half); its value is avT[e] * the B value. A column < 0
-// and every slot past ka * run become SENTINEL / 0 by a select (padded
-// class rows carry NaN A values). Where run is a multiple of E, the
-// thread's E slots are E neighbouring lanes of one fragment: one A value,
-// E columns and E value bits, by 16-byte loads where in.vec allows; else
-// (run < E) each slot finds its own fragment. The product rounds once
-// (__fmul_rn, never contracted into the sums), as the plain version's.
-template <int E>
-__device__ __forceinline__ void load_slots(int (&k)[E], float (&v)[E],
-                                           const GatherIn& in, int m,
-                                           int width, int row, int base) {
-  if (in.run % E == 0) {
-    const int e = base / in.run;
-    if (e >= in.ka) {
-#pragma unroll
-      for (int r = 0; r < E; ++r) {
-        k[r] = kSentinel;
-        v[r] = 0.f;
-      }
-      return;
-    }
-    const int ep = e / in.pack;
-    const int off = (e - ep * in.pack) * 4 * in.run
-                    + ((e & 1) ? 2 * in.run : 0) + (base - e * in.run);
-    const int32_t* src = in.g + ((size_t)ep * m + row) * in.lanes + off;
-    const float a = __ldg(in.avT + (size_t)e * m + row);
-    int b[E];
-    load_keys<E>(k, src, in.vec != 0);
-    load_keys<E>(b, src + in.run, in.vec != 0);
-#pragma unroll
-    for (int r = 0; r < E; ++r) {
-      const bool ok = k[r] >= 0;
-      v[r] = ok ? __fmul_rn(a, __int_as_float(b[r])) : 0.f;
-      k[r] = ok ? k[r] : kSentinel;
-    }
-    return;
-  }
-#pragma unroll
-  for (int r = 0; r < E; ++r) {
-    const int p = base + r;
-    const int e = p / in.run;
-    k[r] = kSentinel;
-    v[r] = 0.f;
-    if (e < in.ka) {
-      const int ep = e / in.pack;
-      const int off = (e - ep * in.pack) * 4 * in.run
-                      + ((e & 1) ? 2 * in.run : 0) + (p - e * in.run);
-      const int32_t* src = in.g + ((size_t)ep * m + row) * in.lanes + off;
-      const int c = __ldg(src);
-      if (c >= 0) {
-        k[r] = c;
-        v[r] = __fmul_rn(__ldg(in.avT + (size_t)e * m + row),
-                         __int_as_float(__ldg(src + in.run)));
-      }
-    }
-  }
-}
-
-// What a network kernel leaves in its outputs: the sorted row (K6), the
-// compacted row's first out_w slots (K1, K3, K4), or each survivor at its
-// sorted slot (K3's compact=False).
-enum class NetOut { kSorted, kCompact, kInPlace };
-
-// Shared memory of a block of the register network: the compress's
-// scratch first (K1, K3, K4), then W value and W key slots per row where
-// the sort exchanges through them (rows of more than a warp) or the
-// compress stages the compacted row.
-template <typename V>
-inline size_t net_smem_bytes(int width, int rows_per_block, bool sort,
-                             NetOut out) {
-  const int T = width / (width == kMaxWidth ? 16 : 8);
-  const bool slots = out == NetOut::kCompact || (sort && T > 32);
-  return (out != NetOut::kSorted ? sizeof(RowScratch<V>) : 0)
-         + (slots ? (size_t)rows_per_block * width * (sizeof(V) + sizeof(int))
-                  : 0);
-}
-
-// One block's rows through the register network: load (or expand), sort
-// from start_kk (kSort), compress (kOut), store. The last block's
-// padding rows (row >= m) run SENTINEL rows through every step, so that
-// every thread reaches every barrier, and store nothing. Output rows are
-// out_w slots apart.
-template <typename V, int E, bool kSort, NetOut kOut, typename In>
-__device__ __forceinline__ void row_net_rows(
-    const In& in, int* __restrict__ out_col, V* __restrict__ out_val,
-    int* __restrict__ nnz, int m, int width, int start_kk, int out_w,
-    int rows_per_block, int vec_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const RowShape<E> sh(width);
-  const int seg = threadIdx.x / sh.T;        // the block's row
-  const int tid = threadIdx.x - seg * sh.T;  // the thread's index in it
-  const int row = blockIdx.x * rows_per_block + seg;
-  const bool live = row < m;
-  int k[E];
-  V v[E];
-  if (live) {
-    load_slots<E>(k, v, in, m, width, row, tid * E);
-  } else {
-#pragma unroll
-    for (int r = 0; r < E; ++r) {
-      k[r] = kSentinel;
-      v[r] = V(0);
-    }
-  }
-  RowScratch<V>* sc = reinterpret_cast<RowScratch<V>*>(smem_raw);
-  V* v_all = reinterpret_cast<V*>(
-      smem_raw + (kOut != NetOut::kSorted ? sizeof(RowScratch<V>) : 0));
-  int* k_all = reinterpret_cast<int*>(v_all + (size_t)rows_per_block * width);
-  V* vs = v_all + (size_t)seg * width;
-  int* ks = k_all + (size_t)seg * width;
-  if constexpr (kSort) row_net_sort<E, V>(k, v, ks, vs, tid, start_kk, sh);
-  int total = 0;
-  if constexpr (kOut == NetOut::kCompact)
-    total = row_net_compress<E, V>(k, v, tid, sh, sc, ks, vs);
-  else if constexpr (kOut == NetOut::kInPlace)
-    total = row_net_mark<E, V>(k, v, tid, sh, sc);
-  if (!live) return;
-  const size_t o = (size_t)row * out_w;
-  store_slots<E, V>(out_col + o, out_val + o, k, v, tid * E, out_w,
-                    vec_out != 0);
-  if (kOut != NetOut::kSorted && tid == 0) nnz[row] = total;
-}
+// The rows, their sources (RowsIn, GatherIn), loads and stores are
+// sort_common.cuh's (row_net_rows). Bound on this card: bytes, read the
+// row (K1: its fragments and A values) once and write out_w slots, at
+// 3.35 TB/s.
 
 // The kernels, one instance per (E, launch bound): E = 16 at width 16384
 // (1024 threads), 8 below, the launch bound the widest row the instance
@@ -553,7 +299,7 @@ int launch_row_net(const In& in, void* out_col, void* out_val, void* nnz,
   static bool done[kMaxDevices];
   const auto kernel = net_kernel<V, E, kMaxThreads, kSort, kOut, In>();
   const int T = width / E;
-  const int rows_per_block = T <= 32 ? 128 / T : 1;
+  const int rows_per_block = net_rows_per_block<E>(width);
   const size_t smem =
       net_smem_bytes<V>(width, rows_per_block, kSort, kOut);
   if (smem > 48 * 1024) {

@@ -8,73 +8,63 @@
 // The slab engine packs whole C rows back to back into one sort of
 // `width` (512 or 1024) slots, keyed local_row * n + col, so one bitonic
 // network sorts every row of the slab and duplicates of one (row, col)
-// land adjacent. One thread block owns one slab and keeps its keys and
-// values in shared memory (8 or 12 bytes a slot: at most 12 KB), between
-// one read of the slab's fragment gather and one write of the result.
+// land adjacent.
 //
-// K8 is K2's body (bitonic.cu) with slab-local row keys; its float32 sums
-// are compressed by K3. The TPU's compensated pipeline formed each
-// product as a Dekker (hi, lo) pair and summed runs by two-sum, because
-// the TPU has no float64; this card has it, so K9 forms the exact product
-// (double)a * (double)b (two 24-bit mantissas fit 53 bits) and sorts
-// (key, double) pairs, and K10 sums each duplicate run in float64 and
-// writes hi = f32(s), lo = f32(s - hi). No float32 error-free
-// transformation is left for FMA contraction to break.
+// K8 and K9 run the register network of sort_common.cuh (building block
+// 4, row_net_rows with the SlabIn source): one slab per block of
+// width / 8 threads (128 at 1024), E = 8 slots a thread in registers.
+// Each thread reads its slots straight from the packed B table through
+// the fragment index mt: at run 8 and 32 one table row, one A value and
+// one slab-local row per thread, and two 16-byte loads (columns, value
+// bits); so no gathered copy of the table's rows is written to device
+// memory first. The table (one row of 4 * run lanes per B fragment) is
+// small enough to stay in L2 while the slabs read it. A slab's fragment
+// slot e takes the reversed half of its fragment when e is odd (the JAX
+// rule), so the slab arrives as alternating sorted runs of length `run`
+// and the sort merges from start_kk = 2 * run: register and lane strides
+// without barriers, the strides of 256 and 512 through one shared-memory
+// exchange pair (two barriers) per stage. The sorted slab goes out with
+// 16-byte stores. Empty slab columns (padding up to S) read the table's
+// all -1 fill row and come out as SENTINEL / 0.
 //
-// What bounds them: as for K2, the sort's log2(w)*(log2(w)+1)/2 barrier-
-// separated shared-memory passes (w/2 threads per block), not device
-// memory; K9 and K10 move 12 bytes a slot instead of 8. Faster forms
-// (fusing the gather into K8, fusing K8 with K3, several slabs a block)
-// are later work.
+// K8's float32 sums are compressed by K3 (bitonic.cu). The TPU's
+// compensated pipeline formed each product as a Dekker (hi, lo) pair and
+// summed runs by two-sum, because the TPU has no float64; this card has
+// it, so K9 forms the exact product (double)a * (double)b (two 24-bit
+// mantissas fit 53 bits) and sorts (key, double) pairs, and K10 sums each
+// duplicate run in float64 and writes hi = f32(s), lo = f32(s - hi). No
+// float32 error-free transformation is left for FMA contraction to break.
 //
-// A slab's fragment slot e takes the reversed half of its fragment when
-// e is odd (the JAX rule), so the slab arrives as alternating sorted runs
-// of length `run` and the sort starts merging at start_kk = 2 * run.
-// Empty slab columns (padding up to S) gather the table's all -1 fill
-// row and come out with nnz 0.
+// What bounds them: bytes would (the table's read lanes, mt, avT and lrT
+// once, the sorted (S, width) keys and values written once, at 3.35
+// TB/s); the network's compares and shuffles keep K8 and K9 a few times
+// above that, as K1, K4 and K6 are. K10 is still the shared-memory
+// network of building blocks 2-3 (one block barrier per scan step), 12
+// bytes a slot.
 
 #include "sort_common.cuh"
 
 namespace {
 
-__global__ void k8_expand_sort_lr(const int32_t* __restrict__ g,
-                                  const float* __restrict__ avT,
-                                  const int32_t* __restrict__ lrT,
-                                  int* __restrict__ out_k,
-                                  float* __restrict__ out_v, int S, int ka,
-                                  int lanes, int run, int width, int n,
-                                  int start_kk) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* k = reinterpret_cast<int*>(smem_raw);
-  float* v = reinterpret_cast<float*>(k + width);
-  const int s = blockIdx.x;
-  expand_row<float, true>(g, avT, lrT, n, k, v, s, S, ka, lanes, run, 1,
-                          width);
-  block_sort(k, v, width, start_kk);
-  for (int p = threadIdx.x; p < width; p += blockDim.x) {
-    out_k[(size_t)s * width + p] = k[p];
-    out_v[(size_t)s * width + p] = v[p];
-  }
+// K8 / K9: each block sorts its slabs' slots (one slab of 512 or 1024
+// slots; several slabs of 128 or 256 share a 128-thread block), the
+// sorted slab stored as it is (NetOut::kSorted).
+__global__ void __launch_bounds__(128)
+k8_expand_sort_lr(SlabIn<float> in, int* __restrict__ out_k,
+                  float* __restrict__ out_v, int S, int width, int start_kk,
+                  int rows_per_block, int vec_out) {
+  row_net_rows<float, 8, true, NetOut::kSorted>(
+      in, out_k, out_v, nullptr, S, width, start_kk, width, rows_per_block,
+      vec_out);
 }
 
-__global__ void k9_expand_sort_lr_dd(const int32_t* __restrict__ g,
-                                     const float* __restrict__ avT,
-                                     const int32_t* __restrict__ lrT,
-                                     int* __restrict__ out_k,
-                                     double* __restrict__ out_v, int S,
-                                     int ka, int lanes, int run, int width,
-                                     int n, int start_kk) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* v = reinterpret_cast<double*>(smem_raw);
-  int* k = reinterpret_cast<int*>(v + width);
-  const int s = blockIdx.x;
-  expand_row<double, true>(g, avT, lrT, n, k, v, s, S, ka, lanes, run, 1,
-                           width);
-  block_sort(k, v, width, start_kk);
-  for (int p = threadIdx.x; p < width; p += blockDim.x) {
-    out_k[(size_t)s * width + p] = k[p];
-    out_v[(size_t)s * width + p] = v[p];
-  }
+__global__ void __launch_bounds__(128)
+k9_expand_sort_lr_dd(SlabIn<double> in, int* __restrict__ out_k,
+                     double* __restrict__ out_v, int S, int width,
+                     int start_kk, int rows_per_block, int vec_out) {
+  row_net_rows<double, 8, true, NetOut::kSorted>(
+      in, out_k, out_v, nullptr, S, width, start_kk, width, rows_per_block,
+      vec_out);
 }
 
 __global__ void k10_compress_dd(const int* __restrict__ key,
@@ -97,47 +87,66 @@ __global__ void k10_compress_dd(const int* __restrict__ key,
                DDOut{out_hi + o, out_lo + o}, nnz + s, k + width);
 }
 
-// keys + values of `vbytes` each + 32 warp totals + 1 block total; at
-// most 12 * 1024 + 132 bytes, under the 48 KB default
-inline size_t slab_smem(int width, size_t vbytes) {
-  return (size_t)width * (sizeof(int) + vbytes) + 33 * sizeof(int);
+// K10's keys + float64 values + 32 warp totals + 1 block total; at most
+// 12 * 1024 + 132 bytes, under the 48 KB default
+inline size_t k10_smem(int width) {
+  return (size_t)width * (sizeof(int) + sizeof(double)) + 33 * sizeof(int);
+}
+
+// K8 / K9 on `stream`: at most 12 KB of shared memory a block (1024
+// float64 values and keys), under the 48 KB default.
+template <typename V, typename Kernel>
+int launch_slab(Kernel kernel, const void* table, const void* mt,
+                const void* avT, const void* lrT, void* out_k, void* out_v,
+                int S, int ka, int lanes, int run, int width, int n,
+                int start_kk, void* stream) {
+  const SlabIn<V> in{(const int32_t*)table, (const int32_t*)mt,
+                     (const float*)avT, (const int32_t*)lrT, ka, lanes, run,
+                     n, ((uintptr_t)table & 15) == 0 && lanes % 4 == 0};
+  const int rows_per_block = net_rows_per_block<8>(width);
+  const int vec_out = (((uintptr_t)out_k | (uintptr_t)out_v) & 15) == 0;
+  const int grid = (S + rows_per_block - 1) / rows_per_block;
+  kernel<<<grid, width / 8 * rows_per_block,
+           net_smem_bytes<V>(width, rows_per_block, true, NetOut::kSorted),
+           (cudaStream_t)stream>>>(in, (int*)out_k, (V*)out_v, S, width,
+                                   start_kk, rows_per_block, vec_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Each entry point launches one block per slab on `stream`, which belongs
-// to the current device (the caller selects it), does not synchronise,
-// and returns cudaGetLastError() after the launch (0 on success).
+// Each entry point launches on `stream`, which belongs to the current
+// device (the caller selects it), does not synchronise, and returns
+// cudaGetLastError() after the launch (0 on success). K8 / K9 take the
+// packed table (F_B + 1, lanes) and the (ka, S) fragment index mt, A
+// values avT and slab-local rows lrT; they write (S, width) sorted keys
+// and values.
 
-extern "C" int ia_k8_expand_sort_lr(const void* g, const void* avT,
-                                    const void* lrT, void* out_k,
-                                    void* out_v, int S, int ka, int lanes,
-                                    int run, int width, int n, int start_kk,
-                                    void* stream) {
-  k8_expand_sort_lr<<<S, threads_for(width), slab_smem(width, 4),
-                      (cudaStream_t)stream>>>(
-      (const int32_t*)g, (const float*)avT, (const int32_t*)lrT,
-      (int*)out_k, (float*)out_v, S, ka, lanes, run, width, n, start_kk);
-  return (int)cudaGetLastError();
+extern "C" int ia_k8_expand_sort_lr(const void* table, const void* mt,
+                                    const void* avT, const void* lrT,
+                                    void* out_k, void* out_v, int S, int ka,
+                                    int lanes, int run, int width, int n,
+                                    int start_kk, void* stream) {
+  return launch_slab<float>(k8_expand_sort_lr, table, mt, avT, lrT, out_k,
+                            out_v, S, ka, lanes, run, width, n, start_kk,
+                            stream);
 }
 
-extern "C" int ia_k9_expand_sort_lr_dd(const void* g, const void* avT,
-                                       const void* lrT, void* out_k,
-                                       void* out_v, int S, int ka,
-                                       int lanes, int run, int width, int n,
-                                       int start_kk, void* stream) {
-  k9_expand_sort_lr_dd<<<S, threads_for(width), slab_smem(width, 8),
-                         (cudaStream_t)stream>>>(
-      (const int32_t*)g, (const float*)avT, (const int32_t*)lrT,
-      (int*)out_k, (double*)out_v, S, ka, lanes, run, width, n, start_kk);
-  return (int)cudaGetLastError();
+extern "C" int ia_k9_expand_sort_lr_dd(const void* table, const void* mt,
+                                       const void* avT, const void* lrT,
+                                       void* out_k, void* out_v, int S,
+                                       int ka, int lanes, int run, int width,
+                                       int n, int start_kk, void* stream) {
+  return launch_slab<double>(k9_expand_sort_lr_dd, table, mt, avT, lrT,
+                             out_k, out_v, S, ka, lanes, run, width, n,
+                             start_kk, stream);
 }
 
 extern "C" int ia_k10_compress_dd(const void* key, const void* val,
                                   void* out_col, void* out_hi, void* out_lo,
                                   void* nnz, int S, int width,
                                   void* stream) {
-  k10_compress_dd<<<S, threads_for(width), slab_smem(width, 8),
+  k10_compress_dd<<<S, threads_for(width), k10_smem(width),
                     (cudaStream_t)stream>>>(
       (const int*)key, (const double*)val, (int*)out_col, (float*)out_hi,
       (float*)out_lo, (int*)nnz, width);

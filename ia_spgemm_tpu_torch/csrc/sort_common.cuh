@@ -1,8 +1,9 @@
 // Building blocks shared by the sort kernels of bitonic.cu (K1-K7)
-// and slab.cu (K8-K10): the fragment expand, the block bitonic sort in
-// shared memory (key + value, or key only), and the duplicate-sum /
-// compaction of a sorted row (K2, K5, K7, K8-K10); and the register
-// network with its register compress (K1, K3, K4, K6).
+// and slab.cu (K8-K10): the fragment expand into shared memory (K2),
+// the block bitonic sort in shared memory (key + value, or key only), and
+// the duplicate-sum / compaction of a sorted row (K2, K5, K7, K10); and
+// the register network with its row sources, its register compress and
+// its stores (K1, K3, K4, K6, K8, K9).
 //
 // Conventions shared with the JAX package: SENTINEL = INT32_MAX marks an
 // empty product slot and sorts last (signed int32 compares); empty output
@@ -17,6 +18,7 @@
 namespace {
 
 constexpr int kSentinel = 0x7fffffff;
+constexpr int kMaxWidth = 16384;
 
 // Threads per block for a row of `width` slots (width a power of two,
 // 128..16384): one compare-exchange pair per thread, at most 1024.
@@ -25,24 +27,21 @@ inline int threads_for(int width) {
   return t < 32 ? 32 : (t > 1024 ? 1024 : t);
 }
 
-// ---- building block 1: the expand prologue ------------------------------
+// ---- building block 1: the expand into shared memory (K2) --------------
 // Fragment e of this row sits in packed row ep = e / pack of g at lane
 // offset (e % pack) * 4 * run as [col_f | val_f | col_rev | val_rev]; odd
 // fragments take the reversed half, so the row arrives as alternating
 // ascending / descending runs. Invalid columns (< 0) become SENTINEL with
 // value 0 by a select: padded class rows carry NaN A values, which a
-// multiply-by-mask would leak into the sums. kLocalRows (the slab engine)
-// keys each product lrT[e] * n + col, its slab-local row and column. The
-// product is formed in V: float, or double, where it is exact.
-template <typename V, bool kLocalRows>
+// multiply-by-mask would leak into the sums. (The register network's
+// expand, for K1, K8 and K9, is expand_slots below.)
 __device__ void expand_row(const int32_t* __restrict__ g,
-                           const float* __restrict__ avT,
-                           const int32_t* __restrict__ lrT, int n, int* k,
-                           V* v, int row, int m, int ka, int lanes, int run,
+                           const float* __restrict__ avT, int* k, float* v,
+                           int row, int m, int ka, int lanes, int run,
                            int pack, int width) {
   for (int p = threadIdx.x; p < width; p += blockDim.x) {
     int key = kSentinel;
-    V val = V(0);
+    float val = 0.f;
     int e = p / run;
     if (e < ka) {
       int r = p - e * run;
@@ -51,8 +50,8 @@ __device__ void expand_row(const int32_t* __restrict__ g,
       const int32_t* src = g + ((size_t)ep * m + row) * lanes + off;
       int c = src[r];
       if (c >= 0) {
-        key = kLocalRows ? lrT[(size_t)e * m + row] * n + c : c;
-        val = V(avT[(size_t)e * m + row]) * V(__int_as_float(src[run + r]));
+        key = c;
+        val = avT[(size_t)e * m + row] * __int_as_float(src[run + r]);
       }
     }
     k[p] = key;
@@ -219,7 +218,7 @@ __device__ void compress_row(const int* k, const V* v, int width, int out_w,
   if (threadIdx.x == 0) *nnz = total;
 }
 
-// ---- building block 4: the register network (K1, K3, K4, K6) -------------
+// ---- building block 4: the register network (K1, K3, K4, K6, K8, K9) -----
 // A row of W slots (W a power of two, 128..16384) is held E slots per
 // thread in registers, T = W / E threads per row: E = 8, or 16 at 16384
 // so that a row stays at 1024 threads. In the normal layout row thread t
@@ -234,11 +233,13 @@ __device__ void compress_row(const int* k, const V* v, int width, int out_w,
 //     stage's large strides there as register / lane strides, one
 //     exchange back. Each thread writes only the shared slots it read in
 //     the previous exchange, so one barrier per exchange suffices.
-// tests/test_torch_k4_network.py models this schedule step for step, and
+// tests/test_torch_k4_network.py models this schedule step for step,
 // tests/test_torch_k1_k3_network.py K1's gather into registers and K3's
-// compress alone. K6 is the sort without the compress, K3 the compress
-// without the sort, K1 the sort and compress of slots gathered straight
-// into registers.
+// compress alone, tests/test_torch_k8_k9_network.py the slab source of K8
+// and K9. K6 is the sort without the compress, K3 the compress without
+// the sort, K1 the sort and compress of slots gathered straight into
+// registers, K8 / K9 the sort of a slab's slots gathered straight from
+// the packed B table.
 // Rows of at most 32E slots are one warp's work or less (T <= 32), sort
 // without shared memory, and share a block (rows_per_block).
 // Shared slots are XOR-swizzled within each 32-word line (swz), which
@@ -548,6 +549,337 @@ __device__ __forceinline__ int row_net_mark(int (&k)[E], V (&v)[E], int tid,
     k[r] = e ? k[r] : -1;
   }
   return s.total;
+}
+
+// ---- the network's rows: sources, loads, stores, the one routine --------
+// One row per block for rows of more than 32E slots (T = W / E threads),
+// several rows per 128-thread block below that. Each thread brings its E
+// slots into registers (RowsIn: 16-byte vector loads of the row, scalar
+// where a pointer is off the 16-byte grid; GatherIn, SlabIn: the expand,
+// expand_slots), sorts them there (K1, K4, K6, K8, K9), compresses them
+// (K1, K3, K4) and stores E slots of the row with 16-byte vector stores
+// where the row pointers and out_w allow them. K6, K8 and K9 store the
+// sorted row; K1, K3 and K4 the compacted row (staged through shared
+// memory: survivors written straight to their ranks would leave a warp's
+// stores scattered over 32 sectors each), its first out_w slots; K3 with
+// compact=False each survivor at its sorted slot, holes -1 / 0, straight
+// from registers. The row stays in registers between that one read and
+// one write, with block barriers only for the sort's strides of 32E and
+// more (two per such stage) and three in the compress (one, or none in
+// K3's sparse mode, where a row is a warp or less).
+
+template <int E>
+__device__ __forceinline__ void load_keys(int (&k)[E], const int* p,
+                                          bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q) {
+      const int4 x = __ldg(reinterpret_cast<const int4*>(p) + q);
+      k[4 * q] = x.x;
+      k[4 * q + 1] = x.y;
+      k[4 * q + 2] = x.z;
+      k[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) k[r] = p[r];
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void load_vals(float (&v)[E], const float* p,
+                                          bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(p) + q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) v[r] = p[r];
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void load_vals(double (&v)[E], const double* p,
+                                          bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < E / 2; ++q) {
+      const double2 x = __ldg(reinterpret_cast<const double2*>(p) + q);
+      v[2 * q] = x.x;
+      v[2 * q + 1] = x.y;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) v[r] = p[r];
+  }
+}
+
+// Four values at p (16-byte aligned): one float4, or two double2.
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(double* p, const double* v) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+// The thread's slots base .. base + E - 1, those below out_w, into the
+// row's out_col / out_val. vec: both row pointers on the 16-byte grid
+// and out_w a multiple of 4, so that each quad of slots is wholly below
+// out_w or wholly past it.
+template <int E, typename V>
+__device__ __forceinline__ void store_slots(int* out_col, V* out_val,
+                                            const int (&k)[E],
+                                            const V (&v)[E], int base,
+                                            int out_w, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q) {
+      if (base + 4 * q >= out_w) continue;
+      *reinterpret_cast<int4*>(out_col + base + 4 * q) =
+          make_int4(k[4 * q], k[4 * q + 1], k[4 * q + 2], k[4 * q + 3]);
+      store4(out_val + base + 4 * q, v + 4 * q);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      if (base + r >= out_w) continue;
+      out_col[base + r] = k[r];
+      out_val[base + r] = v[r];
+    }
+  }
+}
+
+// A product of an A value and a B value's bits: rounded once in float32
+// (__fmul_rn, never contracted into a later sum), or exact in float64
+// (two 24-bit mantissas fit 53 bits).
+template <typename V>
+__device__ __forceinline__ V product(float a, int b_bits);
+
+template <>
+__device__ __forceinline__ float product<float>(float a, int b_bits) {
+  return __fmul_rn(a, __int_as_float(b_bits));
+}
+
+template <>
+__device__ __forceinline__ double product<double>(float a, int b_bits) {
+  return __dmul_rn((double)a, (double)__int_as_float(b_bits));
+}
+
+// One fragment as the expand reads it: its half of the packed row
+// (columns at src[0 .. run), value bits at src[run .. 2 * run)), its A
+// value and the base its columns add to their keys.
+struct Frag {
+  const int32_t* src;
+  float a;
+  int key0;
+};
+
+// The expand into registers (K1, K8, K9): slot p of the row is position
+// p % run of fragment e = p / run, frag(e) its Frag. The key is key0 +
+// the column, the value product<V>(a, the B value); a column < 0 and
+// every slot past ka * run become SENTINEL / 0 by a select (padded class
+// rows and slabs carry NaN or junk A values). Where run is a multiple of
+// E, the thread's E slots are E neighbouring lanes of one fragment: one
+// frag(e), E columns and E value bits, by 16-byte loads where vec allows
+// (the source on the 16-byte grid, its rows a multiple of 4 lanes long);
+// else (run < E) each slot finds its own fragment.
+template <int E, typename V, typename FragAt>
+__device__ __forceinline__ void expand_slots(int (&k)[E], V (&v)[E],
+                                             int base, int run, int ka,
+                                             bool vec, FragAt frag) {
+  if (run % E == 0) {
+    const int e = base / run;
+    if (e >= ka) {
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        k[r] = kSentinel;
+        v[r] = V(0);
+      }
+      return;
+    }
+    const Frag f = frag(e);
+    const int32_t* src = f.src + (base - e * run);
+    int b[E];
+    load_keys<E>(k, src, vec);
+    load_keys<E>(b, src + run, vec);
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      const bool ok = k[r] >= 0;
+      v[r] = ok ? product<V>(f.a, b[r]) : V(0);
+      k[r] = ok ? f.key0 + k[r] : kSentinel;
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int p = base + r;
+    const int e = p / run;
+    k[r] = kSentinel;
+    v[r] = V(0);
+    if (e < ka) {
+      const Frag f = frag(e);
+      const int32_t* src = f.src + (p - e * run);
+      const int c = __ldg(src);
+      if (c >= 0) {
+        k[r] = f.key0 + c;
+        v[r] = product<V>(f.a, __ldg(src + run));
+      }
+    }
+  }
+}
+
+// Where a block's rows come from. RowsIn: (m, width) keys and values in
+// device memory (K3, K4, K6). GatherIn: K1's fragment gather g (ceil(ka /
+// pack), m, lanes) and A values avT (ka, m). SlabIn: K8's and K9's packed
+// B table (F_B + 1, lanes) read through the fragment index mt (ka, S),
+// with A values avT and slab-local rows lrT (ka, S). m counts rows (K8,
+// K9: slabs).
+template <typename V>
+struct RowsIn {
+  const int* key;
+  const V* val;
+  int vec;      // key and val on the 16-byte grid
+};
+
+struct GatherIn {
+  const int32_t* g;
+  const float* avT;
+  int ka, lanes, run, pack;
+  int vec;      // g on the 16-byte grid and lanes a multiple of 4
+};
+
+template <typename V>
+struct SlabIn {
+  const int32_t* table;
+  const int32_t* mt;
+  const float* avT;
+  const int32_t* lrT;
+  int ka, lanes, run, n;
+  int vec;      // table on the 16-byte grid and lanes a multiple of 4
+};
+
+template <int E, typename V>
+__device__ __forceinline__ void load_slots(int (&k)[E], V (&v)[E],
+                                           const RowsIn<V>& in, int m,
+                                           int width, int row, int base) {
+  const size_t off = (size_t)row * width + base;
+  load_keys<E>(k, in.key + off, in.vec != 0);
+  load_vals<E>(v, in.val + off, in.vec != 0);
+}
+
+// K1: fragment e in packed row e / pack of g at lane offset (e % pack) *
+// 4 * run, plus 2 * run for odd e (the reversed half); key the column.
+template <int E>
+__device__ __forceinline__ void load_slots(int (&k)[E], float (&v)[E],
+                                           const GatherIn& in, int m,
+                                           int width, int row, int base) {
+  expand_slots<E, float>(k, v, base, in.run, in.ka, in.vec != 0,
+                         [&](int e) {
+    const int ep = e / in.pack;
+    return Frag{in.g + ((size_t)ep * m + row) * in.lanes
+                    + (e - ep * in.pack) * 4 * in.run
+                    + ((e & 1) ? 2 * in.run : 0),
+                __ldg(in.avT + (size_t)e * m + row), 0};
+  });
+}
+
+// K8 / K9: fragment e of slab `row` is table row mt[e, row] (F_B, the all
+// -1 fill row, for empty and padding slots) at lane offset 2 * run for
+// odd e; key lrT[e, row] * n + the column (the planner keeps it below
+// 2^31 - 1, so SENTINEL still sorts last). The product unsigned so that
+// a padding slot's junk row cannot overflow; its key is selected away.
+template <int E, typename V>
+__device__ __forceinline__ void load_slots(int (&k)[E], V (&v)[E],
+                                           const SlabIn<V>& in, int m,
+                                           int width, int row, int base) {
+  expand_slots<E, V>(k, v, base, in.run, in.ka, in.vec != 0, [&](int e) {
+    const size_t i = (size_t)e * m + row;
+    return Frag{in.table + (size_t)__ldg(in.mt + i) * in.lanes
+                    + ((e & 1) ? 2 * in.run : 0),
+                __ldg(in.avT + i),
+                (int)((unsigned)__ldg(in.lrT + i) * (unsigned)in.n)};
+  });
+}
+
+// What a network kernel leaves in its outputs: the sorted row (K6, K8,
+// K9), the compacted row's first out_w slots (K1, K3, K4), or each
+// survivor at its sorted slot (K3's compact=False).
+enum class NetOut { kSorted, kCompact, kInPlace };
+
+// Rows per block: rows of at most 32E slots (T <= 32 threads) share a
+// 128-thread block, wider rows take one block each.
+template <int E>
+inline int net_rows_per_block(int width) {
+  const int T = width / E;
+  return T <= 32 ? 128 / T : 1;
+}
+
+// Shared memory of a block of the register network: the compress's
+// scratch first (K1, K3, K4), then W value and W key slots per row where
+// the sort exchanges through them (rows of more than a warp) or the
+// compress stages the compacted row.
+template <typename V>
+inline size_t net_smem_bytes(int width, int rows_per_block, bool sort,
+                             NetOut out) {
+  const int T = width / (width == kMaxWidth ? 16 : 8);
+  const bool slots = out == NetOut::kCompact || (sort && T > 32);
+  return (out != NetOut::kSorted ? sizeof(RowScratch<V>) : 0)
+         + (slots ? (size_t)rows_per_block * width * (sizeof(V) + sizeof(int))
+                  : 0);
+}
+
+// One block's rows through the register network: load (or expand), sort
+// from start_kk (kSort), compress (kOut), store. The last block's
+// padding rows (row >= m) run SENTINEL rows through every step, so that
+// every thread reaches every barrier, and store nothing. Output rows are
+// out_w slots apart.
+template <typename V, int E, bool kSort, NetOut kOut, typename In>
+__device__ __forceinline__ void row_net_rows(
+    const In& in, int* __restrict__ out_col, V* __restrict__ out_val,
+    int* __restrict__ nnz, int m, int width, int start_kk, int out_w,
+    int rows_per_block, int vec_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const RowShape<E> sh(width);
+  const int seg = threadIdx.x / sh.T;        // the block's row
+  const int tid = threadIdx.x - seg * sh.T;  // the thread's index in it
+  const int row = blockIdx.x * rows_per_block + seg;
+  const bool live = row < m;
+  int k[E];
+  V v[E];
+  if (live) {
+    load_slots<E>(k, v, in, m, width, row, tid * E);
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      k[r] = kSentinel;
+      v[r] = V(0);
+    }
+  }
+  RowScratch<V>* sc = reinterpret_cast<RowScratch<V>*>(smem_raw);
+  V* v_all = reinterpret_cast<V*>(
+      smem_raw + (kOut != NetOut::kSorted ? sizeof(RowScratch<V>) : 0));
+  int* k_all = reinterpret_cast<int*>(v_all + (size_t)rows_per_block * width);
+  V* vs = v_all + (size_t)seg * width;
+  int* ks = k_all + (size_t)seg * width;
+  if constexpr (kSort) row_net_sort<E, V>(k, v, ks, vs, tid, start_kk, sh);
+  int total = 0;
+  if constexpr (kOut == NetOut::kCompact)
+    total = row_net_compress<E, V>(k, v, tid, sh, sc, ks, vs);
+  else if constexpr (kOut == NetOut::kInPlace)
+    total = row_net_mark<E, V>(k, v, tid, sh, sc);
+  if (!live) return;
+  const size_t o = (size_t)row * out_w;
+  store_slots<E, V>(out_col + o, out_val + o, k, v, tid * E, out_w,
+                    vec_out != 0);
+  if (kOut != NetOut::kSorted && tid == 0) nnz[row] = total;
 }
 
 }  // namespace

@@ -7,9 +7,10 @@
    workspace, coo_dev/common_coo_dev.h:388-421), and per-slab fragment
    matrices (table row, A value, slab-local row) are built, transposed
    to (F_c, S_pad).
-2. run: one torch gather of the packed B fragment table, then kernel K8
-   (expand with keys ``local_row * n + col`` and one bitonic sort per
-   slab, ``ops/slab_kernels.py``), then K3 (duplicate sums and
+2. run: kernel K8 (each slab's fragments read from the packed B
+   fragment table through its fragment index, expanded with keys
+   ``local_row * n + col``, one bitonic sort per slab,
+   ``ops/slab_kernels.py``), then K3 (duplicate sums and
    compaction per slab, ``ops/bitonic_kernels.py``). The compensated
    pipeline runs K9 (float64 products) and K10 (float64 run sums, split
    into a float32 hi/lo pair) instead.
@@ -66,26 +67,21 @@ class SlabPlan:
     slab_first_row: torch.Tensor  # (n_slabs, 1) global row of local row 0
 
 
-def _slab_run(table, mt, avt, lrt, *, F_c: int, lanes: int, W: int,
-              run: int, n: int):
-    """Table gather -> K8 (expand + sort) -> K3 (compress) -> nnz fold.
+def _slab_run(table, mt, avt, lrt, *, F_c: int, W: int, run: int, n: int):
+    """K8 (expand from the table + sort) -> K3 (compress) -> nnz fold.
     Returns (keys (S, W), vals, nnz_s (S, 1), total)."""
-    S_pad = avt.shape[1]
-    g = table[mt.reshape(-1).long()].reshape(F_c, S_pad, lanes)
-    key, val = SK.expand_sort_lr(g, avt, lrt, ka=F_c, run=run, width=W,
-                                 n=n, start_kk=2 * run)
+    key, val = SK.expand_sort_lr(table, mt, avt, lrt, ka=F_c, run=run,
+                                 width=W, n=n, start_kk=2 * run)
     keys, vals, nnz_s = BK.compress(key, val, width=W, out_w=W)
     return keys, vals, nnz_s, nnz_s.sum(dtype=torch.int32)
 
 
-def _slab_run_dd(table, mt, avt, lrt, *, F_c: int, lanes: int, W: int,
-                 run: int, n: int):
-    """The compensated pipeline: table gather -> K9 -> K10 -> nnz fold.
-    Returns (keys, hi, lo, nnz_s, total)."""
-    S_pad = avt.shape[1]
-    g = table[mt.reshape(-1).long()].reshape(F_c, S_pad, lanes)
-    key, val = SK.expand_sort_lr_dd(g, avt, lrt, ka=F_c, run=run, width=W,
-                                    n=n, start_kk=2 * run)
+def _slab_run_dd(table, mt, avt, lrt, *, F_c: int, W: int, run: int,
+                 n: int):
+    """The compensated pipeline: K9 -> K10 -> nnz fold. Returns (keys, hi,
+    lo, nnz_s, total)."""
+    key, val = SK.expand_sort_lr_dd(table, mt, avt, lrt, ka=F_c, run=run,
+                                    width=W, n=n, start_kk=2 * run)
     keys, his, los, nnz_s = SK.compress_dd(key, val, width=W)
     return keys, his, los, nnz_s, nnz_s.sum(dtype=torch.int32)
 
@@ -100,8 +96,7 @@ class SlabCall:
 
     def __call__(self) -> SlabCSR:
         p = self.plan
-        kw = dict(F_c=p.width // p.run, lanes=int(p.table.shape[1]),
-                  W=p.width, run=p.run, n=p.n)
+        kw = dict(F_c=p.width // p.run, W=p.width, run=p.run, n=p.n)
         lo = None
         if self.dd:
             keys, vals, lo, nnz_s, total = _slab_run_dd(

@@ -15,13 +15,18 @@ beside it. There is no fallback: a failed build or launch raises.
 
 Layouts (row-major, one slab per row):
 
-- ``g`` (ka, S, lanes) int32: fragment slot e of slab s holds
-  [col_f | val_bits_f | col_rev | val_bits_rev] of one B sub-run of
-  length ``run`` (col -1 = empty); ``avT`` (ka, S) float32 its A value;
-  ``lrT`` (ka, S) int32 its slab-local row. Slot e's products occupy
-  slots [e*run, (e+1)*run) of the slab, the reversed half for odd e, so a
-  slab arrives as alternating ascending / descending runs and the sort
-  starts merging at ``start_kk = 2*run``.
+- ``table`` (F_B + 1, lanes) int32: the packed B fragment table, one row
+  [col_f | val_bits_f | col_rev | val_bits_rev] per B sub-run of length
+  ``run`` (col -1 = empty; lanes >= 4*run, a multiple of 4), the last
+  row all -1 (the fill row of empty and padding slots). ``mt`` (ka, S)
+  int32: the table row of fragment slot e of slab s; ``avT`` (ka, S)
+  float32 its A value; ``lrT`` (ka, S) int32 its slab-local row. K8 and
+  K9 read the table through ``mt`` themselves (no gathered copy of its
+  rows); the wrappers do not check that mt's values lie in the table,
+  which would need a device sync. Slot e's products occupy slots
+  [e*run, (e+1)*run) of the slab, the reversed half for odd e, so a slab
+  arrives as alternating ascending / descending runs and the sort starts
+  merging at ``start_kk = 2*run``.
 - keys are ``lr * n + col`` (the planner keeps them below 2^31 - 1),
   SENTINEL for empty slots.
 - K8 returns sorted (key (S, width) int32, val float32); K9 the same with
@@ -57,18 +62,20 @@ def _check_width(width: int, start_kk: int | None = None):
         raise ValueError(f"start_kk {start_kk} must be a power of two >= 2")
 
 
-def _check_slab_gather(g, avT, lrT, ka, run, width, n):
+def _check_slab_gather(table, mt, avT, lrT, ka, run, width, n):
     dev = avT.device
-    BK._check_tensor("g", g, torch.int32, 3, dev)
+    BK._check_tensor("table", table, torch.int32, 2, dev)
+    BK._check_tensor("mt", mt, torch.int32, 2, dev)
     BK._check_tensor("avT", avT, torch.float32, 2, dev)
     BK._check_tensor("lrT", lrT, torch.int32, 2, dev)
     S = avT.shape[1]
-    if avT.shape != (ka, S) or lrT.shape != (ka, S):
-        raise ValueError(f"avT {tuple(avT.shape)} / lrT {tuple(lrT.shape)} "
-                         f"must both be ({ka}, S)")
-    if g.shape[0] != ka or g.shape[1] != S or 4 * run > g.shape[2]:
-        raise ValueError(f"g shape {tuple(g.shape)} != ({ka}, {S}, >= "
-                         f"{4 * run})")
+    if not mt.shape == avT.shape == lrT.shape == (ka, S):
+        raise ValueError(f"mt {tuple(mt.shape)} / avT {tuple(avT.shape)} / "
+                         f"lrT {tuple(lrT.shape)} must all be ({ka}, S)")
+    lanes = table.shape[1]
+    if table.shape[0] < 1 or lanes < 4 * run or lanes % 4:
+        raise ValueError(f"table shape {tuple(table.shape)}: want (F >= 1, "
+                         f"lanes >= {4 * run}, a multiple of 4)")
     if ka * run > width:
         raise ValueError(f"ka*run = {ka * run} > width {width}")
     if not 1 <= n < 2**31:
@@ -77,21 +84,22 @@ def _check_slab_gather(g, avT, lrT, ka, run, width, n):
 
 # ---------------------------------------------------- plain PyTorch versions
 
-def _expand_lr_plain(g, avT, lrT, ka, run, width, n, dtype):
-    """Products (S, width): key lr*n + col, value avT * b formed in
-    `dtype`; SENTINEL / 0 where the column is empty (a select)."""
-    S = avT.shape[1]
+def _expand_lr_plain(table, mt, avT, lrT, ka, run, width, n, dtype):
+    """Products (S, width) from table[mt]: key lr*n + col, value avT * b
+    formed in `dtype`; SENTINEL / 0 where the column is empty (a
+    select)."""
     dev = avT.device
     e = torch.arange(ka, device=dev)
-    lanes = ((e & 1) * 2 * run)[:, None] + torch.arange(run, device=dev)
-    ep = e[:, None, None]
-    s = torch.arange(S, device=dev)[None, :, None]
-    c = g[ep, s, lanes[:, None, :]]                           # (ka, S, run)
-    vb = g[ep, s, lanes[:, None, :] + run].view(torch.float32)
+    lanes = (((e & 1) * 2 * run)[:, None]
+             + torch.arange(run, device=dev))[:, None, :]     # (ka, 1, run)
+    rows = mt.long()[:, :, None]                              # (ka, S, 1)
+    c = table[rows, lanes]                                    # (ka, S, run)
+    vb = table[rows, lanes + run].view(torch.float32)
     valid = c >= 0
     key = torch.where(valid, lrT[:, :, None] * n + c, SENTINEL)
     val = torch.where(valid, avT[:, :, None].to(dtype) * vb.to(dtype),
                       torch.zeros((), dtype=dtype, device=dev))
+    S = avT.shape[1]
     key = key.permute(1, 0, 2).reshape(S, ka * run)
     val = val.permute(1, 0, 2).reshape(S, ka * run)
     pad = width - ka * run
@@ -101,14 +109,16 @@ def _expand_lr_plain(g, avT, lrT, ka, run, width, n, dtype):
     return key.to(torch.int32).contiguous(), val.contiguous()
 
 
-def expand_sort_lr_plain(g, avT, lrT, *, ka, run, width, n, start_kk):
-    return BK._sort_plain(*_expand_lr_plain(g, avT, lrT, ka, run, width, n,
-                                            torch.float32))
+def expand_sort_lr_plain(table, mt, avT, lrT, *, ka, run, width, n,
+                         start_kk):
+    return BK._sort_plain(*_expand_lr_plain(table, mt, avT, lrT, ka, run,
+                                            width, n, torch.float32))
 
 
-def expand_sort_lr_dd_plain(g, avT, lrT, *, ka, run, width, n, start_kk):
-    return BK._sort_plain(*_expand_lr_plain(g, avT, lrT, ka, run, width, n,
-                                            torch.float64))
+def expand_sort_lr_dd_plain(table, mt, avT, lrT, *, ka, run, width, n,
+                            start_kk):
+    return BK._sort_plain(*_expand_lr_plain(table, mt, avT, lrT, ka, run,
+                                            width, n, torch.float64))
 
 
 def compress_dd_plain(key, val, *, width):
@@ -119,44 +129,42 @@ def compress_dd_plain(key, val, *, width):
 
 # ------------------------------------------------------------------ wrappers
 
-def _expand_sort(wrapper, name, g, avT, lrT, val_dtype, ka, run, width, n,
-                 start_kk):
+def _expand_sort(wrapper, plain, name, val_dtype, table, mt, avT, lrT, ka,
+                 run, width, n, start_kk):
+    _check_width(width, start_kk)
+    _check_slab_gather(table, mt, avT, lrT, ka, run, width, n)
+    dev = avT.device
+    if dev.type == "cpu":
+        return plain(table, mt, avT, lrT, ka=ka, run=run, width=width, n=n,
+                     start_kk=start_kk)
+    BK._cuda_or_raise(avT)
     S = avT.shape[1]
-    key = torch.empty((S, width), dtype=torch.int32, device=avT.device)
-    val = torch.empty((S, width), dtype=val_dtype, device=avT.device)
+    key = torch.empty((S, width), dtype=torch.int32, device=dev)
+    val = torch.empty((S, width), dtype=val_dtype, device=dev)
     if S:
-        BK._launch(name, g, avT, lrT, key, val, S, ka, g.shape[2], run,
-                   width, n, start_kk, device=avT.device)
+        BK._launch(name, table, mt, avT, lrT, key, val, S, ka,
+                   table.shape[1], run, width, n, start_kk, device=dev)
         wrapper.launches += 1
     return key, val
 
 
-def expand_sort_lr(g, avT, lrT, *, ka: int, run: int, width: int, n: int,
-                   start_kk: int):
-    """K8: expand with slab-local row keys + one sort per slab. Returns
-    sorted (key (S, width) int32, val (S, width) float32)."""
-    _check_width(width, start_kk)
-    _check_slab_gather(g, avT, lrT, ka, run, width, n)
-    if avT.device.type == "cpu":
-        return expand_sort_lr_plain(g, avT, lrT, ka=ka, run=run,
-                                    width=width, n=n, start_kk=start_kk)
-    BK._cuda_or_raise(avT)
-    return _expand_sort(expand_sort_lr, "ia_k8_expand_sort_lr", g, avT, lrT,
-                        torch.float32, ka, run, width, n, start_kk)
+def expand_sort_lr(table, mt, avT, lrT, *, ka: int, run: int, width: int,
+                   n: int, start_kk: int):
+    """K8: expand from the table through mt, with slab-local row keys, +
+    one sort per slab. Returns sorted (key (S, width) int32, val (S,
+    width) float32)."""
+    return _expand_sort(expand_sort_lr, expand_sort_lr_plain,
+                        "ia_k8_expand_sort_lr", torch.float32, table, mt,
+                        avT, lrT, ka, run, width, n, start_kk)
 
 
-def expand_sort_lr_dd(g, avT, lrT, *, ka: int, run: int, width: int,
+def expand_sort_lr_dd(table, mt, avT, lrT, *, ka: int, run: int, width: int,
                       n: int, start_kk: int):
     """K9: K8 with exact float64 products. Returns sorted (key (S, width)
     int32, val (S, width) float64)."""
-    _check_width(width, start_kk)
-    _check_slab_gather(g, avT, lrT, ka, run, width, n)
-    if avT.device.type == "cpu":
-        return expand_sort_lr_dd_plain(g, avT, lrT, ka=ka, run=run,
-                                       width=width, n=n, start_kk=start_kk)
-    BK._cuda_or_raise(avT)
-    return _expand_sort(expand_sort_lr_dd, "ia_k9_expand_sort_lr_dd", g, avT,
-                        lrT, torch.float64, ka, run, width, n, start_kk)
+    return _expand_sort(expand_sort_lr_dd, expand_sort_lr_dd_plain,
+                        "ia_k9_expand_sort_lr_dd", torch.float64, table, mt,
+                        avT, lrT, ka, run, width, n, start_kk)
 
 
 def compress_dd(key, val, *, width: int):

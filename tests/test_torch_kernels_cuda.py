@@ -27,15 +27,45 @@ from tests.torch_parity import (GATHER_CASES, GATHER_RUNS, RUN,
                                 assert_tables_match, assert_values_close,
                                 cols_inputs, ell_pair, fragment_gather,
                                 gather_inputs, ill_conditioned,
-                                pack_fragments, slab_operands, tell,
-                                value_rtol)
+                                pack_fragments, slab_fragments,
+                                slab_operands, tell, value_rtol)
 
-# slab-kernel inputs: (matrix, planner overrides); the headline plans
-# width 1024, the others 512
-SLAB_CASES = {"headline2048": (lambda: build_matrix(m=2048), {}),
-              "headline2048_run16": (lambda: build_matrix(m=2048),
-                                     {"run": 16}),
-              "ill_conditioned": (ill_conditioned, {})}
+
+def _planned(make, **over):
+    """The port's slab plan of make() @ make(): ((table, mt, avT, lrT),
+    kw) on the host."""
+    def get():
+        _, ops, kw = slab_operands(make(), **over)
+        return ops, kw
+    return get
+
+
+def _synthetic(width, run, short=False):
+    """tests.torch_parity.slab_fragments at (width, run): 257 slabs, the
+    last two padding, fill-row slots with NaN A values and junk local
+    rows, keys up to within 64 of 2^31 - 1; `short`: three fragment
+    slots fewer than width / run (slots past ka * run)."""
+    def get():
+        ka = width // run - (3 if short else 0)
+        table, mt, avT, lrT, n = slab_fragments(257, ka, run,
+                                                seed=width + run + short)
+        return (table, mt, avT, lrT), dict(ka=ka, run=run, width=width,
+                                           n=n, start_kk=2 * run)
+    return get
+
+
+# slab-kernel inputs: the planner's (the headline plans width 1024, the
+# others 512), and synthetic slabs at both slab widths and runs 8 and 32,
+# a short one, and widths 128 / 256 (several slabs share a block)
+SLAB_CASES = {"headline2048": _planned(lambda: build_matrix(m=2048)),
+              "headline2048_run16": _planned(lambda: build_matrix(m=2048),
+                                             run=16),
+              "ill_conditioned": _planned(ill_conditioned),
+              **{f"near_max_w{w}_r{r}": _synthetic(w, r)
+                 for w in (512, 1024) for r in (8, 32)},
+              "near_max_w1024_r8_short": _synthetic(1024, 8, short=True),
+              "near_max_w256_r8": _synthetic(256, 8),
+              "near_max_w128_r32": _synthetic(128, 32)}
 
 
 @pytest.fixture
@@ -440,10 +470,19 @@ def test_k5_k6_k3_kernels_match_plain(cuda_device, dtype, ka, out_width,
         K.compress_plain(pk, pv, width=width, out_w=out_w), rtol=rtol)
 
 
-def _slab_inputs(name, device):
-    make, over = SLAB_CASES[name]
-    p, g, avT, lrT, kw = slab_operands(make(), **over)
-    return (g.to(device), avT.to(device), lrT.to(device)), kw
+def _slab_inputs(name, device, unaligned=False):
+    """A slab case's (table, mt, avT, lrT) on `device`; `unaligned` puts
+    the table 4 bytes off the 16-byte grid (K8 / K9 then load it slot by
+    slot)."""
+    ops, kw = SLAB_CASES[name]()
+    table, *rest = (t.to(device) for t in ops)
+    if unaligned:
+        buf = torch.empty(table.numel() + 1, dtype=table.dtype,
+                          device=device)
+        buf[1:] = table.reshape(-1)
+        table = buf[1:].view(table.shape)
+        assert table.data_ptr() % 16 == 4
+    return (table, *rest), kw
 
 
 @pytest.mark.cuda
@@ -453,6 +492,21 @@ def test_k8_k3_slab_kernels_match_plain(cuda_device, name):
     within a duplicate run may sit in another order, so the run sums
     (K3 against its plain version) are compared."""
     args, kw = _slab_inputs(name, cuda_device)
+    _check_k8(args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["near_max_w1024_r32", "near_max_w512_r8",
+                                  "near_max_w128_r32"])
+def test_k8_k9_table_off_the_grid(cuda_device, name):
+    """A table 4 bytes off the 16-byte grid: K8 and K9 load it slot by
+    slot and still match their plain versions."""
+    args, kw = _slab_inputs(name, cuda_device, unaligned=True)
+    _check_k8(args, kw)
+    _check_k9(args, kw)
+
+
+def _check_k8(args, kw):
     w = kw["width"]
     n8 = SK.expand_sort_lr.launches
     key, val = SK.expand_sort_lr(*args, **kw)
@@ -467,7 +521,10 @@ def test_k8_k3_slab_kernels_match_plain(cuda_device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(SLAB_CASES))
 def test_k9_k10_slab_kernels_match_plain(cuda_device, name):
-    args, kw = _slab_inputs(name, cuda_device)
+    _check_k9(*_slab_inputs(name, cuda_device))
+
+
+def _check_k9(args, kw):
     key, val = SK.expand_sort_lr_dd(*args, **kw)
     pkey, pval = SK.expand_sort_lr_dd_plain(*args, **kw)
     assert val.dtype == torch.float64

@@ -42,7 +42,7 @@ from tests.test_slab_dd import _ill_conditioned
 from tests.torch_parity import (DD_RTOL, assert_dd_outputs_match,
                                 assert_kernel_outputs_match, assert_same,
                                 assert_values_close, host, ill_conditioned,
-                                slab_operands)
+                                slab_gather_np, slab_operands)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -247,13 +247,14 @@ def _lr_kernel_kw(kw):
 @pytest.mark.parametrize("name", sorted(KERNEL_INPUTS))
 def test_k8_plain_matches_jax_kernel(slab_inputs, name):
     """Sorted keys identical; values compared through their run sums
-    (the network is not stable)."""
-    _, g, avT, lrT, kw = slab_inputs(name)
+    (the network is not stable). The JAX kernel takes the fragment gather
+    table[mt], built with numpy; the port's K8 reads the table itself."""
+    _, (table, mt, avT, lrT), kw = slab_inputs(name)
     w = kw["width"]
     jk, jv = _pallas(jslab._expand_sort_kernel_lr,
-                     [host(g), host(avT), host(lrT)],
+                     [slab_gather_np(table, mt), host(avT), host(lrT)],
                      [(w, jnp.int32), (w, jnp.float32)], **_lr_kernel_kw(kw))
-    key, val = SK.expand_sort_lr_plain(g, avT, lrT, **kw)
+    key, val = SK.expand_sort_lr_plain(table, mt, avT, lrT, **kw)
     assert_same(key, jk.T, "sorted keys")
     jkt, jvt = torch.from_numpy(jk.T.copy()), torch.from_numpy(jv.T.copy())
     assert_kernel_outputs_match(
@@ -263,17 +264,18 @@ def test_k8_plain_matches_jax_kernel(slab_inputs, name):
 
 @pytest.mark.parametrize("name", sorted(KERNEL_INPUTS))
 def test_k8_k3_plain_match_jax_launcher(slab_inputs, name):
-    """K8 then K3 against the JAX package's own launcher of the pair."""
-    _, g, avT, lrT, kw = slab_inputs(name)
+    """K8 then K3 against the JAX package's own launcher of the pair (on
+    table[mt], built with numpy)."""
+    _, (table, mt, avT, lrT), kw = slab_inputs(name)
     w = kw["width"]
     jk, jv, jn = jslab._slab_sort_compress(
-        jnp.asarray(host(g)), jnp.asarray(host(avT)),
+        jnp.asarray(slab_gather_np(table, mt)), jnp.asarray(host(avT)),
         jnp.asarray(host(lrT)), width=w, run=kw["run"], ka=kw["ka"],
         n=kw["n"], start_kk=kw["start_kk"], interpret=True)
     # the wrappers take the plain versions for CPU tensors, uncounted
     before = (BK.launch_counts(), SK.launch_counts())
-    got = BK.compress(*SK.expand_sort_lr(g, avT, lrT, **kw), width=w,
-                      out_w=w)
+    got = BK.compress(*SK.expand_sort_lr(table, mt, avT, lrT, **kw),
+                      width=w, out_w=w)
     assert (BK.launch_counts(), SK.launch_counts()) == before
     assert_kernel_outputs_match(got, tuple(np.asarray(x)
                                            for x in (jk, jv, jn)))
@@ -283,14 +285,16 @@ def test_k8_k3_plain_match_jax_launcher(slab_inputs, name):
 def test_k9_k10_plain_match_jax_kernels(slab_inputs, name):
     """K9: sorted keys identical, exact products (JAX's Dekker hi + lo
     equals the float64 product); K10 on JAX's K9 output against JAX's
-    K10, and K9 + K10 of the port against both."""
-    _, g, avT, lrT, kw = slab_inputs(name)
+    K10, and K9 + K10 of the port against both. The JAX side takes
+    table[mt], built with numpy."""
+    _, (table, mt, avT, lrT), kw = slab_inputs(name)
     w = kw["width"]
     jk, jhi, jlo = _pallas(jslab._expand_sort_kernel_lr_dd,
-                           [host(g), host(avT), host(lrT)],
+                           [slab_gather_np(table, mt), host(avT),
+                            host(lrT)],
                            [(w, jnp.int32), (w, jnp.float32),
                             (w, jnp.float32)], **_lr_kernel_kw(kw))
-    key, val = SK.expand_sort_lr_dd(g, avT, lrT, **kw)
+    key, val = SK.expand_sort_lr_dd(table, mt, avT, lrT, **kw)
     assert val.dtype == torch.float64
     assert_same(key, jk.T, "sorted keys")
     j64 = jhi.astype(np.float64) + jlo
@@ -305,13 +309,13 @@ def test_k9_k10_plain_match_jax_kernels(slab_inputs, name):
 
 
 def test_slab_kernel_wrappers_validate_operands(slab_inputs):
-    _, g, avT, lrT, kw = slab_inputs("ill_conditioned")
+    _, (table, mt, avT, lrT), kw = slab_inputs("ill_conditioned")
     with pytest.raises(TypeError):
-        SK.expand_sort_lr(g, avT, lrT.float(), **kw)
+        SK.expand_sort_lr(table, mt, avT, lrT.float(), **kw)
     with pytest.raises(ValueError, match="power of two"):
-        SK.expand_sort_lr(g, avT, lrT, **dict(kw, width=2048))
+        SK.expand_sort_lr(table, mt, avT, lrT, **dict(kw, width=2048))
     with pytest.raises(ValueError, match="ka\\*run"):
-        SK.expand_sort_lr_dd(g, avT, lrT, **dict(kw, width=256))
+        SK.expand_sort_lr_dd(table, mt, avT, lrT, **dict(kw, width=256))
     with pytest.raises(TypeError):
         SK.compress_dd(torch.zeros((2, 512), dtype=torch.int32),
                        torch.zeros((2, 512)), width=512)
@@ -319,6 +323,30 @@ def test_slab_kernel_wrappers_validate_operands(slab_inputs):
     with pytest.raises(ValueError, match="no kernel"):
         SK.compress_dd(meta, torch.empty((2, 512), dtype=torch.float64,
                                          device="meta"), width=512)
+
+
+@pytest.mark.parametrize("fn", [SK.expand_sort_lr, SK.expand_sort_lr_dd])
+@pytest.mark.parametrize("bad", ["table_dtype", "table_1d", "lanes_short",
+                                 "lanes_not_mult4", "mt_dtype", "mt_shape",
+                                 "mt_transposed"])
+def test_slab_kernel_wrappers_check_table_and_mt(slab_inputs, fn, bad):
+    """K8's and K9's table and fragment-index operands: table a 2-d int32
+    (F, lanes) with lanes >= 4 * run and a multiple of 4; mt int32 (ka,
+    S) like avT and lrT. mt's values are not checked (a device sync)."""
+    _, (table, mt, avT, lrT), kw = slab_inputs("ill_conditioned")
+    run = kw["run"]
+    table, mt, err = {
+        "table_dtype": (table.float(), mt, TypeError),
+        "table_1d": (table.reshape(-1), mt, TypeError),
+        "lanes_short": (table[:, :4 * run - 4].contiguous(), mt, ValueError),
+        "lanes_not_mult4": (torch.nn.functional.pad(table, (0, 2)), mt,
+                            ValueError),
+        "mt_dtype": (table, mt.long(), TypeError),
+        "mt_shape": (table, mt[:-1].contiguous(), ValueError),
+        "mt_transposed": (table, mt.T.contiguous(), ValueError),
+    }[bad]
+    with pytest.raises(err):
+        fn(table, mt, avT, lrT, **kw)
 
 
 # ----------------------------------------------------------------- results

@@ -224,16 +224,82 @@ def ill_conditioned(m=96, k=6, seed=11):
 
 def slab_operands(a, b=None, *, width=None, run=None):
     """The port's slab plan of C = a @ b (b = a by default, float32) and
-    the kernels' inputs at the plan's shapes: (plan, g, avT, lrT, kw)."""
+    the kernels' inputs at the plan's shapes: (plan, (table, mt, avT,
+    lrT), kw)."""
+    from ia_spgemm_tpu_torch.bench import kernels as KB
     from ia_spgemm_tpu_torch.ops import slab
     A = TCSR.from_scipy(a.astype(np.float32), device="cpu")
     B = A if b is None else TCSR.from_scipy(b.astype(np.float32), device="cpu")
     p = slab._plan_slab_csr_uncached(A, B, width=width, run=run).plan
-    F_c = p.width // p.run
-    g = p.table[p.mt.reshape(-1).long()].reshape(F_c, p.n_slabs,
-                                                 p.table.shape[1])
-    kw = dict(ka=F_c, run=p.run, width=p.width, n=p.n, start_kk=2 * p.run)
-    return p, g, p.avt, p.lrt, kw
+    return (p, *KB.slab_operands(p))
+
+
+INT32_MAX = 2**31 - 1
+
+
+def slab_fragments(S, ka, run, *, rspan=64, kind="random", pad_slabs=2,
+                   seed=0):
+    """K8's and K9's operands built with numpy, in the slab engine's
+    layout: (table (F_B + 1, lanes) int32, mt, avT, lrT (ka, S), n).
+    Table row f holds up to `run` sorted distinct columns of one B
+    sub-run (forward: columns then -1; the reversed half the same run
+    backwards) and their value bits; row F_B is all -1, the fill row.
+    Each slab uses its first few fragment slots (the rest read the fill
+    row, as a slab's tail does), a few more slots read the fill row in
+    between, and the last ``pad_slabs`` slabs read only the fill row (the
+    padding up to S). Fill-row slots carry NaN A values and junk local
+    rows (up to 2^31 - 1), which a kernel must select away. Local rows
+    lie below rspan, n = (2^31 - 1) // rspan, and each slab's last used
+    slot reads row 0 (which holds column n - 1) at local row rspan - 1,
+    so the largest key, rspan * n - 1, lies within rspan of 2^31 - 1;
+    columns are drawn from few values (duplicate keys). kind "one_key":
+    every table row holds column n - 1 alone and every live slot sits at
+    local row rspan - 1 (one duplicate run over the slab)."""
+    rng = np.random.default_rng(seed)
+    n = INT32_MAX // rspan
+    lanes = max(128, 4 * run)
+    F_B = max(8, ka)
+    pool = np.unique(np.concatenate(
+        [[0], n - 1 - rng.integers(1, 4 * run, 2 * run),
+         rng.integers(0, n - 1, 2 * run)]))
+    table = np.full((F_B + 1, lanes), -1, np.int32)
+    for f in range(F_B):
+        if kind == "one_key":
+            cols = np.array([n - 1])
+        else:
+            cnt = rng.integers(0, run + 1) if f % 5 else run
+            cols = np.sort(rng.choice(pool, size=cnt, replace=False))
+            if f == 0:
+                cols[-1] = n - 1
+        row = table[f]
+        row[:len(cols)] = cols
+        row[run:run + len(cols)] = rng.standard_normal(len(cols)).astype(
+            np.float32).view(np.int32)
+        row[2 * run:3 * run] = row[:run][::-1]
+        row[3 * run:4 * run] = row[run:2 * run][::-1]
+    used = rng.integers(1, ka + 1, S)
+    used[S - pad_slabs:] = 0
+    slot = np.arange(ka)[:, None]
+    last = slot == used[None, :] - 1
+    live = (slot < used[None, :]) & ((rng.random((ka, S)) > 0.1) | last)
+    mt = np.where(live, rng.integers(0, F_B, (ka, S)), F_B)
+    mt[last] = 0
+    lrT = np.sort(rng.integers(0, rspan, (ka, S)), axis=0)
+    lrT[last] = rspan - 1
+    if kind == "one_key":
+        lrT[:] = rspan - 1
+    lrT = np.where(live, lrT, rng.integers(0, INT32_MAX, (ka, S)))
+    avT = rng.standard_normal((ka, S)).astype(np.float32)
+    avT[~live] = np.nan
+    return (torch.from_numpy(table), torch.from_numpy(mt.astype(np.int32)),
+            torch.from_numpy(avT), torch.from_numpy(lrT.astype(np.int32)),
+            n)
+
+
+def slab_gather_np(table, mt):
+    """The fragment gather g = table[mt] (ka, S, lanes), built with numpy:
+    the operand the JAX package's slab kernels take."""
+    return host(table)[host(mt)]
 
 
 def assert_dd_outputs_match(got, want):
