@@ -346,9 +346,9 @@ def _k5_beside_k6_k3(key, val, *, width, start_kk, time_ms, dev):
 def _check_kernels(call, stats, label, time_ms, dev):
     """Each class of a planned call: its kernel(s) against the plain
     version(s) on the class's own inputs. A ragged (float32) call's
-    classes take the gather kernels (K2 here; K1, and K3 on K2's rows,
-    are cases of bench.kernels.network_cases) and K4; a chunked float64
-    call's the cols layout over the torch expand."""
+    classes up to TRANSPOSED_MAX_WIDTH take K1, or K2 + K3 (cases of
+    bench.kernels.network_cases), the wider ones K4 (here); a chunked
+    float64 call's the cols layout over the torch expand."""
     import torch
 
     from ia_spgemm_tpu_torch.bench import kernels as KB
@@ -368,40 +368,20 @@ def _check_kernels(call, stats, label, time_ms, dev):
             _check_cols(stats, f"{label} run={run}", time_ms, dev, key, val,
                         width=w, start_kk=2 * run,
                         out_w=min(call.out_w, w))
-        return {}
-    ms = {}
+        return
     for i, w in enumerate(call.widths):
-        n = call.counts[i]
-        shape = f"width={w} rows={n} run={run}"
-        if w <= bt.FUSED_MAX_WIDTH:
-            continue
         if w <= bt.TRANSPOSED_MAX_WIDTH:
-            g, avT, kw = KB.gather_inputs(call, i)
-            key, val = K.expand_sort(g, avT, **kw)
-            pkey, pval = K.expand_sort_plain(g, avT, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(key, pkey):
-                raise AssertionError(f"K2 {shape}: sorted keys differ")
-            # values within a duplicate run may sit in another order:
-            # compare the run sums
-            err = _compare(f"K2 {shape}",
-                           K.compress_plain(key, val, width=w, out_w=w),
-                           K.compress_plain(pkey, pval, width=w, out_w=w))
-            ms["K2"] = ms.get("K2", 0.0) + record(
-                "K2", shape, err, lambda: K.expand_sort(g, avT, **kw),
-                lambda: K.expand_sort_plain(g, avT, **kw),
-                KB.gather_bytes(run, avT))
-        else:
-            key, val = bt._expand_rows(call.table, call.frags[i].T,
-                                       call.avts[i].T, run=run, width=w)
-            f = lambda fn: fn(key, val, width=w,  # noqa: E731
-                              start_kk=2 * run)
-            err = _compare(f"K4 {shape}", f(K.sort_compress_rows),
-                           f(K.sort_compress_rows_plain))
-            record("K4", shape, err, lambda: f(K.sort_compress_rows),
-                   lambda: f(K.sort_compress_rows_plain), (key, val),
-                   _torch_sort(key))
-    return ms
+            continue
+        shape = f"width={w} rows={call.counts[i]} run={run}"
+        key, val = bt._expand_rows(call.table, call.frags[i].T,
+                                   call.avts[i].T, run=run, width=w)
+        f = lambda fn: fn(key, val, width=w,  # noqa: E731
+                          start_kk=2 * run)
+        err = _compare(f"K4 {shape}", f(K.sort_compress_rows),
+                       f(K.sort_compress_rows_plain))
+        record("K4", shape, err, lambda: f(K.sort_compress_rows),
+               lambda: f(K.sort_compress_rows_plain), (key, val),
+               _torch_sort(key))
 
 
 def _check_network(stats, time_ms, dev):
@@ -470,7 +450,8 @@ def _sorted_tables(col, val):
 
 
 def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
-    """K7a/K7b on the headline's flat plan, K11 on the m=16384 dense-row
+    """K7b on K7a's sorted keys of the headline's flat plan (K7a is a case
+    of bench.kernels.network_cases), K11 on the m=16384 dense-row
     input, K12 on the headline ELL pair, each against its plain version
     at those shapes."""
     import torch
@@ -491,17 +472,10 @@ def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
     g, avT = bt._expand_gather_emajor(H.col_ind, H.values, H.col_ind,
                                       H.values, run=plan.run)
     ka = H.max_nnz_per_row
-    kw = dict(ka=ka, run=plan.run, width=plan.width, start_kk=2 * plan.run)
     shape = f"headline flat rows={H.nrows} width={plan.width} run={plan.run}"
-    p = K.expand_sort_packed(g, avT, **kw)
-    pp = K.expand_sort_packed_plain(g, avT, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(p, pp):
-        raise AssertionError(f"K7a {shape}: sorted packed keys differ")
-    _record(stats, time_ms, dev, "K7a", shape, 0.0,
-            lambda: K.expand_sort_packed(g, avT, **kw),
-            lambda: K.expand_sort_packed_plain(g, avT, **kw),
-            KB.gather_bytes(plan.run, avT))
+    p = K.expand_sort_packed(g, avT, ka=ka, run=plan.run, width=plan.width,
+                             start_kk=2 * plan.run)
+    del g, avT
     for compact in (False, True):
         f = lambda fn: fn(p, width=plan.width,  # noqa: E731
                           out_w=plan.width, compact=compact)
@@ -510,7 +484,7 @@ def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
         _record(stats, time_ms, dev, "K7b", f"{shape} compact={compact}",
                 err, lambda: f(K.compress_packed),
                 lambda: f(K.compress_packed_plain), (p,))
-    del g, avT, p, pp
+    del p
 
     f = lambda fn: fn(A16_ell.col_ind, A16_ell.values, B16)  # noqa: E731
     shape = (f"A ELL {tuple(A16_ell.col_ind.shape)} x dense B "
@@ -892,9 +866,9 @@ def main() -> int:
     stats = {}
     headline_ms = _check_network(stats, time_ms, dev)
     H = ell(a32)
-    headline_ms.update(_check_kernels(bt.multiclass_planned(
+    _check_kernels(bt.multiclass_planned(
         H, H, assemble="bcsr", pregather=True, run_override=8), stats,
-        "headline", time_ms, dev))
+        "headline", time_ms, dev)
     skew = headline.build_skew_matrix()
     S = ell(skew)
     _check_kernels(bt.multiclass_planned(S, S, assemble="bcsr"), stats,

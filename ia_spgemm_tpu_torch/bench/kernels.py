@@ -77,7 +77,7 @@ PROFILE_NAMES = {"K1": "k1_expand_sort_compress", "K2": "k2_expand_sort",
                  "K9": "k9_expand_sort_lr_dd", "K10": "k10_compress_dd",
                  "K12": "k12_hash"}
 # the network kernels whose output is the sorted row, not the compress
-SORTED_CASES = ("K8", "K9")
+SORTED_CASES = ("K2", "K8", "K9")
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -335,9 +335,36 @@ def _ragged_cases(call, source):
                                out_w=w, **kw),
                        gather_bytes(call.run, avT))
             continue
+        yield Case("K2", source, shape, partial(K.expand_sort, g, avT, **kw),
+                   partial(K.expand_sort_plain, g, avT, **kw),
+                   gather_bytes(call.run, avT))
         key, val = K.expand_sort(g, avT, **kw)
         for compact in (True, False):
             yield _k3_case(source, shape, key, val, w, w, compact)
+
+
+def _flat_cases(source, X):
+    """K2, K3 on K2's rows and K7a on the flat plan of X @ X (float32,
+    width above FUSED_MAX_WIDTH): the kernels of spgemm_auto's bitonic
+    pick and of the serve lane."""
+    from ia_spgemm_tpu_torch.ops import bitonic as bt
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    plan = bt.plan_bitonic(X, X)
+    g, avT = bt._expand_gather_emajor(X.col_ind, X.values, X.col_ind,
+                                      X.values, run=plan.run,
+                                      chunks=plan.chunks)
+    kw = dict(ka=avT.shape[0], run=plan.run, width=plan.width,
+              start_kk=2 * plan.run)
+    shape = f"{source} rows={X.nrows} width={plan.width} run={plan.run}"
+    read = gather_bytes(plan.run, avT)
+    yield Case("K2", source, shape, partial(K.expand_sort, g, avT, **kw),
+               partial(K.expand_sort_plain, g, avT, **kw), read)
+    key, val = K.expand_sort(g, avT, **kw)
+    yield _k3_case(source, shape, key, val, plan.width, plan.width)
+    del key, val
+    yield Case("K7a", source, shape,
+               partial(K.expand_sort_packed, g, avT, **kw),
+               partial(K.expand_sort_packed_plain, g, avT, **kw), read)
 
 
 def _cols_cases(source, key, val, *, width, start_kk, out_w):
@@ -379,6 +406,7 @@ def network_cases(dev, m=HEADLINE_ROWS):
     H = ell(a64)
     yield from _ragged_cases(bt.multiclass_planned(
         H, H, assemble="bcsr", pregather=True, run_override=8), "headline")
+    yield from _flat_cases("headline flat", H)
     del H
     skew = headline.build_skew_matrix()
     S = ell(skew)
@@ -433,6 +461,13 @@ def check_case(c, got, want) -> float:
     of max(1, max|C|); K8 and K9 (the sorted slab) sorted keys exactly
     and their run sums within the same. Returns the largest value
     error."""
+    if c.kernel == "K7a":
+        import torch
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("K7a sorted packed keys differ from the "
+                                 "plain version")
+        return 0.0
     dtype = str(want[1].dtype)[6:]
     if c.kernel in SORTED_CASES:
         return _check_sorted(got, want, want[0].shape[1], dtype, c.kernel)
@@ -443,7 +478,7 @@ def _measure_network(dev) -> dict:
     """Each network case against its plain version, then its call ms,
     host us and kernel us, and its bytes bound."""
     from ia_spgemm_tpu_torch.bench.harness import time_ms
-    out = {"K1": [], "K3": [], "K8": [], "K9": []}
+    out = {"K1": [], "K2": [], "K3": [], "K7a": [], "K8": [], "K9": []}
     for c in network_cases(dev):
         got, want = c.call(), c.plain()
         err = check_case(c, got, want)

@@ -54,7 +54,7 @@ import numpy as np
 
 _KERNEL = re.compile(r"\bk(?:[1-6]|7[ab]|8|9|1[0-3])_[a-z_]+")
 ROUTES = ("multiclass_pg", "slab", "compensated", "global", "hybrid",
-          "serve", "hash", "dense_row", "bitonic_f64", "multiclass_f64",
+          "serve", "bitonic", "hash", "dense_row", "bitonic_f64", "multiclass_f64",
           "ring", "dist")
 DIST_SHARDS = 4   # the ring / dist routes' shards, all on the one card
 # the dense-row route's default size: dense B + C = 2.1 GB, within the
@@ -92,7 +92,7 @@ def _plan(route: str, m: int, dev):
         call = lambda: bitonic.spgemm_bitonic(  # noqa: E731
             H, H, plan, value_mode="bf16", compact=False)
         detail = {"width": plan.width, "run": plan.run}
-    elif route == "bitonic_f64":
+    elif route in ("bitonic", "bitonic_f64"):
         H = convert.csr_to_ell(A, check_guard=False)
         plan = bitonic.plan_bitonic(H, H)
         call = lambda: bitonic.spgemm_bitonic(H, H, plan)  # noqa: E731

@@ -360,19 +360,25 @@ def test_gather_bytes_counts_the_lanes_k1_reads(run, pack):
 
 def test_k1_k3_cases_rehearse_on_cpu():
     """bench.kernels.network_cases (the shapes at which chip_smoke.py
-    phase 3 and bench/kernels.py hold K1, K3, K8 and K9) at m = 1024 on
-    the CPU: every source gives its cases, and each case's wrapper call
-    (the plain version on the CPU) equals its plain call: (col, val, nnz)
-    for K1 and K3, the sorted (key, val) for K8 and K9."""
+    phase 3 and bench/kernels.py hold K1-K3, K7a, K8 and K9) at m = 1024
+    on the CPU: every source gives its cases, and each case's wrapper
+    call (the plain version on the CPU) equals its plain call: (col, val,
+    nnz) for K1 and K3, the sorted (key, val) for K2, K8 and K9, the
+    sorted packed keys for K7a."""
     from ia_spgemm_tpu_torch.bench import kernels as KB
     sources = {}
     for c in KB.network_cases(torch.device("cpu"), m=1024):
         sources.setdefault(c.source.split(" run=")[0], set()).add(c.kernel)
         got, want = c.call(), c.plain()
-        assert len(got) == (2 if c.kernel in KB.SORTED_CASES else 3)
-        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        if c.kernel == "K7a":
+            assert torch.equal(got, want)
+        else:
+            assert len(got) == (2 if c.kernel in KB.SORTED_CASES else 3)
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
         assert c.read_bytes > 0
-    assert sources == {"headline": {"K1", "K3"}, "skew": {"K1", "K3"},
+    assert sources == {"headline": {"K1", "K2", "K3"},
+                       "skew": {"K1", "K2", "K3"},
+                       "headline flat": {"K2", "K3", "K7a"},
                        "headline slabs": {"K3", "K8", "K9"},
                        "headline f64": {"K3"},
                        "skew x band f64": {"K3"},
