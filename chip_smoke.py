@@ -11,18 +11,20 @@ prints no result line:
 2. build: compiles csrc/*.cu for sm_90a, one nvcc per source, in
    parallel (ia_spgemm_tpu_torch/_build.py);
 3. kernels against their plain PyTorch versions on the card, on the
-   inputs the main paths give them: first K1, K3, K8 and K9 at every
+   inputs the main paths give them: first K1-K3, K7a, K8 and K9 at every
    case of ia_spgemm_tpu_torch.bench.kernels.network_cases (the one
    definition of the register network's shapes, which bench/kernels.py
-   measures too: K1 on the headline's and the skew matrix's classes, K8
-   and K9 on the headline's slab plan, sorted keys exactly and run sums
-   within tolerance, K3 on the rows that K2, K8 and K6 sort for the
-   inputs named next); then K2 and K4 on the headline's width classes
-   and the skew matrix's wide classes, K10 on K9's sorted slabs, K7a
-   + K7b on the headline's flat plan (width 1024, run 32; sorted packed
-   keys bit-identical), K11 on build_matrix(m=16384) (A as ELL times
-   dense B, 16384 x 16384; bit for bit, and its float64 instance bit for
-   bit on build_matrix(m=4096)), K12 on the headline ELL pair (Ka = Kb =
+   measures too: K1 on the headline's and the skew matrix's classes, K2
+   on their 1024 classes (from the headline's pregathered g, and from
+   the B table through the skew class's fragment index) and on the
+   headline's flat plan (width 1024, run 32, from the table), K8 and K9
+   on the headline's slab plan, sorted keys exactly and run sums within
+   tolerance; K7a on the flat plan, sorted packed keys bit-identical; K3
+   on the rows that K2, K8 and K6 sort for the inputs named next); then
+   K4 on the skew matrix's wide classes, K10 on K9's sorted slabs, K7b
+   on K7a's sorted keys of the flat plan, K11 on build_matrix(m=16384)
+   (A as ELL times dense B, 16384 x 16384; bit for bit, and its float64
+   instance bit for bit on build_matrix(m=4096)), K12 on the headline ELL pair (Ka = Kb =
    29, H = 2048; each row's slots compared sorted by column); K5 and K6
    (float64) on the float64 headline's chunked width classes, K5, K6 and
    K4 (float64) on the skew x band classes, K6 on the flat float64
@@ -40,19 +42,19 @@ prints no result line:
    torch.sparse.mm for K11, K1 and K12, torch.roll for K13), and the
    bound (what the kernel must read, once, and its outputs written once
    at 3.35 TB/s, or K11's float32 operations at 67 TFLOP/s, whichever
-   is longer; of g, the gather kernels K1, K2 and K7a read only each
-   fragment's 2 * run lanes: bench.kernels.gather_bytes; K8 and K9 read
-   each table half a fragment names once, and mt, avT and lrT:
-   bench.kernels.slab_read_bytes); K13 also into receivers passed in
+   is longer; of g, the gather kernels K1 and K2 read only each
+   fragment's 2 * run lanes: bench.kernels.gather_bytes; the table
+   sources of K2, K7a, K8 and K9 read each table half a fragment names
+   once, and the fragment index, avT and (K8, K9) lrT:
+   bench.kernels.table_read_bytes); K13 also into receivers passed in
    (the ring's way), with the host's microseconds per call
    (time.perf_counter around unsynchronised calls) beside each
    CUDA-event time and the kernel's own device time (torch.profiler);
    the kernels of bench.kernels.PROFILE_NAMES (K1-K3, K5, K7a, K7b,
    K8-K10, K12) with the same two beside each shape's CUDA-event time (a
-   kernel_split JSON line); then
-   cuSPARSE's CSR @ CSR of the headline (torch.sparse.mm), the library
-   time of K12 and of K1 (beside the headline's K1 launches; that plan
-   also launches K2 + K3);
+   kernel_split JSON line); then cuSPARSE's CSR @ CSR of the headline
+   (torch.sparse.mm), the library time of K12 and of K1 (beside the
+   headline's K1 launches; that plan also launches K2 + K3);
 4. headline: bench.headline at m=32768 (nnz 7,086,306, checksum within
    1e-4 of scipy, scipy's sparsity pattern exactly);
 5. skew: the width-class route on a row-skewed matrix whose classes need
@@ -460,22 +462,18 @@ def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
     from ia_spgemm_tpu_torch.bench.headline import build_matrix
     from ia_spgemm_tpu_torch.formats import convert
     from ia_spgemm_tpu_torch.formats.types import CSR
-    from ia_spgemm_tpu_torch.ops import bitonic as bt
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.ops import dense_row_kernels as DK
     from ia_spgemm_tpu_torch.ops import hash_kernels as HK
     from ia_spgemm_tpu_torch.ops import hash_spgemm
 
-    plan = bt.plan_bitonic(H, H)
+    plan, ops, kw = KB.flat_operands(H)
     if (plan.width, plan.run, plan.chunks) != (1024, 32, 1):
         raise AssertionError(f"headline flat plan {plan}")
-    g, avT = bt._expand_gather_emajor(H.col_ind, H.values, H.col_ind,
-                                      H.values, run=plan.run)
     ka = H.max_nnz_per_row
     shape = f"headline flat rows={H.nrows} width={plan.width} run={plan.run}"
-    p = K.expand_sort_packed(g, avT, ka=ka, run=plan.run, width=plan.width,
-                             start_kk=2 * plan.run)
-    del g, avT
+    p = K.expand_sort_packed(*ops, **kw)
+    del ops
     for compact in (False, True):
         f = lambda fn: fn(p, width=plan.width,  # noqa: E731
                           out_w=plan.width, compact=compact)

@@ -1,4 +1,4 @@
-"""K1, K3, K4, K6, K8, K9, K11 and K13 on the card at the shapes of
+"""K1-K4, K6, K7a, K8, K9, K11 and K13 on the card at the shapes of
 ``chip_smoke.py`` phase 3, on inputs made from a seed: for each, the
 wrapper's call time (CUDA events, median of 20), the host's microseconds
 per call (``time.perf_counter`` around unsynchronised calls), the
@@ -6,20 +6,24 @@ kernel's own device time per launch (``torch.profiler``), and beside
 them the PyTorch call computing the same function (``torch.sort`` of the
 keys, ``torch.sparse.mm``, two ``torch.roll``s). Every output is checked
 against the plain version first (structure exact, values within 1e-5 /
-1e-12 of max(1, max|C|); K6's, K8's and K9's sorted keys exactly and
-their run sums; K11 and K13 bit for bit).
+1e-12 of max(1, max|C|); K2's, K6's, K8's and K9's sorted keys exactly
+and their run sums; K7a's sorted packed keys, K11 and K13 bit for bit).
 
     python -m ia_spgemm_tpu_torch.bench.kernels [--json PATH]
 
 Prints one JSON line: the card's name and power limit, then one entry per
-shape. K1's, K3's, K8's and K9's cases are ``network_cases``, which
-``chip_smoke.py`` phase 3 also runs: K1 on the headline's and the skew
-matrix's width classes up to FUSED_MAX_WIDTH (the tuned 512), K3 on the
-rows K2, K8 and K6 sort for the main paths' 1024-slot rows, K8 and K9 on
-the headline's slab plan; each beside its bytes bound (what the kernel
-must read, once, and its outputs written once, at 3.35 TB/s;
-``gather_bytes`` for K1, ``slab_read_bytes`` for K8 and K9). K4's and
-K6's inputs are rows in their
+shape. K1's, K2's, K3's, K7a's, K8's and K9's cases are
+``network_cases``, which ``chip_smoke.py`` phase 3 also runs: K1 on the
+headline's and the skew matrix's width classes up to FUSED_MAX_WIDTH (the
+tuned 512), K2 on their 1024 classes (the headline's from its pregathered
+g, the skew matrix's from the table) and on the headline's flat plan
+(from the table), K7a on that flat plan, K3 on the rows K2, K8 and K6
+sort for the main paths' 1024-slot rows, K8 and K9 on the headline's
+slab plan; each beside its bytes bound (what the kernel must read, once,
+and its outputs written once, at 3.35 TB/s; ``gather_bytes`` for K1 and
+K2 on g, ``table_read_bytes`` for the table sources of K2, K7a, K8 and
+K9). K7a also at 8 and 16 slots a thread on the flat plan
+(``k7a_slots``). K4's and K6's inputs are rows in their
 input layout (sorted runs of start_kk / 2 slots, ascending and
 descending in turn; keys uniform below 32768, a fifth SENTINEL); K11's A
 is ``build_matrix(m=16384)`` as ELL (16384, 29) times itself dense;
@@ -30,9 +34,9 @@ receivers hopped into the other set).
 
 ``PROFILE_NAMES`` names the kernels whose own device time (and host us
 per call) is recorded at each shape, here and in ``chip_smoke.py`` phase
-3: the register network's K1, K3, K8 and K9, and the shared-memory
-kernels still queued for a redesign (K2, K5, K7a, K7b, K10, K12), whose
-calls sit near the host floor of a wrapper call at small shapes.
+3: the register network's K1-K3, K7a, K8 and K9, and the kernels still
+queued for a redesign (K5, K7b, K10, K12), whose calls sit near the host
+floor of a wrapper call at small shapes.
 """
 
 from __future__ import annotations
@@ -230,7 +234,7 @@ def _nbytes(*ts) -> int:
 
 
 def gather_bytes(run, avT) -> int:
-    """Bytes a fragment-gather kernel (K1, K2, K7a) must read: of each of
+    """Bytes a fragment-gather kernel (K1, K2 on g) must read: of each of
     the avT.shape[0] x avT.shape[1] fragments its run columns and run
     value bits (one half of the fragment's 4 * run lanes of g, the
     forward half for even fragments and the reversed half for odd; the
@@ -239,31 +243,33 @@ def gather_bytes(run, avT) -> int:
     return avT.numel() * 2 * run * 4 + _nbytes(avT)
 
 
-def slab_read_bytes(table, mt, avT, lrT, run) -> int:
-    """Bytes K8 and K9 must read: mt, avT and lrT once, and of the packed
+def table_read_bytes(table, rT, run, *arrays) -> int:
+    """Bytes a table-source kernel (K2 and K7a from the wide table, K8
+    and K9 from the slab table) must read: the fragment index rT and the
+    arrays beside it (avT; K8 and K9 also lrT) once, and of the packed
     table each half (2 * run lanes: run columns and run value bits) that
-    some fragment reads, once: fragment e of mt reads table row mt[e] at
-    its forward half for even e and its reversed half for odd e (the fill
-    row of empty and padding slots included). The table stays in L2, so
-    this counts each read half once however many slabs read it."""
+    some fragment reads, once: fragment e reads table row rT[e] at its
+    forward half for even e and its reversed half for odd e (the fill row
+    of empty and padding slots included). The table stays in L2, so this
+    counts each read half once however many rows read it."""
     import torch
-    half = torch.arange(mt.shape[0], device=mt.device)[:, None] & 1
-    read = torch.unique(mt.long() * 2 + half).numel()
-    return read * 2 * run * table.element_size() + _nbytes(mt, avT, lrT)
+    half = torch.arange(rT.shape[0], device=rT.device)[:, None] & 1
+    read = torch.unique(rT.long() * 2 + half).numel()
+    return read * 2 * run * table.element_size() + _nbytes(rT, *arrays)
 
 
-def gather_inputs(call, i):
-    """(g, avT, kw) of class i of a ragged multiclass call, as K1 and K2
-    take them: the pregathered (lane-packed) g, or the table rows of the
-    class's fragments."""
+def class_inputs(call, i):
+    """(src, avT, kw) of class i of a ragged multiclass call, as K2 takes
+    them (``_multiclass_fn``): the pregathered (lane-packed) g, or the
+    table with the class's fragment index (kw["rT"]; K1 takes the gather
+    of its rows, ``table_gather``)."""
     from ia_spgemm_tpu_torch.ops import bitonic as bt
     run, w = call.run, call.widths[i]
-    pack = bt._pg_pack(run, w) if call.pregather else 1
-    g = call.frags[i] if call.pregather else call.table[
-        call.frags[i].reshape(-1).long()].reshape(
-            call.kas[i], call.counts[i], call.table.shape[1])
-    return g, call.avts[i], dict(ka=call.kas[i], run=run, width=w,
-                                 start_kk=2 * run, pack=pack)
+    kw = dict(ka=call.kas[i], run=run, width=w, start_kk=2 * run)
+    if call.pregather:
+        return call.frags[i], call.avts[i], dict(kw,
+                                                 pack=bt._pg_pack(run, w))
+    return call.table, call.avts[i], dict(kw, rT=call.frags[i])
 
 
 def chunked_class_rows(call, i):
@@ -286,6 +292,18 @@ def flat_rows(X, Y):
                               width=plan.width, run=plan.run,
                               chunks=plan.chunks)
     return plan, key, val
+
+
+def flat_operands(X):
+    """The flat plan of X @ X (float32) and its table-source operands
+    ((table, rT, avT), kw), as the serve lane and the flat route's K2 take
+    them."""
+    from ia_spgemm_tpu_torch.ops import bitonic as bt
+    plan = bt.plan_bitonic(X, X)
+    ops = bt._flat_table(X.col_ind, X.values, X.col_ind, X.values,
+                         run=plan.run, chunks=plan.chunks)
+    return plan, ops, dict(ka=ops[1].shape[0], run=plan.run,
+                           width=plan.width, start_kk=2 * plan.run)
 
 
 def slab_operands(p):
@@ -325,9 +343,12 @@ def _ragged_cases(call, source):
     for i, w in enumerate(call.widths):
         if w > bt.TRANSPOSED_MAX_WIDTH:
             continue
-        g, avT, kw = gather_inputs(call, i)
+        src, avT, kw = class_inputs(call, i)
         shape = f"{source} width={w} rows={call.counts[i]} run={call.run}"
         if w <= bt.FUSED_MAX_WIDTH:
+            rT = kw.pop("rT", None)
+            g = src if rT is None else K.table_gather(src, rT)
+            kw.setdefault("pack", 1)
             yield Case("K1", source, f"{shape} pack={kw['pack']}",
                        partial(K.expand_sort_compress, g, avT, out_w=w,
                                **kw),
@@ -335,36 +356,35 @@ def _ragged_cases(call, source):
                                out_w=w, **kw),
                        gather_bytes(call.run, avT))
             continue
-        yield Case("K2", source, shape, partial(K.expand_sort, g, avT, **kw),
-                   partial(K.expand_sort_plain, g, avT, **kw),
-                   gather_bytes(call.run, avT))
-        key, val = K.expand_sort(g, avT, **kw)
+        read = (gather_bytes(call.run, avT) if "rT" not in kw else
+                table_read_bytes(src, kw["rT"], call.run, avT))
+        yield Case("K2", source,
+                   f"{shape} {'table' if 'rT' in kw else 'gather'}",
+                   partial(K.expand_sort, src, avT, **kw),
+                   partial(K.expand_sort_plain, src, avT, **kw), read)
+        key, val = K.expand_sort(src, avT, **kw)
         for compact in (True, False):
             yield _k3_case(source, shape, key, val, w, w, compact)
 
 
 def _flat_cases(source, X):
     """K2, K3 on K2's rows and K7a on the flat plan of X @ X (float32,
-    width above FUSED_MAX_WIDTH): the kernels of spgemm_auto's bitonic
-    pick and of the serve lane."""
-    from ia_spgemm_tpu_torch.ops import bitonic as bt
+    width above FUSED_MAX_WIDTH), from the table source: the kernels of
+    spgemm_auto's bitonic pick and of the serve lane."""
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
-    plan = bt.plan_bitonic(X, X)
-    g, avT = bt._expand_gather_emajor(X.col_ind, X.values, X.col_ind,
-                                      X.values, run=plan.run,
-                                      chunks=plan.chunks)
-    kw = dict(ka=avT.shape[0], run=plan.run, width=plan.width,
-              start_kk=2 * plan.run)
+    plan, ops, kw = flat_operands(X)
+    table, rT, avT = ops
     shape = f"{source} rows={X.nrows} width={plan.width} run={plan.run}"
-    read = gather_bytes(plan.run, avT)
-    yield Case("K2", source, shape, partial(K.expand_sort, g, avT, **kw),
-               partial(K.expand_sort_plain, g, avT, **kw), read)
-    key, val = K.expand_sort(g, avT, **kw)
+    read = table_read_bytes(table, rT, plan.run, avT)
+    yield Case("K2", source, f"{shape} table",
+               partial(K.expand_sort, table, avT, rT=rT, **kw),
+               partial(K.expand_sort_plain, table, avT, rT=rT, **kw), read)
+    key, val = K.expand_sort(table, avT, rT=rT, **kw)
     yield _k3_case(source, shape, key, val, plan.width, plan.width)
     del key, val
     yield Case("K7a", source, shape,
-               partial(K.expand_sort_packed, g, avT, **kw),
-               partial(K.expand_sort_packed_plain, g, avT, **kw), read)
+               partial(K.expand_sort_packed, *ops, **kw),
+               partial(K.expand_sort_packed_plain, *ops, **kw), read)
 
 
 def _cols_cases(source, key, val, *, width, start_kk, out_w):
@@ -380,16 +400,19 @@ def _cols_cases(source, key, val, *, width, start_kk, out_w):
 
 
 def network_cases(dev, m=HEADLINE_ROWS):
-    """The register network's phase-3 cases (K1, K3, K8, K9), one at a
-    time, so that the float64 rows of one shape are freed before the
+    """The register network's phase-3 cases (K1-K3, K7a, K8, K9), one at
+    a time, so that the float64 rows of one shape are freed before the
     next is built: K1 on the headline's classes (pregathered, run 8) and
-    the skew matrix's; K8 and K9 on the headline's slab plan (the slab
-    and compensated routes); K3 on the rows that K2 sorts for their 1024
-    classes, that K8 sorts on the headline's slab plan, and that K6 sorts
-    for the float64 headline's and the skew x band float64 chunked 1024
-    classes and on the float64 headline's and the float32 wide x band
-    flat plans. ``m`` is the headline's rows (a smaller m rehearses the
-    cases on the CPU)."""
+    the skew matrix's, K2 on their 1024 classes (the pregathered g; the
+    table); K2 and K7a on the headline's flat plan (width 1024, run 32,
+    the table: spgemm_auto's bitonic pick and the serve lane); K8 and K9
+    on the headline's slab plan (the slab and compensated routes); K3 on
+    the rows that K2 sorts for those 1024 classes and the flat plan, that
+    K8 sorts on the headline's slab plan, and that K6 sorts for the
+    float64 headline's and the skew x band float64 chunked 1024 classes
+    and on the float64 headline's and the float32 wide x band flat plans.
+    ``m`` is the headline's rows (a smaller m rehearses the cases on the
+    CPU)."""
     from ia_spgemm_tpu_torch.bench import headline
     from ia_spgemm_tpu_torch.formats import convert
     from ia_spgemm_tpu_torch.formats.types import CSR
@@ -417,7 +440,7 @@ def network_cases(dev, m=HEADLINE_ROWS):
     p = slab.plan_slab_csr(A, A).plan
     ops, kw = slab_operands(p)
     shape = f"headline slabs={p.n_slabs} width={p.width} run={p.run}"
-    read = slab_read_bytes(*ops, p.run)
+    read = table_read_bytes(*ops[:2], p.run, *ops[2:])
     for name, fn, plain in (
             ("K8", SK.expand_sort_lr, SK.expand_sort_lr_plain),
             ("K9", SK.expand_sort_lr_dd, SK.expand_sort_lr_dd_plain)):
@@ -495,6 +518,37 @@ def _measure_network(dev) -> dict:
     return out
 
 
+def _measure_k7a_slots(dev) -> list:
+    """K7a at 8 and 16 slots a thread on the headline's flat plan: the
+    sorted packed keys bit for bit against the plain version, call ms and
+    kernel us each."""
+    import torch
+
+    from ia_spgemm_tpu_torch.bench import headline
+    from ia_spgemm_tpu_torch.bench.harness import time_ms
+    from ia_spgemm_tpu_torch.formats import convert
+    from ia_spgemm_tpu_torch.formats.types import CSR
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    A = CSR.from_scipy(headline.build_matrix().astype(np.float32),
+                       device=dev)
+    plan, ops, kw = flat_operands(convert.csr_to_ell(A, check_guard=False))
+    want = K.expand_sort_packed_plain(*ops, **kw)
+    out = []
+    for slots in (8, 16):
+        call = partial(K.expand_sort_packed, *ops, slots=slots, **kw)
+        got = call()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K7a slots={slots} differs from the "
+                                 "plain version")
+        out.append({"shape": f"headline flat rows={A.shape[0]} "
+                             f"width={plan.width} run={plan.run}",
+                    "slots": slots, "call_ms": time_ms(call, dev, 2, 20),
+                    "kernel_us": kernel_us(call, PROFILE_NAMES["K7a"])})
+        print(json.dumps(out[-1]), file=sys.stderr, flush=True)
+    return out
+
+
 def measure(dev) -> dict:
     import torch
 
@@ -502,8 +556,8 @@ def measure(dev) -> dict:
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
 
-    out = {**_measure_network(dev), "K4": [], "K6": [], "K11": [],
-           "K13": []}
+    out = {**_measure_network(dev), "k7a_slots": _measure_k7a_slots(dev),
+           "K4": [], "K6": [], "K11": [], "K13": []}
     for label, m, width, start_kk, dtype in K4_SHAPES:
         key, val = (t.to(dev) for t in k4_rows(m, width, start_kk, dtype))
         call = lambda: K.sort_compress_rows(  # noqa: E731

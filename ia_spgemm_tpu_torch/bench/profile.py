@@ -6,8 +6,9 @@
 Routes: ``multiclass_pg`` (default; the headline route, planned as
 ``bench/headline.py`` plans it), ``slab``, ``compensated`` (the
 compensated slab pipeline), ``global``, ``serve`` (the bf16 lane,
-``spgemm_bitonic(value_mode="bf16", compact=False)`` on the flat plan)
-and ``hash`` (``spgemm_hash`` -> ``compact_ell`` -> ``ell_to_csr``) on
+``spgemm_bitonic(value_mode="bf16", compact=False)`` on the flat plan:
+K7a + K7b), ``bitonic`` (the float32 flat ``spgemm_bitonic``, K2 + K3:
+the route of ``spgemm_auto``'s bitonic pick) and ``hash`` (``spgemm_hash`` -> ``compact_ell`` -> ``ell_to_csr``) on
 the headline matrix ``build_matrix(m)``, ``dense_row`` (A as ELL times
 dense B) on ``build_matrix(m)`` with m = 16384 by default, and ``hybrid``
 on ``build_hybrid_matrix(m)``; C = A @ A in float32. ``bitonic_f64``

@@ -2,14 +2,15 @@
 //
 // Counterparts of the Pallas kernels in ia_spgemm_tpu/ops/bitonic.py:
 //   K1 ia_k1_expand_sort_compress  <- _expand_sort_compress_kernel_t (:1034)
-//   K2 ia_k2_expand_sort           <- _expand_sort_kernel_t          (:977)
+//   K2 ia_k2_expand_sort[_table]   <- _expand_sort_kernel_t          (:977)
 //   K3 ia_k3_compress[_f64]        <- _compress_kernel_t             (:523)
 //   K4 ia_k4_sort_compress_rows[_f64] <- _kernel                     (:241)
 //   K5 ia_k5_sort_compress[_f64]   <- _fused_kernel_t                (:657)
 //   K6 ia_k6_sort[_f64]            <- _sort_only_kernel_t            (:346)
 //   K7a ia_k7a_expand_sort_packed  <- _expand_sort_kernel_packed     (:1056)
 //   K7b ia_k7b_compress_packed     <- _compress_kernel_packed        (:1086)
-// (an _f64 entry is the float64-value instance of the same kernel)
+// (an _f64 entry is the float64-value instance of the same kernel; K2's
+// _table entry reads the B table through rT instead of the gather g)
 //
 // They compute what the Pallas kernels compute, not how: each owns whole
 // output rows, sorts a row's (key, value) products with a bitonic network
@@ -19,27 +20,31 @@
 // (width, 128-row) transposed tiles are gone. Two designs, on the
 // building blocks of sort_common.cuh:
 //
-// - The register network (building block 4): K1, K3, K4 and K6 (and K8,
+// - The register network (building block 3): K1-K4, K6 and K7a (and K8,
 //   K9 in slab.cu). A row of W slots is held E = 8 (16 at W = 16384)
-//   slots a thread in registers;
-//   strides below 32E need no barrier, rows of at most 32E slots share a
-//   128-thread block, and the compress is a segmented scan over warp
-//   shuffles. K1 gathers its products straight into registers
-//   (expand_slots) and sorts and compresses them; K3
-//   compresses rows K2, K6 or K8 sorted, with no sort; K4 sorts and
-//   compresses pre-expanded rows (the wide classes, the ring's shards); K6
-//   sorts them only, for K3. Bound: bytes (read the row or its fragments
-//   once, write out_w slots once, at 3.35 TB/s); the network leaves them
-//   instruction-bound, a few times above it.
-// - The shared-memory network (building blocks 1-3): K2, K5, K7a/b (and
-//   K10 in slab.cu). One thread block owns one output row, keeps its
-//   `width` products in shared memory, sorts them with one block barrier
-//   per stride (log2(w)*(log2(w)+1)/2 passes over 8*w bytes), and
-//   compresses them with one block-wide scan; the barriers and the few
-//   threads per block (w/2), not bytes, bound them. K7 (the bf16 serve
-//   lane) moves one int32 key per product through the network instead of
-//   a (key, value) pair. Moving them to the register network is later
-//   work.
+//   slots a thread in registers; strides below 32E need no barrier, rows
+//   of at most 32E slots share a 128-thread block, and the compress is a
+//   segmented scan over warp shuffles. K1 gathers its products straight
+//   into registers (expand_slots) and sorts and compresses them; K2 does
+//   the same without the compress, from K1's gather g where the plan
+//   pregathered it and otherwise straight from the wide B table through
+//   the fragment index rT (TableIn, K8's source without slab rows), so
+//   the flat route and the serve lane write no gathered copy of the
+//   table; K3 compresses rows K2, K6 or K8 sorted, with no sort; K4 sorts
+//   and compresses pre-expanded rows (the wide classes, the ring's
+//   shards); K6 sorts them only, for K3; K7a (the bf16 serve lane) packs
+//   each of K2's table-source slots into one int32 key and sorts the keys
+//   alone (value type NoVal: no value shuffles, half the shared slots).
+//   Bound: bytes (read the row or its fragments once, write out_w slots
+//   once, at 3.35 TB/s); the network leaves them instruction-bound, a few
+//   times above it.
+// - The shared-memory network (building blocks 1-2): K5 and K7b (and K10
+//   in slab.cu). One thread block owns one output row, keeps its `width`
+//   products in shared memory, sorts them with one block barrier per
+//   stride (log2(w)*(log2(w)+1)/2 passes over 8*w bytes) where it sorts
+//   (K5), and compresses them with one block-wide scan; the barriers and
+//   the few threads per block (w/2), not bytes, bound them. Moving them
+//   to the register network is later work.
 //
 // K5 and K6 take rows the torch expand (ops/bitonic.py _expand_ell) has
 // already written to device memory: (m, width) int32 keys and float32 or
@@ -59,7 +64,7 @@ namespace {
 
 constexpr int kMaxDevices = 64;
 
-// Shared memory of the shared-memory network (K2, K5, K7): values + keys
+// Shared memory of the shared-memory network (K5, K7b): values + keys
 // + 32 warp totals + 1 block total (values first, so a float64 lane stays
 // 8-byte aligned)
 template <typename V>
@@ -67,25 +72,7 @@ inline size_t smem_bytes(int width) {
   return (size_t)width * (sizeof(V) + sizeof(int)) + 33 * sizeof(int);
 }
 
-// ---- K2, K5: the shared-memory network -------------------------------
-
-__global__ void k2_expand_sort(const int32_t* __restrict__ g,
-                               const float* __restrict__ avT,
-                               int* __restrict__ out_k,
-                               float* __restrict__ out_v, int m, int ka,
-                               int lanes, int run, int pack, int width,
-                               int start_kk) {
-  extern __shared__ int smem[];
-  int* k = smem;
-  float* v = reinterpret_cast<float*>(smem + width);
-  const int row = blockIdx.x;
-  expand_row(g, avT, k, v, row, m, ka, lanes, run, pack, width);
-  block_sort(k, v, width, start_kk);
-  for (int p = threadIdx.x; p < width; p += blockDim.x) {
-    out_k[(size_t)row * width + p] = k[p];
-    out_v[(size_t)row * width + p] = v[p];
-  }
-}
+// ---- K5: the shared-memory network ---------------------------------------
 
 // One row of (m, width) keys and values from device memory into shared
 // memory laid out as smem_bytes<V> says: returns the keys; *v gets the
@@ -123,11 +110,11 @@ __global__ void k5_sort_compress(const int* __restrict__ key,
                k + width);
 }
 
-// ---- K1, K3, K4, K6: the register network (building block 4) -------------
-// The rows, their sources (RowsIn, GatherIn), loads and stores are
-// sort_common.cuh's (row_net_rows). Bound on this card: bytes, read the
-// row (K1: its fragments and A values) once and write out_w slots, at
-// 3.35 TB/s.
+// ---- K1-K4, K6, K7a: the register network (building block 3) -------------
+// The rows, their sources (RowsIn, GatherIn, TableIn), loads and stores
+// are sort_common.cuh's (row_net_rows). Bound on this card: bytes, read
+// the row (K1, K2, K7a: its fragments and A values) once and write out_w
+// slots, at 3.35 TB/s.
 
 // The kernels, one instance per (E, launch bound): E = 16 at width 16384
 // (1024 threads), 8 below, the launch bound the widest row the instance
@@ -142,6 +129,19 @@ k1_expand_sort_compress(GatherIn in, int* __restrict__ out_col,
                         int rows_per_block, int vec_out) {
   row_net_rows<float, E, true, NetOut::kCompact>(
       in, out_col, out_val, nnz, m, width, start_kk, out_w, rows_per_block,
+      vec_out);
+}
+
+// K2: expand + sort without the compress, from the gather g (GatherIn) or
+// the B table (TableIn); the sorted row goes out as it is, for K3. nnz is
+// unused.
+template <int E, int kMaxThreads, typename In>
+__global__ void __launch_bounds__(kMaxThreads)
+k2_expand_sort(In in, int* __restrict__ out_k, float* __restrict__ out_v,
+               int* __restrict__ nnz, int m, int width, int start_kk,
+               int out_w, int rows_per_block, int vec_out) {
+  row_net_rows<float, E, true, NetOut::kSorted>(
+      in, out_k, out_v, nnz, m, width, start_kk, out_w, rows_per_block,
       vec_out);
 }
 
@@ -180,21 +180,6 @@ k6_sort_rows(RowsIn<V> in, int* __restrict__ out_k, V* __restrict__ out_v,
                                             vec_out);
 }
 
-// The kernel of a (value type, E, launch bound, sort, output, source):
-// K1 for the gather, K3 without the sort, K6 for the sorted row, K4.
-template <typename V, int E, int kMaxThreads, bool kSort, NetOut kOut,
-          typename In>
-auto net_kernel() {
-  if constexpr (std::is_same_v<In, GatherIn>)
-    return &k1_expand_sort_compress<E, kMaxThreads>;
-  else if constexpr (!kSort)
-    return &k3_compress<V, E, kMaxThreads, kOut>;
-  else if constexpr (kOut == NetOut::kSorted)
-    return &k6_sort_rows<V, E, kMaxThreads>;
-  else
-    return &k4_sort_compress_rows<V, E, kMaxThreads>;
-}
-
 // ---- K7: the bf16 serve lane ---------------------------------------------
 // (col | bf16(product)) in one int32 key, the JAX package's _pack_colval
 // (:498) bit for bit, on uint32 so every shift is logical and the
@@ -209,34 +194,57 @@ __device__ __forceinline__ int pack_colval(int c, float prod) {
   return (int)(((uint32_t)c << 16) | enc);
 }
 
-// K7a: K2's expand (one fragment per table row, no lane packing), each
-// product packed into its key, then the key-only network. The row holds
-// alternating ascending / descending runs, as in K1/K2, so the merge
-// starts at start_kk = 2*run. Shared memory: width keys, half of K2's.
-__global__ void k7a_expand_sort_packed(const int32_t* __restrict__ g,
-                                       const float* __restrict__ avT,
-                                       int* __restrict__ out_p, int m,
-                                       int ka, int lanes, int run,
-                                       int width, int start_kk) {
-  extern __shared__ int smem[];
-  const int row = blockIdx.x;
-  for (int p = threadIdx.x; p < width; p += blockDim.x) {
-    int key = kSentinel;
-    const int e = p / run;
-    if (e < ka) {
-      const int r = p - e * run;
-      const int32_t* src = g + ((size_t)e * m + row) * lanes +
-                           ((e & 1) ? 2 * run : 0);
-      const int c = src[r];
-      if (c >= 0)
-        key = pack_colval(c, __fmul_rn(avT[(size_t)e * m + row],
-                                       __int_as_float(src[run + r])));
-    }
-    smem[p] = key;
-  }
-  block_sort_keys(smem, width, start_kk);
-  for (int p = threadIdx.x; p < width; p += blockDim.x)
-    out_p[(size_t)row * width + p] = smem[p];
+// K7a's source: the table source's (column, float32 product) slots, each
+// packed into one key (SENTINEL stays SENTINEL); no value rides along.
+struct PackedIn {
+  TableIn<float> table;
+};
+
+template <int E>
+__device__ __forceinline__ void load_slots(int (&k)[E], NoVal (&)[E],
+                                           const PackedIn& in, int m,
+                                           int width, int row, int base) {
+  float v[E];
+  load_slots<E>(k, v, in.table, m, width, row, base);
+#pragma unroll
+  for (int r = 0; r < E; ++r)
+    k[r] = k[r] == kSentinel ? kSentinel : pack_colval(k[r], v[r]);
+}
+
+// K7a: K2's table-source expand, each product packed into its key, then
+// the key-only network (NoVal). The row holds alternating ascending /
+// descending runs, as in K1/K2, so the merge starts at start_kk = 2*run;
+// the sorted keys go out as they are, for K7b. out_v and nnz are unused.
+template <int E, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads)
+k7a_expand_sort_packed(PackedIn in, int* __restrict__ out_p,
+                       NoVal* __restrict__ out_v, int* __restrict__ nnz,
+                       int m, int width, int start_kk, int out_w,
+                       int rows_per_block, int vec_out) {
+  row_net_rows<NoVal, E, true, NetOut::kSorted>(
+      in, out_p, out_v, nnz, m, width, start_kk, out_w, rows_per_block,
+      vec_out);
+}
+
+// The kernel of a (value type, E, launch bound, sort, output, source):
+// K1 and K2 for the gather and the table, K7a for the packed table, K3
+// without the sort, K6 for the sorted row, K4.
+template <typename V, int E, int kMaxThreads, bool kSort, NetOut kOut,
+          typename In>
+auto net_kernel() {
+  if constexpr (std::is_same_v<In, PackedIn>)
+    return &k7a_expand_sort_packed<E, kMaxThreads>;
+  else if constexpr (!std::is_same_v<In, RowsIn<V>>) {
+    if constexpr (kOut == NetOut::kCompact)
+      return &k1_expand_sort_compress<E, kMaxThreads>;
+    else
+      return &k2_expand_sort<E, kMaxThreads, In>;
+  } else if constexpr (!kSort)
+    return &k3_compress<V, E, kMaxThreads, kOut>;
+  else if constexpr (kOut == NetOut::kSorted)
+    return &k6_sort_rows<V, E, kMaxThreads>;
+  else
+    return &k4_sort_compress_rows<V, E, kMaxThreads>;
 }
 
 // K7b: unpack the sorted keys (_unpack_colval, :512: the bf16 bits widen
@@ -283,14 +291,14 @@ cudaError_t allow_smem(Kernel kernel, bool* done, size_t smem) {
   return err;
 }
 
-bool k2_smem_set[kMaxDevices],
-    k7a_smem_set[kMaxDevices], k7b_smem_set[kMaxDevices];
+bool k7b_smem_set[kMaxDevices];
 
-// The register network's launches (K1, K3, K4, K6): the instance for the
-// row's width (E = 16 at 16384, 8 below; the launch bound the widest row
-// it takes), rows of at most 32E slots (T <= 32 threads) sharing a
-// 128-thread block. Each instance raises its own shared-memory limit once
-// per device (the static local), to what its widest row needs.
+// The register network's launches (K1-K4, K6, K7a): the instance for the
+// row's width (E = 16 at 16384, 8 below, or 16 where K7a asks for it; the
+// launch bound the widest row it takes), rows of at most 32E slots
+// (T <= 32 threads) sharing a 128-thread block. Each instance raises its
+// own shared-memory limit once per device (the static local), to what
+// its widest row needs.
 template <typename V, int E, int kMaxThreads, bool kSort, NetOut kOut,
           typename In>
 int launch_row_net(const In& in, void* out_col, void* out_val, void* nnz,
@@ -301,7 +309,7 @@ int launch_row_net(const In& in, void* out_col, void* out_val, void* nnz,
   const int T = width / E;
   const int rows_per_block = net_rows_per_block<E>(width);
   const size_t smem =
-      net_smem_bytes<V>(width, rows_per_block, kSort, kOut);
+      net_smem_bytes<V, E>(width, rows_per_block, kSort, kOut);
   if (smem > 48 * 1024) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -310,7 +318,7 @@ int launch_row_net(const In& in, void* out_col, void* out_val, void* nnz,
     if (!done[dev]) {
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)net_smem_bytes<V>(kMaxThreads * E, 1, kSort, kOut));
+          (int)net_smem_bytes<V, E>(kMaxThreads * E, 1, kSort, kOut));
       if (err != cudaSuccess) return (int)err;
       done[dev] = true;
     }
@@ -359,6 +367,33 @@ int launch_k3(const void* key, const void* val, void* out_col,
                        stream);
 }
 
+// K7a: E = 16 slots a thread (slots = 16, the wrapper's default: half
+// the threads a row of E = 8, one stride fewer across warps; 0.268 ms
+// against 0.310 on the headline's flat plan, PERF.md), or 8 (16 at
+// 16384).
+int launch_k7a(const PackedIn& in, void* out_p, int m, int width,
+               int start_kk, int slots, void* stream) {
+#define IA_K7A(E_, THREADS)                                               \
+  launch_row_net<NoVal, E_, THREADS, true, NetOut::kSorted>(             \
+      in, out_p, nullptr, nullptr, m, width, start_kk, width, stream)
+  if (width == kMaxWidth) return IA_K7A(16, 1024);
+  if (slots == 16) return width <= 4096 ? IA_K7A(16, 256) : IA_K7A(16, 512);
+  if (width <= 2048) return IA_K7A(8, 256);
+  if (width == 4096) return IA_K7A(8, 512);
+  return IA_K7A(8, 1024);
+#undef IA_K7A
+}
+
+// The B table read through rT (ka, m) as a network source: key the
+// column (no slab rows); vector loads where the table is on the 16-byte
+// grid and its rows a multiple of 4 lanes long.
+TableIn<float> table_in(const void* table, const void* rT, const void* avT,
+                        int ka, int lanes, int run) {
+  return {(const int32_t*)table, (const int32_t*)rT, (const float*)avT,
+          nullptr, ka, lanes, run, 0,
+          ((uintptr_t)table & 15) == 0 && lanes % 4 == 0};
+}
+
 template <typename V>
 int launch_k5(const void* key, const void* val, void* out_col,
               void* out_val, void* nnz, int m, int width, int start_kk,
@@ -394,13 +429,20 @@ extern "C" int ia_k2_expand_sort(const void* g, const void* avT,
                                  void* out_k, void* out_v, int m, int ka,
                                  int lanes, int run, int pack, int width,
                                  int start_kk, void* stream) {
-  size_t smem = smem_bytes<float>(width);
-  cudaError_t err = allow_smem<float>(k2_expand_sort, k2_smem_set, smem);
-  if (err != cudaSuccess) return (int)err;
-  k2_expand_sort<<<m, threads_for(width), smem, (cudaStream_t)stream>>>(
-      (const int32_t*)g, (const float*)avT, (int*)out_k, (float*)out_v, m,
-      ka, lanes, run, pack, width, start_kk);
-  return (int)cudaGetLastError();
+  const GatherIn in{(const int32_t*)g, (const float*)avT, ka, lanes, run,
+                    pack, ((uintptr_t)g & 15) == 0 && lanes % 4 == 0};
+  return launch_rows<float, true, NetOut::kSorted>(
+      in, out_k, out_v, nullptr, m, width, start_kk, width, stream);
+}
+
+extern "C" int ia_k2_expand_sort_table(const void* table, const void* rT,
+                                       const void* avT, void* out_k,
+                                       void* out_v, int m, int ka,
+                                       int lanes, int run, int width,
+                                       int start_kk, void* stream) {
+  return launch_rows<float, true, NetOut::kSorted>(
+      table_in(table, rT, avT, ka, lanes, run), out_k, out_v, nullptr, m,
+      width, start_kk, width, stream);
 }
 
 extern "C" int ia_k3_compress(const void* key, const void* val,
@@ -471,19 +513,13 @@ extern "C" int ia_k6_sort_f64(const void* key, const void* val, void* out_k,
       width, stream);
 }
 
-extern "C" int ia_k7a_expand_sort_packed(const void* g, const void* avT,
-                                         void* out_p, int m, int ka,
-                                         int lanes, int run, int width,
-                                         int start_kk, void* stream) {
-  size_t smem = (size_t)width * sizeof(int);
-  cudaError_t err =
-      allow_smem<float>(k7a_expand_sort_packed, k7a_smem_set, smem);
-  if (err != cudaSuccess) return (int)err;
-  k7a_expand_sort_packed<<<m, threads_for(width), smem,
-                           (cudaStream_t)stream>>>(
-      (const int32_t*)g, (const float*)avT, (int*)out_p, m, ka, lanes, run,
-      width, start_kk);
-  return (int)cudaGetLastError();
+extern "C" int ia_k7a_expand_sort_packed(const void* table, const void* rT,
+                                         const void* avT, void* out_p,
+                                         int m, int ka, int lanes, int run,
+                                         int width, int start_kk, int slots,
+                                         void* stream) {
+  return launch_k7a(PackedIn{table_in(table, rT, avT, ka, lanes, run)},
+                    out_p, m, width, start_kk, slots, stream);
 }
 
 extern "C" int ia_k7b_compress_packed(const void* packed, void* out_col,

@@ -11,13 +11,13 @@
 // land adjacent.
 //
 // K8 and K9 run the register network of sort_common.cuh (building block
-// 4, row_net_rows with the SlabIn source): one slab per block of
-// width / 8 threads (128 at 1024), E = 8 slots a thread in registers.
-// Each thread reads its slots straight from the packed B table through
-// the fragment index mt: at run 8 and 32 one table row, one A value and
-// one slab-local row per thread, and two 16-byte loads (columns, value
-// bits); so no gathered copy of the table's rows is written to device
-// memory first. The table (one row of 4 * run lanes per B fragment) is
+// 3, row_net_rows with the TableIn source and its slab-local rows): one
+// slab per block of width / 8 threads (128 at 1024), E = 8 slots a thread
+// in registers. Each thread reads its slots straight from the packed B
+// table through the fragment index mt: at run 8 and 32 one table row, one
+// A value and one slab-local row per thread, and two 16-byte loads
+// (columns, value bits); so no gathered copy of the table's rows is
+// written to device memory first. The table (one row of 4 * run lanes per B fragment) is
 // small enough to stay in L2 while the slabs read it. A slab's fragment
 // slot e takes the reversed half of its fragment when e is odd (the JAX
 // rule), so the slab arrives as alternating sorted runs of length `run`
@@ -39,7 +39,7 @@
 // once, the sorted (S, width) keys and values written once, at 3.35
 // TB/s); the network's compares and shuffles keep K8 and K9 a few times
 // above that, as K1, K4 and K6 are. K10 is still the shared-memory
-// network of building blocks 2-3 (one block barrier per scan step), 12
+// network of building blocks 1-2 (one block barrier per scan step), 12
 // bytes a slot.
 
 #include "sort_common.cuh"
@@ -50,7 +50,7 @@ namespace {
 // slots; several slabs of 128 or 256 share a 128-thread block), the
 // sorted slab stored as it is (NetOut::kSorted).
 __global__ void __launch_bounds__(128)
-k8_expand_sort_lr(SlabIn<float> in, int* __restrict__ out_k,
+k8_expand_sort_lr(TableIn<float> in, int* __restrict__ out_k,
                   float* __restrict__ out_v, int S, int width, int start_kk,
                   int rows_per_block, int vec_out) {
   row_net_rows<float, 8, true, NetOut::kSorted>(
@@ -59,7 +59,7 @@ k8_expand_sort_lr(SlabIn<float> in, int* __restrict__ out_k,
 }
 
 __global__ void __launch_bounds__(128)
-k9_expand_sort_lr_dd(SlabIn<double> in, int* __restrict__ out_k,
+k9_expand_sort_lr_dd(TableIn<double> in, int* __restrict__ out_k,
                      double* __restrict__ out_v, int S, int width,
                      int start_kk, int rows_per_block, int vec_out) {
   row_net_rows<double, 8, true, NetOut::kSorted>(
@@ -100,14 +100,15 @@ int launch_slab(Kernel kernel, const void* table, const void* mt,
                 const void* avT, const void* lrT, void* out_k, void* out_v,
                 int S, int ka, int lanes, int run, int width, int n,
                 int start_kk, void* stream) {
-  const SlabIn<V> in{(const int32_t*)table, (const int32_t*)mt,
-                     (const float*)avT, (const int32_t*)lrT, ka, lanes, run,
-                     n, ((uintptr_t)table & 15) == 0 && lanes % 4 == 0};
+  const TableIn<V> in{(const int32_t*)table, (const int32_t*)mt,
+                      (const float*)avT, (const int32_t*)lrT, ka, lanes, run,
+                      n, ((uintptr_t)table & 15) == 0 && lanes % 4 == 0};
   const int rows_per_block = net_rows_per_block<8>(width);
   const int vec_out = (((uintptr_t)out_k | (uintptr_t)out_v) & 15) == 0;
   const int grid = (S + rows_per_block - 1) / rows_per_block;
   kernel<<<grid, width / 8 * rows_per_block,
-           net_smem_bytes<V>(width, rows_per_block, true, NetOut::kSorted),
+           net_smem_bytes<V, 8>(width, rows_per_block, true,
+                                NetOut::kSorted),
            (cudaStream_t)stream>>>(in, (int*)out_k, (V*)out_v, S, width,
                                    start_kk, rows_per_block, vec_out);
   return (int)cudaGetLastError();

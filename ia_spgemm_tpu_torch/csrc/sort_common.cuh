@@ -1,9 +1,9 @@
 // Building blocks shared by the sort kernels of bitonic.cu (K1-K7)
-// and slab.cu (K8-K10): the fragment expand into shared memory (K2),
-// the block bitonic sort in shared memory (key + value, or key only), and
-// the duplicate-sum / compaction of a sorted row (K2, K5, K7, K10); and
-// the register network with its row sources, its register compress and
-// its stores (K1, K3, K4, K6, K8, K9).
+// and slab.cu (K8-K10): the block bitonic sort in shared memory and the
+// duplicate-sum / compaction of a sorted row there (K5, K7b, K10); and
+// the register network with its row sources (pre-expanded rows, K1's
+// gather, the B table read through a fragment index), its register
+// compress and its stores (K1-K4, K6, K7a, K8, K9).
 //
 // Conventions shared with the JAX package: SENTINEL = INT32_MAX marks an
 // empty product slot and sorts last (signed int32 compares); empty output
@@ -14,6 +14,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -27,39 +29,7 @@ inline int threads_for(int width) {
   return t < 32 ? 32 : (t > 1024 ? 1024 : t);
 }
 
-// ---- building block 1: the expand into shared memory (K2) --------------
-// Fragment e of this row sits in packed row ep = e / pack of g at lane
-// offset (e % pack) * 4 * run as [col_f | val_f | col_rev | val_rev]; odd
-// fragments take the reversed half, so the row arrives as alternating
-// ascending / descending runs. Invalid columns (< 0) become SENTINEL with
-// value 0 by a select: padded class rows carry NaN A values, which a
-// multiply-by-mask would leak into the sums. (The register network's
-// expand, for K1, K8 and K9, is expand_slots below.)
-__device__ void expand_row(const int32_t* __restrict__ g,
-                           const float* __restrict__ avT, int* k, float* v,
-                           int row, int m, int ka, int lanes, int run,
-                           int pack, int width) {
-  for (int p = threadIdx.x; p < width; p += blockDim.x) {
-    int key = kSentinel;
-    float val = 0.f;
-    int e = p / run;
-    if (e < ka) {
-      int r = p - e * run;
-      int ep = e / pack;
-      int off = (e - ep * pack) * 4 * run + ((e & 1) ? 2 * run : 0);
-      const int32_t* src = g + ((size_t)ep * m + row) * lanes + off;
-      int c = src[r];
-      if (c >= 0) {
-        key = c;
-        val = avT[(size_t)e * m + row] * __int_as_float(src[run + r]);
-      }
-    }
-    k[p] = key;
-    v[p] = val;
-  }
-}
-
-// ---- building block 2: block bitonic sort in shared memory -------------
+// ---- building block 1: block bitonic sort in shared memory -------------
 // Ascending by key. Merging starts at block size start_kk: 2*run when the
 // row holds alternating sorted runs of length run, 2 for a full sort.
 template <typename V>
@@ -86,30 +56,7 @@ __device__ void block_sort(int* k, V* v, int width, int start_kk) {
   }
 }
 
-// Key-only form of block_sort, for packed (col | bf16 value) keys (the
-// JAX package's _bitonic_sort_t1): equal keys are equal values, so
-// nothing rides along.
-__device__ void block_sort_keys(int* k, int width, int start_kk) {
-  __syncthreads();
-  const int half = width >> 1;
-  for (int kk = start_kk; kk <= width; kk <<= 1) {
-    for (int s = kk >> 1; s > 0; s >>= 1) {
-      for (int t = threadIdx.x; t < half; t += blockDim.x) {
-        int i = ((t & ~(s - 1)) << 1) | (t & (s - 1));
-        int j = i + s;
-        bool asc = (i & kk) == 0;
-        int ki = k[i], kj = k[j];
-        if ((ki > kj) == asc && ki != kj) {
-          k[i] = kj;
-          k[j] = ki;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// ---- building block 3: compress -----------------------------------------
+// ---- building block 2: compress -----------------------------------------
 __device__ __forceinline__ bool emits(const int* k, int i, int width) {
   int key = k[i];
   return key != kSentinel && (i == width - 1 || k[i + 1] != key);
@@ -218,11 +165,12 @@ __device__ void compress_row(const int* k, const V* v, int width, int out_w,
   if (threadIdx.x == 0) *nnz = total;
 }
 
-// ---- building block 4: the register network (K1, K3, K4, K6, K8, K9) -----
+// ---- building block 3: the register network (K1-K4, K6-K9) ------------
 // A row of W slots (W a power of two, 128..16384) is held E slots per
 // thread in registers, T = W / E threads per row: E = 8, or 16 at 16384
-// so that a row stays at 1024 threads. In the normal layout row thread t
-// (lane = t % 32) holds slots t*E .. t*E + E - 1. A bitonic stage kk
+// so that a row stays at 1024 threads (and where K7a's launch asks for
+// it). In the normal layout row thread t (lane = t % 32) holds slots
+// t*E .. t*E + E - 1. A bitonic stage kk
 // compares strides kk/2 .. 1:
 //   - strides below E inside a thread (registers, no synchronisation);
 //   - strides E .. 16E between the lanes of a warp (__shfl_xor_sync);
@@ -235,11 +183,14 @@ __device__ void compress_row(const int* k, const V* v, int width, int out_w,
 //     the previous exchange, so one barrier per exchange suffices.
 // tests/test_torch_k4_network.py models this schedule step for step,
 // tests/test_torch_k1_k3_network.py K1's gather into registers and K3's
-// compress alone, tests/test_torch_k8_k9_network.py the slab source of K8
-// and K9. K6 is the sort without the compress, K3 the compress without
-// the sort, K1 the sort and compress of slots gathered straight into
-// registers, K8 / K9 the sort of a slab's slots gathered straight from
-// the packed B table.
+// compress alone, tests/test_torch_k8_k9_network.py the table source of
+// K8 and K9, tests/test_torch_k2_k7a_network.py that of K2 and K7a and
+// K7a's key-only sort. K6 is the sort without the compress, K3 the
+// compress without the sort, K1 the sort and compress of slots gathered
+// straight into registers, K2 the sort of slots gathered from K1's g or
+// from the B table, K7a the same with each slot packed into its key and
+// the keys sorted alone (value type NoVal), K8 / K9 the sort of a slab's
+// slots gathered straight from the packed B table.
 // Rows of at most 32E slots are one warp's work or less (T <= 32), sort
 // without shared memory, and share a block (rows_per_block).
 // Shared slots are XOR-swizzled within each 32-word line (swz), which
@@ -250,6 +201,21 @@ __device__ void compress_row(const int* k, const V* v, int width, int out_w,
 // blocks' shared memory, strides across blocks exchanged through
 // distributed shared memory) was measured for the launches of fewer rows
 // than SMs and lost to one block per row (PERF.md, PR 6).
+
+// The value type of a key-only network (K7a's packed keys): it carries
+// nothing, and every step that would move a value (a shuffle, a shared
+// slot, a store) is compiled out for it (kCarries).
+struct NoVal {
+  NoVal() = default;
+  __host__ __device__ constexpr NoVal(int) {}
+};
+
+template <typename V>
+constexpr bool kCarries = !std::is_same_v<V, NoVal>;
+
+// Bytes of one value in shared memory: none for NoVal.
+template <typename V>
+constexpr size_t kValBytes = kCarries<V> ? sizeof(V) : 0;
 
 template <int E>
 struct RowShape {
@@ -302,9 +268,11 @@ __device__ __forceinline__ void row_net_steps(int (&k)[E], V (&v)[E],
 #pragma unroll
     for (int r = 0; r < E; ++r) {
       const int pk = __shfl_xor_sync(0xffffffffu, k[r], m, L);
-      const V pv = __shfl_xor_sync(0xffffffffu, v[r], m, L);
       const int nk = keep_min ? min(k[r], pk) : max(k[r], pk);
-      v[r] = nk != k[r] ? pv : v[r];
+      if constexpr (kCarries<V>) {
+        const V pv = __shfl_xor_sync(0xffffffffu, v[r], m, L);
+        v[r] = nk != k[r] ? pv : v[r];
+      }
       k[r] = nk;
     }
   }
@@ -343,7 +311,7 @@ __device__ __forceinline__ void row_net_exchange(
       if ((r >> b) & 1) a_t ^= bt[b];
     const int a = to_transposed ? (an ^ r) : a_t;
     ks[a] = k[r];
-    vs[a] = v[r];
+    if constexpr (kCarries<V>) vs[a] = v[r];
   }
   __syncthreads();
 #pragma unroll
@@ -354,7 +322,7 @@ __device__ __forceinline__ void row_net_exchange(
       if ((r >> b) & 1) a_t ^= bt[b];
     const int a = to_transposed ? a_t : (an ^ r);
     k[r] = ks[a];
-    v[r] = vs[a];
+    if constexpr (kCarries<V>) v[r] = vs[a];
   }
 }
 
@@ -555,10 +523,11 @@ __device__ __forceinline__ int row_net_mark(int (&k)[E], V (&v)[E], int tid,
 // One row per block for rows of more than 32E slots (T = W / E threads),
 // several rows per 128-thread block below that. Each thread brings its E
 // slots into registers (RowsIn: 16-byte vector loads of the row, scalar
-// where a pointer is off the 16-byte grid; GatherIn, SlabIn: the expand,
-// expand_slots), sorts them there (K1, K4, K6, K8, K9), compresses them
-// (K1, K3, K4) and stores E slots of the row with 16-byte vector stores
-// where the row pointers and out_w allow them. K6, K8 and K9 store the
+// where a pointer is off the 16-byte grid; GatherIn, TableIn: the expand,
+// expand_slots; K7a's source packs each expanded slot into its key),
+// sorts them there (all but K3), compresses them (K1, K3, K4) and stores
+// E slots of the row with 16-byte vector stores where the row pointers
+// and out_w allow them. K2, K6, K7a (keys only), K8 and K9 store the
 // sorted row; K1, K3 and K4 the compacted row (staged through shared
 // memory: survivors written straight to their ranks would leave a warp's
 // stores scattered over 32 sectors each), its first out_w slots; K3 with
@@ -631,9 +600,9 @@ __device__ __forceinline__ void store4(double* p, const double* v) {
 }
 
 // The thread's slots base .. base + E - 1, those below out_w, into the
-// row's out_col / out_val. vec: both row pointers on the 16-byte grid
-// and out_w a multiple of 4, so that each quad of slots is wholly below
-// out_w or wholly past it.
+// row's out_col / out_val (no out_val for NoVal). vec: both row pointers
+// on the 16-byte grid and out_w a multiple of 4, so that each quad of
+// slots is wholly below out_w or wholly past it.
 template <int E, typename V>
 __device__ __forceinline__ void store_slots(int* out_col, V* out_val,
                                             const int (&k)[E],
@@ -645,14 +614,14 @@ __device__ __forceinline__ void store_slots(int* out_col, V* out_val,
       if (base + 4 * q >= out_w) continue;
       *reinterpret_cast<int4*>(out_col + base + 4 * q) =
           make_int4(k[4 * q], k[4 * q + 1], k[4 * q + 2], k[4 * q + 3]);
-      store4(out_val + base + 4 * q, v + 4 * q);
+      if constexpr (kCarries<V>) store4(out_val + base + 4 * q, v + 4 * q);
     }
   } else {
 #pragma unroll
     for (int r = 0; r < E; ++r) {
       if (base + r >= out_w) continue;
       out_col[base + r] = k[r];
-      out_val[base + r] = v[r];
+      if constexpr (kCarries<V>) out_val[base + r] = v[r];
     }
   }
 }
@@ -682,15 +651,15 @@ struct Frag {
   int key0;
 };
 
-// The expand into registers (K1, K8, K9): slot p of the row is position
-// p % run of fragment e = p / run, frag(e) its Frag. The key is key0 +
-// the column, the value product<V>(a, the B value); a column < 0 and
-// every slot past ka * run become SENTINEL / 0 by a select (padded class
-// rows and slabs carry NaN or junk A values). Where run is a multiple of
-// E, the thread's E slots are E neighbouring lanes of one fragment: one
-// frag(e), E columns and E value bits, by 16-byte loads where vec allows
-// (the source on the 16-byte grid, its rows a multiple of 4 lanes long);
-// else (run < E) each slot finds its own fragment.
+// The expand into registers (K1, K2, K7a, K8, K9): slot p of the row is
+// position p % run of fragment e = p / run, frag(e) its Frag. The key is
+// key0 + the column, the value product<V>(a, the B value); a column < 0
+// and every slot past ka * run become SENTINEL / 0 by a select (padded
+// class rows and slabs carry NaN or junk A values). Where run is a
+// multiple of E, the thread's E slots are E neighbouring lanes of one
+// fragment: one frag(e), E columns and E value bits, by 16-byte loads
+// where vec allows (the source on the 16-byte grid, its rows a multiple
+// of 4 lanes long); else (run < E) each slot finds its own fragment.
 template <int E, typename V, typename FragAt>
 __device__ __forceinline__ void expand_slots(int (&k)[E], V (&v)[E],
                                              int base, int run, int ka,
@@ -738,10 +707,11 @@ __device__ __forceinline__ void expand_slots(int (&k)[E], V (&v)[E],
 
 // Where a block's rows come from. RowsIn: (m, width) keys and values in
 // device memory (K3, K4, K6). GatherIn: K1's fragment gather g (ceil(ka /
-// pack), m, lanes) and A values avT (ka, m). SlabIn: K8's and K9's packed
-// B table (F_B + 1, lanes) read through the fragment index mt (ka, S),
-// with A values avT and slab-local rows lrT (ka, S). m counts rows (K8,
-// K9: slabs).
+// pack), m, lanes) and A values avT (ka, m) (K1, and K2 on pregathered
+// classes). TableIn: a packed B table (F + 1, lanes) read through the
+// fragment index rT (ka, m), with A values avT (ka, m) and, for K8 and
+// K9, slab-local rows lrT (ka, m) (K2 and K7a: none, lrT null). m counts
+// rows (K8, K9: slabs).
 template <typename V>
 struct RowsIn {
   const int* key;
@@ -757,11 +727,11 @@ struct GatherIn {
 };
 
 template <typename V>
-struct SlabIn {
+struct TableIn {
   const int32_t* table;
-  const int32_t* mt;
+  const int32_t* rT;
   const float* avT;
-  const int32_t* lrT;
+  const int32_t* lrT;   // null: the key is the column
   int ka, lanes, run, n;
   int vec;      // table on the 16-byte grid and lanes a multiple of 4
 };
@@ -791,27 +761,29 @@ __device__ __forceinline__ void load_slots(int (&k)[E], float (&v)[E],
   });
 }
 
-// K8 / K9: fragment e of slab `row` is table row mt[e, row] (F_B, the all
-// -1 fill row, for empty and padding slots) at lane offset 2 * run for
-// odd e; key lrT[e, row] * n + the column (the planner keeps it below
-// 2^31 - 1, so SENTINEL still sorts last). The product unsigned so that
-// a padding slot's junk row cannot overflow; its key is selected away.
+// K2, K7a, K8, K9: fragment e of row `row` is table row rT[e, row] (the
+// all -1 fill row for empty and padding slots) at lane offset 2 * run for
+// odd e. K2 / K7a: key the column. K8 / K9: key lrT[e, row] * n + the
+// column (the planner keeps it below 2^31 - 1, so SENTINEL still sorts
+// last), the product unsigned so that a padding slot's junk row cannot
+// overflow; its key is selected away.
 template <int E, typename V>
 __device__ __forceinline__ void load_slots(int (&k)[E], V (&v)[E],
-                                           const SlabIn<V>& in, int m,
+                                           const TableIn<V>& in, int m,
                                            int width, int row, int base) {
   expand_slots<E, V>(k, v, base, in.run, in.ka, in.vec != 0, [&](int e) {
     const size_t i = (size_t)e * m + row;
-    return Frag{in.table + (size_t)__ldg(in.mt + i) * in.lanes
+    return Frag{in.table + (size_t)__ldg(in.rT + i) * in.lanes
                     + ((e & 1) ? 2 * in.run : 0),
                 __ldg(in.avT + i),
-                (int)((unsigned)__ldg(in.lrT + i) * (unsigned)in.n)};
+                in.lrT ? (int)((unsigned)__ldg(in.lrT + i) * (unsigned)in.n)
+                       : 0};
   });
 }
 
-// What a network kernel leaves in its outputs: the sorted row (K6, K8,
-// K9), the compacted row's first out_w slots (K1, K3, K4), or each
-// survivor at its sorted slot (K3's compact=False).
+// What a network kernel leaves in its outputs: the sorted row (K2, K6,
+// K7a, K8, K9), the compacted row's first out_w slots (K1, K3, K4), or
+// each survivor at its sorted slot (K3's compact=False).
 enum class NetOut { kSorted, kCompact, kInPlace };
 
 // Rows per block: rows of at most 32E slots (T <= 32 threads) share a
@@ -823,16 +795,17 @@ inline int net_rows_per_block(int width) {
 }
 
 // Shared memory of a block of the register network: the compress's
-// scratch first (K1, K3, K4), then W value and W key slots per row where
-// the sort exchanges through them (rows of more than a warp) or the
-// compress stages the compacted row.
-template <typename V>
+// scratch first (K1, K3, K4), then W value (none for NoVal) and W key
+// slots per row where the sort exchanges through them (rows of more than
+// a warp) or the compress stages the compacted row.
+template <typename V, int E>
 inline size_t net_smem_bytes(int width, int rows_per_block, bool sort,
                              NetOut out) {
-  const int T = width / (width == kMaxWidth ? 16 : 8);
+  const int T = width / E;
   const bool slots = out == NetOut::kCompact || (sort && T > 32);
   return (out != NetOut::kSorted ? sizeof(RowScratch<V>) : 0)
-         + (slots ? (size_t)rows_per_block * width * (sizeof(V) + sizeof(int))
+         + (slots ? (size_t)rows_per_block * width
+                        * (kValBytes<V> + sizeof(int))
                   : 0);
 }
 
@@ -864,11 +837,12 @@ __device__ __forceinline__ void row_net_rows(
     }
   }
   RowScratch<V>* sc = reinterpret_cast<RowScratch<V>*>(smem_raw);
-  V* v_all = reinterpret_cast<V*>(
-      smem_raw + (kOut != NetOut::kSorted ? sizeof(RowScratch<V>) : 0));
-  int* k_all = reinterpret_cast<int*>(v_all + (size_t)rows_per_block * width);
-  V* vs = v_all + (size_t)seg * width;
-  int* ks = k_all + (size_t)seg * width;
+  unsigned char* slots =
+      smem_raw + (kOut != NetOut::kSorted ? sizeof(RowScratch<V>) : 0);
+  V* vs = reinterpret_cast<V*>(slots) + (size_t)seg * width;
+  int* ks = reinterpret_cast<int*>(
+      slots + (size_t)rows_per_block * width * kValBytes<V>)
+      + (size_t)seg * width;
   if constexpr (kSort) row_net_sort<E, V>(k, v, ks, vs, tid, start_kk, sh);
   int total = 0;
   if constexpr (kOut == NetOut::kCompact)

@@ -364,15 +364,16 @@ def _table_rows(a_col, kt: int) -> torch.Tensor:
                        kt).to(torch.int64)
 
 
-def _expand_gather_emajor(a_col, a_val, b_col, b_val, *, run: int,
-                          chunks: int = 1):
-    """Entry-major fragment gather for the flat route: g (ka_eff, m,
-    lanes) and avT (ka_eff, m)."""
-    m = a_col.shape[0]
+def _flat_table(a_col, a_val, b_col, b_val, *, run: int, chunks: int = 1):
+    """The flat route's table source: the wide B table, the fragment
+    index rT (ka_eff, m) int32 (entry e of row r reads table row rT[e,
+    r]) and avT (ka_eff, m). K1 takes g = table[rT]
+    (``bitonic_kernels.table_gather``); K2 and K7a read the table through
+    rT themselves."""
     wide, kt = _build_wide_table(b_col, b_val, run=run, chunks=chunks)
-    a_col, a_val, ka = _chunk_entries(a_col, a_val, chunks)
-    g = wide[_table_rows(a_col, kt).T.reshape(-1)]
-    return g.reshape(ka, m, wide.shape[1]), a_val.T.contiguous()
+    a_col, a_val, _ = _chunk_entries(a_col, a_val, chunks)
+    rT = _table_rows(a_col, kt).T.to(torch.int32).contiguous()
+    return wide, rT, a_val.T.contiguous()
 
 
 def _expand_rows(table, rows, av, *, run: int, width: int):
@@ -605,20 +606,25 @@ def _host_fragments(A, b_len_h, widths, run, startp, F_B, idx_h, kas,
 
 # ---------------------------------------------------------- kernel routing
 
-def _sort_compress_from_gather(g, avT, *, width: int, run: int, ka: int,
+def _sort_compress_from_gather(src, avT, *, width: int, run: int, ka: int,
                                start_kk: int, out_width: int | None = None,
-                               compact: bool = True, pack: int = 1):
-    """Expand-from-gather pipeline of one width class: K1 up to
-    FUSED_MAX_WIDTH (which always compacts, as in the JAX package), K2 +
-    K3 above. Returns (col (m, out_w), val, nnz (m, 1))."""
+                               compact: bool = True, pack: int = 1,
+                               rT=None):
+    """Expand-from-gather pipeline of one width class, from the gather
+    ``src`` = g, or (``rT`` given) the wide table ``src`` read through
+    the fragment index rT: K1 up to FUSED_MAX_WIDTH (which always
+    compacts, as in the JAX package; it takes g = table[rT]), K2 + K3
+    above (K2 reads the table itself). Returns (col (m, out_w), val, nnz
+    (m, 1))."""
     out_w = width if (out_width is None or not compact) \
         else min(out_width, width)
     if width <= FUSED_MAX_WIDTH:
+        g = src if rT is None else K.table_gather(src, rT)
         return K.expand_sort_compress(g, avT, ka=ka, run=run, width=width,
                                       start_kk=start_kk, out_w=out_w,
                                       pack=pack)
-    key, val = K.expand_sort(g, avT, ka=ka, run=run, width=width,
-                             start_kk=start_kk, pack=pack)
+    key, val = K.expand_sort(src, avT, ka=ka, run=run, width=width,
+                             start_kk=start_kk, pack=pack, rT=rT)
     return K.compress(key, val, width=width, out_w=out_w, compact=compact)
 
 
@@ -678,7 +684,6 @@ def _multiclass_fn(c: MulticlassCall):
     run = c.run
     start_kk = 2 * run
     kt = c.table.shape[0] - 1
-    lanes = c.table.shape[1]
     f32 = c.A.dtype == torch.float32 and c.B.dtype == torch.float32
     frags, avts = c.frags, c.avts
     if c.plan_device:
@@ -691,18 +696,18 @@ def _multiclass_fn(c: MulticlassCall):
             for i in range(len(c.widths))))
     cols_p, vals_p, nnz_p = [], [], []
     for i, w in enumerate(c.widths):
-        n = c.counts[i]
         out_c = min(c.out_w, w)
         if c.ragged:
             F_c, avT = c.kas[i], avts[i]
-            if w <= TRANSPOSED_MAX_WIDTH:
-                g = frags[i] if c.pregather else c.table[
-                    frags[i].reshape(-1).to(torch.int64)
-                ].reshape(F_c, n, lanes)
+            if w <= TRANSPOSED_MAX_WIDTH and c.pregather:
                 out = _sort_compress_from_gather(
-                    g, avT, width=w, run=run, ka=F_c, start_kk=start_kk,
-                    out_width=out_c,
-                    pack=_pg_pack(run, w) if c.pregather else 1)
+                    frags[i], avT, width=w, run=run, ka=F_c,
+                    start_kk=start_kk, out_width=out_c,
+                    pack=_pg_pack(run, w))
+            elif w <= TRANSPOSED_MAX_WIDTH:
+                out = _sort_compress_from_gather(
+                    c.table, avT, width=w, run=run, ka=F_c,
+                    start_kk=start_kk, out_width=out_c, rT=frags[i])
             else:
                 key, val = _expand_rows(c.table, frags[i].T, avT.T,
                                         run=run, width=w)
@@ -717,11 +722,10 @@ def _multiclass_fn(c: MulticlassCall):
                 # it) is a VMEM limit with no counterpart here, same
                 # results
                 ac_e, av_e, ka_e = _chunk_entries(ac, av, c.chunks)
-                rows = _table_rows(ac_e, kt)
-                g = c.table[rows.T.reshape(-1)].reshape(ka_e, n, lanes)
+                rT = _table_rows(ac_e, kt).T.to(torch.int32).contiguous()
                 out = _sort_compress_from_gather(
-                    g, av_e.T.contiguous(), width=w, run=run, ka=ka_e,
-                    start_kk=start_kk, out_width=out_c)
+                    c.table, av_e.T.contiguous(), width=w, run=run,
+                    ka=ka_e, start_kk=start_kk, out_width=out_c, rT=rT)
             else:
                 key, val = _expand_ell(ac, av, c.B.col_ind, c.B.values,
                                        width=w, run=run, chunks=c.chunks)
@@ -1042,12 +1046,12 @@ def spgemm_bitonic(A: ELL, B: ELL, plan: BitonicPlan | None = None,
             raise ValueError(
                 f"value_mode='bf16' packs columns into 15 bits; "
                 f"n={B.ncols} > 32768")
-        g, avT = _expand_gather_emajor(A.col_ind, A.values, B.col_ind,
-                                       B.values, run=plan.run,
-                                       chunks=plan.chunks)
+        table, rT, avT = _flat_table(A.col_ind, A.values, B.col_ind,
+                                     B.values, run=plan.run,
+                                     chunks=plan.chunks)
         out_w = plan.width if (out_width is None or not compact) \
             else min(out_width, plan.width)
-        p = K.expand_sort_packed(g, avT, ka=ka_eff, run=plan.run,
+        p = K.expand_sort_packed(table, rT, avT, ka=ka_eff, run=plan.run,
                                  width=plan.width, start_kk=2 * plan.run)
         col, val, nnz = K.compress_packed(p, width=plan.width, out_w=out_w,
                                           compact=compact)
@@ -1057,12 +1061,12 @@ def spgemm_bitonic(A: ELL, B: ELL, plan: BitonicPlan | None = None,
                    shape=(A.nrows, B.ncols))
     start_kk = 2 * plan.run
     if fused_expand:
-        g, avT = _expand_gather_emajor(A.col_ind, A.values, B.col_ind,
-                                       B.values, run=plan.run,
-                                       chunks=plan.chunks)
+        table, rT, avT = _flat_table(A.col_ind, A.values, B.col_ind,
+                                     B.values, run=plan.run,
+                                     chunks=plan.chunks)
         col, val, nnz = _sort_compress_from_gather(
-            g, avT, width=plan.width, run=plan.run, ka=ka_eff,
-            start_kk=start_kk, out_width=out_width, compact=compact)
+            table, avT, width=plan.width, run=plan.run, ka=ka_eff,
+            start_kk=start_kk, out_width=out_width, compact=compact, rT=rT)
     else:
         key, v = _expand_ell(A.col_ind, A.values, B.col_ind, B.values,
                              width=plan.width, run=plan.run,

@@ -17,7 +17,8 @@ K6 sort rows the torch expand (``ops/bitonic._expand_ell``) wrote to
 device memory, the JAX package's cols layout; K5 compresses them too, K6
 leaves that to K3. K3-K6 take float32 or float64 values (a float64 key /
 value pair launches the kernel's ``_f64`` instance) and return values of
-the same type; K1, K2 and K7 take float32.
+the same type; K1, K2 and K7 take float32. K2 reads either source below;
+K7a reads the table.
 
 (file:line of the JAX package.) Each wrapper checks its operands, then:
 on CUDA tensors it launches the hand-written kernel of
@@ -32,6 +33,14 @@ Layouts (row-major, one output row per matrix row):
   e // pack holds [col_f | val_bits_f | col_rev | val_bits_rev] of one B
   sub-run of length ``run`` at lane offset (e % pack) * 4 * run; col -1
   marks an empty slot. ``avT`` (ka, m) float32: the A value of fragment e.
+- or (K2, K7a) the wide B table ``table`` (F + 1, lanes) int32, one such
+  [col_f | val_bits_f | col_rev | val_bits_rev] row per B sub-run (lanes
+  >= 4 * run, a multiple of 4; the last row all -1, for empty slots) and
+  the fragment index ``rT`` (ka, m) int32: fragment e of row r is table
+  row rT[e, r], so that g = table[rT] at pack 1 (``table_gather``). The
+  kernels read the table through rT themselves, with no gathered copy of
+  its rows; the wrappers do not check that rT's values lie in the table,
+  which would need a device sync.
 - products of fragment e occupy slots [e*run, (e+1)*run) of the row, the
   reversed half for odd e, so the row holds alternating ascending and
   descending runs and the sort may start merging at ``start_kk = 2*run``.
@@ -77,6 +86,26 @@ def _check_tensor(name, t, dtype, ndim, device):
         raise ValueError(f"{name} on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_table(table, rT, avT, ka, run, width, index="rT"):
+    """A B table read through a fragment index (K2, K7a; K8 and K9 with
+    index "mt"): table (F, lanes) int32 with lanes >= 4 * run and a
+    multiple of 4, the index int32 and avT float32, both (ka, m), all on
+    avT's device."""
+    dev = avT.device
+    _check_tensor("table", table, torch.int32, 2, dev)
+    _check_tensor(index, rT, torch.int32, 2, dev)
+    _check_tensor("avT", avT, torch.float32, 2, dev)
+    if rT.shape != avT.shape or rT.shape[0] != ka:
+        raise ValueError(f"{index} {tuple(rT.shape)} / avT "
+                         f"{tuple(avT.shape)} must both be ({ka}, m)")
+    lanes = table.shape[1]
+    if table.shape[0] < 1 or lanes < 4 * run or lanes % 4:
+        raise ValueError(f"table shape {tuple(table.shape)}: want (F >= 1, "
+                         f"lanes >= {4 * run}, a multiple of 4)")
+    if ka * run > width:
+        raise ValueError(f"ka*run = {ka * run} > width {width}")
 
 
 def _check_gather(g, avT, ka, run, width, pack):
@@ -176,6 +205,13 @@ def _expand_plain(g, avT, ka, run, width, pack):
     return key.contiguous(), val.contiguous()
 
 
+def table_gather(table, rT):
+    """g = table[rT] (ka, m, lanes): the table rows rT names, K1's gather
+    at pack 1."""
+    ka, m = rT.shape
+    return table[rT.reshape(-1).long()].reshape(ka, m, table.shape[1])
+
+
 def _sort_plain(key, val):
     key, order = torch.sort(key, dim=1, stable=True)
     return key, torch.gather(val, 1, order)
@@ -219,8 +255,11 @@ def expand_sort_compress_plain(g, avT, *, ka, run, width, start_kk, out_w,
     return _compress_plain(*_sort_plain(key, val), out_w, True)
 
 
-def expand_sort_plain(g, avT, *, ka, run, width, start_kk, pack=1):
-    return _sort_plain(*_expand_plain(g, avT, ka, run, width, pack))
+def expand_sort_plain(src, avT, *, ka, run, width, start_kk, pack=1,
+                      rT=None):
+    if rT is not None:
+        src = table_gather(src, rT)
+    return _sort_plain(*_expand_plain(src, avT, ka, run, width, pack))
 
 
 def compress_plain(key, val, *, width, out_w, compact=True):
@@ -263,8 +302,9 @@ def _unpack_colval(p):
     return k, bits.to(torch.int32).view(torch.float32)
 
 
-def expand_sort_packed_plain(g, avT, *, ka, run, width, start_kk):
-    key, val = _expand_plain(g, avT, ka, run, width, 1)
+def expand_sort_packed_plain(table, rT, avT, *, ka, run, width, start_kk):
+    key, val = _expand_plain(table_gather(table, rT), avT, ka, run, width,
+                             1)
     p = torch.where(key != SENTINEL, _pack_colval(key.clamp(min=0), val),
                     SENTINEL)
     return torch.sort(p, dim=1).values
@@ -299,22 +339,35 @@ def expand_sort_compress(g, avT, *, ka: int, run: int, width: int,
     return col, val, nnz
 
 
-def expand_sort(g, avT, *, ka: int, run: int, width: int, start_kk: int,
-                pack: int = 1):
-    """K2: expand + sort without compress. Returns sorted (key, val),
-    each (m, width)."""
+def expand_sort(src, avT, *, ka: int, run: int, width: int,
+                start_kk: int, pack: int = 1, rT=None):
+    """K2: expand + sort without compress, from K1's gather ``src`` = g,
+    or (``rT`` given, pack 1) from the wide B table ``src`` read through
+    rT. Returns sorted (key, val), each (m, width)."""
     _check_width(width, start_kk)
-    _check_gather(g, avT, ka, run, width, pack)
+    if rT is None:
+        _check_gather(src, avT, ka, run, width, pack)
+    elif pack != 1:
+        raise ValueError(f"pack {pack}: the table source reads one "
+                         "fragment per table row")
+    else:
+        _check_table(src, rT, avT, ka, run, width)
     if avT.device.type == "cpu":
-        return expand_sort_plain(g, avT, ka=ka, run=run, width=width,
-                                 start_kk=start_kk, pack=pack)
+        return expand_sort_plain(src, avT, ka=ka, run=run, width=width,
+                                 start_kk=start_kk, pack=pack, rT=rT)
     _cuda_or_raise(avT)
     m = avT.shape[1]
     key = torch.empty((m, width), dtype=torch.int32, device=avT.device)
     val = torch.empty((m, width), dtype=torch.float32, device=avT.device)
     if m:
-        _launch("ia_k2_expand_sort", g, avT, key, val, m, ka, g.shape[2],
-                run, pack, width, start_kk, device=avT.device)
+        if rT is None:
+            _launch("ia_k2_expand_sort", src, avT, key, val, m, ka,
+                    src.shape[2], run, pack, width, start_kk,
+                    device=avT.device)
+        else:
+            _launch("ia_k2_expand_sort_table", src, rT, avT, key, val, m,
+                    ka, src.shape[1], run, width, start_kk,
+                    device=avT.device)
         expand_sort.launches += 1
     return key, val
 
@@ -396,24 +449,28 @@ def sort_only(key, val, *, width: int, start_kk: int):
     return k_s, v_s
 
 
-def expand_sort_packed(g, avT, *, ka: int, run: int, width: int,
-                       start_kk: int):
-    """K7a: the bf16 serve lane's expand + sort: each product packed
-    with its column into one int32 key, the keys sorted. ``g`` has one
-    fragment per table row (pack 1). Returns the sorted keys (m, width);
-    equal multisets sort to equal arrays, so they are the JAX package's
-    bit for bit."""
+def expand_sort_packed(table, rT, avT, *, ka: int, run: int, width: int,
+                       start_kk: int, slots: int = 16):
+    """K7a: the bf16 serve lane's expand + sort, from the wide B table
+    read through rT: each product packed with its column into one int32
+    key, the keys sorted. ``slots``: the kernel's slots a thread, 16 (the
+    faster on the headline's flat plan, PERF.md) or 8 (16 always at
+    width 16384). Returns the sorted keys (m, width); equal multisets sort
+    to equal arrays, so they are the JAX package's bit for bit."""
     _check_width(width, start_kk)
-    _check_gather(g, avT, ka, run, width, 1)
+    _check_table(table, rT, avT, ka, run, width)
+    if slots not in (8, 16):
+        raise ValueError(f"slots {slots} must be 8 or 16")
     if avT.device.type == "cpu":
-        return expand_sort_packed_plain(g, avT, ka=ka, run=run, width=width,
-                                        start_kk=start_kk)
+        return expand_sort_packed_plain(table, rT, avT, ka=ka, run=run,
+                                        width=width, start_kk=start_kk)
     _cuda_or_raise(avT)
     m = avT.shape[1]
     p = torch.empty((m, width), dtype=torch.int32, device=avT.device)
     if m:
-        _launch("ia_k7a_expand_sort_packed", g, avT, p, m, ka, g.shape[2],
-                run, width, start_kk, device=avT.device)
+        _launch("ia_k7a_expand_sort_packed", table, rT, avT, p, m, ka,
+                table.shape[1], run, width, start_kk, slots,
+                device=avT.device)
         expand_sort_packed.launches += 1
     return p
 

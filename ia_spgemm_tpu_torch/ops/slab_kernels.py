@@ -63,21 +63,11 @@ def _check_width(width: int, start_kk: int | None = None):
 
 
 def _check_slab_gather(table, mt, avT, lrT, ka, run, width, n):
-    dev = avT.device
-    BK._check_tensor("table", table, torch.int32, 2, dev)
-    BK._check_tensor("mt", mt, torch.int32, 2, dev)
-    BK._check_tensor("avT", avT, torch.float32, 2, dev)
-    BK._check_tensor("lrT", lrT, torch.int32, 2, dev)
-    S = avT.shape[1]
-    if not mt.shape == avT.shape == lrT.shape == (ka, S):
-        raise ValueError(f"mt {tuple(mt.shape)} / avT {tuple(avT.shape)} / "
-                         f"lrT {tuple(lrT.shape)} must all be ({ka}, S)")
-    lanes = table.shape[1]
-    if table.shape[0] < 1 or lanes < 4 * run or lanes % 4:
-        raise ValueError(f"table shape {tuple(table.shape)}: want (F >= 1, "
-                         f"lanes >= {4 * run}, a multiple of 4)")
-    if ka * run > width:
-        raise ValueError(f"ka*run = {ka * run} > width {width}")
+    BK._check_table(table, mt, avT, ka, run, width, index="mt")
+    BK._check_tensor("lrT", lrT, torch.int32, 2, avT.device)
+    if lrT.shape != avT.shape:
+        raise ValueError(f"lrT {tuple(lrT.shape)} / avT {tuple(avT.shape)} "
+                         f"must both be ({ka}, S)")
     if not 1 <= n < 2**31:
         raise ValueError(f"n {n} out of range")
 

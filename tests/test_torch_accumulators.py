@@ -41,7 +41,7 @@ from ia_spgemm_tpu_torch.ops import esc as tesc
 from ia_spgemm_tpu_torch.ops import hash_spgemm as thash
 from tests import fixtures
 from tests.torch_parity import (RUN, assert_same, assert_tables_match,
-                                assert_values_close, gather_inputs, jell,
+                                assert_values_close, jell, table_inputs,
                                 tell)
 
 
@@ -200,24 +200,25 @@ def test_packed_sort_keys_bit_identical_to_jax(ka):
     """K7a's plain version: the same multiset of packed keys, so the same
     sorted array, bit for bit (widths 128 and 1024; NaN A values on the
     empty rows are masked by column)."""
-    g, avT, width = gather_inputs(ka)
-    got = K.expand_sort_packed(g, avT, ka=ka, run=RUN, width=width,
+    table, rT, avT, width = table_inputs(ka)
+    got = K.expand_sort_packed(table, rT, avT, ka=ka, run=RUN, width=width,
                                start_kk=2 * RUN)
-    np.testing.assert_array_equal(got.numpy(),
-                                  _jax_packed_keys(g, avT, ka=ka,
-                                                   width=width))
+    np.testing.assert_array_equal(
+        got.numpy(), _jax_packed_keys(K.table_gather(table, rT), avT,
+                                      ka=ka, width=width))
 
 
 @pytest.mark.parametrize("compact", [True, False])
 def test_compress_packed_matches_jax(compact):
     """K7b's plain version against the JAX packed pipeline, compacted
     and with holes (out_width ignored when not compacting)."""
-    g, avT, width = gather_inputs(32, seed=5)
+    table, rT, avT, width = table_inputs(32, seed=5)
+    g = K.table_gather(table, rT)
     want = jbt._sort_compress_from_gather_packed(
         jnp.asarray(g.numpy()), jnp.asarray(avT.numpy()), width=width,
         run=RUN, ka=32, start_kk=2 * RUN, interpret=True, out_width=128,
         compact=compact)
-    p = K.expand_sort_packed(g, avT, ka=32, run=RUN, width=width,
+    p = K.expand_sort_packed(table, rT, avT, ka=32, run=RUN, width=width,
                              start_kk=2 * RUN)
     out_w = 128 if compact else width
     col, val, nnz = K.compress_packed(p, width=width, out_w=out_w,

@@ -35,11 +35,12 @@ def _bits(x):
     return int(x).bit_length() - 1
 
 
-def transposed_slot(p, width):
+def transposed_slot(p, width, E=None):
     """The row slot held at position p of the transposed layout: p's top
     wb bits and bottom wb bits swapped (an involution); rows of one warp
-    or less (wb <= 0) have none."""
-    n, e = _bits(width), _bits(elems_per_thread(width))
+    or less (wb <= 0) have none. E: slots a thread (elems_per_thread by
+    default; K7a may take 16 at any width)."""
+    n, e = _bits(width), _bits(E or elems_per_thread(width))
     wb = max(0, n - e - 5)
     lo_mask = (1 << wb) - 1
     lo = p & lo_mask
@@ -48,11 +49,11 @@ def transposed_slot(p, width):
     return (lo << (n - wb)) | mid | hi
 
 
-def network_schedule(width, start_kk):
+def network_schedule(width, start_kk, E=None):
     """K4's steps: ("exchange", layout) or ("compare", layout, j, dirbit):
     every position p with bit j clear meets p + j, ascending where
     p & dirbit == 0, positions counted in the named layout."""
-    E = elems_per_thread(width)
+    E = E or elems_per_thread(width)
     n, e = _bits(width), _bits(E)
     big = 32 * E
     steps = []
@@ -77,22 +78,22 @@ def network_schedule(width, start_kk):
     return steps
 
 
-def step_kind(width, j):
+def step_kind(width, j, E=None):
     """Where a compare of stride j (in its layout's positions) runs:
     inside a thread, or between lanes of one warp."""
-    E = elems_per_thread(width)
+    E = E or elems_per_thread(width)
     assert 1 <= j < 32 * E, (width, j)
     return "register" if j < E else "lane"
 
 
-def run_network(keys, vals, start_kk):
+def run_network(keys, vals, start_kk, E=None):
     """Apply the schedule to rows (m, W) of keys and values; returns them
     in the normal layout."""
     k, v = keys.copy(), vals.copy()
     m, width = k.shape
     p = np.arange(width)
-    P = transposed_slot(p, width)
-    for step in network_schedule(width, start_kk):
+    P = transposed_slot(p, width, E)
+    for step in network_schedule(width, start_kk, E):
         if step[0] == "exchange":
             k, v = k[:, P], v[:, P]     # P is its own inverse
             continue

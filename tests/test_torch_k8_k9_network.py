@@ -1,5 +1,6 @@
 """K8 and K9 on the register network (csrc/slab.cu, ``row_net_rows`` with
-the ``SlabIn`` source of csrc/sort_common.cuh), modelled in numpy: which
+the ``TableIn`` source of csrc/sort_common.cuh and its slab-local rows),
+modelled in numpy: which
 fragment slot, table row and lanes each thread and register reads
 straight from the packed B table through the fragment index mt, the key
 lr * n + col and the product each slot gets (float32 rounded once for
@@ -10,7 +11,7 @@ the .cu follows step for step; here the whole of K8 and K9 (slab source
 keys exactly and the same (key, value) pairs, at the slab widths 512 and
 1024 and runs 8 and 32; the source alone must give
 ``slab_kernels._expand_lr_plain``'s products bit for bit at every run
-1-32. ``bench.kernels.slab_read_bytes`` (the bytes K8's and K9's bound
+1-32. ``bench.kernels.table_read_bytes`` (the bytes K8's and K9's bound
 counts) is checked against the lanes the plain version reads.
 
 Layout: a slab of W slots is held E = 8 per thread, thread t holding
@@ -41,11 +42,11 @@ DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}
 
 
-def slot_map(width, run, ka):
+def slot_map(width, run, ka, E=None):
     """K8's / K9's source, per (thread, register): the fragment slot e,
     the column's lane in its table row, and whether the slot can hold a
     product (e < ka). Arrays of shape (T, E)."""
-    E = elems_per_thread(width)
+    E = E or elems_per_thread(width)
     p = np.arange(width).reshape(width // E, E)
     e = p // run
     return e, (e & 1) * 2 * run + p % run, e < ka
@@ -61,15 +62,17 @@ def product(a, bits, dtype):
     return a.astype(np.float64) * b.astype(np.float64)
 
 
-def slab_model(table, mt, avT, lrT, *, width, run, ka, n, dtype):
-    """load_slots for SlabIn, thread by thread as the kernel runs it:
+def slab_model(table, mt, avT, lrT, *, width, run, ka, n, dtype, E=None):
+    """load_slots for TableIn, thread by thread as the kernel runs it:
     where run is a multiple of E one fragment per thread (one mt, avT and
     lrT read, E neighbouring lanes for the columns and E for the value
-    bits), below that each slot its own fragment. Returns (key, val)
-    (S, width) in the normal layout."""
-    table, mt, avT, lrT = (x.numpy() for x in (table, mt, avT, lrT))
+    bits), below that each slot its own fragment. lrT None (K2, K7a):
+    the key is the column. Returns (key, val) (S, width) in the normal
+    layout."""
+    table, mt, avT = (x.numpy() for x in (table, mt, avT))
+    lrT = np.zeros(mt.shape, np.int32) if lrT is None else lrT.numpy()
     S = mt.shape[1]
-    E = elems_per_thread(width)
+    E = E or elems_per_thread(width)
     key = np.full((S, width), SENT, np.int64)
     val = np.zeros((S, width), dtype)
 
@@ -296,12 +299,12 @@ def test_slab_model_on_planned_operands(dtype):
 
 @pytest.mark.parametrize("run", [8, 32])
 def test_slab_read_bytes_counts_the_halves_k8_reads(run):
-    """bench.kernels.slab_read_bytes (the bytes K8's and K9's bound
+    """bench.kernels.table_read_bytes (the bytes K8's and K9's bound
     counts) is what the source reads: every table lane outside the
     halves some fragment slot reads (2 * run lanes: columns and value
     bits) may be overwritten without changing the plain version's
     products; overwriting the read lanes changes them; and the read
-    halves plus mt, avT and lrT are slab_read_bytes."""
+    halves plus mt, avT and lrT are table_read_bytes."""
     width = 512
     ka = width // run
     table, mt, avT, lrT, n = slab_fragments(6, ka, run, seed=run)
@@ -309,7 +312,7 @@ def test_slab_read_bytes_counts_the_halves_k8_reads(run):
     for e in range(ka):
         off = (e & 1) * 2 * run
         read[mt[e].numpy(), off:off + 2 * run] = True
-    assert KB.slab_read_bytes(table, mt, avT, lrT, run) == (
+    assert KB.table_read_bytes(table, mt, run, avT, lrT) == (
         read.sum() * 4 + 3 * mt.numel() * 4)
     args = (mt, avT, lrT, ka, run, width, n, torch.float32)
     want = SK._expand_lr_plain(table, *args)

@@ -28,7 +28,8 @@ from tests.torch_parity import (GATHER_CASES, GATHER_RUNS, RUN,
                                 cols_inputs, ell_pair, fragment_gather,
                                 gather_inputs, ill_conditioned,
                                 pack_fragments, slab_fragments,
-                                slab_operands, tell, value_rtol)
+                                slab_operands, table_fragments,
+                                table_inputs, tell, value_rtol)
 
 
 def _planned(make, **over):
@@ -542,18 +543,117 @@ def test_k7_kernels_match_plain(cuda_device, ka):
     """K7a's sorted packed keys equal the plain version's exactly (equal
     multisets sort to equal arrays); K7b's sums within tolerance, with
     and without compaction. Widths 128 and 1024."""
-    g, avT, width = gather_inputs(ka)
-    g, avT = g.to(cuda_device), avT.to(cuda_device)
+    *ops, width = table_inputs(ka)
+    ops = [x.to(cuda_device) for x in ops]
     kw = dict(ka=ka, run=RUN, width=width, start_kk=2 * RUN)
     n7 = K.expand_sort_packed.launches
-    p = K.expand_sort_packed(g, avT, **kw)
+    p = K.expand_sort_packed(*ops, **kw)
     assert K.expand_sort_packed.launches == n7 + 1
-    assert torch.equal(p, K.expand_sort_packed_plain(g, avT, **kw))
+    assert torch.equal(p, K.expand_sort_packed_plain(*ops, **kw))
     for compact, out_w in ((True, width), (True, 128), (False, width)):
         assert_kernel_outputs_match(
             K.compress_packed(p, width=width, out_w=out_w, compact=compact),
             K.compress_packed_plain(p, width=width, out_w=out_w,
                                     compact=compact))
+
+
+def _table_case(dev, m, width, run, *, kind="random", short=False,
+                unaligned=False, seed=0, pad_rows=2):
+    """K2's and K7a's table-source operands (tests.torch_parity.
+    table_fragments) on the card: ((table, rT, avT), kw); `unaligned`:
+    the table 4 bytes past a 16-byte boundary (the slot-by-slot loads)."""
+    ka = width // run - (3 if short else 0)
+    table, rT, avT = table_fragments(m, ka, run, kind=kind,
+                                     pad_rows=pad_rows,
+                                     seed=seed + width + run)
+    table = table.to(dev)
+    if unaligned:
+        buf = torch.empty(table.numel() + 1, dtype=torch.int32, device=dev)
+        t = buf[1:].view(table.shape)
+        t.copy_(table)
+        table = t
+        assert table.data_ptr() % 16 != 0
+    return (table, rT.to(dev), avT.to(dev)), dict(ka=ka, run=run,
+                                                  width=width,
+                                                  start_kk=2 * run)
+
+
+def _check_k2_sources(ops, kw):
+    """K2 from the table through rT, and from g = table[rT] (the gather
+    source), against the plain version: sorted keys exactly, run sums
+    within tolerance."""
+    table, rT, avT = ops
+    w = kw["width"]
+    pkey, pval = K.expand_sort_plain(table, avT, rT=rT, **kw)
+    want = K.compress_plain(pkey, pval, width=w, out_w=w)
+    for src, extra in ((table, dict(rT=rT)),
+                       (K.table_gather(table, rT), {})):
+        n2 = K.expand_sort.launches
+        key, val = K.expand_sort(src, avT, **kw, **extra)
+        assert K.expand_sort.launches == n2 + 1
+        assert torch.equal(key, pkey)
+        assert_kernel_outputs_match(
+            K.compress_plain(key, val, width=w, out_w=w), want)
+
+
+def _check_k7a(ops, kw, slots):
+    n7 = K.expand_sort_packed.launches
+    p = K.expand_sort_packed(*ops, slots=slots, **kw)
+    assert K.expand_sort_packed.launches == n7 + 1
+    assert torch.equal(p, K.expand_sort_packed_plain(*ops, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256, 512, 1024])
+@pytest.mark.parametrize("run", [8, 32])
+@pytest.mark.parametrize("kind", ["random", "one_key"])
+@pytest.mark.parametrize("short", [False, True])
+def test_k2_both_sources_every_width(cuda_device, width, run, kind, short):
+    """K2 from the table and from the gather at the widths up to
+    TRANSPOSED_MAX_WIDTH, runs 8 and 32, fragments all used or a few
+    short; columns up to 32767, sentinel-row fragments under NaN A
+    values, padding rows; 37 rows (several share a block below 512)."""
+    _check_k2_sources(*_table_case(cuda_device, 37, width, run, kind=kind,
+                                   short=short))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256, 512, 1024])
+@pytest.mark.parametrize("run", [8, 32])
+@pytest.mark.parametrize("slots", [8, 16])
+@pytest.mark.parametrize("kind", ["random", "one_key"])
+def test_k7a_every_width_run_and_slots(cuda_device, width, run, slots,
+                                       kind):
+    """K7a's sorted packed keys bit for bit at 8 and 16 slots a thread
+    (16 with run 8: a thread spans two fragments, slot by slot), widths
+    128-1024, runs 8 and 32; one key (column 32767) over whole rows."""
+    ops, kw = _table_case(cuda_device, 37, width, run, kind=kind)
+    _check_k7a(ops, kw, slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("m", [1, 13, 133])
+@pytest.mark.parametrize("slots", [8, 16])
+def test_k2_k7a_rows_sharing_a_block(cuda_device, width, m, slots):
+    """Rows of one warp or less share a 128-thread block: row counts
+    below, not a multiple of and above one block's rows."""
+    ops, kw = _table_case(cuda_device, m, width, 8, seed=m,
+                          pad_rows=min(2, m - 1))
+    _check_k2_sources(ops, kw)
+    _check_k7a(ops, kw, slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 1024])
+@pytest.mark.parametrize("run", [8, 32])
+def test_k2_k7a_table_off_the_grid(cuda_device, width, run):
+    """A table 4 bytes off the 16-byte grid: K2 and K7a read it slot by
+    slot and still match their plain versions."""
+    ops, kw = _table_case(cuda_device, 37, width, run, unaligned=True)
+    _check_k2_sources(ops, kw)
+    for slots in (8, 16):
+        _check_k7a(ops, kw, slots)
 
 
 def _k11_inputs(case, device):

@@ -20,6 +20,7 @@ import torch
 from ia_spgemm_tpu_torch.formats import convert as tconvert
 from ia_spgemm_tpu_torch.formats.types import CSR as TCSR
 from ia_spgemm_tpu_torch.ops import bitonic as tbt
+from ia_spgemm_tpu_torch.ops import bitonic_kernels as TK
 
 VALUE_RTOL = 1e-5
 F64_RTOL = 1e-12
@@ -109,17 +110,25 @@ def kernel_operands(ka, m, seed):
     return tell(mat(lens_a, 300)), tell(mat(lens_b, 300))
 
 
-def gather_inputs(ka, m=200, seed=0):
-    """The flat route's fragment gather: g (ka, m, 128), avT (ka, m) and
-    the width, with NaN A values on the empty rows (the kernels must mask
-    them by column, never by multiply)."""
+def table_inputs(ka, m=200, seed=0):
+    """The flat route's table source: the wide B table (kt + 1, 128),
+    the fragment index rT (ka, m) int32, avT (ka, m) and the width, with
+    NaN A values on the empty rows (the kernels must mask them by column,
+    never by multiply)."""
     A, B = kernel_operands(ka, m, seed)
     plan = tbt.plan_bitonic(A, B)
     assert plan.run == RUN and plan.chunks == 1
-    g, avT = tbt._expand_gather_emajor(A.col_ind, A.values, B.col_ind,
-                                       B.values, run=RUN)
+    table, rT, avT = tbt._flat_table(A.col_ind, A.values, B.col_ind,
+                                     B.values, run=RUN)
     avT[:, ::9] = float("nan")
-    return g, avT, plan.width
+    return table, rT, avT, plan.width
+
+
+def gather_inputs(ka, m=200, seed=0):
+    """The flat route's fragment gather g = table[rT] (ka, m, 128) of
+    table_inputs, avT (ka, m) and the width."""
+    table, rT, avT, width = table_inputs(ka, m, seed)
+    return TK.table_gather(table, rT), avT, width
 
 
 def cols_inputs(ka, dtype, m=200, seed=0):
@@ -354,3 +363,62 @@ def assert_tables_match(got, want, shape):
     assert_same(g.indptr, w.indptr, "indptr")
     assert_same(g.indices, w.indices, "indices")
     assert_values_close(g.data, w.data, "values")
+
+
+# bf16 bits of float32 products that K7a's pack caps at 0xFFFE (bits
+# 0xFFFF0000 .. 0xFFFF7FFF round to 0xFFFF) or whose rounding add wraps
+# past 2^32 (0xFFFF8000 and up): negative NaNs, which only a NaN B value
+# gives (a CPU multiply keeps its bits; the card's returns the canonical
+# NaN, so the card tests leave them out)
+CAP_BITS = (0xFFFF0000, 0xFFFF1234, 0xFFFF7FFF, 0xFFFF8000, 0xFFFFFFFF)
+MAX_COL = 32767   # the serve lane packs columns into 15 bits
+
+
+def table_fragments(m, ka, run, *, kind="random", pad_rows=2, seed=0,
+                    lanes=None):
+    """K2's and K7a's table-source operands built with numpy, in the
+    flat route's layout: (table (F + 1, lanes) int32, rT (ka, m) int32,
+    avT (ka, m) float32). Table row f holds up to `run` sorted distinct
+    columns of one B sub-run (forward: columns then -1; the reversed half
+    the same run backwards) and their value bits; row F is all -1, the
+    sentinel row. Columns come from few values, 0 and MAX_COL among them
+    (duplicate keys; the largest column the serve lane packs); every
+    fifth row is full and row 0 holds MAX_COL. Each row uses its first
+    few fragments (the rest read the sentinel row, as an A row's empty
+    slots do), a few more read it in between, and the last ``pad_rows``
+    rows read only it. Sentinel-row fragments carry NaN A values, which a
+    kernel must select away. kind "one_key": every table row holds
+    MAX_COL alone; "cap": B values of CAP_BITS in every table row."""
+    rng = np.random.default_rng(seed)
+    lanes = max(128, 4 * run) if lanes is None else lanes
+    F = max(8, ka)
+    pool = np.unique(np.concatenate(
+        [[0, MAX_COL], rng.integers(0, MAX_COL, 2 * run)]))
+    table = np.full((F + 1, lanes), -1, np.int32)
+    for f in range(F):
+        if kind == "one_key":
+            cols = np.array([MAX_COL])
+        else:
+            cnt = rng.integers(0, run + 1) if f % 5 else run
+            cols = np.sort(rng.choice(pool, size=cnt, replace=False))
+            if f == 0:
+                cols[-1] = MAX_COL
+        vals = rng.standard_normal(len(cols)).astype(np.float32).view(
+            np.int32)
+        if kind == "cap":
+            vals[:len(CAP_BITS)] = np.array(
+                CAP_BITS, np.uint32)[:len(vals)].view(np.int32)
+        row = table[f]
+        row[:len(cols)] = cols
+        row[run:run + len(cols)] = vals
+        row[2 * run:3 * run] = row[:run][::-1]
+        row[3 * run:4 * run] = row[run:2 * run][::-1]
+    used = rng.integers(1, ka + 1, m)
+    used[m - pad_rows:] = 0
+    slot = np.arange(ka)[:, None]
+    live = (slot < used[None, :]) & (rng.random((ka, m)) > 0.1)
+    rT = np.where(live, rng.integers(0, F, (ka, m)), F).astype(np.int32)
+    avT = rng.standard_normal((ka, m)).astype(np.float32)
+    avT[~live] = np.nan
+    return (torch.from_numpy(table), torch.from_numpy(rT),
+            torch.from_numpy(avT))
