@@ -49,7 +49,7 @@ SIGNATURES = {
         "ia_k5_sort_compress_f64": [_P] * 5 + [_I] * 4 + [_P],
         "ia_k6_sort": [_P] * 4 + [_I] * 3 + [_P],
         "ia_k6_sort_f64": [_P] * 4 + [_I] * 3 + [_P],
-        "ia_k7a_expand_sort_packed": [_P] * 4 + [_I] * 7 + [_P],
+        "ia_k7a_expand_sort_packed": [_P] * 4 + [_I] * 6 + [_P],
         "ia_k7b_compress_packed": [_P] * 4 + [_I] * 4 + [_P],
     },
     "dense_row": {"ia_k11_dense_row": [_P] * 4 + [_I] * 3 + [_P],

@@ -22,8 +22,7 @@ sort for the main paths' 1024-slot rows, K8 and K9 on the headline's
 slab plan; each beside its bytes bound (what the kernel must read, once,
 and its outputs written once, at 3.35 TB/s; ``gather_bytes`` for K1 and
 K2 on g, ``table_read_bytes`` for the table sources of K2, K7a, K8 and
-K9). K7a also at 8 and 16 slots a thread on the flat plan
-(``k7a_slots``). K4's and K6's inputs are rows in their
+K9). K4's and K6's inputs are rows in their
 input layout (sorted runs of start_kk / 2 slots, ascending and
 descending in turn; keys uniform below 32768, a fifth SENTINEL); K11's A
 is ``build_matrix(m=16384)`` as ELL (16384, 29) times itself dense;
@@ -518,37 +517,6 @@ def _measure_network(dev) -> dict:
     return out
 
 
-def _measure_k7a_slots(dev) -> list:
-    """K7a at 8 and 16 slots a thread on the headline's flat plan: the
-    sorted packed keys bit for bit against the plain version, call ms and
-    kernel us each."""
-    import torch
-
-    from ia_spgemm_tpu_torch.bench import headline
-    from ia_spgemm_tpu_torch.bench.harness import time_ms
-    from ia_spgemm_tpu_torch.formats import convert
-    from ia_spgemm_tpu_torch.formats.types import CSR
-    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
-    A = CSR.from_scipy(headline.build_matrix().astype(np.float32),
-                       device=dev)
-    plan, ops, kw = flat_operands(convert.csr_to_ell(A, check_guard=False))
-    want = K.expand_sort_packed_plain(*ops, **kw)
-    out = []
-    for slots in (8, 16):
-        call = partial(K.expand_sort_packed, *ops, slots=slots, **kw)
-        got = call()
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"K7a slots={slots} differs from the "
-                                 "plain version")
-        out.append({"shape": f"headline flat rows={A.shape[0]} "
-                             f"width={plan.width} run={plan.run}",
-                    "slots": slots, "call_ms": time_ms(call, dev, 2, 20),
-                    "kernel_us": kernel_us(call, PROFILE_NAMES["K7a"])})
-        print(json.dumps(out[-1]), file=sys.stderr, flush=True)
-    return out
-
-
 def measure(dev) -> dict:
     import torch
 
@@ -556,8 +524,8 @@ def measure(dev) -> dict:
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
 
-    out = {**_measure_network(dev), "k7a_slots": _measure_k7a_slots(dev),
-           "K4": [], "K6": [], "K11": [], "K13": []}
+    out = {**_measure_network(dev), "K4": [], "K6": [], "K11": [],
+           "K13": []}
     for label, m, width, start_kk, dtype in K4_SHAPES:
         key, val = (t.to(dev) for t in k4_rows(m, width, start_kk, dtype))
         call = lambda: K.sort_compress_rows(  # noqa: E731

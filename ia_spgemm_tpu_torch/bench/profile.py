@@ -8,8 +8,9 @@ Routes: ``multiclass_pg`` (default; the headline route, planned as
 compensated slab pipeline), ``global``, ``serve`` (the bf16 lane,
 ``spgemm_bitonic(value_mode="bf16", compact=False)`` on the flat plan:
 K7a + K7b), ``bitonic`` (the float32 flat ``spgemm_bitonic``, K2 + K3:
-the route of ``spgemm_auto``'s bitonic pick) and ``hash`` (``spgemm_hash`` -> ``compact_ell`` -> ``ell_to_csr``) on
-the headline matrix ``build_matrix(m)``, ``dense_row`` (A as ELL times
+the route of ``spgemm_auto``'s bitonic pick) and ``hash``
+(``spgemm_hash`` -> ``compact_ell`` -> ``ell_to_csr``) on the headline
+matrix ``build_matrix(m)``, ``dense_row`` (A as ELL times
 dense B) on ``build_matrix(m)`` with m = 16384 by default, and ``hybrid``
 on ``build_hybrid_matrix(m)``; C = A @ A in float32. ``bitonic_f64``
 (the flat ``spgemm_bitonic``: torch expand, then K6 + K3) and
@@ -55,8 +56,8 @@ import numpy as np
 
 _KERNEL = re.compile(r"\bk(?:[1-6]|7[ab]|8|9|1[0-3])_[a-z_]+")
 ROUTES = ("multiclass_pg", "slab", "compensated", "global", "hybrid",
-          "serve", "bitonic", "hash", "dense_row", "bitonic_f64", "multiclass_f64",
-          "ring", "dist")
+          "serve", "bitonic", "hash", "dense_row", "bitonic_f64",
+          "multiclass_f64", "ring", "dist")
 DIST_SHARDS = 4   # the ring / dist routes' shards, all on the one card
 # the dense-row route's default size: dense B + C = 2.1 GB, within the
 # dense_bytes_budget (the headline's m = 32768 is past it)

@@ -21,11 +21,12 @@
 // building blocks of sort_common.cuh:
 //
 // - The register network (building block 3): K1-K4, K6 and K7a (and K8,
-//   K9 in slab.cu). A row of W slots is held E = 8 (16 at W = 16384)
-//   slots a thread in registers; strides below 32E need no barrier, rows
-//   of at most 32E slots share a 128-thread block, and the compress is a
-//   segmented scan over warp shuffles. K1 gathers its products straight
-//   into registers (expand_slots) and sorts and compresses them; K2 does
+//   K9 in slab.cu). A row of W slots is held E = 8 (16 at W = 16384,
+//   and in K7a) slots a thread in registers; strides below 32E need no
+//   barrier, rows of at most 32E slots share a 128-thread block, and the
+//   compress is a segmented scan over warp shuffles. K1 gathers its
+//   products straight into registers (expand_slots) and sorts and
+//   compresses them; K2 does
 //   the same without the compress, from K1's gather g where the plan
 //   pregathered it and otherwise straight from the wide B table through
 //   the fragment index rT (TableIn, K8's source without slab rows), so
@@ -34,7 +35,8 @@
 //   and compresses pre-expanded rows (the wide classes, the ring's
 //   shards); K6 sorts them only, for K3; K7a (the bf16 serve lane) packs
 //   each of K2's table-source slots into one int32 key and sorts the keys
-//   alone (value type NoVal: no value shuffles, half the shared slots).
+//   alone (value type NoVal: no value shuffles, half the shared slots;
+//   16 slots a thread, as keys alone leave the registers for them).
 //   Bound: bytes (read the row or its fragments once, write out_w slots
 //   once, at 3.35 TB/s); the network leaves them instruction-bound, a few
 //   times above it.
@@ -294,7 +296,7 @@ cudaError_t allow_smem(Kernel kernel, bool* done, size_t smem) {
 bool k7b_smem_set[kMaxDevices];
 
 // The register network's launches (K1-K4, K6, K7a): the instance for the
-// row's width (E = 16 at 16384, 8 below, or 16 where K7a asks for it; the
+// row's width (E = 16 at 16384 and in K7a, 8 below otherwise; the
 // launch bound the widest row it takes), rows of at most 32E slots
 // (T <= 32 threads) sharing a 128-thread block. Each instance raises its
 // own shared-memory limit once per device (the static local), to what
@@ -367,20 +369,19 @@ int launch_k3(const void* key, const void* val, void* out_col,
                        stream);
 }
 
-// K7a: E = 16 slots a thread (slots = 16, the wrapper's default: half
-// the threads a row of E = 8, one stride fewer across warps; 0.268 ms
-// against 0.310 on the headline's flat plan, PERF.md), or 8 (16 at
-// 16384).
+// K7a at every width: E = 16 slots a thread, half the threads a row of
+// E = 8 and one stride fewer across warps, with keys alone in registers
+// (74 of them, no spill); on the headline's flat plan 0.268 ms alone
+// against E = 8's 0.310 (PERF.md, PR 10). The launch bound is the widest
+// row the instance takes.
 int launch_k7a(const PackedIn& in, void* out_p, int m, int width,
-               int start_kk, int slots, void* stream) {
-#define IA_K7A(E_, THREADS)                                               \
-  launch_row_net<NoVal, E_, THREADS, true, NetOut::kSorted>(             \
+               int start_kk, void* stream) {
+#define IA_K7A(THREADS)                                                   \
+  launch_row_net<NoVal, 16, THREADS, true, NetOut::kSorted>(             \
       in, out_p, nullptr, nullptr, m, width, start_kk, width, stream)
-  if (width == kMaxWidth) return IA_K7A(16, 1024);
-  if (slots == 16) return width <= 4096 ? IA_K7A(16, 256) : IA_K7A(16, 512);
-  if (width <= 2048) return IA_K7A(8, 256);
-  if (width == 4096) return IA_K7A(8, 512);
-  return IA_K7A(8, 1024);
+  if (width <= 4096) return IA_K7A(256);
+  if (width == 8192) return IA_K7A(512);
+  return IA_K7A(1024);
 #undef IA_K7A
 }
 
@@ -516,10 +517,10 @@ extern "C" int ia_k6_sort_f64(const void* key, const void* val, void* out_k,
 extern "C" int ia_k7a_expand_sort_packed(const void* table, const void* rT,
                                          const void* avT, void* out_p,
                                          int m, int ka, int lanes, int run,
-                                         int width, int start_kk, int slots,
+                                         int width, int start_kk,
                                          void* stream) {
   return launch_k7a(PackedIn{table_in(table, rT, avT, ka, lanes, run)},
-                    out_p, m, width, start_kk, slots, stream);
+                    out_p, m, width, start_kk, stream);
 }
 
 extern "C" int ia_k7b_compress_packed(const void* packed, void* out_col,

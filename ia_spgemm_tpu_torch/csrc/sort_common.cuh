@@ -168,10 +168,10 @@ __device__ void compress_row(const int* k, const V* v, int width, int out_w,
 // ---- building block 3: the register network (K1-K4, K6-K9) ------------
 // A row of W slots (W a power of two, 128..16384) is held E slots per
 // thread in registers, T = W / E threads per row: E = 8, or 16 at 16384
-// so that a row stays at 1024 threads (and where K7a's launch asks for
-// it). In the normal layout row thread t (lane = t % 32) holds slots
-// t*E .. t*E + E - 1. A bitonic stage kk
-// compares strides kk/2 .. 1:
+// so that a row stays at 1024 threads (and in K7a, whose keys alone
+// leave the registers for 16). In the normal layout row thread t (lane =
+// t % 32) holds slots t*E .. t*E + E - 1. A bitonic stage kk compares
+// strides kk/2 .. 1:
 //   - strides below E inside a thread (registers, no synchronisation);
 //   - strides E .. 16E between the lanes of a warp (__shfl_xor_sync);
 //   - strides of 32E and more (rows of more than one warp) in the

@@ -450,17 +450,14 @@ def sort_only(key, val, *, width: int, start_kk: int):
 
 
 def expand_sort_packed(table, rT, avT, *, ka: int, run: int, width: int,
-                       start_kk: int, slots: int = 16):
+                       start_kk: int):
     """K7a: the bf16 serve lane's expand + sort, from the wide B table
     read through rT: each product packed with its column into one int32
-    key, the keys sorted. ``slots``: the kernel's slots a thread, 16 (the
-    faster on the headline's flat plan, PERF.md) or 8 (16 always at
-    width 16384). Returns the sorted keys (m, width); equal multisets sort
-    to equal arrays, so they are the JAX package's bit for bit."""
+    key, the keys sorted. Returns the sorted keys (m, width); equal
+    multisets sort to equal arrays, so they are the JAX package's bit for
+    bit."""
     _check_width(width, start_kk)
     _check_table(table, rT, avT, ka, run, width)
-    if slots not in (8, 16):
-        raise ValueError(f"slots {slots} must be 8 or 16")
     if avT.device.type == "cpu":
         return expand_sort_packed_plain(table, rT, avT, ka=ka, run=run,
                                         width=width, start_kk=start_kk)
@@ -469,8 +466,7 @@ def expand_sort_packed(table, rT, avT, *, ka: int, run: int, width: int,
     p = torch.empty((m, width), dtype=torch.int32, device=avT.device)
     if m:
         _launch("ia_k7a_expand_sort_packed", table, rT, avT, p, m, ka,
-                table.shape[1], run, width, start_kk, slots,
-                device=avT.device)
+                table.shape[1], run, width, start_kk, device=avT.device)
         expand_sort_packed.launches += 1
     return p
 

@@ -7,8 +7,9 @@ rT, the key (the column) and the float32 product each slot gets, the
 selects that leave empty slots SENTINEL / 0, K7a's packing of each slot
 into one int32 key (``pack_colval``), and the sort:
 tests/test_torch_k4_network.py's schedule, which the .cu follows step for
-step, at E = 8 slots a thread (K2, and K7a's other instance) and E = 16
-(K7a's default: half the threads a row, one stride fewer across warps).
+step, at E = 8 slots a thread (K2) and E = 16 (K7a: its keys alone leave
+the registers for twice K2's slots; half the threads a row, one stride
+fewer across warps).
 The source is tests/test_torch_k8_k9_network.py's model of the same
 ``TableIn`` with the slab rows left out (the kernel's null lrT: key0 0).
 
@@ -39,10 +40,10 @@ from tests.torch_parity import (CAP_BITS, MAX_COL, RUN, VALUE_RTOL,
 SENT = K.SENTINEL
 WIDTHS = [128, 256, 512, 1024]   # K2's and the flat route's widths
 RUNS = [8, 32]
-SLOTS = [8, 16]                   # K7a's E
+E_K2, E_K7A = 8, 16               # slots a thread
 
 
-def table_model(table, rT, avT, *, width, run, ka, E=8):
+def table_model(table, rT, avT, *, width, run, ka, E=E_K2):
     """load_slots for TableIn without slab rows (K2, K7a), thread by
     thread: (key, val) (m, width) in the normal layout."""
     return slab_model(table, rT, avT, None, width=width, run=run, ka=ka,
@@ -69,7 +70,7 @@ def k2_model(table, rT, avT, *, width, run, ka):
     return run_network(key, val.astype(np.float64), 2 * run)
 
 
-def k7a_model(table, rT, avT, *, width, run, ka, E):
+def k7a_model(table, rT, avT, *, width, run, ka, E=E_K7A):
     """K7a: the table source, each slot packed, then the key-only network
     (no value moves: the keys alone through the same schedule)."""
     key, val = table_model(table, rT, avT, width=width, run=run, ka=ka,
@@ -89,7 +90,7 @@ def _ops(width, run, kind="random", short=False, m=9):
 
 @pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("run", RUNS)
-@pytest.mark.parametrize("E", SLOTS)
+@pytest.mark.parametrize("E", [E_K2, E_K7A])
 def test_table_slot_map(width, run, E):
     """Every slot of the row is one (thread, register); where run is a
     multiple of E (the vector load), a thread's E slots are E neighbouring
@@ -114,7 +115,7 @@ def test_table_slot_map(width, run, E):
 
 @pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("run", RUNS)
-@pytest.mark.parametrize("E", SLOTS)
+@pytest.mark.parametrize("E", [E_K2, E_K7A])
 def test_table_source_matches_expand_plain(width, run, E):
     """The source gives _expand_plain's keys and products on g =
     table[rT] bit for bit, fragments all used and a few short: odd
@@ -174,14 +175,15 @@ def test_pack_model_matches_plain_bit_for_bit():
 # ------------------------------------------------------------- the network
 
 @pytest.mark.parametrize("width", WIDTHS)
-@pytest.mark.parametrize("E", SLOTS)
-def test_key_only_schedule(width, E):
-    """The key-only network is K4's schedule at E slots a thread: lane
+@pytest.mark.parametrize("E", [E_K2, E_K7A])
+def test_schedule_at_k2_and_k7a_slots(width, E):
+    """K2's and K7a's sorts are K4's schedule at E slots a thread: lane
     compares stay inside the row's lane segment (rows of at most 32E
     slots, one warp or less, share a block and need no exchange);
     exchanges pair up around the strides of 32E and more. At 1024 from
-    start_kk 64: 4 exchanges at E = 8, 2 at E = 16 (one stride fewer
-    crosses warps). The transposed layout is an involution."""
+    start_kk 64: 4 exchanges at K2's E = 8, 2 at K7a's E = 16 (one
+    stride fewer crosses warps). The transposed layout is an
+    involution."""
     T = width // E
     L = min(T, 32)
     steps = network_schedule(width, 64, E)
@@ -201,16 +203,15 @@ def test_key_only_schedule(width, E):
 
 @pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("run", RUNS)
-@pytest.mark.parametrize("E", SLOTS)
 @pytest.mark.parametrize("kind", ["random", "one_key", "cap"])
-def test_k7a_model_sorts_as_plain(width, run, E, kind):
+def test_k7a_model_sorts_as_plain(width, run, kind):
     """Source -> pack -> key-only network from 2 * run against
     expand_sort_packed_plain: the sorted packed keys bit for bit (equal
     multisets sort to equal arrays), SENTINEL slots last; one key over a
     whole row (column 32767), and B values that pack to the 0xFFFE cap
     or wrap to 0."""
     (table, rT, avT), kw = _ops(width, run, kind=kind)
-    got = k7a_model(table, rT, avT, E=E, **kw)
+    got = k7a_model(table, rT, avT, **kw)
     want = K.expand_sort_packed_plain(table, rT, avT, start_kk=2 * run,
                                       **kw).numpy()
     np.testing.assert_array_equal(got, want)
@@ -245,15 +246,15 @@ def test_k2_model_sorts_as_plain(width, run, kind):
                                                          np.abs(want).max())
 
 
-@pytest.mark.parametrize("ka,E", [(16, 8), (16, 16), (128, 8), (128, 16)])
-def test_models_on_the_flat_route_operands(ka, E):
+@pytest.mark.parametrize("ka", [16, 32, 128])
+def test_models_on_the_flat_route_operands(ka):
     """The models on the flat route's own table source (_flat_table of
     kernel_operands, NaN A values on the empty rows; widths 128 and
     1024, run 8): K7a bit for bit, K2 sorted keys exactly."""
     table, rT, avT, width = table_inputs(ka, m=40)
     kw = dict(width=width, run=RUN, ka=ka)
     np.testing.assert_array_equal(
-        k7a_model(table, rT, avT, E=E, **kw),
+        k7a_model(table, rT, avT, **kw),
         K.expand_sort_packed_plain(table, rT, avT, start_kk=2 * RUN,
                                    **kw).numpy())
     sk, sv = k2_model(table, rT, avT, **kw)
@@ -279,17 +280,18 @@ def test_table_source_plain_equals_gather_source():
     assert K.launch_counts() == before
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K7a"])
-@pytest.mark.parametrize("bad", ["table_dtype", "table_1d", "lanes_short",
-                                 "lanes_not_mult4", "rT_dtype", "rT_shape",
-                                 "rT_transposed", "avT_shape", "device",
-                                 "ka_run", "pack_or_slots"])
+BAD_OPERANDS = ["table_dtype", "table_1d", "lanes_short", "lanes_not_mult4",
+                "rT_dtype", "rT_shape", "rT_transposed", "avT_shape",
+                "device", "ka_run"]
+
+
+@pytest.mark.parametrize("kernel,bad", [
+    *((k, b) for k in ("K2", "K7a") for b in BAD_OPERANDS), ("K2", "pack")])
 def test_table_wrappers_check_operands(kernel, bad):
     """K2's table source and K7a: the table a 2-d int32 (F, lanes) with
     lanes >= 4 * run and a multiple of 4; rT int32 (ka, m) like avT; all
     on one device; ka * run within the width; K2's table source at pack
-    1, K7a at 8 or 16 slots a thread. rT's values are not checked (a
-    device sync)."""
+    1. rT's values are not checked (a device sync)."""
     table, rT, avT, width = table_inputs(16, m=12)
     kw = dict(ka=16, run=RUN, width=width, start_kk=2 * RUN)
     err = ValueError
@@ -315,7 +317,7 @@ def test_table_wrappers_check_operands(kernel, bad):
         kw["width"] = 128 if width > 128 else 64
         err = ValueError
     else:
-        kw.update(pack=2) if kernel == "K2" else kw.update(slots=12)
+        kw["pack"] = 2
     with pytest.raises(err):
         if kernel == "K2":
             K.expand_sort(table, avT, rT=rT, **kw)

@@ -596,9 +596,9 @@ def _check_k2_sources(ops, kw):
             K.compress_plain(key, val, width=w, out_w=w), want)
 
 
-def _check_k7a(ops, kw, slots):
+def _check_k7a(ops, kw):
     n7 = K.expand_sort_packed.launches
-    p = K.expand_sort_packed(*ops, slots=slots, **kw)
+    p = K.expand_sort_packed(*ops, **kw)
     assert K.expand_sort_packed.launches == n7 + 1
     assert torch.equal(p, K.expand_sort_packed_plain(*ops, **kw))
 
@@ -618,30 +618,30 @@ def test_k2_both_sources_every_width(cuda_device, width, run, kind, short):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [128, 256, 512, 1024])
+@pytest.mark.parametrize("width", [128, 256, 512, 1024, 2048, 16384])
 @pytest.mark.parametrize("run", [8, 32])
-@pytest.mark.parametrize("slots", [8, 16])
 @pytest.mark.parametrize("kind", ["random", "one_key"])
-def test_k7a_every_width_run_and_slots(cuda_device, width, run, slots,
-                                       kind):
-    """K7a's sorted packed keys bit for bit at 8 and 16 slots a thread
-    (16 with run 8: a thread spans two fragments, slot by slot), widths
-    128-1024, runs 8 and 32; one key (column 32767) over whole rows."""
-    ops, kw = _table_case(cuda_device, 37, width, run, kind=kind)
-    _check_k7a(ops, kw, slots)
+def test_k7a_every_width_and_run(cuda_device, width, run, kind):
+    """K7a's sorted packed keys bit for bit at widths 128-1024 (and 2048
+    and 16384, its other launch bounds' instances), runs 8 (a thread of
+    16 slots spans two fragments, slot by slot) and 32; one key (column
+    32767) over whole rows."""
+    m = 37 if width <= 2048 else 3
+    ops, kw = _table_case(cuda_device, m, width, run, kind=kind)
+    _check_k7a(ops, kw)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("width", [128, 256, 512])
 @pytest.mark.parametrize("m", [1, 13, 133])
-@pytest.mark.parametrize("slots", [8, 16])
-def test_k2_k7a_rows_sharing_a_block(cuda_device, width, m, slots):
-    """Rows of one warp or less share a 128-thread block: row counts
-    below, not a multiple of and above one block's rows."""
+def test_k2_k7a_rows_sharing_a_block(cuda_device, width, m):
+    """Rows of one warp or less share a 128-thread block (K2 up to 256
+    slots, K7a up to 512): row counts below, not a multiple of and above
+    one block's rows."""
     ops, kw = _table_case(cuda_device, m, width, 8, seed=m,
                           pad_rows=min(2, m - 1))
     _check_k2_sources(ops, kw)
-    _check_k7a(ops, kw, slots)
+    _check_k7a(ops, kw)
 
 
 @pytest.mark.cuda
@@ -652,8 +652,7 @@ def test_k2_k7a_table_off_the_grid(cuda_device, width, run):
     slot and still match their plain versions."""
     ops, kw = _table_case(cuda_device, 37, width, run, unaligned=True)
     _check_k2_sources(ops, kw)
-    for slots in (8, 16):
-        _check_k7a(ops, kw, slots)
+    _check_k7a(ops, kw)
 
 
 def _k11_inputs(case, device):
