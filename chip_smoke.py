@@ -24,10 +24,10 @@ prints no result line:
    K4 on the skew matrix's wide classes, K10 on K9's sorted slabs, K7b
    on K7a's sorted keys of the flat plan, K11 on build_matrix(m=16384)
    (A as ELL times dense B, 16384 x 16384; bit for bit, and its float64
-   instance bit for bit on build_matrix(m=4096)), K12 on the headline ELL pair (Ka = Kb =
-   29, H = 2048; each row's slots compared sorted by column); K5 and K6
-   (float64) on the float64 headline's chunked width classes, K5, K6 and
-   K4 (float64) on the skew x band classes, K6 on the flat float64
+   instance bit for bit on build_matrix(m=4096)), K12 on the headline
+   ELL pair (Ka = Kb = 29, H = 2048; each row's slots compared sorted by
+   column); K5 and K6 (float64) on the float64 headline's chunked width
+   classes, K5, K6 and K4 (float64) on the skew x band classes, K6 on the flat float64
    headline (width 1024, run 32) and on the float32 wide x band flat
    plan (width 1024, run 8), and K5 at width 1024 beside K6 + K3 on
    those two; K13 on the headline's B blocks at D = 4 and 8 shards (bit

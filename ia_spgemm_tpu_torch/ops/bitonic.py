@@ -17,9 +17,12 @@ CUDA kernels; on CPU tensors their plain PyTorch versions run instead.
 Routing by class width ``w`` (as in the JAX package), for float32
 operands read through the fragment gather:
 
-- ``w <= FUSED_MAX_WIDTH``: K1 (expand + sort + compress in one kernel);
+- ``w <= FUSED_MAX_WIDTH``: K1 (expand + sort + compress in one kernel)
+  on g, the plan's pregathered fragments or ``table[rT]``;
 - ``FUSED_MAX_WIDTH < w <= TRANSPOSED_MAX_WIDTH``: K2 (expand + sort),
-  then K3 (compress);
+  then K3 (compress); K2 reads the pregathered g, or the wide B table
+  itself through the fragment index rT (the flat route, the serve lane's
+  K7a and the classes not pregathered write no gathered copy);
 - wider classes: torch expand, then K4 (sort + compress of rows).
 
 Operands of another type (float64), and the flat route's float32 plans
