@@ -372,8 +372,8 @@ int launch_k3(const void* key, const void* val, void* out_col,
 // K7a at every width: E = 16 slots a thread, half the threads a row of
 // E = 8 and one stride fewer across warps, with keys alone in registers
 // (74 of them, no spill); on the headline's flat plan 0.268 ms alone
-// against E = 8's 0.310 (PERF.md, PR 10). The launch bound is the widest
-// row the instance takes.
+// against E = 8's 0.310 (PERF.md). The launch bound is the widest row
+// the instance takes.
 int launch_k7a(const PackedIn& in, void* out_p, int m, int width,
                int start_kk, void* stream) {
 #define IA_K7A(THREADS)                                                   \
