@@ -11,25 +11,27 @@ prints no result line:
 2. build: compiles csrc/*.cu for sm_90a, one nvcc per source, in
    parallel (ia_spgemm_tpu_torch/_build.py);
 3. kernels against their plain PyTorch versions on the card, on the
-   inputs the main paths give them: first K1-K3, K7a, K8 and K9 at every
-   case of ia_spgemm_tpu_torch.bench.kernels.network_cases (the one
-   definition of the register network's shapes, which bench/kernels.py
-   measures too: K1 on the headline's and the skew matrix's classes, K2
-   on their 1024 classes (from the headline's pregathered g, and from
-   the B table through the skew class's fragment index) and on the
-   headline's flat plan (width 1024, run 32, from the table), K8 and K9
-   on the headline's slab plan, sorted keys exactly and run sums within
-   tolerance; K7a on the flat plan, sorted packed keys bit-identical; K3
-   on the rows that K2, K8 and K6 sort for the inputs named next); then
-   K4 on the skew matrix's wide classes, K10 on K9's sorted slabs, K7b
-   on K7a's sorted keys of the flat plan, K11 on build_matrix(m=16384)
-   (A as ELL times dense B, 16384 x 16384; bit for bit, and its float64
+   inputs the main paths give them: first K1-K3, K5, K7a, K7b, K8 and K9
+   at every case of ia_spgemm_tpu_torch.bench.kernels.network_cases (the
+   one definition of the register network's shapes, which
+   bench/kernels.py measures too: K1 on the headline's and the skew
+   matrix's classes, K2 on their 1024 classes (from the headline's
+   pregathered g, and from the B table through the skew class's
+   fragment index) and on the headline's flat plan (width 1024, run 32,
+   from the table), K8 and K9 on the headline's slab plan, sorted keys
+   exactly and run sums within tolerance; K7a on the flat plan, sorted
+   packed keys bit-identical, and K7b on K7a's sorted keys, in place and
+   compacted; K5 on the float64 headline's and the skew x band's chunked
+   classes up to FUSED_MAX_WIDTH; K3 on the rows that K2, K8 and K6 sort
+   for the inputs named next); then K4 on the skew matrix's wide
+   classes, K10 on K9's sorted slabs, K11 on build_matrix(m=16384) (A as
+   ELL times dense B, 16384 x 16384; bit for bit, and its float64
    instance bit for bit on build_matrix(m=4096)), K12 on the headline
    ELL pair (Ka = Kb = 29, H = 2048; each row's slots compared sorted by
-   column); K5 and K6 (float64) on the float64 headline's chunked width
-   classes, K5, K6 and K4 (float64) on the skew x band classes, K6 on the flat float64
-   headline (width 1024, run 32) and on the float32 wide x band flat
-   plan (width 1024, run 8), and K5 at width 1024 beside K6 + K3 on
+   column); K6 (float64) on the float64 headline's chunked 1024 class,
+   K6 and K4 (float64) on the skew x band's wider classes, K6 on the flat
+   float64 headline (width 1024, run 32) and on the float32 wide x band
+   flat plan (width 1024, run 8), and K5 at width 1024 beside K6 + K3 on
    those two; K13 on the headline's B blocks at D = 4 and 8 shards (bit
    for bit, the library yardstick a torch.roll of each stacked array
    along the shard axis) and K4 on one shard's products of the D = 4
@@ -286,18 +288,18 @@ def _torch_sort(key):
     return lambda: torch.sort(key, dim=1, stable=True)
 
 
-def _check_cols(stats, label, time_ms, dev, key, val, *, width, start_kk,
-                out_w=None):
+def _check_cols(stats, label, time_ms, dev, key, val, *, width,
+                start_kk):
     """The kernels of pre-expanded rows (the torch _expand_ell's) against
-    their plain versions, routed as the main paths route them: K5 up to
-    FUSED_MAX_WIDTH, K6 up to TRANSPOSED_MAX_WIDTH (K3 on K6's rows is a
-    case of bench.kernels.network_cases), K4 above."""
+    their plain versions, routed as the main paths route them: K6 up to
+    TRANSPOSED_MAX_WIDTH, K4 above (K5, which takes the rows up to
+    FUSED_MAX_WIDTH, and K3 on K6's rows are cases of
+    bench.kernels.network_cases)."""
     import torch
 
     from ia_spgemm_tpu_torch.ops import bitonic as bt
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
 
-    out_w = width if out_w is None else out_w
     kw = dict(width=width, start_kk=start_kk)
     what = (f"{label} rows={key.shape[0]} width={width} "
             f"{str(val.dtype)[6:]}")
@@ -309,14 +311,7 @@ def _check_cols(stats, label, time_ms, dev, key, val, *, width, start_kk,
         _record(stats, time_ms, dev, "K4", what, err,
                 lambda: f(K.sort_compress_rows),
                 lambda: f(K.sort_compress_rows_plain), (key, val), lib)
-    elif width <= bt.FUSED_MAX_WIDTH:
-        f = lambda fn: fn(key, val, out_w=out_w, **kw)  # noqa: E731
-        err = _compare(f"K5 {what}", f(K.sort_compress),
-                       f(K.sort_compress_plain))
-        _record(stats, time_ms, dev, "K5", what, err,
-                lambda: f(K.sort_compress), lambda: f(K.sort_compress_plain),
-                (key, val), lib)
-    else:
+    elif width > bt.FUSED_MAX_WIDTH:
         sk, sv = K.sort_only(key, val, **kw)
         pk, pv = K.sort_only_plain(key, val, **kw)
         torch.cuda.synchronize()
@@ -368,8 +363,7 @@ def _check_kernels(call, stats, label, time_ms, dev):
         for i, w in enumerate(call.widths):
             key, val = KB.chunked_class_rows(call, i)
             _check_cols(stats, f"{label} run={run}", time_ms, dev, key, val,
-                        width=w, start_kk=2 * run,
-                        out_w=min(call.out_w, w))
+                        width=w, start_kk=2 * run)
         return
     for i, w in enumerate(call.widths):
         if w <= bt.TRANSPOSED_MAX_WIDTH:
@@ -387,15 +381,15 @@ def _check_kernels(call, stats, label, time_ms, dev):
 
 
 def _check_network(stats, time_ms, dev):
-    """K1, K3, K8 and K9 against their plain versions at every case of
-    bench.kernels.network_cases (the main paths' shapes); returns their
-    ms on the headline's pregathered classes."""
+    """K1-K3, K5, K7a, K7b, K8 and K9 against their plain versions at
+    every case of bench.kernels.network_cases (the main paths' shapes);
+    returns their ms on the headline's pregathered classes."""
     from ia_spgemm_tpu_torch.bench import kernels as KB
     ms = {}
     for c in KB.network_cases(dev):
         err = KB.check_case(c, c.call(), c.plain())
         t = _record(stats, time_ms, dev, c.kernel, c.shape, err, c.call,
-                    c.plain, c.read_bytes)
+                    c.plain, c.read_bytes, c.library)
         if c.source == "headline":
             ms[c.kernel] = ms.get(c.kernel, 0.0) + t
     return ms
@@ -452,38 +446,19 @@ def _sorted_tables(col, val):
 
 
 def _check_input_aware_kernels(H, A16, A16_ell, B16, stats, time_ms, dev):
-    """K7b on K7a's sorted keys of the headline's flat plan (K7a is a case
-    of bench.kernels.network_cases), K11 on the m=16384 dense-row
-    input, K12 on the headline ELL pair, each against its plain version
-    at those shapes."""
+    """K11 on the m=16384 dense-row input and K12 on the headline ELL
+    pair, each against its plain version at those shapes."""
     import torch
 
     from ia_spgemm_tpu_torch.bench import kernels as KB
     from ia_spgemm_tpu_torch.bench.headline import build_matrix
     from ia_spgemm_tpu_torch.formats import convert
     from ia_spgemm_tpu_torch.formats.types import CSR
-    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.ops import dense_row_kernels as DK
     from ia_spgemm_tpu_torch.ops import hash_kernels as HK
     from ia_spgemm_tpu_torch.ops import hash_spgemm
 
-    plan, ops, kw = KB.flat_operands(H)
-    if (plan.width, plan.run, plan.chunks) != (1024, 32, 1):
-        raise AssertionError(f"headline flat plan {plan}")
     ka = H.max_nnz_per_row
-    shape = f"headline flat rows={H.nrows} width={plan.width} run={plan.run}"
-    p = K.expand_sort_packed(*ops, **kw)
-    del ops
-    for compact in (False, True):
-        f = lambda fn: fn(p, width=plan.width,  # noqa: E731
-                          out_w=plan.width, compact=compact)
-        err = _compare(f"K7b {shape} compact={compact}",
-                       f(K.compress_packed), f(K.compress_packed_plain))
-        _record(stats, time_ms, dev, "K7b", f"{shape} compact={compact}",
-                err, lambda: f(K.compress_packed),
-                lambda: f(K.compress_packed_plain), (p,))
-    del p
-
     f = lambda fn: fn(A16_ell.col_ind, A16_ell.values, B16)  # noqa: E731
     shape = (f"A ELL {tuple(A16_ell.col_ind.shape)} x dense B "
              f"{tuple(B16.shape)}")

@@ -1,28 +1,32 @@
-"""K1-K4, K6, K7a, K8, K9, K11 and K13 on the card at the shapes of
-``chip_smoke.py`` phase 3, on inputs made from a seed: for each, the
-wrapper's call time (CUDA events, median of 20), the host's microseconds
-per call (``time.perf_counter`` around unsynchronised calls), the
-kernel's own device time per launch (``torch.profiler``), and beside
-them the PyTorch call computing the same function (``torch.sort`` of the
-keys, ``torch.sparse.mm``, two ``torch.roll``s). Every output is checked
-against the plain version first (structure exact, values within 1e-5 /
-1e-12 of max(1, max|C|); K2's, K6's, K8's and K9's sorted keys exactly
-and their run sums; K7a's sorted packed keys, K11 and K13 bit for bit).
+"""K1-K9, K11 and K13 on the card at the shapes of ``chip_smoke.py``
+phase 3, on inputs made from a seed: for each, the wrapper's call time
+(CUDA events, median of 20), the host's microseconds per call
+(``time.perf_counter`` around unsynchronised calls), the kernel's own
+device time per launch (``torch.profiler``), and beside them the PyTorch
+call computing the same function where there is one (``torch.sort`` of
+the keys, ``torch.sparse.mm``, two ``torch.roll``s). Every output is
+checked against the plain version first (structure exact, values within
+1e-5 / 1e-12 of max(1, max|C|); K2's, K6's, K8's and K9's sorted keys
+exactly and their run sums; K7a's sorted packed keys, K11 and K13 bit
+for bit).
 
     python -m ia_spgemm_tpu_torch.bench.kernels [--json PATH]
+                                                [--kernels K5,K7b]
 
 Prints one JSON line: the card's name and power limit, then one entry per
-shape. K1's, K2's, K3's, K7a's, K8's and K9's cases are
+shape. K1's, K2's, K3's, K5's, K7a's, K7b's, K8's and K9's cases are
 ``network_cases``, which ``chip_smoke.py`` phase 3 also runs: K1 on the
 headline's and the skew matrix's width classes up to FUSED_MAX_WIDTH (the
 tuned 512), K2 on their 1024 classes (the headline's from its pregathered
 g, the skew matrix's from the table) and on the headline's flat plan
-(from the table), K7a on that flat plan, K3 on the rows K2, K8 and K6
-sort for the main paths' 1024-slot rows, K8 and K9 on the headline's
-slab plan; each beside its bytes bound (what the kernel must read, once,
-and its outputs written once, at 3.35 TB/s; ``gather_bytes`` for K1 and
-K2 on g, ``table_read_bytes`` for the table sources of K2, K7a, K8 and
-K9). K4's and K6's inputs are rows in their
+(from the table), K7a on that flat plan and K7b on K7a's sorted keys, K5
+on the float64 headline's and the skew x band's chunked classes up to
+FUSED_MAX_WIDTH, K3 on the rows K2, K8 and K6 sort for the main paths'
+1024-slot rows, K8 and K9 on the headline's slab plan; each beside its
+bytes bound (what the kernel must read, once, and its outputs written
+once, at 3.35 TB/s: K5 the rows, K7b the packed keys; ``gather_bytes``
+for K1 and K2 on g, ``table_read_bytes`` for the table sources of K2,
+K7a, K8 and K9). K4's and K6's inputs are rows in their
 input layout (sorted runs of start_kk / 2 slots, ascending and
 descending in turn; keys uniform below 32768, a fifth SENTINEL); K11's A
 is ``build_matrix(m=16384)`` as ELL (16384, 29) times itself dense;
@@ -33,9 +37,9 @@ receivers hopped into the other set).
 
 ``PROFILE_NAMES`` names the kernels whose own device time (and host us
 per call) is recorded at each shape, here and in ``chip_smoke.py`` phase
-3: the register network's K1-K3, K7a, K8 and K9, and the kernels still
-queued for a redesign (K5, K7b, K10, K12), whose calls sit near the host
-floor of a wrapper call at small shapes.
+3: the register network's K1-K3, K5, K7a, K7b, K8 and K9, and K10 and
+K12, which are left as they are while they run within twice their
+bound.
 """
 
 from __future__ import annotations
@@ -315,14 +319,16 @@ def slab_operands(p):
 
 class Case(NamedTuple):
     """One kernel at one phase-3 shape: its wrapper call and its plain
-    version on the same inputs, and the bytes it must read (what it
-    writes is counted from what it returns)."""
+    version on the same inputs, the bytes it must read (what it writes
+    is counted from what it returns), and the one PyTorch call computing
+    the same function where there is one (``torch.sort`` of K5's keys)."""
     kernel: str
     source: str
     shape: str
     call: Callable
     plain: Callable
     read_bytes: int
+    library: Callable | None = None
 
 
 def _k3_case(source, shape, key, val, width, out_w, compact=True):
@@ -384,34 +390,62 @@ def _flat_cases(source, X):
     yield Case("K7a", source, shape,
                partial(K.expand_sort_packed, *ops, **kw),
                partial(K.expand_sort_packed_plain, *ops, **kw), read)
+    yield from _k7b_cases(source, shape, K.expand_sort_packed(*ops, **kw),
+                          plan.width)
+
+
+def _k7b_cases(source, shape, p, width):
+    """K7b on K7a's sorted keys p, in place (compact=False, the serve
+    lane's call) and compacted: it reads the packed keys once."""
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    for compact in (False, True):
+        kw = dict(width=width, out_w=width, compact=compact)
+        yield Case("K7b", source, f"{shape} compact={compact}",
+                   partial(K.compress_packed, p, **kw),
+                   partial(K.compress_packed_plain, p, **kw), _nbytes(p))
 
 
 def _cols_cases(source, key, val, *, width, start_kk, out_w):
-    """K3 on the rows K6 sorts, where the main paths route pre-expanded
-    rows to K6 + K3 (FUSED_MAX_WIDTH < width <= TRANSPOSED_MAX_WIDTH)."""
+    """The network kernels of pre-expanded rows as the main paths route
+    them: K5 up to FUSED_MAX_WIDTH (it reads the rows once; beside it one
+    stable torch.sort of the keys), K3 on the rows K6 sorts above it, up
+    to TRANSPOSED_MAX_WIDTH."""
+    import torch
+
     from ia_spgemm_tpu_torch.ops import bitonic as bt
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
-    if not bt.FUSED_MAX_WIDTH < width <= bt.TRANSPOSED_MAX_WIDTH:
+    shape = f"{source} rows={key.shape[0]} width={width} " \
+            f"{str(val.dtype)[6:]}"
+    if width <= bt.FUSED_MAX_WIDTH:
+        kw = dict(width=width, start_kk=start_kk, out_w=out_w)
+        yield Case("K5", source, shape, partial(K.sort_compress, key, val,
+                                                **kw),
+                   partial(K.sort_compress_plain, key, val, **kw),
+                   _nbytes(key, val),
+                   partial(torch.sort, key, dim=1, stable=True))
+        return
+    if width > bt.TRANSPOSED_MAX_WIDTH:
         return
     key, val = K.sort_only(key, val, width=width, start_kk=start_kk)
-    yield _k3_case(source, f"{source} rows={key.shape[0]} width={width} "
-                   f"{str(val.dtype)[6:]}", key, val, width, out_w)
+    yield _k3_case(source, shape, key, val, width, out_w)
 
 
 def network_cases(dev, m=HEADLINE_ROWS):
-    """The register network's phase-3 cases (K1-K3, K7a, K8, K9), one at
-    a time, so that the float64 rows of one shape are freed before the
-    next is built: K1 on the headline's classes (pregathered, run 8) and
-    the skew matrix's, K2 on their 1024 classes (the pregathered g; the
-    table); K2 and K7a on the headline's flat plan (width 1024, run 32,
-    the table: spgemm_auto's bitonic pick and the serve lane); K8 and K9
-    on the headline's slab plan (the slab and compensated routes); K3 on
-    the rows that K2 sorts for those 1024 classes and the flat plan, that
-    K8 sorts on the headline's slab plan, and that K6 sorts for the
-    float64 headline's and the skew x band float64 chunked 1024 classes
-    and on the float64 headline's and the float32 wide x band flat plans.
-    ``m`` is the headline's rows (a smaller m rehearses the cases on the
-    CPU)."""
+    """The register network's phase-3 cases (K1-K3, K5, K7a, K7b, K8,
+    K9), one at a time, so that the float64 rows of one shape are freed
+    before the next is built: K1 on the headline's classes (pregathered,
+    run 8) and the skew matrix's, K2 on their 1024 classes (the
+    pregathered g; the table); K2, K7a and K7b (in place and compacted)
+    on the headline's flat plan (width 1024, run 32, the table:
+    spgemm_auto's bitonic pick and the serve lane); K8 and K9 on the
+    headline's slab plan (the slab and compensated routes); K5 on the
+    float64 headline's and the skew x band float64 chunked classes up to
+    FUSED_MAX_WIDTH; K3 on the rows that K2 sorts for those 1024 classes
+    and the flat plan, that K8 sorts on the headline's slab plan, and
+    that K6 sorts for the float64 headline's and the skew x band float64
+    chunked 1024 classes and on the float64 headline's and the float32
+    wide x band flat plans. ``m`` is the headline's rows (a smaller m
+    rehearses the cases on the CPU)."""
     from ia_spgemm_tpu_torch.bench import headline
     from ia_spgemm_tpu_torch.formats import convert
     from ia_spgemm_tpu_torch.formats.types import CSR
@@ -478,11 +512,11 @@ def network_cases(dev, m=HEADLINE_ROWS):
 
 
 def check_case(c, got, want) -> float:
-    """A network case's output against its plain version's: K1 and K3
-    structure exact and values within 1e-5 (float32) / 1e-12 (float64)
-    of max(1, max|C|); K8 and K9 (the sorted slab) sorted keys exactly
-    and their run sums within the same. Returns the largest value
-    error."""
+    """A network case's output against its plain version's: K1, K3, K5
+    and K7b structure exact and values within 1e-5 (float32) / 1e-12
+    (float64) of max(1, max|C|); K2, K8 and K9 (the sorted row) sorted
+    keys exactly and their run sums within the same; K7a's sorted packed
+    keys bit for bit. Returns the largest value error."""
     if c.kernel == "K7a":
         import torch
         torch.cuda.synchronize()
@@ -496,44 +530,52 @@ def check_case(c, got, want) -> float:
     return _check_k4(got, want, dtype, c.kernel)
 
 
-def _measure_network(dev) -> dict:
-    """Each network case against its plain version, then its call ms,
-    host us and kernel us, and its bytes bound."""
+def _measure_network(dev, want) -> dict:
+    """Each network case of a kernel `want` names against its plain
+    version, then its call ms, host us and kernel us, and its bytes
+    bound."""
     from ia_spgemm_tpu_torch.bench.harness import time_ms
-    out = {"K1": [], "K2": [], "K3": [], "K7a": [], "K8": [], "K9": []}
+    out = {}
     for c in network_cases(dev):
-        got, want = c.call(), c.plain()
-        err = check_case(c, got, want)
+        if not want(c.kernel):
+            continue
+        got, want_out = c.call(), c.plain()
+        err = check_case(c, got, want_out)
         bound_ms = (c.read_bytes + _nbytes(*got)) / PEAK_BYTES_PER_S * 1e3
-        del got, want
-        out[c.kernel].append({
+        del got, want_out
+        out.setdefault(c.kernel, []).append({
             "shape": c.shape, "max_abs_err": err,
             "call_ms": time_ms(c.call, dev, 2, 20),
             "call_host_us": host_us(c.call),
             "kernel_us": kernel_us(c.call, PROFILE_NAMES[c.kernel]),
-            "bound_ms": bound_ms})
+            "bound_ms": bound_ms,
+            "library_ms": (time_ms(c.library, dev, 2, 20)
+                           if c.library is not None else None)})
         print(json.dumps({c.kernel: out[c.kernel][-1]}), file=sys.stderr,
               flush=True)
     return out
 
 
-def measure(dev) -> dict:
+def measure(dev, kernels=None) -> dict:
+    """The kernels named in `kernels` (all where None) at their shapes."""
     import torch
 
     from ia_spgemm_tpu_torch.bench.harness import time_ms
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
 
-    out = {**_measure_network(dev), "K4": [], "K6": [], "K11": [],
-           "K13": []}
-    for label, m, width, start_kk, dtype in K4_SHAPES:
+    def want(name):
+        return kernels is None or name in kernels
+
+    out = _measure_network(dev, want)
+    for label, m, width, start_kk, dtype in K4_SHAPES if want("K4") else ():
         key, val = (t.to(dev) for t in k4_rows(m, width, start_kk, dtype))
         call = lambda: K.sort_compress_rows(  # noqa: E731
             key, val, width=width, start_kk=start_kk)
         err = _check_k4(call(), K.sort_compress_rows_plain(
             key, val, width=width, start_kk=start_kk), dtype)
         sort = lambda: torch.sort(key, dim=1, stable=True)  # noqa: E731
-        out["K4"].append({
+        out.setdefault("K4", []).append({
             "shape": f"{label} {m} x {width} {dtype} start_kk={start_kk}",
             "max_abs_err": err, "call_ms": time_ms(call, dev, 2, 20),
             "call_host_us": host_us(call),
@@ -541,23 +583,24 @@ def measure(dev) -> dict:
             "torch_sort_ms": time_ms(sort, dev, 2, 20),
             "torch_sort_host_us": host_us(sort)})
         print(json.dumps(out["K4"][-1]), file=sys.stderr, flush=True)
-    for label, m, width, start_kk, dtype in K6_SHAPES:
+    for label, m, width, start_kk, dtype in K6_SHAPES if want("K6") else ():
         key, val = (t.to(dev) for t in k4_rows(m, width, start_kk, dtype))
         call = lambda: K.sort_only(  # noqa: E731
             key, val, width=width, start_kk=start_kk)
         err = _check_sorted(call(), K.sort_only_plain(
             key, val, width=width, start_kk=start_kk), width, dtype)
-        out["K6"].append({
+        out.setdefault("K6", []).append({
             "shape": f"{label} {m} x {width} {dtype} start_kk={start_kk}",
             "max_abs_err": err, **_timings(
                 call, lambda: torch.sort(key, dim=1, stable=True),
                 "k6_sort_rows", dev)})
         print(json.dumps(out["K6"][-1]), file=sys.stderr, flush=True)
         del key, val
-    out["K11"].append(_measure_k11(dev))
-    print(json.dumps(out["K11"][-1]), file=sys.stderr, flush=True)
+    if want("K11"):
+        out["K11"] = [_measure_k11(dev)]
+        print(json.dumps(out["K11"][-1]), file=sys.stderr, flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for D in K13_SHARDS:
+    for D in K13_SHARDS if want("K13") else ():
         rows = HEADLINE_ROWS // D
         cols = [torch.randint(-1, HEADLINE_ROWS, (rows, HEADLINE_KB),
                               generator=gen, device=dev, dtype=torch.int32)
@@ -576,7 +619,7 @@ def measure(dev) -> dict:
         public = lambda: RR.ring_hop_rdma(cols, vals)  # noqa: E731
         ring = lambda: RR.ring_hop_rdma(*first, out=sets[1])  # noqa: E731
         roll = lambda: [torch.roll(x, -1, 0) for x in stk]  # noqa: E731
-        out["K13"].append({
+        out.setdefault("K13", []).append({
             "shape": f"D={D} x ({rows}, {HEADLINE_KB}) int32 + float32",
             "call_ms": time_ms(public, dev, 2, 20),
             "call_host_us": host_us(public),
@@ -592,6 +635,8 @@ def measure(dev) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write the result here")
+    ap.add_argument("--kernels", help="comma-separated kernels to measure "
+                    "(e.g. K5,K7b; all by default)")
     args = ap.parse_args(argv)
     # the tuned fused width must be set before ops.bitonic is imported
     from ia_spgemm_tpu_torch.bench import headline
@@ -604,7 +649,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    res = {"card": card, **measure(torch.device("cuda", 0))}
+    res = {"card": card, **measure(
+        torch.device("cuda", 0),
+        args.kernels.split(",") if args.kernels else None)}
     line = json.dumps(res)
     print(line)
     if args.json:

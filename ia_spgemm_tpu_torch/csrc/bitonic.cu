@@ -17,36 +17,29 @@
 // (partner i ^ s, no rolls), sums duplicate-column runs, and writes each
 // survivor to its rank, found by a scan over the row. Hopper stores at
 // data-dependent offsets, so the TPU's omega-network compaction and its
-// (width, 128-row) transposed tiles are gone. Two designs, on the
-// building blocks of sort_common.cuh:
-//
-// - The register network (building block 3): K1-K4, K6 and K7a (and K8,
-//   K9 in slab.cu). A row of W slots is held E = 8 (16 at W = 16384,
-//   and in K7a) slots a thread in registers; strides below 32E need no
-//   barrier, rows of at most 32E slots share a 128-thread block, and the
-//   compress is a segmented scan over warp shuffles. K1 gathers its
-//   products straight into registers (expand_slots) and sorts and
-//   compresses them; K2 does
-//   the same without the compress, from K1's gather g where the plan
-//   pregathered it and otherwise straight from the wide B table through
-//   the fragment index rT (TableIn, K8's source without slab rows), so
-//   the flat route and the serve lane write no gathered copy of the
-//   table; K3 compresses rows K2, K6 or K8 sorted, with no sort; K4 sorts
-//   and compresses pre-expanded rows (the wide classes, the ring's
-//   shards); K6 sorts them only, for K3; K7a (the bf16 serve lane) packs
-//   each of K2's table-source slots into one int32 key and sorts the keys
-//   alone (value type NoVal: no value shuffles, half the shared slots;
-//   16 slots a thread, as keys alone leave the registers for them).
-//   Bound: bytes (read the row or its fragments once, write out_w slots
-//   once, at 3.35 TB/s); the network leaves them instruction-bound, a few
-//   times above it.
-// - The shared-memory network (building blocks 1-2): K5 and K7b (and K10
-//   in slab.cu). One thread block owns one output row, keeps its `width`
-//   products in shared memory, sorts them with one block barrier per
-//   stride (log2(w)*(log2(w)+1)/2 passes over 8*w bytes) where it sorts
-//   (K5), and compresses them with one block-wide scan; the barriers and
-//   the few threads per block (w/2), not bytes, bound them. Moving them
-//   to the register network is later work.
+// (width, 128-row) transposed tiles are gone. All eight run the register
+// network of sort_common.cuh (building block 3, row_net_rows): a row of W
+// slots is held E = 8 (16 at W = 16384, and in K7a) slots a thread in
+// registers; strides below 32E need no barrier, rows of at most 32E
+// slots share a 128-thread block, and the compress is a segmented scan
+// over warp shuffles. K1 gathers its products straight into registers
+// (expand_slots) and sorts and compresses them; K2 does the same without
+// the compress, from K1's gather g where the plan pregathered it and
+// otherwise straight from the wide B table through the fragment index rT
+// (TableIn, K8's source without slab rows), so the flat route and the
+// serve lane write no gathered copy of the table; K3 compresses rows K2,
+// K6 or K8 sorted, with no sort; K4 sorts and compresses pre-expanded rows
+// (the wide classes, the ring's shards) and K5 the same rows of the cols
+// layout, its first out_w survivors kept; K6 sorts them only, for K3; K7a
+// (the bf16 serve lane) packs each of K2's table-source slots into one
+// int32 key and sorts the keys alone (value type NoVal: no value shuffles,
+// half the shared slots; 16 slots a thread, as keys alone leave the
+// registers for them); K7b unpacks K7a's sorted keys in registers as it
+// loads them (PackedRowsIn) and runs K3's compress on them. Bound: bytes
+// (read the row or its fragments once, write out_w slots once, at 3.35
+// TB/s); the network leaves the sorting kernels instruction-bound, a few
+// times above it, and the compress alone (K3, K7b) within 1.3x of it on
+// the main paths' rows (PERF.md).
 //
 // K5 and K6 take rows the torch expand (ops/bitonic.py _expand_ell) has
 // already written to device memory: (m, width) int32 keys and float32 or
@@ -66,57 +59,11 @@ namespace {
 
 constexpr int kMaxDevices = 64;
 
-// Shared memory of the shared-memory network (K5, K7b): values + keys
-// + 32 warp totals + 1 block total (values first, so a float64 lane stays
-// 8-byte aligned)
-template <typename V>
-inline size_t smem_bytes(int width) {
-  return (size_t)width * (sizeof(V) + sizeof(int)) + 33 * sizeof(int);
-}
-
-// ---- K5: the shared-memory network ---------------------------------------
-
-// One row of (m, width) keys and values from device memory into shared
-// memory laid out as smem_bytes<V> says: returns the keys; *v gets the
-// values.
-template <typename V>
-__device__ int* load_row(const int* __restrict__ key,
-                         const V* __restrict__ val, unsigned char* raw,
-                         V** v, int row, int width) {
-  V* vs = reinterpret_cast<V*>(raw);
-  int* ks = reinterpret_cast<int*>(vs + width);
-  for (int p = threadIdx.x; p < width; p += blockDim.x) {
-    ks[p] = key[(size_t)row * width + p];
-    vs[p] = val[(size_t)row * width + p];
-  }
-  *v = vs;
-  return ks;
-}
-
-// K5: sort one pre-expanded row, sum duplicates, write the first out_w
-// survivors.
-template <typename V>
-__global__ void k5_sort_compress(const int* __restrict__ key,
-                                 const V* __restrict__ val,
-                                 int* __restrict__ out_col,
-                                 V* __restrict__ out_val,
-                                 int* __restrict__ nnz, int width,
-                                 int start_kk, int out_w) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int row = blockIdx.x;
-  V* v;
-  int* k = load_row(key, val, smem_raw, &v, row, width);
-  block_sort(k, v, width, start_kk);
-  compress_row(k, v, width, out_w, true, out_col + (size_t)row * out_w,
-               ValOut<V>{out_val + (size_t)row * out_w}, nnz + row,
-               k + width);
-}
-
-// ---- K1-K4, K6, K7a: the register network (building block 3) -------------
-// The rows, their sources (RowsIn, GatherIn, TableIn), loads and stores
-// are sort_common.cuh's (row_net_rows). Bound on this card: bytes, read
-// the row (K1, K2, K7a: its fragments and A values) once and write out_w
-// slots, at 3.35 TB/s.
+// ---- the kernels on the register network (building block 3) -------------
+// The rows, their sources (RowsIn, GatherIn, TableIn, PackedRowsIn),
+// loads and stores are sort_common.cuh's (row_net_rows). Bound on this
+// card: bytes, read the row (K1, K2, K7a: its fragments and A values; K7b:
+// its packed keys) once and write out_w slots, at 3.35 TB/s.
 
 // The kernels, one instance per (E, launch bound): E = 16 at width 16384
 // (1024 threads), 8 below, the launch bound the widest row the instance
@@ -159,12 +106,28 @@ k3_compress(RowsIn<V> in, int* __restrict__ out_col,
                                   start_kk, out_w, rows_per_block, vec_out);
 }
 
+// K4: sort + compress of pre-expanded rows, every survivor kept (out_w =
+// width).
 template <typename V, int E, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads)
 k4_sort_compress_rows(RowsIn<V> in, int* __restrict__ out_col,
                       V* __restrict__ out_val, int* __restrict__ nnz, int m,
                       int width, int start_kk, int out_w,
                       int rows_per_block, int vec_out) {
+  row_net_rows<V, E, true, NetOut::kCompact>(in, out_col, out_val, nnz, m,
+                                             width, start_kk, out_w,
+                                             rows_per_block, vec_out);
+}
+
+// K5: K4's network on the cols layout's pre-expanded rows (the classes up
+// to FUSED_MAX_WIDTH), the first out_w survivors kept; its own symbol, so
+// that torch.profiler tells its launches from K4's.
+template <typename V, int E, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads)
+k5_sort_compress(RowsIn<V> in, int* __restrict__ out_col,
+                 V* __restrict__ out_val, int* __restrict__ nnz, int m,
+                 int width, int start_kk, int out_w, int rows_per_block,
+                 int vec_out) {
   row_net_rows<V, E, true, NetOut::kCompact>(in, out_col, out_val, nnz, m,
                                              width, start_kk, out_w,
                                              rows_per_block, vec_out);
@@ -228,14 +191,32 @@ k7a_expand_sort_packed(PackedIn in, int* __restrict__ out_p,
       vec_out);
 }
 
+// K7b: K3's float32 duplicate sums and compaction (kCompact) or holes
+// (kInPlace, compact=False) of K7a's sorted keys, each unpacked in
+// registers as it is loaded (PackedRowsIn: _unpack_colval, :512). No
+// sort; start_kk is unused.
+template <int E, int kMaxThreads, NetOut kOut>
+__global__ void __launch_bounds__(kMaxThreads)
+k7b_compress_packed(PackedRowsIn in, int* __restrict__ out_col,
+                    float* __restrict__ out_val, int* __restrict__ nnz,
+                    int m, int width, int start_kk, int out_w,
+                    int rows_per_block, int vec_out) {
+  row_net_rows<float, E, false, kOut>(in, out_col, out_val, nnz, m, width,
+                                      start_kk, out_w, rows_per_block,
+                                      vec_out);
+}
+
 // The kernel of a (value type, E, launch bound, sort, output, source):
-// K1 and K2 for the gather and the table, K7a for the packed table, K3
-// without the sort, K6 for the sorted row, K4.
+// K1 and K2 for the gather and the table, K7a for the packed table, K7b
+// for the packed rows, K3 without the sort, K6 for the sorted row, K4 (K5
+// where kK5: the same instance under K5's symbol).
 template <typename V, int E, int kMaxThreads, bool kSort, NetOut kOut,
-          typename In>
+          bool kK5, typename In>
 auto net_kernel() {
   if constexpr (std::is_same_v<In, PackedIn>)
     return &k7a_expand_sort_packed<E, kMaxThreads>;
+  else if constexpr (std::is_same_v<In, PackedRowsIn>)
+    return &k7b_compress_packed<E, kMaxThreads, kOut>;
   else if constexpr (!std::is_same_v<In, RowsIn<V>>) {
     if constexpr (kOut == NetOut::kCompact)
       return &k1_expand_sort_compress<E, kMaxThreads>;
@@ -245,69 +226,26 @@ auto net_kernel() {
     return &k3_compress<V, E, kMaxThreads, kOut>;
   else if constexpr (kOut == NetOut::kSorted)
     return &k6_sort_rows<V, E, kMaxThreads>;
+  else if constexpr (kK5)
+    return &k5_sort_compress<V, E, kMaxThreads>;
   else
     return &k4_sort_compress_rows<V, E, kMaxThreads>;
 }
 
-// K7b: unpack the sorted keys (_unpack_colval, :512: the bf16 bits widen
-// to float32 exactly), then K3's float32 duplicate sums and compaction.
-__global__ void k7b_compress_packed(const int* __restrict__ packed,
-                                    int* __restrict__ out_col,
-                                    float* __restrict__ out_val,
-                                    int* __restrict__ nnz, int width,
-                                    int out_w, int compact) {
-  extern __shared__ int smem[];
-  int* k = smem;
-  float* v = reinterpret_cast<float*>(smem + width);
-  const int row = blockIdx.x;
-  for (int p = threadIdx.x; p < width; p += blockDim.x) {
-    const int x = packed[(size_t)row * width + p];
-    const bool sent = x == kSentinel;
-    k[p] = sent ? kSentinel : (int)((uint32_t)x >> 16);
-    v[p] = sent ? 0.f : __uint_as_float(((uint32_t)x & 0xFFFFu) << 16);
-  }
-  __syncthreads();
-  compress_row(k, v, width, out_w, compact != 0,
-               out_col + (size_t)row * out_w,
-               F32Out{out_val + (size_t)row * out_w}, nnz + row,
-               smem + 2 * width);
-}
-
-// Allow more than 48 KB of dynamic shared memory (K5 at width 16384
-// uses 128 KB with float32 values, 192 KB with float64). Set once per kernel
-// instance and device, to what its widest row needs, on the device the
-// caller made current; later launches skip it.
-
-template <typename V, typename Kernel>
-cudaError_t allow_smem(Kernel kernel, bool* done, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes<V>(kMaxWidth));
-  if (err == cudaSuccess) done[dev] = true;
-  return err;
-}
-
-bool k7b_smem_set[kMaxDevices];
-
-// The register network's launches (K1-K4, K6, K7a): the instance for the
-// row's width (E = 16 at 16384 and in K7a, 8 below otherwise; the
-// launch bound the widest row it takes), rows of at most 32E slots
-// (T <= 32 threads) sharing a 128-thread block. Each instance raises its
-// own shared-memory limit once per device (the static local), to what
-// its widest row needs.
+// The register network's launches: the instance for the row's width
+// (E = 16 at 16384 and in K7a, 8 below otherwise; the launch bound the
+// widest row it takes), rows of at most 32E slots (T <= 32 threads)
+// sharing a 128-thread block. Each instance raises its own shared-memory
+// limit once per device (the static local), to what its widest row
+// needs.
 template <typename V, int E, int kMaxThreads, bool kSort, NetOut kOut,
-          typename In>
+          bool kK5 = false, typename In>
 int launch_row_net(const In& in, void* out_col, void* out_val, void* nnz,
                    int m, int width, int start_kk, int out_w,
                    void* stream) {
   static bool done[kMaxDevices];
-  const auto kernel = net_kernel<V, E, kMaxThreads, kSort, kOut, In>();
+  const auto kernel =
+      net_kernel<V, E, kMaxThreads, kSort, kOut, kK5, In>();
   const int T = width / E;
   const int rows_per_block = net_rows_per_block<E>(width);
   const size_t smem =
@@ -334,13 +272,14 @@ int launch_row_net(const In& in, void* out_col, void* out_val, void* nnz,
   return (int)cudaGetLastError();
 }
 
-template <typename V, bool kSort, NetOut kOut, typename In>
+template <typename V, bool kSort, NetOut kOut, bool kK5 = false,
+          typename In>
 int launch_rows(const In& in, void* out_col, void* out_val, void* nnz, int m,
                 int width, int start_kk, int out_w, void* stream) {
-#define IA_NET(E_, THREADS)                                             \
-  launch_row_net<V, E_, THREADS, kSort, kOut>(in, out_col, out_val, nnz, \
-                                              m, width, start_kk, out_w, \
-                                              stream)
+#define IA_NET(E_, THREADS)                                                 \
+  launch_row_net<V, E_, THREADS, kSort, kOut, kK5>(in, out_col, out_val,    \
+                                                   nnz, m, width, start_kk, \
+                                                   out_w, stream)
   if (width == kMaxWidth) return IA_NET(16, 1024);
   if (width <= 2048) return IA_NET(8, 256);
   if (width == 4096) return IA_NET(8, 512);
@@ -357,11 +296,12 @@ RowsIn<V> rows_in(const void* key, const void* val) {
           (((uintptr_t)key | (uintptr_t)val) & 15) == 0};
 }
 
-template <typename V>
-int launch_k3(const void* key, const void* val, void* out_col,
-              void* out_val, void* nnz, int m, int width, int out_w,
-              int compact, void* stream) {
-  const RowsIn<V> in = rows_in<V>(key, val);
+// The compress alone (K3 on sorted rows, K7b on sorted packed keys):
+// compacted to out_w, or in place (out_w = width).
+template <typename V, typename In>
+int launch_compress(const In& in, void* out_col, void* out_val, void* nnz,
+                    int m, int width, int out_w, int compact,
+                    void* stream) {
   return compact ? launch_rows<V, false, NetOut::kCompact>(
                        in, out_col, out_val, nnz, m, width, 2, out_w, stream)
                  : launch_rows<V, false, NetOut::kInPlace>(
@@ -393,21 +333,6 @@ TableIn<float> table_in(const void* table, const void* rT, const void* avT,
   return {(const int32_t*)table, (const int32_t*)rT, (const float*)avT,
           nullptr, ka, lanes, run, 0,
           ((uintptr_t)table & 15) == 0 && lanes % 4 == 0};
-}
-
-template <typename V>
-int launch_k5(const void* key, const void* val, void* out_col,
-              void* out_val, void* nnz, int m, int width, int start_kk,
-              int out_w, void* stream) {
-  static bool done[kMaxDevices];
-  size_t smem = smem_bytes<V>(width);
-  cudaError_t err = allow_smem<V>(k5_sort_compress<V>, done, smem);
-  if (err != cudaSuccess) return (int)err;
-  k5_sort_compress<V><<<m, threads_for(width), smem,
-                        (cudaStream_t)stream>>>(
-      (const int*)key, (const V*)val, (int*)out_col, (V*)out_val,
-      (int*)nnz, width, start_kk, out_w);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -450,16 +375,17 @@ extern "C" int ia_k3_compress(const void* key, const void* val,
                               void* out_col, void* out_val, void* nnz,
                               int m, int width, int out_w, int compact,
                               void* stream) {
-  return launch_k3<float>(key, val, out_col, out_val, nnz, m, width, out_w,
-                          compact, stream);
+  return launch_compress<float>(rows_in<float>(key, val), out_col, out_val,
+                                nnz, m, width, out_w, compact, stream);
 }
 
 extern "C" int ia_k3_compress_f64(const void* key, const void* val,
                                   void* out_col, void* out_val, void* nnz,
                                   int m, int width, int out_w, int compact,
                                   void* stream) {
-  return launch_k3<double>(key, val, out_col, out_val, nnz, m, width,
-                           out_w, compact, stream);
+  return launch_compress<double>(rows_in<double>(key, val), out_col,
+                                 out_val, nnz, m, width, out_w, compact,
+                                 stream);
 }
 
 extern "C" int ia_k4_sort_compress_rows(const void* key, const void* val,
@@ -485,8 +411,9 @@ extern "C" int ia_k5_sort_compress(const void* key, const void* val,
                                    void* out_col, void* out_val, void* nnz,
                                    int m, int width, int start_kk,
                                    int out_w, void* stream) {
-  return launch_k5<float>(key, val, out_col, out_val, nnz, m, width,
-                          start_kk, out_w, stream);
+  return launch_rows<float, true, NetOut::kCompact, true>(
+      rows_in<float>(key, val), out_col, out_val, nnz, m, width, start_kk,
+      out_w, stream);
 }
 
 extern "C" int ia_k5_sort_compress_f64(const void* key, const void* val,
@@ -494,8 +421,9 @@ extern "C" int ia_k5_sort_compress_f64(const void* key, const void* val,
                                        void* nnz, int m, int width,
                                        int start_kk, int out_w,
                                        void* stream) {
-  return launch_k5<double>(key, val, out_col, out_val, nnz, m, width,
-                           start_kk, out_w, stream);
+  return launch_rows<double, true, NetOut::kCompact, true>(
+      rows_in<double>(key, val), out_col, out_val, nnz, m, width, start_kk,
+      out_w, stream);
 }
 
 extern "C" int ia_k6_sort(const void* key, const void* val, void* out_k,
@@ -527,13 +455,7 @@ extern "C" int ia_k7b_compress_packed(const void* packed, void* out_col,
                                       void* out_val, void* nnz, int m,
                                       int width, int out_w, int compact,
                                       void* stream) {
-  size_t smem = smem_bytes<float>(width);
-  cudaError_t err =
-      allow_smem<float>(k7b_compress_packed, k7b_smem_set, smem);
-  if (err != cudaSuccess) return (int)err;
-  k7b_compress_packed<<<m, threads_for(width), smem,
-                        (cudaStream_t)stream>>>(
-      (const int*)packed, (int*)out_col, (float*)out_val, (int*)nnz, width,
-      out_w, compact);
-  return (int)cudaGetLastError();
+  return launch_compress<float>(
+      PackedRowsIn{(const int*)packed, ((uintptr_t)packed & 15) == 0},
+      out_col, out_val, nnz, m, width, out_w, compact, stream);
 }

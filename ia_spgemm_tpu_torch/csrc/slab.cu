@@ -38,9 +38,10 @@
 // What bounds them: bytes would (the table's read lanes, mt, avT and lrT
 // once, the sorted (S, width) keys and values written once, at 3.35
 // TB/s); the network's compares and shuffles keep K8 and K9 a few times
-// above that, as K1, K4 and K6 are. K10 is still the shared-memory
-// network of building blocks 1-2 (one block barrier per scan step), 12
-// bytes a slot.
+// above that, as K1, K4 and K6 are. K10 is the last kernel on shared
+// memory (building block 2: one block-wide scan, 12 bytes a slot); it
+// already runs within 1.5x of its bytes bound on the headline's slabs
+// (PERF.md), so it is left as it is.
 
 #include "sort_common.cuh"
 
@@ -83,8 +84,8 @@ __global__ void k10_compress_dd(const int* __restrict__ key,
   }
   __syncthreads();
   const size_t o = (size_t)s * width;
-  compress_row(k, v, width, width, true, out_col + o,
-               DDOut{out_hi + o, out_lo + o}, nnz + s, k + width);
+  compress_row(k, v, width, out_col + o, DDOut{out_hi + o, out_lo + o},
+               nnz + s, k + width);
 }
 
 // K10's keys + float64 values + 32 warp totals + 1 block total; at most

@@ -1,9 +1,10 @@
 // Building blocks shared by the sort kernels of bitonic.cu (K1-K7)
-// and slab.cu (K8-K10): the block bitonic sort in shared memory and the
-// duplicate-sum / compaction of a sorted row there (K5, K7b, K10); and
-// the register network with its row sources (pre-expanded rows, K1's
-// gather, the B table read through a fragment index), its register
-// compress and its stores (K1-K4, K6, K7a, K8, K9).
+// and slab.cu (K8-K10): the register network with its row sources
+// (pre-expanded rows, K1's gather, the B table read through a fragment
+// index, K7a's sorted packed keys), its register compress and its stores
+// (K1-K9, building block 3); and the duplicate-sum / compaction of a
+// sorted row in shared memory with a block-wide scan (K10 alone, building
+// block 2).
 //
 // Conventions shared with the JAX package: SENTINEL = INT32_MAX marks an
 // empty product slot and sorts last (signed int32 compares); empty output
@@ -22,41 +23,19 @@ namespace {
 constexpr int kSentinel = 0x7fffffff;
 constexpr int kMaxWidth = 16384;
 
-// Threads per block for a row of `width` slots (width a power of two,
-// 128..16384): one compare-exchange pair per thread, at most 1024.
+// Threads per block of the shared-memory compress (K10) for a row of
+// `width` slots (a power of two, 128..16384): width / 2, at most 1024.
 inline int threads_for(int width) {
   int t = width / 2;
   return t < 32 ? 32 : (t > 1024 ? 1024 : t);
 }
 
-// ---- building block 1: block bitonic sort in shared memory -------------
-// Ascending by key. Merging starts at block size start_kk: 2*run when the
-// row holds alternating sorted runs of length run, 2 for a full sort.
-template <typename V>
-__device__ void block_sort(int* k, V* v, int width, int start_kk) {
-  __syncthreads();
-  const int half = width >> 1;
-  for (int kk = start_kk; kk <= width; kk <<= 1) {
-    for (int s = kk >> 1; s > 0; s >>= 1) {
-      for (int t = threadIdx.x; t < half; t += blockDim.x) {
-        int i = ((t & ~(s - 1)) << 1) | (t & (s - 1));
-        int j = i + s;
-        bool asc = (i & kk) == 0;
-        int ki = k[i], kj = k[j];
-        if (ki != kj && (ki > kj) == asc) {
-          k[i] = kj;
-          k[j] = ki;
-          V vi = v[i];
-          v[i] = v[j];
-          v[j] = vi;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// ---- building block 2: compress -----------------------------------------
+// ---- building block 2: the shared-memory compress (K10) ----------------
+// One block per sorted row held in shared memory: each thread counts the
+// survivors of its contiguous chunk, one block-wide scan ranks them, and
+// each survivor's run sum goes to its rank. Barriers, and few threads a
+// block (width / 2), not bytes, bound it; the register network's compress
+// (row_net_scan below) is K1's, K3's, K4's, K5's and K7b's.
 __device__ __forceinline__ bool emits(const int* k, int i, int width) {
   int key = k[i];
   return key != kSentinel && (i == width - 1 || k[i + 1] != key);
@@ -97,18 +76,9 @@ __device__ int block_exclusive_scan(int x, int* warp_tot, int* total) {
   return warp_tot[wid] + incl - x;
 }
 
-// Where compress_row writes a value: one lane of the sum's own type
-// (float32 or float64), or (DDOut) the float32 pair hi = f32(s),
+// Where compress_row writes a value: the float32 pair hi = f32(s),
 // lo = f32(s - hi) of a float64 sum. s - hi is exact in float64 and no
 // product is involved, so FMA contraction cannot change it.
-template <typename V>
-struct ValOut {
-  V* v;
-  __device__ void put(int i, V s) const { v[i] = s; }
-  __device__ void zero(int i) const { v[i] = V(0); }
-};
-using F32Out = ValOut<float>;
-
 struct DDOut {
   float* hi;
   float* lo;
@@ -123,14 +93,12 @@ struct DDOut {
   }
 };
 
-// Sorted row (k, v) in shared memory -> duplicate sums, nnz, and either
-// the survivors compacted left into out_w slots (compact) or left at
-// their sorted slots with -1 / 0 holes (!compact, out_w == width). Each
-// thread scans a contiguous chunk so ranks keep column order. nnz counts
-// every survivor, also those past out_w.
+// Sorted row (k, v) in shared memory -> duplicate sums, nnz, and the
+// survivors compacted left into the row's `width` slots, -1 / 0 past
+// them. Each thread scans a contiguous chunk so ranks keep column order.
 template <typename V, typename Out>
-__device__ void compress_row(const int* k, const V* v, int width, int out_w,
-                             bool compact, int* out_col, Out out, int* nnz,
+__device__ void compress_row(const int* k, const V* v, int width,
+                             int* out_col, Out out, int* nnz,
                              int* scratch) {
   const int nt = blockDim.x;
   const int chunk = width / nt;
@@ -139,33 +107,20 @@ __device__ void compress_row(const int* k, const V* v, int width, int out_w,
   for (int i = lo; i < lo + chunk; ++i) cnt += emits(k, i, width);
   int off = block_exclusive_scan(cnt, scratch, scratch + 32);
   const int total = scratch[32];
-  if (compact) {
-    for (int i = lo; i < lo + chunk; ++i) {
-      if (!emits(k, i, width)) continue;
-      if (off < out_w) {
-        out_col[off] = k[i];
-        out.put(off, run_sum(k, v, i));
-      }
-      ++off;
-    }
-    for (int p = total + threadIdx.x; p < out_w; p += nt) {
-      out_col[p] = -1;
-      out.zero(p);
-    }
-  } else {
-    for (int i = lo; i < lo + chunk; ++i) {
-      bool e = emits(k, i, width);
-      out_col[i] = e ? k[i] : -1;
-      if (e)
-        out.put(i, run_sum(k, v, i));
-      else
-        out.zero(i);
-    }
+  for (int i = lo; i < lo + chunk; ++i) {
+    if (!emits(k, i, width)) continue;
+    out_col[off] = k[i];
+    out.put(off, run_sum(k, v, i));
+    ++off;
+  }
+  for (int p = total + threadIdx.x; p < width; p += nt) {
+    out_col[p] = -1;
+    out.zero(p);
   }
   if (threadIdx.x == 0) *nnz = total;
 }
 
-// ---- building block 3: the register network (K1-K4, K6-K9) ------------
+// ---- building block 3: the register network (K1-K9) --------------------
 // A row of W slots (W a power of two, 128..16384) is held E slots per
 // thread in registers, T = W / E threads per row: E = 8, or 16 at 16384
 // so that a row stays at 1024 threads (and in K7a, whose keys alone
@@ -185,12 +140,15 @@ __device__ void compress_row(const int* k, const V* v, int width, int out_w,
 // tests/test_torch_k1_k3_network.py K1's gather into registers and K3's
 // compress alone, tests/test_torch_k8_k9_network.py the table source of
 // K8 and K9, tests/test_torch_k2_k7a_network.py that of K2 and K7a and
-// K7a's key-only sort. K6 is the sort without the compress, K3 the
-// compress without the sort, K1 the sort and compress of slots gathered
-// straight into registers, K2 the sort of slots gathered from K1's g or
-// from the B table, K7a the same with each slot packed into its key and
-// the keys sorted alone (value type NoVal), K8 / K9 the sort of a slab's
-// slots gathered straight from the packed B table.
+// K7a's key-only sort, tests/test_torch_k5_k7b_network.py K5's capped
+// compress and K7b's unpacking source. K4 is the sort and the compress,
+// K5 the same with the first out_w survivors kept, K6 the sort without
+// the compress, K3 the compress without the sort, K7b the same of K7a's
+// packed keys unpacked as they are loaded, K1 the sort and compress of
+// slots gathered straight into registers, K2 the sort of slots gathered
+// from K1's g or from the B table, K7a the same with each slot packed
+// into its key and the keys sorted alone (value type NoVal), K8 / K9 the
+// sort of a slab's slots gathered straight from the packed B table.
 // Rows of at most 32E slots are one warp's work or less (T <= 32), sort
 // without shared memory, and share a block (rows_per_block).
 // Shared slots are XOR-swizzled within each 32-word line (swz), which
@@ -467,7 +425,7 @@ __device__ __forceinline__ RunScan<V> row_net_scan(
 }
 
 // The sorted row -> duplicate sums, nnz and the survivors compacted left
-// (K1, K3, K4): each survivor goes to its rank in the row's W shared
+// (K1, K3-K5, K7b): each survivor goes to its rank in the row's W shared
 // slots (ks / vs, free once the sort is done), and after one more barrier
 // every thread takes back its own E slots (-1 / 0 past the survivors)
 // into k / v, for coalesced stores by the caller. Returns the row's
@@ -500,8 +458,8 @@ __device__ __forceinline__ int row_net_compress(
 }
 
 // The sorted row -> duplicate sums and nnz, each survivor left at its
-// sorted slot with its run's sum and -1 / 0 in every other slot (K3's
-// sparse mode, compact=False): no shared slots, no staging. Returns the
+// sorted slot with its run's sum and -1 / 0 in every other slot (K3's and
+// K7b's compact=False): no shared slots, no staging. Returns the
 // row's survivors.
 template <int E, typename V>
 __device__ __forceinline__ int row_net_mark(int (&k)[E], V (&v)[E], int tid,
@@ -523,19 +481,21 @@ __device__ __forceinline__ int row_net_mark(int (&k)[E], V (&v)[E], int tid,
 // One row per block for rows of more than 32E slots (T = W / E threads),
 // several rows per 128-thread block below that. Each thread brings its E
 // slots into registers (RowsIn: 16-byte vector loads of the row, scalar
-// where a pointer is off the 16-byte grid; GatherIn, TableIn: the expand,
-// expand_slots; K7a's source packs each expanded slot into its key),
-// sorts them there (all but K3), compresses them (K1, K3, K4) and stores
-// E slots of the row with 16-byte vector stores where the row pointers
-// and out_w allow them. K2, K6, K7a (keys only), K8 and K9 store the
-// sorted row; K1, K3 and K4 the compacted row (staged through shared
-// memory: survivors written straight to their ranks would leave a warp's
-// stores scattered over 32 sectors each), its first out_w slots; K3 with
-// compact=False each survivor at its sorted slot, holes -1 / 0, straight
-// from registers. The row stays in registers between that one read and
-// one write, with block barriers only for the sort's strides of 32E and
-// more (two per such stage) and three in the compress (one, or none in
-// K3's sparse mode, where a row is a warp or less).
+// where a pointer is off the 16-byte grid; PackedRowsIn the same of the
+// packed keys, each unpacked as it is loaded; GatherIn, TableIn: the
+// expand, expand_slots; K7a's source packs each expanded slot into its
+// key), sorts them there (all but K3 and K7b), compresses them (K1,
+// K3-K5, K7b) and stores E slots of the row with 16-byte vector stores
+// where the row pointers and out_w allow them. K2, K6, K7a (keys only),
+// K8 and K9 store the sorted row; K1, K3-K5 and K7b the compacted row
+// (staged through shared memory: survivors written straight to their
+// ranks would leave a warp's stores scattered over 32 sectors each), its
+// first out_w slots; K3 and K7b with compact=False each survivor at its
+// sorted slot, holes -1 / 0, straight from registers. The row stays in
+// registers between that one read and one write, with block barriers
+// only for the sort's strides of 32E and more (two per such stage) and
+// three in the compress (one, or none in the in-place mode, where a row
+// is a warp or less).
 
 template <int E>
 __device__ __forceinline__ void load_keys(int (&k)[E], const int* p,
@@ -706,17 +666,23 @@ __device__ __forceinline__ void expand_slots(int (&k)[E], V (&v)[E],
 }
 
 // Where a block's rows come from. RowsIn: (m, width) keys and values in
-// device memory (K3, K4, K6). GatherIn: K1's fragment gather g (ceil(ka /
-// pack), m, lanes) and A values avT (ka, m) (K1, and K2 on pregathered
-// classes). TableIn: a packed B table (F + 1, lanes) read through the
-// fragment index rT (ka, m), with A values avT (ka, m) and, for K8 and
-// K9, slab-local rows lrT (ka, m) (K2 and K7a: none, lrT null). m counts
-// rows (K8, K9: slabs).
+// device memory (K3-K6). PackedRowsIn: (m, width) sorted (col << 16 |
+// bf16) keys, K7a's output (K7b). GatherIn: K1's fragment gather g
+// (ceil(ka / pack), m, lanes) and A values avT (ka, m) (K1, and K2 on
+// pregathered classes). TableIn: a packed B table (F + 1, lanes) read
+// through the fragment index rT (ka, m), with A values avT (ka, m) and,
+// for K8 and K9, slab-local rows lrT (ka, m) (K2 and K7a: none, lrT
+// null). m counts rows (K8, K9: slabs).
 template <typename V>
 struct RowsIn {
   const int* key;
   const V* val;
   int vec;      // key and val on the 16-byte grid
+};
+
+struct PackedRowsIn {
+  const int* p;
+  int vec;      // p on the 16-byte grid
 };
 
 struct GatherIn {
@@ -743,6 +709,25 @@ __device__ __forceinline__ void load_slots(int (&k)[E], V (&v)[E],
   const size_t off = (size_t)row * width + base;
   load_keys<E>(k, in.key + off, in.vec != 0);
   load_vals<E>(v, in.val + off, in.vec != 0);
+}
+
+// K7b: the thread's E packed keys (16-byte loads where vec), each
+// unpacked in registers, _unpack_colval (ops/bitonic.py:512) bit for bit:
+// the column is the logical x >> 16, the value the bf16 bits widened to
+// float32, (x & 0xFFFF) << 16, exactly; SENTINEL stays SENTINEL with
+// value 0.
+template <int E>
+__device__ __forceinline__ void load_slots(int (&k)[E], float (&v)[E],
+                                           const PackedRowsIn& in, int m,
+                                           int width, int row, int base) {
+  load_keys<E>(k, in.p + (size_t)row * width + base, in.vec != 0);
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const uint32_t x = (uint32_t)k[r];
+    const bool sent = k[r] == kSentinel;
+    v[r] = sent ? 0.f : __uint_as_float((x & 0xFFFFu) << 16);
+    k[r] = sent ? kSentinel : (int)(x >> 16);
+  }
 }
 
 // K1: fragment e in packed row e / pack of g at lane offset (e % pack) *
@@ -782,8 +767,8 @@ __device__ __forceinline__ void load_slots(int (&k)[E], V (&v)[E],
 }
 
 // What a network kernel leaves in its outputs: the sorted row (K2, K6,
-// K7a, K8, K9), the compacted row's first out_w slots (K1, K3, K4), or
-// each survivor at its sorted slot (K3's compact=False).
+// K7a, K8, K9), the compacted row's first out_w slots (K1, K3-K5, K7b), or
+// each survivor at its sorted slot (K3's and K7b's compact=False).
 enum class NetOut { kSorted, kCompact, kInPlace };
 
 // Rows per block: rows of at most 32E slots (T <= 32 threads) share a
@@ -795,7 +780,7 @@ inline int net_rows_per_block(int width) {
 }
 
 // Shared memory of a block of the register network: the compress's
-// scratch first (K1, K3, K4), then W value (none for NoVal) and W key
+// scratch first (K1, K3-K5, K7b), then W value (none for NoVal) and W key
 // slots per row where the sort exchanges through them (rows of more than
 // a warp) or the compress stages the compacted row.
 template <typename V, int E>

@@ -360,11 +360,11 @@ def test_gather_bytes_counts_the_lanes_k1_reads(run, pack):
 
 def test_k1_k3_cases_rehearse_on_cpu():
     """bench.kernels.network_cases (the shapes at which chip_smoke.py
-    phase 3 and bench/kernels.py hold K1-K3, K7a, K8 and K9) at m = 1024
-    on the CPU: every source gives its cases, and each case's wrapper
-    call (the plain version on the CPU) equals its plain call: (col, val,
-    nnz) for K1 and K3, the sorted (key, val) for K2, K8 and K9, the
-    sorted packed keys for K7a."""
+    phase 3 and bench/kernels.py hold K1-K3, K5, K7a, K7b, K8 and K9) at
+    m = 1024 on the CPU: every source gives its cases, and each case's
+    wrapper call (the plain version on the CPU) equals its plain call:
+    (col, val, nnz) for K1, K3, K5 and K7b, the sorted (key, val) for K2,
+    K8 and K9, the sorted packed keys for K7a."""
     from ia_spgemm_tpu_torch.bench import kernels as KB
     sources = {}
     for c in KB.network_cases(torch.device("cpu"), m=1024):
@@ -378,9 +378,9 @@ def test_k1_k3_cases_rehearse_on_cpu():
         assert c.read_bytes > 0
     assert sources == {"headline": {"K1", "K2", "K3"},
                        "skew": {"K1", "K2", "K3"},
-                       "headline flat": {"K2", "K3", "K7a"},
+                       "headline flat": {"K2", "K3", "K7a", "K7b"},
                        "headline slabs": {"K3", "K8", "K9"},
                        "headline f64": {"K3"},
-                       "skew x band f64": {"K3"},
+                       "skew x band f64": {"K3", "K5"},
                        "headline f64 flat": {"K3"},
                        "wide x band f32 flat": {"K3"}}

@@ -27,8 +27,9 @@ from tests.torch_parity import (GATHER_CASES, GATHER_RUNS, RUN,
                                 assert_tables_match, assert_values_close,
                                 cols_inputs, ell_pair, fragment_gather,
                                 gather_inputs, ill_conditioned,
-                                pack_fragments, slab_fragments,
-                                slab_operands, table_fragments,
+                                pack_fragments, packed_rows,
+                                slab_fragments, slab_operands,
+                                table_fragments,
                                 table_inputs, tell, value_rtol)
 
 
@@ -207,7 +208,22 @@ def _check_k6(key, val, width, start_kk):
         rtol=value_rtol(val))
 
 
-NET_CHECKS = {"K4": _check_k4, "K6": _check_k6}
+def _check_k5(key, val, width, start_kk, out_w=None):
+    """K5 (K4's network under its own symbol) with its output cut to
+    out_w slots: three quarters of the row plus one (off the 4-slot
+    grid, so the stores go slot by slot) unless given."""
+    out_w = width * 3 // 4 + 1 if out_w is None else out_w
+    n5 = K.sort_compress.launches
+    got = K.sort_compress(key, val, width=width, start_kk=start_kk,
+                          out_w=out_w)
+    assert K.sort_compress.launches == n5 + 1
+    assert got[1].dtype == val.dtype and got[0].shape[1] == out_w
+    assert_kernel_outputs_match(
+        got, K.sort_compress_plain(key, val, width=width, start_kk=start_kk,
+                                   out_w=out_w), rtol=value_rtol(val))
+
+
+NET_CHECKS = {"K4": _check_k4, "K5": _check_k5, "K6": _check_k6}
 
 
 @pytest.mark.cuda
@@ -469,6 +485,98 @@ def test_k5_k6_k3_kernels_match_plain(cuda_device, dtype, ka, out_width,
     assert_kernel_outputs_match(
         K.compress(sk, sv, width=width, out_w=out_w),
         K.compress_plain(pk, pv, width=width, out_w=out_w), rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ka", [16, 64])
+@pytest.mark.parametrize("out_w", [1, 100, "half"])
+def test_k5_float64_capped(cuda_device, ka, out_w):
+    """K5 in float64 on the torch expand's rows at widths 128 (ka 16;
+    8 rows a 128-thread block) and 512 (ka 64; a block a row), its output
+    cut below the width."""
+    key, val, width = cols_inputs(ka, np.float64, m=300, seed=ka)
+    out_w = width // 2 if out_w == "half" else out_w
+    _check_k5(key.to(cuda_device), val.to(cuda_device), width, 2 * RUN,
+              out_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", K4_WIDTHS)
+@pytest.mark.parametrize("kind", ["random", "cancel", "sentinel"])
+@pytest.mark.parametrize("compact", [True, False])
+def test_k7b_every_width(cuda_device, width, kind, compact):
+    """K7b on sorted packed keys at every width, compacted and in place:
+    random rows, rows of duplicate columns whose bf16 values cancel (each
+    column a survivor of value 0), and SENTINEL-only rows."""
+    p = packed_rows(width, m=37 if width <= 2048 else 5, kind=kind,
+                    seed=width).to(cuda_device)
+    got = _check_k7b(p, width, width, compact)
+    if kind == "cancel":
+        assert (got[2] == width // 2).all() and not got[1].any()
+
+
+def _check_k7b(p, width, out_w, compact):
+    n7 = K.compress_packed.launches
+    got = K.compress_packed(p, width=width, out_w=out_w, compact=compact)
+    assert K.compress_packed.launches == n7 + 1
+    assert_kernel_outputs_match(
+        got, K.compress_packed_plain(p, width=width, out_w=out_w,
+                                     compact=compact))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256, 1024])
+@pytest.mark.parametrize("m", [1, 13, 131, 133])
+@pytest.mark.parametrize("compact", [True, False])
+def test_k7b_row_counts(cuda_device, width, m, compact):
+    """Row counts below and above the card's SMs, and the last block's
+    padding rows where rows share a block."""
+    _check_k7b(packed_rows(width, m=m, seed=m).to(cuda_device), width,
+               width, compact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_w", [1, 100, 512])
+def test_k7b_out_w_and_off_the_grid(cuda_device, out_w):
+    """Compacted rows cut to out_w, from keys on the 16-byte grid and 4
+    bytes past it (the slot-by-slot loads)."""
+    m, width = 7, 1024
+    p0 = packed_rows(width, m=m, seed=out_w).to(cuda_device)
+    buf = torch.empty(m * width + 1, dtype=torch.int32, device=cuda_device)
+    p1 = buf[1:].view(m, width)
+    p1.copy_(p0)
+    assert p1.data_ptr() % 16
+    for p in (p0, p1):
+        _check_k7b(p, width, out_w, True)
+
+
+@pytest.mark.cuda
+def test_k5_k7b_profiler_names(cuda_device):
+    """torch.profiler sees K5's and K7b's launches under their own
+    symbols (bench.kernels.PROFILE_NAMES), K5's apart from K4's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ia_spgemm_tpu_torch.bench.kernels import PROFILE_NAMES
+    key, val, width = cols_inputs(32, np.float64)
+    key, val = key.to(cuda_device), val.to(cuda_device)
+    p = packed_rows(1024).to(cuda_device)
+    calls = {"K5": lambda: K.sort_compress(key, val, width=width,
+                                           start_kk=2 * RUN, out_w=width),
+             "K7b": lambda: K.compress_packed(p, width=1024, out_w=1024,
+                                              compact=False)}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA}
+        assert any(PROFILE_NAMES[name] in n for n in names), names
+        assert not any("k4_sort_compress_rows" in n for n in names), names
 
 
 def _slab_inputs(name, device, unaligned=False):

@@ -422,3 +422,34 @@ def table_fragments(m, ka, run, *, kind="random", pad_rows=2, seed=0,
     avT[~live] = np.nan
     return (torch.from_numpy(table), torch.from_numpy(rT),
             torch.from_numpy(avT))
+
+
+def packed_rows(width, m=3, kind="random", seed=0):
+    """K7a's output, built with numpy and the plain pack
+    (``_pack_colval``): rows of sorted (col << 16 | bf16) keys, SENTINEL
+    last. "random": columns below width / 3 (duplicate runs), MAX_COL
+    and a tenth SENTINEL; "cancel": width / 2 distinct columns, MAX_COL
+    among them, each twice, once with a bf16-exact value and once with
+    its negative (each sum exactly 0, the column still a survivor);
+    "sentinel": SENTINEL only. Returns (m, width) int32."""
+    rng = np.random.default_rng(seed + width)
+    if kind == "cancel":
+        cols = np.stack([rng.permutation(MAX_COL)[:width // 2]
+                         for _ in range(m)])
+        cols[:, 0] = MAX_COL
+        x = (rng.standard_normal((m, width // 2)).astype(np.float32)
+             .view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+        key = np.concatenate([cols, cols], axis=1)
+        val = np.concatenate([x, -x], axis=1)
+    else:
+        key = rng.integers(0, max(4, width // 3), (m, width))
+        key[rng.random((m, width)) < 0.05] = MAX_COL
+        key[rng.random((m, width)) < 0.1] = TK.SENTINEL
+        if kind == "sentinel":
+            key[:] = TK.SENTINEL
+        val = rng.standard_normal((m, width)).astype(np.float32)
+    key = torch.from_numpy(key.astype(np.int32))
+    p = torch.where(key != TK.SENTINEL,
+                    TK._pack_colval(key.clamp(min=0), torch.from_numpy(val)),
+                    TK.SENTINEL)
+    return torch.sort(p, dim=1).values
