@@ -11,7 +11,6 @@ exactly and their run sums; K7a's sorted packed keys, K11 and K13 bit
 for bit).
 
     python -m ia_spgemm_tpu_torch.bench.kernels [--json PATH]
-                                                [--kernels K5,K7b]
 
 Prints one JSON line: the card's name and power limit, then one entry per
 shape. K1's, K2's, K3's, K5's, K7a's, K7b's, K8's and K9's cases are
@@ -373,11 +372,15 @@ def _ragged_cases(call, source):
 
 
 def _flat_cases(source, X):
-    """K2, K3 on K2's rows and K7a on the flat plan of X @ X (float32,
-    width above FUSED_MAX_WIDTH), from the table source: the kernels of
-    spgemm_auto's bitonic pick and of the serve lane."""
+    """K2, K3 on K2's rows, K7a and K7b on the flat plan of X @ X
+    (float32), from the table source: the kernels of spgemm_auto's
+    bitonic pick and of the serve lane. The headline's plan is width
+    1024, run 32, in one chunk at every m; any other plan raises, so that
+    these kernels are held at the serve lane's shape."""
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     plan, ops, kw = flat_operands(X)
+    if (plan.width, plan.run, plan.chunks) != (1024, 32, 1):
+        raise AssertionError(f"{source} plan {plan}")
     table, rT, avT = ops
     shape = f"{source} rows={X.nrows} width={plan.width} run={plan.run}"
     read = table_read_bytes(table, rT, plan.run, avT)
@@ -530,20 +533,18 @@ def check_case(c, got, want) -> float:
     return _check_k4(got, want, dtype, c.kernel)
 
 
-def _measure_network(dev, want) -> dict:
-    """Each network case of a kernel `want` names against its plain
-    version, then its call ms, host us and kernel us, and its bytes
-    bound."""
+def _measure_network(dev) -> dict:
+    """Each network case against its plain version, then its call ms,
+    host us and kernel us, its bytes bound, and its library call's ms."""
     from ia_spgemm_tpu_torch.bench.harness import time_ms
-    out = {}
+    out = {"K1": [], "K2": [], "K3": [], "K5": [], "K7a": [], "K7b": [],
+           "K8": [], "K9": []}
     for c in network_cases(dev):
-        if not want(c.kernel):
-            continue
-        got, want_out = c.call(), c.plain()
-        err = check_case(c, got, want_out)
+        got, want = c.call(), c.plain()
+        err = check_case(c, got, want)
         bound_ms = (c.read_bytes + _nbytes(*got)) / PEAK_BYTES_PER_S * 1e3
-        del got, want_out
-        out.setdefault(c.kernel, []).append({
+        del got, want
+        out[c.kernel].append({
             "shape": c.shape, "max_abs_err": err,
             "call_ms": time_ms(c.call, dev, 2, 20),
             "call_host_us": host_us(c.call),
@@ -556,26 +557,23 @@ def _measure_network(dev, want) -> dict:
     return out
 
 
-def measure(dev, kernels=None) -> dict:
-    """The kernels named in `kernels` (all where None) at their shapes."""
+def measure(dev) -> dict:
     import torch
 
     from ia_spgemm_tpu_torch.bench.harness import time_ms
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
 
-    def want(name):
-        return kernels is None or name in kernels
-
-    out = _measure_network(dev, want)
-    for label, m, width, start_kk, dtype in K4_SHAPES if want("K4") else ():
+    out = {**_measure_network(dev), "K4": [], "K6": [], "K11": [],
+           "K13": []}
+    for label, m, width, start_kk, dtype in K4_SHAPES:
         key, val = (t.to(dev) for t in k4_rows(m, width, start_kk, dtype))
         call = lambda: K.sort_compress_rows(  # noqa: E731
             key, val, width=width, start_kk=start_kk)
         err = _check_k4(call(), K.sort_compress_rows_plain(
             key, val, width=width, start_kk=start_kk), dtype)
         sort = lambda: torch.sort(key, dim=1, stable=True)  # noqa: E731
-        out.setdefault("K4", []).append({
+        out["K4"].append({
             "shape": f"{label} {m} x {width} {dtype} start_kk={start_kk}",
             "max_abs_err": err, "call_ms": time_ms(call, dev, 2, 20),
             "call_host_us": host_us(call),
@@ -583,24 +581,23 @@ def measure(dev, kernels=None) -> dict:
             "torch_sort_ms": time_ms(sort, dev, 2, 20),
             "torch_sort_host_us": host_us(sort)})
         print(json.dumps(out["K4"][-1]), file=sys.stderr, flush=True)
-    for label, m, width, start_kk, dtype in K6_SHAPES if want("K6") else ():
+    for label, m, width, start_kk, dtype in K6_SHAPES:
         key, val = (t.to(dev) for t in k4_rows(m, width, start_kk, dtype))
         call = lambda: K.sort_only(  # noqa: E731
             key, val, width=width, start_kk=start_kk)
         err = _check_sorted(call(), K.sort_only_plain(
             key, val, width=width, start_kk=start_kk), width, dtype)
-        out.setdefault("K6", []).append({
+        out["K6"].append({
             "shape": f"{label} {m} x {width} {dtype} start_kk={start_kk}",
             "max_abs_err": err, **_timings(
                 call, lambda: torch.sort(key, dim=1, stable=True),
                 "k6_sort_rows", dev)})
         print(json.dumps(out["K6"][-1]), file=sys.stderr, flush=True)
         del key, val
-    if want("K11"):
-        out["K11"] = [_measure_k11(dev)]
-        print(json.dumps(out["K11"][-1]), file=sys.stderr, flush=True)
+    out["K11"].append(_measure_k11(dev))
+    print(json.dumps(out["K11"][-1]), file=sys.stderr, flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for D in K13_SHARDS if want("K13") else ():
+    for D in K13_SHARDS:
         rows = HEADLINE_ROWS // D
         cols = [torch.randint(-1, HEADLINE_ROWS, (rows, HEADLINE_KB),
                               generator=gen, device=dev, dtype=torch.int32)
@@ -619,7 +616,7 @@ def measure(dev, kernels=None) -> dict:
         public = lambda: RR.ring_hop_rdma(cols, vals)  # noqa: E731
         ring = lambda: RR.ring_hop_rdma(*first, out=sets[1])  # noqa: E731
         roll = lambda: [torch.roll(x, -1, 0) for x in stk]  # noqa: E731
-        out.setdefault("K13", []).append({
+        out["K13"].append({
             "shape": f"D={D} x ({rows}, {HEADLINE_KB}) int32 + float32",
             "call_ms": time_ms(public, dev, 2, 20),
             "call_host_us": host_us(public),
@@ -635,8 +632,6 @@ def measure(dev, kernels=None) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write the result here")
-    ap.add_argument("--kernels", help="comma-separated kernels to measure "
-                    "(e.g. K5,K7b; all by default)")
     args = ap.parse_args(argv)
     # the tuned fused width must be set before ops.bitonic is imported
     from ia_spgemm_tpu_torch.bench import headline
@@ -649,9 +644,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    res = {"card": card, **measure(
-        torch.device("cuda", 0),
-        args.kernels.split(",") if args.kernels else None)}
+    res = {"card": card, **measure(torch.device("cuda", 0))}
     line = json.dumps(res)
     print(line)
     if args.json:

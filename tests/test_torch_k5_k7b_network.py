@@ -20,9 +20,7 @@ unpack must match ``_unpack_colval`` (the port's and the JAX package's)
 bit for bit on negative products, bf16 subnormals, the 0xFFFE cap, column
 32767 and all-SENTINEL rows. A few cases also go through the JAX
 package's launchers (Pallas in interpret mode) on the same numpy inputs,
-pinned to the dtype they compare (tests/conftest.py turns on x64). The
-launch shape each instance gets (slots a thread, threads, rows a block,
-shared bytes) is checked against what the card allows."""
+pinned to the dtype they compare (tests/conftest.py turns on x64)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,7 +44,6 @@ SENT = K.SENTINEL
 # benchmark's tuned 512) and 1024, where chip_smoke.py holds it beside
 # K6 + K3
 K5_WIDTHS = sorted({128, 256, 512, bt.FUSED_MAX_WIDTH, 1024})
-SMEM_PER_BLOCK = 232448          # bytes a block may use on an H100
 DTYPES = {"float32": np.float32, "float64": np.float64}
 
 
@@ -86,26 +83,6 @@ def k7b_model(p, *, width, out_w, compact):
     return k3_model(torch.from_numpy(key.astype(np.int32)),
                     torch.from_numpy(val), width=width, out_w=out_w,
                     compact=compact)
-
-
-def launch_model(width, E=None):
-    """launch_rows (csrc/bitonic.cu): slots a thread E, the launch bound,
-    threads a row T and rows a block."""
-    E = E or elems_per_thread(width)
-    bound = 256 if width <= 2048 else (512 if width == 4096 else 1024)
-    T = width // E
-    return E, bound, T, (128 // T if T <= 32 else 1)
-
-
-def net_smem_bytes(width, rows_per_block, val_bytes, *, sort, out, E):
-    """net_smem_bytes (csrc/sort_common.cuh): the compress's RowScratch
-    (32 sums and four int arrays of 32), then a row's key and value slots
-    per row where the sort exchanges through them or the compress stages
-    the compacted row."""
-    scratch = 32 * val_bytes + 4 * 32 * 4 if out != "sorted" else 0
-    slots = out == "compact" or (sort and width // E > 32)
-    return scratch + (rows_per_block * width * (val_bytes + 4)
-                      if slots else 0)
 
 
 # ------------------------------------------------------------- the inputs
@@ -252,48 +229,6 @@ def test_k7b_model_matches_plain(width, mode, kind):
         assert not got[1].any()
     if kind == "sentinel":
         assert (got[2] == 0).all() and (got[0] == -1).all()
-
-
-@pytest.mark.parametrize("width", WIDTHS)
-def test_packed_loads_cover_the_row(width):
-    """Thread t loads the keys t*E .. t*E + E - 1 of its row, as E / 4
-    16-byte loads on the 16-byte grid (rows of a multiple of 4 keys keep
-    every row there), each key once."""
-    E = elems_per_thread(width)
-    read = np.zeros(width, np.int64)
-    for t in range(width // E):
-        for q in range(E // 4):
-            off = t * E + 4 * q
-            assert (off * 4) % 16 == 0
-            read[off:off + 4] += 1
-    assert (read == 1).all()
-
-
-# --------------------------------------------------- the launch shapes
-
-@pytest.mark.parametrize("width", WIDTHS)
-@pytest.mark.parametrize("kernel", ["K5 float32", "K5 float64",
-                                    "K7b compact", "K7b in_place"])
-def test_launch_fits_the_card(width, kernel):
-    """Each instance's block: its threads within the instance's launch
-    bound and 1024, rows of at most 32E slots filling a 128-thread
-    block, and its shared memory within a block's 227 KB (K5 at 16384
-    float64: 16 slots a thread, 197,376 bytes, raised above the 48 KB
-    default once per device)."""
-    E, bound, T, rows = launch_model(width)
-    assert T * rows <= bound <= 1024 and T * E == width
-    if T <= 32:
-        assert T * rows == 128
-    val_bytes = 8 if kernel.endswith("float64") else 4
-    smem = net_smem_bytes(width, rows, val_bytes,
-                          sort=kernel.startswith("K5"),
-                          out="inplace" if kernel.endswith("in_place")
-                          else "compact", E=E)
-    assert smem <= SMEM_PER_BLOCK
-    if kernel.endswith("in_place"):
-        assert smem == 32 * 4 + 4 * 32 * 4      # the scratch alone
-    if width == 16384 and kernel == "K5 float64":
-        assert smem == 197376
 
 
 # ------------------------------------------------- the bench's cases
