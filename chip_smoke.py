@@ -118,17 +118,35 @@ prints no result line:
     (python -m ia_spgemm_tpu_torch.parallel.multihost), MULTIPROC_OK
     from each;
 26. scaling: bench.scaling's ring scaling on the headline at D = 1, 2, 4
-    shards of the card, reported simulated (the shards share the card).
+    shards of the card, reported simulated (the shards share the card);
+27. the selector's training path: models.upcycle.harvest_sample with
+    device timers and the menu of weights/TPU_upcycled_v3.npz on four
+    named replicas at their published sizes (HARVEST_NAMES: poisson3Da,
+    m133-b3, scircuit, majorbasis; io.suitesparse.gen_named): every row
+    ok or skipped (none failed, every checksum within the harness's
+    gate), a device-time winner for each, each replica's device and wall
+    ms per algorithm beside v3's pick; upcycle (50 steps, batch 16, from
+    random init) with finite losses and a 5-class head; train on
+    synthetic_dataset (60 steps, batch 16, lr 3e-3) ending below 0.8x
+    its first loss; ms per training step at batch 16 and 32 (CUDA
+    events, TF32 off, the batch on the card); one step on the card
+    against the CPU (loss within 1e-5, gradients within 1e-4 of each
+    tensor's max) and over 4 shards of the card against one (loss and
+    gradients within 1e-5); save_params_npz / load_params_npz give the
+    same logits; evaluate_pick_accuracy on the harvest with the trained
+    weights and with TPU_upcycled_v3; graft_entry.dryrun_multichip(4) on
+    4 shards of the card.
 
 Every kernel wrapper counts its launches. Phases 4, 5, 7-10, 12-15,
-17-19 and 22-23 each drive a main path on its own input: the counts are
-set to 0 just before each run and read just after it. K1, K2 and K3
-must have been launched in phase 4, K2, K3 and K4 in phase 5, K8 and K3
-in phase 7, K9 and K10 in phase 9, K8 in the hybrid run of phase 10, K7a
-and K7b in phase 12, K12 in 13, K11 in 14, the flat route's kernels in
-spgemm_auto (15), K6 and K3 in f64_flat and f32_wide_flat, K5, K6 and K3 in
-f64_multiclass, K4 in f64_skew, K13 and K4 in the K13 ring runs of 22
-(no K13 in the plain-hop run), none in the plain-torch dist runs of 23.
+17-19, 22-23 and 27's harvest each drive a main path on its own input:
+the counts are set to 0 just before each run and read just after it.
+K1, K2 and K3 must have been launched in phase 4, K2, K3 and K4 in
+phase 5, K8 and K3 in phase 7, K9 and K10 in phase 9, K8 in the hybrid
+run of phase 10, K7a and K7b in phase 12, K12 in 13, K11 in 14, the flat
+route's kernels in spgemm_auto (15), K6 and K3 in f64_flat and
+f32_wide_flat, K5, K6 and K3 in f64_multiclass, K4 in f64_skew, K13 and
+K4 in the K13 ring runs of 22 (no K13 in the plain-hop run), none in the
+plain-torch dist runs of 23, at least one kernel in the harvest of 27.
 Phase 3's comparison launches and those of the CLI, the workers and the
 scaling phase are not counted. The line before the last two is a JSON
 object with one entry per kernel
@@ -185,6 +203,19 @@ REPLACES = {"K1": "ia_spgemm_tpu/ops/bitonic.py:1034",
             "K12": "ia_spgemm_tpu/ops/hash_spgemm.py:58",
             "K13": "ia_spgemm_tpu/parallel/rdma_ring.py:31"}
 RING_SHARDS = 4          # the ring / dist phases: 4 shards of the one card
+# phase 27: named replicas at their published sizes, one per structural
+# family (irregular, exact-k, power law, stencil), harvested with the
+# menu of weights/TPU_upcycled_v3.npz
+HARVEST_NAMES = ("poisson3Da", "m133-b3", "scircuit", "majorbasis")
+# one training step: the loss on the card against the CPU's, and the
+# loss and each gradient (relative to its tensor's max |g|) of 4 shards
+# of the card against one, within TRAIN_TOL; the card's gradients
+# against the CPU's (cuDNN against the CPU's convolutions, TF32 off)
+# within GRAD_TOL, the JAX parity tests' bound. Stepped weights are not
+# compared: Adam's first step moves each weight by about lr * sign(g),
+# so a gradient near 0 turns a rounding difference into up to 2 * lr.
+TRAIN_TOL = 1e-5
+GRAD_TOL = 1e-4
 
 
 def _compare(name, got, want):
@@ -729,6 +760,183 @@ def _distributed_phases(A, H, ref_sum, by_run, reset_counts, counts,
         print(json.dumps({"scaling": rep}), flush=True)
     finally:
         del os.environ[SHARDS_PER_DEVICE_ENV]
+    torch.cuda.synchronize()
+
+
+def _tree_leaves(tree):
+    """The arrays of a nested parameter dict."""
+    for v in tree.values():
+        yield from _tree_leaves(v) if isinstance(v, dict) else (v,)
+
+
+def _tree_rel_diff(x, y) -> float:
+    """The largest max |x - y| / max |y| over the tensors of two
+    parameter trees of one layout."""
+    import numpy as np
+    return max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                 1e-30)
+               for a, b in zip(_tree_leaves(x), _tree_leaves(y)))
+
+
+def _training_phase(by_run, reset_counts, counts, dev):
+    """Phase 27: the selector's training path on the card. Harvest the
+    named replicas (device-timed rows, the v3 menu), retrain MatNet on
+    them, learn the synthetic task, hold a step on the card to the CPU
+    and 4 shards to 1, round-trip the weights, score the picks, then
+    graft_entry's dry run over 4 shards of the card."""
+    import numpy as np
+    import torch
+
+    from ia_spgemm_tpu_torch import graft_entry
+    from ia_spgemm_tpu_torch.bench import harness
+    from ia_spgemm_tpu_torch.formats.types import CSR
+    from ia_spgemm_tpu_torch.io import suitesparse
+    from ia_spgemm_tpu_torch.models import matnet, train, upcycle, weights
+    from ia_spgemm_tpu_torch.parallel.mesh import make_mesh
+
+    info = {"harvest": {}}
+    menu = upcycle.V3_MENU
+    v3, v3_menu = weights.load_params_npz(os.path.join(
+        weights.LOCAL_WEIGHTS_DIR, "TPU_upcycled_v3.npz"), with_menu=True)
+    if tuple(v3_menu) != menu:
+        raise AssertionError(f"v3 menu {v3_menu} != {menu}")
+
+    # ---- 27a. harvest: every row ok or skipped, a device-time winner
+    reports = []
+    run_benchmark = harness.run_benchmark
+
+    def keep(*args, **kw):
+        reports.append(run_benchmark(*args, **kw))
+        return reports[-1]
+
+    samples = []
+    harness.run_benchmark = keep
+    reset_counts()
+    try:
+        for name in HARVEST_NAMES:
+            t0 = time.perf_counter()
+            a = suitesparse.gen_named(name).astype(np.float32)
+            gen_s = time.perf_counter() - t0
+            A = CSR.from_scipy(a, device=dev)
+            t0 = time.perf_counter()
+            s = upcycle.harvest_sample(A, A, menu=menu, name=name, iters=2)
+            torch.cuda.synchronize()
+            harvest_s = time.perf_counter() - t0
+            rep = reports[-1]
+            bad = [(r.name, r.error, r.timed_out) for r in rep.results
+                   if r.error or not (r.ok or r.skipped)]
+            if bad or s is None:
+                raise AssertionError(f"harvest {name}: rows failed {bad}, "
+                                     f"sample {s}")
+            pick = menu[matnet.predict_class(v3, s.img1, s.img2, s.feats,
+                                             device=dev)]
+            info["harvest"][name] = {
+                "m": a.shape[0], "nnz": int(a.nnz), "flops": rep.flops,
+                "gen_s": gen_s, "harvest_s": harvest_s,
+                "rows": {r.name: ("ok" if r.ok else "skipped")
+                         for r in rep.results},
+                "device_ms": {n: t[0] for n, t in s.times.items()},
+                "wall_ms": {n: t[1] for n, t in s.times.items()},
+                "winner": s.winner, "v3_pick": pick}
+            print(f"[27] harvest {name}: m={a.shape[0]} nnz={a.nnz} "
+                  f"{harvest_s} s; rows {info['harvest'][name]['rows']}; "
+                  + ", ".join(
+                      f"{n} device {t[0]} ms wall {t[1]} ms"
+                      for n, t in s.times.items())
+                  + f"; winner {s.winner}, v3 picks {pick}", flush=True)
+            samples.append(s)
+            del A, a
+    finally:
+        harness.run_benchmark = run_benchmark
+    by_run["harvest"] = counts()
+    if not any(by_run["harvest"].values()):
+        raise AssertionError("the harvest launched no kernel")
+    print(f"[27] harvest launches={by_run['harvest']}", flush=True)
+
+    # ---- 27b. retrain on the harvest; learn the synthetic task
+    params, history, _ = upcycle.upcycle(samples, menu=menu, init_from=None,
+                                         steps=50, batch_size=16,
+                                         device=dev)
+    finite = all(np.isfinite(x).all() for x in _tree_leaves(params))
+    if not (finite and all(np.isfinite(h[1]) for h in history)
+            and params["head"]["kernel"].shape == (90, len(menu))):
+        raise AssertionError(f"upcycle: history {history}, finite {finite}")
+    cfg = train.TrainConfig(steps=60, batch_size=16, learning_rate=3e-3)
+    _, hist = train.train(train.synthetic_dataset(cfg, seed=1), cfg,
+                          device=dev, log_every=20, log=lambda *_: None)
+    if not hist[-1][1] < 0.8 * hist[0][1]:
+        raise AssertionError(f"synthetic task not learned: {hist}")
+    info["upcycle_history"] = history
+    info["synthetic_history"] = hist
+    step_ms = {}
+    for bs in (16, 32):
+        c = train.TrainConfig(batch_size=bs)
+        model, opt = train.make_model(c, device=dev)
+        step = train.make_train_step(model, opt)
+        batch = tuple(torch.as_tensor(x).to(dev)
+                      for x in next(train.synthetic_dataset(c, 2)))
+        for _ in range(3):
+            step(batch)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            step(batch)
+        end.record()
+        end.synchronize()
+        step_ms[bs] = start.elapsed_time(end) / 20
+    info["train_step_ms"] = step_ms
+    print(f"[27] upcycle losses {history}; synthetic {hist}; ms per "
+          f"training step (batch on the card, TF32 off): {step_ms}",
+          flush=True)
+
+    # ---- 27c-d. one step on the card against the CPU, 4 shards against 1
+    # (loss and gradients)
+    c = train.TrainConfig(batch_size=16)
+    batch = next(train.synthetic_dataset(c, 4))
+    p0 = matnet.init_params(0)
+
+    def one_step(device, mesh=None):
+        model, opt = train.make_model(c, p0, device=device)
+        loss, _ = train.make_train_step(model, opt, mesh)(batch)
+        return float(loss), matnet.params_from_state_dict(
+            {n: p.grad for n, p in model.named_parameters()})
+
+    (l_cpu, g_cpu), (l_dev, g_dev) = one_step("cpu"), one_step(dev)
+    (l_dp, g_dp) = one_step(dev, make_mesh(devices=[dev] * RING_SHARDS))
+    parity = {"loss_cpu": l_cpu, "loss_card": l_dev, "loss_4_shards": l_dp,
+              "grad_card_vs_cpu": _tree_rel_diff(g_dev, g_cpu),
+              "grad_4_vs_1": _tree_rel_diff(g_dp, g_dev)}
+    info["parity"] = parity
+    if not (abs(l_dev - l_cpu) <= TRAIN_TOL * abs(l_cpu)
+            and abs(l_dp - l_dev) <= TRAIN_TOL * abs(l_dev)
+            and parity["grad_card_vs_cpu"] <= GRAD_TOL
+            and parity["grad_4_vs_1"] <= TRAIN_TOL):
+        raise AssertionError(f"training parity: {parity}")
+    print(f"[27] parity: {parity}", flush=True)
+
+    # ---- 27e. weights round trip; pick accuracy on the harvest
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "w.npz")
+        weights.save_params_npz(path, params, menu=menu)
+        back, back_menu = weights.load_params_npz(path, with_menu=True)
+    s = samples[0]
+    want = matnet.predict_logits(params, s.img1, s.img2, s.feats, device=dev)
+    got = matnet.predict_logits(back, s.img1, s.img2, s.feats, device=dev)
+    if tuple(back_menu) != menu or not torch.equal(got, want):
+        raise AssertionError(f"weights round trip: {got} != {want}")
+    info["pick_accuracy"] = {
+        "trained": upcycle.evaluate_pick_accuracy(params, samples, menu,
+                                                  device=dev),
+        "TPU_upcycled_v3": upcycle.evaluate_pick_accuracy(v3, samples, menu,
+                                                          device=dev)}
+    print(f"[27] pick accuracy on the harvest: {info['pick_accuracy']}",
+          flush=True)
+
+    # ---- 27f. the dry run over 4 shards of the card
+    info["dryrun"] = graft_entry.dryrun_multichip(RING_SHARDS, device=dev)
+    print(json.dumps({"training": info}), flush=True)
     torch.cuda.synchronize()
 
 
@@ -1356,6 +1564,9 @@ def main() -> int:
     # ---- 22-26. the distributed paths over shards of the card
     _distributed_phases(A, H, ref_sum, by_run, reset_counts, counts,
                         launched, same_pattern, time_ms, dev)
+
+    # ---- 27. the selector's training path (harvest launch counts from 0)
+    _training_phase(by_run, reset_counts, counts, dev)
 
     torch.cuda.synchronize()
     kernels = []

@@ -21,8 +21,13 @@ jax. Its constructors and readers put matrices on the card unless given
   a card, the all-gather ``dist_spgemm``, the ring ``ring_spgemm`` whose
   blocks hop through K13 (``csrc/ring.cu``), multi-process meshes on
   ``torch.distributed`` and ``bench/scaling.py``;
-- the harness (with the process-isolated watchdog) and the CLI, every
-  mode of the JAX package's.
+- the harness (with the process-isolated watchdog and device timers)
+  and the CLI, every mode of the JAX package's;
+- the selector's training path: ``models/train.py``,
+  ``models/upcycle.py`` (harvest by device-time winner, retrain,
+  score), the named SuiteSparse replicas (``io/suitesparse.py``), the
+  native .mtx parser (``io/native.py``), ``bench/profiling.py``,
+  ``bench/roofline.py`` and ``graft_entry.py``.
 """
 
 __version__ = "0.3.0"

@@ -25,7 +25,10 @@ checked against the baseline's (1e-4 relative in float32; the bf16
   baseline.
 - Times: on a CUDA device the median of CUDA-event intervals around each
   run (device time of the enqueued work); on the CPU the median host
-  wall time. Warm-up runs are untimed.
+  wall time. Warm-up runs are untimed. With ``device_timers=True`` each
+  row also gets ``device_time_ms``, a chain of runs between two events
+  (``profiling.device_time_ms``): the signal a harvested selector label
+  compares.
 """
 
 from __future__ import annotations
@@ -65,6 +68,9 @@ class AlgorithmResult:
     skipped: bool = False           # viability guard rejected the input
     timed_out: bool = False
     run_time_ms: float = 0.0
+    # device ms per run of a chain (profiling.device_time_ms); 0.0 unless
+    # the caller asked for device timers
+    device_time_ms: float = 0.0
     trans_time_ms: float = 0.0
     memory_bytes: float = 0.0       # size of C in this algorithm's format
     verified_sum: float = 0.0
@@ -158,11 +164,17 @@ def run_benchmark(A: CSR, B: CSR,
                   matrix_a: str = "A", matrix_b: str = "B",
                   config: cfg.SpGEMMConfig = cfg.DEFAULT_CONFIG,
                   matnet_pick: Optional[str] = None,
-                  iters: int = 3, isolate: bool = False,
-                  isolate_device: Optional[str] = None) -> BenchReport:
+                  iters: int = 3, device_timers: bool = False,
+                  isolate: bool = False,
+                  isolate_device: Optional[str] = None,
+                  progress=None) -> BenchReport:
     """Benchmark every algorithm computing C = A @ B, reference-style, on
     the device A and B live on. An algorithm that fails (an unknown name
     included) is reported with its error, not raised.
+
+    device_timers=True fills each row's device_time_ms (four runs
+    between two events, twice; the median). progress, when given, is
+    called with each algorithm's name before its row runs.
 
     isolate=True runs each row but the baseline in a killable subprocess
     on isolate_device ("cuda" or "cpu"; default A's device type), with
@@ -175,6 +187,8 @@ def run_benchmark(A: CSR, B: CSR,
                          nnz_a=int(A.nnz), nnz_b=int(B.nnz), flops=flops)
     baseline_ms = baseline_sum = timeout_s = None
     for name in algorithms:
+        if progress is not None:
+            progress(name)
         res = AlgorithmResult(name=name)
         report.results.append(res)
         try:
@@ -198,9 +212,10 @@ def run_benchmark(A: CSR, B: CSR,
                     bench_algorithm_isolated)
                 report.results[-1] = bench_algorithm_isolated(
                     A, B, name, timeout_s=budget_s, iters=iters,
-                    device=isolate_device)
+                    device=isolate_device, device_timers=device_timers)
                 continue
-            _bench_one(name, A, B, config, budget_s, res, iters)
+            _bench_one(name, A, B, config, budget_s, res, iters,
+                       device_timers)
         except Exception as e:  # noqa: BLE001 - report, don't crash the sweep
             res.error = f"{type(e).__name__}: {e}"
 
@@ -235,13 +250,16 @@ def run_benchmark(A: CSR, B: CSR,
 # skips the input; convert_fn's work (format conversion, planning) is
 # timed as trans time, compute(converted) is the timed run.
 
-def _ell_probe(A: CSR, ratio: float):
-    """The ELL guard from the planner's K alone."""
+def csr_to_ell_probe(A: CSR, ratio: float):
+    """The ELL guard from the planner's K alone (no conversion): K, or
+    None when the guard rejects A."""
     K = convert.plan_ell_width(A)
     return K if convert.ell_viable(A.nrows, int(A.nnz), K, ratio) else None
 
 
-def _dia_probe(A: CSR, ratio: float):
+def csr_to_dia_probe(A: CSR, ratio: float):
+    """The DIA guard from the planned offsets alone: the diagonal count,
+    or None when the guard rejects A."""
     nd = len(convert.plan_dia_offsets(A))
     return nd if convert.dia_viable(A.nrows, A.ncols, int(A.nnz), nd,
                                     ratio) else None
@@ -323,7 +341,8 @@ def _coo_row(A: CSR, B: CSR, config):
 def _ell_row(A: CSR, B: CSR, config):
     from ia_spgemm_tpu_torch.ops import ell
     ratio = config.size_guard_ratio
-    if _ell_probe(A, ratio) is None or _ell_probe(B, ratio) is None:
+    if (csr_to_ell_probe(A, ratio) is None
+            or csr_to_ell_probe(B, ratio) is None):
         return None
     return (lambda: _ells(A, B)), (lambda ab: ell.spgemm_ell(*ab))
 
@@ -333,7 +352,7 @@ def _dia_row(A: CSR, B: CSR, config):
     before dispatch (dia.DIA_PAIR_FLOP_BUDGET)."""
     from ia_spgemm_tpu_torch.ops import dia
     ratio = config.size_guard_ratio
-    nda, ndb = _dia_probe(A, ratio), _dia_probe(B, ratio)
+    nda, ndb = csr_to_dia_probe(A, ratio), csr_to_dia_probe(B, ratio)
     if nda is None or ndb is None or not dia.dia_compute_viable(
             nda, ndb, A.nrows):
         return None
@@ -363,7 +382,7 @@ def _dense_row_row(A: CSR, B: CSR, config):
     if (B.ncols > dr.MAX_N_F32
             or not _dense_budget_ok(B.nrows * B.ncols
                                         + A.nrows * B.ncols, A, config)
-            or _ell_probe(A, config.size_guard_ratio) is None):
+            or csr_to_ell_probe(A, config.size_guard_ratio) is None):
         return None
     return ((lambda: (convert.csr_to_ell(A, check_guard=False),
                       convert.csr_to_dense(B))),
@@ -378,7 +397,8 @@ def _hash_row(A: CSR, B: CSR, config):
     lens_a = np.diff(A.row_ptr.cpu().numpy())
     lens_b = np.diff(B.row_ptr.cpu().numpy())
     if (A.dtype != torch.float32
-            or _ell_probe(A, ratio) is None or _ell_probe(B, ratio) is None
+            or csr_to_ell_probe(A, ratio) is None
+            or csr_to_ell_probe(B, ratio) is None
             or not hs.hash_viable(int(lens_a.max(initial=0)),
                                   int(lens_b.max(initial=0)), B.ncols)):
         return None
@@ -435,10 +455,11 @@ def _memory_bytes(name: str, C) -> float:
 
 def _bench_one(name: str, A: CSR, B: CSR, config: cfg.SpGEMMConfig,
                timeout_s: Optional[float], res: AlgorithmResult,
-               iters: int):
+               iters: int, device_timers: bool = False):
     """Convert (timed as trans time), first run and one steady run under
     the watchdog (none when timeout_s is None: an isolated worker, which
-    its parent kills), then the timed runs; C's checksum and size."""
+    its parent kills), then the timed runs (and the device timer's
+    chains); C's checksum and size."""
     if name not in _ROWS:
         raise ValueError(f"unknown algorithm {name!r}")
     row = _ROWS[name](A, B, config)
@@ -469,6 +490,10 @@ def _bench_one(name: str, A: CSR, B: CSR, config: cfg.SpGEMMConfig,
         return None
     res.run_time_ms = time_ms(lambda: compute(converted), dev, warmup=0,
                               iters=iters)
+    if device_timers:
+        from ia_spgemm_tpu_torch.bench.profiling import device_time_ms
+        res.device_time_ms = device_time_ms(
+            lambda: compute(converted), chain=4, reps=2)["device_ms"]
     res.verified_sum = float(C.checksum())
     res.memory_bytes = _memory_bytes(name, C)
     res.ok = True

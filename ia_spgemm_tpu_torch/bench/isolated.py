@@ -21,7 +21,7 @@ workers run on the same card; that needs the card's default compute mode
 (``nvidia-smi --query-gpu=compute_mode``), not EXCLUSIVE_PROCESS.
 
     python -m ia_spgemm_tpu_torch.bench.isolated MATS.npz ALG \\
-        [--iters N] [--device cuda|cpu]
+        [--iters N] [--device cuda|cpu] [--device-timers]
 
 runs one worker by hand (MATS.npz as ``bench_algorithm_isolated`` writes
 it).
@@ -71,9 +71,11 @@ def _load_csr(z, prefix: str, device):
 
 def bench_algorithm_isolated(A, B, name: str, *,
                              timeout_s: Optional[float], iters: int = 3,
-                             device: Optional[str] = None):
+                             device: Optional[str] = None,
+                             device_timers: bool = False):
     """Benchmark one algorithm in a killable subprocess on ``device``
-    ("cuda" or "cpu"; default: A's device type).
+    ("cuda" or "cpu"; default: A's device type). device_timers: the
+    worker also fills device_time_ms (harness.run_benchmark's).
 
     Returns an AlgorithmResult. timeout_s bounds the worker's whole wall
     time at timeout_s + STARTUP_GRACE_S (None: no bound); past it the
@@ -95,6 +97,8 @@ def bench_algorithm_isolated(A, B, name: str, *,
         np.savez(path, **z)
         cmd = [sys.executable, "-m", "ia_spgemm_tpu_torch.bench.isolated",
                path, name, "--iters", str(iters), "--device", device]
+        if device_timers:
+            cmd.append("--device-timers")
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (str(_REPO), env.get("PYTHONPATH")) if p)
@@ -137,6 +141,7 @@ def _worker_main(argv) -> int:
     ap.add_argument("algorithm")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--device-timers", action="store_true")
     args = ap.parse_args(argv)
 
     if args.algorithm == "_test_slow":
@@ -162,7 +167,7 @@ def _worker_main(argv) -> int:
     try:
         # no inner watchdog: the parent's process-group kill is the timeout
         _bench_one(args.algorithm, A, B, cfg.DEFAULT_CONFIG, None, res,
-                   args.iters)
+                   args.iters, args.device_timers)
     except Exception as e:  # noqa: BLE001 - ship the error as the row's
         res.error = f"{type(e).__name__}: {e}"
     print(json.dumps(dataclasses.asdict(res)))

@@ -14,7 +14,11 @@ Efficiency(D) = throughput(D) / (D * throughput(1)): 1.0 at D = 1 by
 definition, clamped to (0, 1] above.
 
     python -m ia_spgemm_tpu_torch.bench.scaling [--cpu] [--dist | --weak]
-        [--m M] [--iters N] [--write OUT.json]
+        [--m M] [--iters N] [--write OUT.json] [--d1-from D1.json]
+
+A ring report whose shards each had a card of their own carries its
+D = 1 point as ``d1_real_chip``; ``--d1-from`` reads that point from an
+earlier report and prices the link from its time (``import_d1``).
 
 ``--cpu`` runs on the host with 8 shards (unless
 IA_SPGEMM_SHARDS_PER_DEVICE says otherwise); on the card the shard
@@ -384,6 +388,30 @@ def report(points: List[ScalingPoint], device_type: str,
             "points": [dataclasses.asdict(p) for p in points]}
 
 
+def import_d1(rep: dict, path: str, A, device_counts) -> dict:
+    """--d1-from: carry a card run's D = 1 point (``d1_real_chip`` of an
+    earlier report) into rep, with the link-priced curve from its time
+    (``model_h100_nvlink_from_d1``). A missing or garbled file, or one
+    without the point, is recorded as ``d1_import_error`` and does not
+    lose the report."""
+    import json
+    try:
+        with open(path) as f:
+            d1 = json.load(f).get("d1_real_chip")
+    except (OSError, ValueError, AttributeError) as e:
+        rep["d1_import_error"] = f"{type(e).__name__}: {e}"
+        return rep
+    if not d1:
+        rep["d1_import_error"] = (
+            f"{path} has no d1_real_chip entry (measurement pass did not "
+            "run on the chip)")
+        return rep
+    rep["d1_real_chip"] = d1
+    rep["model_h100_nvlink_from_d1"] = model_ring_efficiency(
+        A, device_counts, t1_ms=float(d1["time_ms"]))
+    return rep
+
+
 def _arg(argv, flag, default=None):
     return argv[argv.index(flag) + 1] if flag in argv else default
 
@@ -420,6 +448,14 @@ def main(argv=None) -> int:
             rep["model_h100_nvlink"] = model_ring_efficiency(
                 A, sorted({p.devices for p in pts} | {8, 16, 32}),
                 t1_ms=pts[0].time_ms)
+            if not rep["simulated"]:
+                # each shard had a card of its own: the D = 1 point is a
+                # card's measurement, which --d1-from reads back
+                rep["d1_real_chip"] = {**dataclasses.asdict(pts[0]),
+                                       "simulated": False}
+        if _arg(argv, "--d1-from"):
+            import_d1(rep, _arg(argv, "--d1-from"), A,
+                      sorted({p.devices for p in pts} | {8, 16, 32}))
     out = json.dumps(rep)
     print(out)
     path = _arg(argv, "--write")

@@ -554,3 +554,6 @@ class SlabCSR:
         rows = np.repeat(sfr, nnz_s) + lrow
         return sp.coo_matrix((vals[ok], (rows, k - lrow * self.ncols)),
                              shape=self.shape).tocsr()
+
+
+FORMAT_NAMES = ("csr", "coo", "ell", "dia", "dense")

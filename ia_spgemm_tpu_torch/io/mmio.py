@@ -17,8 +17,9 @@ vectorized numpy reader. Semantics preserved exactly:
   CSR is bit-identical in layout to the reference's.
 
 This is the PyTorch port's copy of ia_spgemm_tpu.io.mmio (the JAX
-package's __init__ imports jax, so the port cannot import it); the
-native C++ parser is not used here.
+package's __init__ imports jax, so the port cannot import it).
+``read_mtx_to_csr`` can parse with the native C++ library instead
+(``io/native.py``), which gives the same arrays.
 """
 
 from __future__ import annotations
@@ -234,14 +235,33 @@ def coo_to_csr_arrays(nrows: int, rows: np.ndarray, cols: np.ndarray,
 
 
 def read_mtx_to_csr(path, dtype=np.float64, capacity: int | None = None,
-                    device="cuda"):
+                    device="cuda", use_native: bool | None = None):
     """Read a .mtx file to a CSR with symmetric expansion, the
     end-to-end equivalent of the reference's load path
     (main.cpp:143-458). Returns ia_spgemm_tpu_torch.formats.types.CSR on
-    `device` (the card unless device="cpu"; with no card it raises)."""
+    `device` (the card unless device="cpu"; with no card it raises).
+
+    use_native: None parses with the native library when it is built
+    (``native.available()``), falling back to numpy on any failure; True
+    builds it if needed and raises when it cannot be built or fails;
+    False always parses with numpy."""
     from ia_spgemm_tpu_torch.formats.types import CSR
 
-    header, rows, cols, vals = read_mtx(path)
+    parsed = None
+    if use_native is not False:
+        from ia_spgemm_tpu_torch.io import native
+        if use_native:
+            if not native.build():
+                raise RuntimeError("use_native=True: the native parser "
+                                   "could not be built (no C++ compiler, "
+                                   "or the compile failed)")
+            parsed = native.read_mtx(str(path))
+        elif native.available():
+            try:
+                parsed = native.read_mtx(str(path))
+            except Exception:  # noqa: BLE001 - the numpy reader decides
+                parsed = None
+    header, rows, cols, vals = parsed or read_mtx(path)
     rows, cols, vals = expand_symmetric(header, rows, cols, vals)
     row_ptr, col_ind, values = coo_to_csr_arrays(header.nrows, rows, cols, vals)
     nnz = len(col_ind)

@@ -16,20 +16,36 @@ TensorFlow's SAME padding with stride 2 can be asymmetric: conv2
 (63 -> 32) pads (2, 2), conv3 (16 -> 8) pads (1, 2), top/left first; the
 padding is explicit (``F.pad``). The public functions keep the JAX
 layout: images (128, 128) or (B, 128, 128, 1), HWC. MatNet has no
-Pallas kernel; it runs in float32 on the device of its inputs, with
-cuDNN's TF32 off so the convolutions keep float32 precision.
+Pallas kernel; it runs in float32 on the device of its inputs (the
+card when they are not tensors), with cuDNN's TF32 off so the
+convolutions keep float32 precision.
+
+``init_params`` draws a fresh parameter tree in the JAX layout, and
+``params_from_state_dict`` carries a trained module's state back into
+it, so weights trained here save as the JAX package's do.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ia_spgemm_tpu_torch.formats.types import DEFAULT_DEVICE, checked_device
+
 # CPU-build class menu (README.md:5-8) and GPU-build menu (main.cu:539-544).
 CPU_CLASSES = ("mkl", "csr", "dia", "ell", "coo")
 GPU_CLASSES = ("cusp", "cusparse", "nsparse")
+
+
+def no_tf32():
+    """cuDNN in float32 (TF32 off), the precision the JAX package's
+    convolutions keep on the CPU; inference and training both run under
+    it."""
+    return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
 
 
 def _same_pad(size: int, kernel: int, stride: int) -> tuple:
@@ -116,16 +132,18 @@ def _as_f32(x, device, shape):
 def predict_logits(params, img1, img2, feats, *, num_classes=5,
                    num_features=26, device=None) -> torch.Tensor:
     """(num_classes,) float32 logits for one input, on `device` (default:
-    the device of img1 when it is a tensor, else the CPU)."""
+    the device of img1 when it is a tensor, else the card, which raises
+    when there is none; pass device="cpu" for the host)."""
     if device is None:
-        device = img1.device if isinstance(img1, torch.Tensor) else "cpu"
+        device = (img1.device if isinstance(img1, torch.Tensor)
+                  else DEFAULT_DEVICE)
+    device = checked_device(device)
     net = module_for(params, device, num_classes=num_classes,
                      num_features=num_features)
     x1 = _as_f32(img1, device, (1, 128, 128, 1))
     x2 = _as_f32(img2, device, (1, 128, 128, 1))
     f = _as_f32(feats, device, (1, num_features))
-    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
-                                                     allow_tf32=False):
+    with torch.no_grad(), no_tf32():
         return net(x1, x2, f)[0]
 
 
@@ -135,3 +153,67 @@ def predict_class(params, img1, img2, feats, *, num_classes=5,
     return int(torch.argmax(predict_logits(
         params, img1, img2, feats, num_classes=num_classes,
         num_features=num_features, device=device)))
+
+
+# Flax's default kernel initializer, lecun_normal: a normal truncated to
+# two standard deviations, with variance 1 / fan_in after the
+# truncation; this divisor (the std of a unit normal truncated to
+# [-2, 2]) is Flax's correction for it.
+_TRUNC_STD = 0.87962566103423978
+
+# (name, kernel shape) of each parameter tree leaf group, in the JAX
+# layout: conv kernels HWIO, dense kernels (in, out).
+_BRANCH_LAYERS = (("conv1", (3, 3, 1, 16)), ("conv2", (5, 5, 16, 16)),
+                  ("conv3", (5, 5, 16, 16)), ("dense", (256, 32)))
+
+
+def _lecun_normal(shape, generator) -> np.ndarray:
+    fan_in = math.prod(shape[:-1])
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    w = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                generator=generator)
+    return w.numpy()
+
+
+def init_params(seed_or_generator=0, num_classes: int = 5,
+                num_features: int = 26) -> dict:
+    """A fresh MatNet parameter tree (numpy, float32) in the JAX
+    package's layout: Flax names, conv kernels HWIO, dense kernels (in,
+    out). Kernels are Flax's default lecun_normal, biases zero.
+
+    Drawn on the host from a ``torch.Generator`` (or one seeded with the
+    given int): the distributions are Flax's, the draws are not bit-equal
+    to ``jax.random.PRNGKey``'s."""
+    g = seed_or_generator
+    if not isinstance(g, torch.Generator):
+        g = torch.Generator().manual_seed(int(g))
+
+    def layer(shape):
+        return {"kernel": _lecun_normal(shape, g),
+                "bias": np.zeros(shape[-1], np.float32)}
+
+    params = {br: {name: layer(shape) for name, shape in _BRANCH_LAYERS}
+              for br in ("branch1", "branch2")}
+    params["feature_dense"] = layer((num_features, num_features))
+    params["head"] = layer((32 + 32 + num_features, num_classes))
+    return params
+
+
+def params_from_state_dict(state_dict) -> dict:
+    """The inverse of ``weights.matnet_state_dict``: a MatNet state_dict
+    -> numpy tree in the JAX layout (OIHW -> HWIO, (out, in) -> (in,
+    out)). Any tensors keyed like the state_dict convert, gradients
+    included."""
+    out: dict = {}
+    for key, t in state_dict.items():
+        *path, kind = key.split(".")
+        x = t.detach().to("cpu", torch.float32).numpy()
+        if kind == "weight":
+            x = x.transpose(2, 3, 1, 0) if x.ndim == 4 else x.T
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node["kernel" if kind == "weight" else "bias"] = \
+            np.ascontiguousarray(x)
+    return out

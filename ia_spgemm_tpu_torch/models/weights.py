@@ -7,6 +7,10 @@ TPU winners, ``TPU_upcycled*.npz``, whose ``__menu__`` entry names the
 algorithm of each class. A snapshot loads as a numpy tree in the JAX
 package's layout (Flax names; conv kernels HWIO, dense kernels (in,
 out)); ``matnet_state_dict`` carries it into the port's MatNet.
+``save_params_npz`` writes the same flat layout, from a numpy tree or a
+state_dict, so the two packages read each other's files.
+``load_keras_h5`` reads the reference's Keras h5 files (not shipped
+here) where ``h5py`` is installed.
 """
 
 from __future__ import annotations
@@ -39,6 +43,62 @@ def load_params_npz(path: str, with_menu: bool = False):
                 node = node.setdefault(p, {})
             node[leaf] = np.asarray(data[key])
     return (params, menu) if with_menu else params
+
+
+def save_params_npz(path: str, params, menu=None) -> None:
+    """Flat npz snapshot of a parameter tree (numpy or JAX, the JAX
+    layout) or of a MatNet state_dict, which is written in the JAX layout;
+    `menu` records the algorithm each class names (``__menu__``)."""
+    if "head" not in params:
+        from ia_spgemm_tpu_torch.models.matnet import params_from_state_dict
+        params = params_from_state_dict(params)
+    flat = {}
+
+    def rec(prefix, tree):
+        for k, v in tree.items():
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                rec(key, v)
+            else:
+                flat[key] = np.asarray(v)
+    rec("", params)
+    if menu is not None:
+        flat["__menu__"] = np.asarray(list(menu))
+    np.savez(path, **flat)
+
+
+# Keras layer names in the reference's h5 files, in the Keras graph's
+# creation order (MatNet.py:45-79), by the tree's names
+_KERAS_LAYERS = {
+    "branch1": {"conv1": "conv2d_1", "conv2": "conv2d_2",
+                "conv3": "conv2d_3", "dense": "dense_2"},
+    "branch2": {"conv1": "conv2d_4", "conv2": "conv2d_5",
+                "conv3": "conv2d_6", "dense": "dense_3"},
+    "feature_dense": "dense_1",
+    "head": "dense_4",
+}
+
+
+def load_keras_h5(path: str) -> Dict:
+    """A reference weight file (Keras 2.1 HDF5) -> numpy tree in the JAX
+    layout. Keras conv kernels are HWIO and dense kernels (in, out), as
+    the tree's: no transposition. Needs ``h5py``."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError("load_keras_h5 needs h5py, which is not "
+                          "installed; the npz snapshots in weights/ load "
+                          "without it (load_params_npz)") from e
+
+    def read(f, tree):
+        if isinstance(tree, str):
+            g = f[tree][tree]
+            return {"kernel": np.array(g["kernel:0"], np.float32),
+                    "bias": np.array(g["bias:0"], np.float32)}
+        return {k: read(f, v) for k, v in tree.items()}
+
+    with h5py.File(path, "r") as f:
+        return read(f, _KERAS_LAYERS)
 
 
 def infer_arch(params) -> dict:

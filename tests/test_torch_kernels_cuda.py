@@ -1009,3 +1009,57 @@ def test_ring_on_the_card_launches_k13_and_k4(cuda_device):
     got = C1.to_scipy()
     assert got.nnz == want.nnz
     assert abs(got - want).max() < 1e-4 * abs(want).max()
+
+
+@pytest.mark.cuda
+def test_training_step_on_the_card_matches_the_cpu(cuda_device):
+    """One MatNet training step (TF32 off) on the card against the same
+    step on the CPU: loss within 1e-5 relative, each gradient within
+    1e-4 of its tensor's max |g|. (The stepped weights are not compared:
+    Adam's first step moves each by about lr * sign(g), which a
+    rounding difference can flip where g is near 0.)"""
+    from ia_spgemm_tpu_torch.models import matnet, train
+    cfg = train.TrainConfig(batch_size=16)
+    batch = next(train.synthetic_dataset(cfg, 3))
+    params = matnet.init_params(0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model, opt = train.make_model(cfg, params, device=dev)
+        loss, _ = train.make_train_step(model, opt)(batch)
+        out[str(dev)] = (float(loss), matnet.params_from_state_dict(
+            {n: p.grad for n, p in model.named_parameters()}))
+    (l0, g0), (l1, g1) = out.values()
+    assert l1 == pytest.approx(l0, rel=1e-5)
+    for path, x0, x1 in _tree_pairs(g0, g1):
+        d = float(np.abs(x1 - x0).max())
+        assert d <= 1e-4 * float(np.abs(x0).max()), (path, d)
+
+
+def _tree_pairs(a, b, path=()):
+    for k, v in a.items():
+        if isinstance(v, dict):
+            yield from _tree_pairs(v, b[k], path + (k,))
+        else:
+            yield path + (k,), v, b[k]
+
+
+@pytest.mark.cuda
+def test_device_time_ms_matches_the_profilers_k3_time(cuda_device):
+    """profiling.device_time_ms (four calls between two CUDA events) of
+    one K3 call at the f32 wide flat shape (32768 x 1024) within 20% of
+    torch.profiler's device time of its kernel."""
+    from ia_spgemm_tpu_torch.bench.kernels import PROFILE_NAMES, kernel_us
+    from ia_spgemm_tpu_torch.bench.profiling import device_time_ms
+    m, width = 32768, 1024
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    key = torch.randint(0, 4096, (m, width), dtype=torch.int32,
+                        device=cuda_device, generator=g)
+    key = torch.sort(key, dim=1).values
+    val = torch.rand((m, width), device=cuda_device, generator=g)
+
+    def call():
+        return K.compress(key, val, width=width, out_w=width)
+
+    dev_ms = device_time_ms(call, chain=4, reps=3)["device_ms"]
+    kern_ms = kernel_us(call, PROFILE_NAMES["K3"]) / 1e3
+    assert abs(dev_ms - kern_ms) <= 0.2 * kern_ms, (dev_ms, kern_ms)

@@ -117,12 +117,12 @@ def test_matnet_logits_match_jax(fname):
     img2 = np.asarray(jdensity.density_image_normalized(
         _both(MATS["banded"])[0]))
     want = np.asarray(jmatnet.predict_logits(jp, img1, img2, fv, **arch))
-    got = tmatnet.predict_logits(tp, img1, img2, fv, **arch)
+    got = tmatnet.predict_logits(tp, img1, img2, fv, device="cpu", **arch)
     assert got.dtype == torch.float32 and got.shape == (
         arch["num_classes"],)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
     assert int(torch.argmax(got)) == int(np.argmax(want)) == \
-        tmatnet.predict_class(tp, img1, img2, fv, **arch)
+        tmatnet.predict_class(tp, img1, img2, fv, device="cpu", **arch)
 
 
 def test_weight_carry_over_layout():
