@@ -119,13 +119,17 @@ prints no result line:
     from each;
 26. scaling: bench.scaling's ring scaling on the headline at D = 1, 2, 4
     shards of the card, reported simulated (the shards share the card);
-27. the selector's training path: models.upcycle.harvest_sample with
-    device timers and the menu of weights/TPU_upcycled_v3.npz on four
-    named replicas at their published sizes (HARVEST_NAMES: poisson3Da,
-    m133-b3, scircuit, majorbasis; io.suitesparse.gen_named): every row
-    ok or skipped (none failed, every checksum within the harness's
-    gate), a device-time winner for each, each replica's device and wall
-    ms per algorithm beside v3's pick; upcycle (50 steps, batch 16, from
+27. the selector's training path: the harvest (models.upcycle's
+    harvest_report and sample_from_report, the two halves of
+    harvest_sample) with device timers and the menu of
+    weights/TPU_upcycled_v3.npz on four named replicas at their
+    published sizes (HARVEST_NAMES: poisson3Da, m133-b3, scircuit,
+    majorbasis; io.suitesparse.gen_named): every row ok or skipped (none
+    failed, every checksum within the harness's gate), each ok row run
+    once more (its launches not counted) and its C held to scipy's
+    float64 A @ A (the pattern of nonzero entries exact, values within
+    ORACLE_TOL), a device-time winner for each, each replica's device
+    and wall ms per algorithm beside v3's pick; upcycle (50 steps, batch 16, from
     random init) with finite losses and a 5-class head; train on
     synthetic_dataset (60 steps, batch 16, lr 3e-3) ending below 0.8x
     its first loss; ms per training step at batch 16 and 32 (CUDA
@@ -778,6 +782,43 @@ def _tree_rel_diff(x, y) -> float:
                for a, b in zip(_tree_leaves(x), _tree_leaves(y)))
 
 
+def _rows_against_scipy(name, a, A, rep):
+    """Each row of a harvest report that came out ok, run once more on
+    A @ A: its C against scipy's float64 product, the pattern of nonzero
+    entries exact and the values within ORACLE_TOL * max(1, max|C|).
+    {row: max |dval|}."""
+    import numpy as np
+
+    from ia_spgemm_tpu_torch import config as cfg
+    from ia_spgemm_tpu_torch.bench import harness
+    a64 = a.astype(np.float64)
+    want = (a64 @ a64).tocsr()
+    want.sum_duplicates()
+    want.eliminate_zeros()
+    scale = max(1.0, float(abs(want).max()))
+    errs = {}
+    for r in rep.results:
+        if not r.ok or r.name == "baseline":
+            continue
+        convert_fn, compute = harness._ROWS[r.name](A, A, cfg.DEFAULT_CONFIG)
+        got = compute(None if convert_fn is None else convert_fn())
+        got = got.to_scipy().tocsr()
+        got.sum_duplicates()
+        got.eliminate_zeros()
+        if not (np.array_equal(got.indptr, want.indptr)
+                and np.array_equal(got.indices, want.indices)):
+            raise AssertionError(f"harvest {name} {r.name}: pattern differs "
+                                 f"from scipy's (nnz {got.nnz} vs "
+                                 f"{want.nnz})")
+        err = float(np.abs(got.data - want.data).max(initial=0.0))
+        if not err <= ORACLE_TOL * scale:
+            raise AssertionError(f"harvest {name} {r.name}: max |dval| "
+                                 f"{err} > {ORACLE_TOL} * {scale}")
+        errs[r.name] = err
+        del got
+    return errs
+
+
 def _training_phase(by_run, reset_counts, counts, dev):
     """Phase 27: the selector's training path on the card. Harvest the
     named replicas (device-timed rows, the v3 menu), retrain MatNet on
@@ -788,7 +829,6 @@ def _training_phase(by_run, reset_counts, counts, dev):
     import torch
 
     from ia_spgemm_tpu_torch import graft_entry
-    from ia_spgemm_tpu_torch.bench import harness
     from ia_spgemm_tpu_torch.formats.types import CSR
     from ia_spgemm_tpu_torch.io import suitesparse
     from ia_spgemm_tpu_torch.models import matnet, train, upcycle, weights
@@ -801,57 +841,52 @@ def _training_phase(by_run, reset_counts, counts, dev):
     if tuple(v3_menu) != menu:
         raise AssertionError(f"v3 menu {v3_menu} != {menu}")
 
-    # ---- 27a. harvest: every row ok or skipped, a device-time winner
-    reports = []
-    run_benchmark = harness.run_benchmark
-
-    def keep(*args, **kw):
-        reports.append(run_benchmark(*args, **kw))
-        return reports[-1]
-
+    # ---- 27a. harvest: every row ok or skipped, a device-time winner;
+    # each ok row's C once more against scipy (launches not counted)
     samples = []
-    harness.run_benchmark = keep
-    reset_counts()
-    try:
-        for name in HARVEST_NAMES:
-            t0 = time.perf_counter()
-            a = suitesparse.gen_named(name).astype(np.float32)
-            gen_s = time.perf_counter() - t0
-            A = CSR.from_scipy(a, device=dev)
-            t0 = time.perf_counter()
-            s = upcycle.harvest_sample(A, A, menu=menu, name=name, iters=2)
-            torch.cuda.synchronize()
-            harvest_s = time.perf_counter() - t0
-            rep = reports[-1]
-            bad = [(r.name, r.error, r.timed_out) for r in rep.results
-                   if r.error or not (r.ok or r.skipped)]
-            if bad or s is None:
-                raise AssertionError(f"harvest {name}: rows failed {bad}, "
-                                     f"sample {s}")
-            pick = menu[matnet.predict_class(v3, s.img1, s.img2, s.feats,
-                                             device=dev)]
-            info["harvest"][name] = {
-                "m": a.shape[0], "nnz": int(a.nnz), "flops": rep.flops,
-                "gen_s": gen_s, "harvest_s": harvest_s,
-                "rows": {r.name: ("ok" if r.ok else "skipped")
-                         for r in rep.results},
-                "device_ms": {n: t[0] for n, t in s.times.items()},
-                "wall_ms": {n: t[1] for n, t in s.times.items()},
-                "winner": s.winner, "v3_pick": pick}
-            print(f"[27] harvest {name}: m={a.shape[0]} nnz={a.nnz} "
-                  f"{harvest_s} s; rows {info['harvest'][name]['rows']}; "
-                  + ", ".join(
-                      f"{n} device {t[0]} ms wall {t[1]} ms"
-                      for n, t in s.times.items())
-                  + f"; winner {s.winner}, v3 picks {pick}", flush=True)
-            samples.append(s)
-            del A, a
-    finally:
-        harness.run_benchmark = run_benchmark
-    by_run["harvest"] = counts()
-    if not any(by_run["harvest"].values()):
+    launches = dict.fromkeys(counts(), 0)
+    for name in HARVEST_NAMES:
+        t0 = time.perf_counter()
+        a = suitesparse.gen_named(name).astype(np.float32)
+        gen_s = time.perf_counter() - t0
+        A = CSR.from_scipy(a, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = upcycle.harvest_report(A, A, menu, name=name, iters=2)
+        s = upcycle.sample_from_report(A, A, rep, menu, name)
+        torch.cuda.synchronize()
+        harvest_s = time.perf_counter() - t0
+        for k, n in counts().items():
+            launches[k] += n
+        bad = [(r.name, r.error, r.timed_out) for r in rep.results
+               if r.error or not (r.ok or r.skipped)]
+        if bad or s is None:
+            raise AssertionError(f"harvest {name}: rows failed {bad}, "
+                                 f"sample {s}")
+        errs = _rows_against_scipy(name, a, A, rep)
+        pick = menu[matnet.predict_class(v3, s.img1, s.img2, s.feats,
+                                         device=dev)]
+        info["harvest"][name] = {
+            "m": a.shape[0], "nnz": int(a.nnz), "flops": rep.flops,
+            "gen_s": gen_s, "harvest_s": harvest_s,
+            "rows": {r.name: ("ok" if r.ok else "skipped")
+                     for r in rep.results},
+            "max_err_vs_scipy": errs,
+            "device_ms": {n: t[0] for n, t in s.times.items()},
+            "wall_ms": {n: t[1] for n, t in s.times.items()},
+            "winner": s.winner, "v3_pick": pick}
+        print(f"[27] harvest {name}: m={a.shape[0]} nnz={a.nnz} "
+              f"{harvest_s} s; rows {info['harvest'][name]['rows']}; "
+              f"max err vs scipy {errs}; "
+              + ", ".join(f"{n} device {t[0]} ms wall {t[1]} ms"
+                          for n, t in s.times.items())
+              + f"; winner {s.winner}, v3 picks {pick}", flush=True)
+        samples.append(s)
+        del A, a
+    by_run["harvest"] = launches
+    if not any(launches.values()):
         raise AssertionError("the harvest launched no kernel")
-    print(f"[27] harvest launches={by_run['harvest']}", flush=True)
+    print(f"[27] harvest launches={launches}", flush=True)
 
     # ---- 27b. retrain on the harvest; learn the synthetic task
     params, history, _ = upcycle.upcycle(samples, menu=menu, init_from=None,

@@ -86,7 +86,12 @@ def make_train_step(model: MatNet, optimizer: torch.optim.Optimizer,
         return net
 
     def dp_backward(batch):
-        n = mesh.num_shards
+        """Forward and backward over the shards (one on the master
+        device without a mesh); (mean loss, mean accuracy)."""
+        if mesh is None:
+            n, shards = 1, [(0, master)]
+        else:
+            n, shards = mesh.num_shards, zip(mesh.local_shards, mesh.devices)
         size = len(batch[3])
         if size % n:
             raise ValueError(f"batch of {size} does not split over "
@@ -94,7 +99,7 @@ def make_train_step(model: MatNet, optimizer: torch.optim.Optimizer,
         per = size // n
         sums = torch.zeros(2, device=master)
         nets = {master: model}
-        for j, dev in zip(mesh.local_shards, mesh.devices):
+        for j, dev in shards:
             dev = torch.device(dev)
             if dev not in nets:
                 nets[dev] = replica(dev)
@@ -110,7 +115,7 @@ def make_train_step(model: MatNet, optimizer: torch.optim.Optimizer,
             for p, q in zip(params, net.parameters()):
                 g = q.grad.to(master)
                 p.grad = g if p.grad is None else p.grad + g
-        if mesh.spans_processes:
+        if mesh is not None and mesh.spans_processes:
             import torch.distributed as dist
 
             from ia_spgemm_tpu_torch.parallel.mesh import comm_device
@@ -130,13 +135,7 @@ def make_train_step(model: MatNet, optimizer: torch.optim.Optimizer,
     def train_step(batch):
         optimizer.zero_grad(set_to_none=True)
         with no_tf32():
-            if mesh is None:
-                loss, acc = loss_and_accuracy(model,
-                                              *_tensors(batch, master))
-                loss.backward()
-                loss = loss.detach()
-            else:
-                loss, acc = dp_backward(batch)
+            loss, acc = dp_backward(batch)
             optimizer.step()
         return loss, acc
 

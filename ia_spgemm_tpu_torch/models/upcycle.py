@@ -59,21 +59,28 @@ class Sample:
     times: dict = dataclasses.field(default_factory=dict)
 
 
-def harvest_sample(A: CSR, B: CSR, menu: Sequence[str] = DEFAULT_MENU,
+def harvest_report(A: CSR, B: CSR, menu: Sequence[str] = DEFAULT_MENU,
                    name: str = "", iters: int = 2,
-                   progress=None) -> Optional[Sample]:
+                   progress=None) -> harness.BenchReport:
     """Benchmark every menu algorithm on (A, B) with device timers, on
-    their device; label = the device-time winner.
-
-    The scipy baseline always runs (it arms the reference's 20x watchdog
-    budget, main.cpp:510,751, and checks every checksum) but is a winner
-    candidate only when the menu names it. None when no menu row ran."""
+    their device. The scipy baseline always runs (it arms the
+    reference's 20x watchdog budget, main.cpp:510,751, and checks every
+    checksum)."""
     algos = tuple(menu) if "baseline" in menu \
         else ("baseline",) + tuple(menu)
-    rep = harness.run_benchmark(A, B, algos, iters=iters,
-                                device_timers=True,
-                                matrix_a=name, matrix_b=name,
-                                progress=progress)
+    return harness.run_benchmark(A, B, algos, iters=iters,
+                                 device_timers=True,
+                                 matrix_a=name, matrix_b=name,
+                                 progress=progress)
+
+
+def sample_from_report(A: CSR, B: CSR, rep: harness.BenchReport,
+                       menu: Sequence[str] = DEFAULT_MENU,
+                       name: str = "") -> Optional[Sample]:
+    """The sample of (A, B) labelled by harvest_report's report: label =
+    the device-time winner among the menu's rows (the baseline is a
+    candidate only when the menu names it). None when no menu row
+    ran."""
     ran = [r for r in rep.results
            if r.ok and r.run_time_ms > 0 and not r.error]
     ok = [r for r in ran if r.name in menu]
@@ -92,6 +99,17 @@ def harvest_sample(A: CSR, B: CSR, menu: Sequence[str] = DEFAULT_MENU,
     return Sample(img1=img1, img2=img2, feats=fv,
                   label=list(menu).index(winner), winner=winner,
                   matrix_name=name, times=times)
+
+
+def harvest_sample(A: CSR, B: CSR, menu: Sequence[str] = DEFAULT_MENU,
+                   name: str = "", iters: int = 2,
+                   progress=None) -> Optional[Sample]:
+    """Benchmark every menu algorithm on (A, B) with device timers, on
+    their device; label = the device-time winner (harvest_report, then
+    sample_from_report)."""
+    rep = harvest_report(A, B, menu, name=name, iters=iters,
+                         progress=progress)
+    return sample_from_report(A, B, rep, menu, name)
 
 
 def relabel(samples: List[Sample], menu: Sequence[str]) -> List[Sample]:

@@ -208,8 +208,7 @@ from ia_spgemm_tpu_torch.models import matnet, train, weights
 from ia_spgemm_tpu_torch.parallel import multihost
 from ia_spgemm_tpu_torch.parallel.mesh import make_mesh
 pid, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-multihost.initialize(f"127.0.0.1:{port}", 2, pid, backend="gloo",
-                     timeout_s=60)
+multihost.initialize(f"127.0.0.1:{port}", 2, pid, backend="gloo")
 mesh = make_mesh(devices=["cpu", "cpu"])
 assert mesh.num_shards == 4 and mesh.spans_processes
 cfg = train.TrainConfig(batch_size=8)
@@ -222,33 +221,50 @@ print("LOSS", repr(float(loss)), repr(float(acc)))
 """
 
 
-def test_two_gloo_processes_match_one_shard(tmp_path, jax_params):
+def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    out = str(tmp_path / "dp")
-    tweights.save_params_npz(out + ".in.npz", jax_params)
+        return s.getsockname()[1]
+
+
+def _run_two_processes(out):
+    """Both processes' (returncode, output). The port is free when
+    chosen but may be taken again before process 0 listens on it (other
+    tests start groups too): then the pair runs again on a new port."""
     env = dict(os.environ, PYTHONPATH=REPO)
     env.pop("IA_SPGEMM_SHARDS_PER_DEVICE", None)
-    procs = [subprocess.Popen(
-        [sys.executable, "-u", "-c", _TWO_PROC, str(pid), str(port), out],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for pid in (0, 1)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=120)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for pid, (p, text) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"proc {pid}:\n{text}"
+    for _ in range(3):
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-u", "-c", _TWO_PROC, str(pid), str(port),
+             out], cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=180)[0])
+                if p.returncode and "EADDRINUSE" in outs[-1]:
+                    break
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if len(outs) == 2:
+            return [(p.returncode, text) for p, text in zip(procs, outs)]
+    raise AssertionError(f"no free port after 3 tries:\n{outs[0]}")
+
+
+def test_two_gloo_processes_match_one_shard(tmp_path, jax_params):
+    out = str(tmp_path / "dp")
+    tweights.save_params_npz(out + ".in.npz", jax_params)
+    runs = _run_two_processes(out)
+    for pid, (rc, text) in enumerate(runs):
+        assert rc == 0, f"proc {pid}:\n{text}"
     cfg = ttrain.TrainConfig(batch_size=8)
     p1, [(l1, a1, _)] = _port_steps(
         jax_params, [next(ttrain.synthetic_dataset(cfg, 5))], 1e-3)
-    for pid, text in enumerate(outs):
+    for pid, (_, text) in enumerate(runs):
         line = [ln for ln in text.splitlines() if ln.startswith("LOSS")][0]
         loss, acc = (float(x) for x in line.split()[1:])
         assert loss == pytest.approx(l1, rel=1e-5) and acc == a1
