@@ -114,9 +114,17 @@ prints no result line:
     all-gathered and B replicated, against scipy;
 24. CLI: --mode ring and --mode dist with --shards 4 on the m=4096 .mtx
     (IA_SPGEMM_SHARDS_PER_DEVICE=4): rc 0, checksum ok;
-25. multi-process: two processes x 2 shards of the card over gloo
-    (python -m ia_spgemm_tpu_torch.parallel.multihost), MULTIPROC_OK
-    from each;
+25. multi-process: the ring across processes sharing the card, over
+    gloo (python -m ia_spgemm_tpu_torch.parallel.multihost ... --matrix
+    headline): 2 processes x 2 shards, then 4 x 1. Each worker runs the
+    96 x 96 dist and ring checks (MULTIPROC_OK), then the ring on the
+    headline with --rdma auto: K13 across processes in every one of the
+    3 steps (its launches counted), its rows against scipy's A @ A
+    (pattern exact, values within 1e-4 of max |C|, checksum within
+    1e-4), one hop of the headline's B blocks through K13 bit for bit
+    against the plain hop of torch.distributed, and the ms per hop of
+    both over 20 hops, with the kernel's profiler time in worker 0 (a
+    multiproc JSON line, the hop's bytes bound beside);
 26. scaling: bench.scaling's ring scaling on the headline at D = 1, 2, 4
     shards of the card, reported simulated (the shards share the card);
 27. the selector's training path: the harvest (models.upcycle's
@@ -142,7 +150,7 @@ prints no result line:
     4 shards of the card.
 
 Every kernel wrapper counts its launches. Phases 4, 5, 7-10, 12-15,
-17-19, 22-23 and 27's harvest each drive a main path on its own input:
+17-19, 22-23, 25 and 27's harvest each drive a main path on its own input:
 the counts are set to 0 just before each run and read just after it.
 K1, K2 and K3 must have been launched in phase 4, K2, K3 and K4 in
 phase 5, K8 and K3 in phase 7, K9 and K10 in phase 9, K8 in the hybrid
@@ -150,15 +158,18 @@ run of phase 10, K7a and K7b in phase 12, K12 in 13, K11 in 14, the flat
 route's kernels in spgemm_auto (15), K6 and K3 in f64_flat and
 f32_wide_flat, K5, K6 and K3 in f64_multiclass, K4 in f64_skew, K13 and
 K4 in the K13 ring runs of 22 (no K13 in the plain-hop run), none in the
-plain-torch dist runs of 23, at least one kernel in the harvest of 27.
-Phase 3's comparison launches and those of the CLI, the workers and the
-scaling phase are not counted. The line before the last two is a JSON
+plain-torch dist runs of 23, K13 and K4 in the workers of 25 (their
+counts summed: ring_multiproc_2x2, ring_multiproc_4x1), at least one
+kernel in the harvest of 27. Phase 3's comparison launches and those of
+the CLI, the workers' other runs and the scaling phase are not
+counted. The line before the last two is a JSON
 object with one entry per kernel
 ("ms"/"plain_ms"/"library_ms"/"bound_ms": summed over its phase-3
 shapes, "bound_by" the larger term; "launches": the sum over the
 main-path runs, split in "launches_by_run"; "kernel_alone_ms" for the
-kernels of PROFILE_NAMES: the kernel alone, summed over its shapes); then
-the
+kernels of PROFILE_NAMES: the kernel alone, summed over its shapes;
+K13's "across_processes": phase 25's ms per hop through K13 and through
+the plain hop, the kernel's us and the hop's bound, per run); then the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -207,6 +218,9 @@ REPLACES = {"K1": "ia_spgemm_tpu/ops/bitonic.py:1034",
             "K12": "ia_spgemm_tpu/ops/hash_spgemm.py:58",
             "K13": "ia_spgemm_tpu/parallel/rdma_ring.py:31"}
 RING_SHARDS = 4          # the ring / dist phases: 4 shards of the one card
+# phase 25: (main-path run, processes, shards per process) of the ring on
+# the headline across processes sharing the card
+MULTIPROC_RUNS = (("ring_multiproc_2x2", 2, 2), ("ring_multiproc_4x1", 4, 1))
 # phase 27: named replicas at their published sizes, one per structural
 # family (irregular, exact-k, power law, stencil), harvested with the
 # menu of weights/TPU_upcycled_v3.npz
@@ -632,10 +646,9 @@ def _against_scipy(name, C, want):
 def _distributed_phases(A, H, ref_sum, by_run, reset_counts, counts,
                         launched, same_pattern, time_ms, dev):
     """Phases 22-26: the ring and dist routes on the headline over
-    RING_SHARDS shards of the card, the CLI's --mode ring / dist, two
-    processes over gloo, and the ring's scaling (simulated)."""
-    import socket
-
+    RING_SHARDS shards of the card, the CLI's --mode ring / dist, the
+    ring across processes sharing the card (MULTIPROC_RUNS; returns
+    their summaries), and the ring's scaling (simulated)."""
     import torch
 
     from ia_spgemm_tpu_torch.bench import scaling
@@ -721,37 +734,13 @@ def _distributed_phases(A, H, ref_sum, by_run, reset_counts, counts,
                 print(f"[24] CLI --mode {mode} --shards {D}: rc 0 {rep}",
                       flush=True)
 
-        # ---- 25. two processes x 2 shards of the card over gloo
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            port = sk.getsockname()[1]
-        root = os.path.dirname(os.path.abspath(__file__))
-        env = dict(os.environ, PYTHONPATH=root)
-        env[SHARDS_PER_DEVICE_ENV] = "2"
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, "-u", "-m",
-             "ia_spgemm_tpu_torch.parallel.multihost", str(pid), "2",
-             str(port), dev.type, "gloo"], cwd=root, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for pid in (0, 1)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=300)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for pid, (p, out) in enumerate(zip(procs, outs)):
-            if p.returncode != 0 or "MULTIPROC_OK" not in out:
-                raise AssertionError(f"multi-process worker {pid} rc "
-                                     f"{p.returncode}:\n{out}")
-        print(f"[25] two processes x 2 shards over gloo: MULTIPROC_OK from "
-              f"both in {time.perf_counter() - t0} s; "
-              + " | ".join(ln for out in outs for ln in out.splitlines()
-                           if " ok" in ln), flush=True)
+        # ---- 25. the ring across processes sharing the card, on the
+        # headline: 2 processes x 2 shards, then 4 x 1, over gloo
+        multiproc = {}
+        for run, nproc, per_proc in MULTIPROC_RUNS:
+            multiproc[run] = _multiproc_run(run, nproc, per_proc, dev,
+                                            by_run, list(counts()), launched)
+        print(json.dumps({"multiproc": multiproc}), flush=True)
 
         # ---- 26. the ring's scaling over 1, 2, 4 shards of the card
         pts = scaling.measure_ring_scaling(A, (1, 2, D), iters=5)
@@ -765,6 +754,86 @@ def _distributed_phases(A, H, ref_sum, by_run, reset_counts, counts,
     finally:
         del os.environ[SHARDS_PER_DEVICE_ENV]
     torch.cuda.synchronize()
+    return multiproc
+
+
+def _multiproc_run(run, nproc, per_proc, dev, by_run, names, launched):
+    """Phase 25's run: nproc workers (python -m
+    ia_spgemm_tpu_torch.parallel.multihost ... --matrix headline), each
+    with per_proc shards of the card, over gloo. Each worker checks its
+    96 x 96 dist and ring runs (MULTIPROC_OK), then on the headline: K13
+    in every one of the D - 1 steps, its rows against scipy, one hop
+    through K13 bit for bit against the plain hop, and prints a
+    multiproc JSON line (launches, ring ms per call, ms per hop of K13
+    and of the plain hop, the kernel's profiler time in worker 0). The
+    workers' launches, summed, are main-path run `run`. Returns the
+    run's summary, beside the hop's bytes bound."""
+    import socket
+
+    from ia_spgemm_tpu_torch.bench.kernels import PEAK_BYTES_PER_S
+    from ia_spgemm_tpu_torch.parallel.mesh import SHARDS_PER_DEVICE_ENV
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    env[SHARDS_PER_DEVICE_ENV] = str(per_proc)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", "-m",
+         "ia_spgemm_tpu_torch.parallel.multihost", str(pid), str(nproc),
+         str(port), dev.type, "gloo", "--matrix", "headline", "--rdma",
+         "auto"], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in range(nproc)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    infos = []
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith('{"multiproc"')]
+        if p.returncode != 0 or "MULTIPROC_OK" not in out or not lines:
+            raise AssertionError(f"{run} worker {pid} rc {p.returncode}:"
+                                 f"\n{out}")
+        infos.append(json.loads(lines[0])["multiproc"])
+    D = nproc * per_proc
+    for i in infos:
+        if not (i["k13"] and i["hop_bitwise_equal"] and i["shards"] == D
+                and i["launches"]["K13"] == D - 1):
+            raise AssertionError(f"{run}: {i}")
+    nnz = sum(i["nnz"] for i in infos)
+    if nnz != HEADLINE_NNZ:
+        raise AssertionError(f"{run}: {nnz} output nnz")
+    by_run[run] = {n: sum(i["launches"].get(n, 0) for i in infos)
+                   for n in names}
+    launched(run, ["K13", "K4"])
+    # the hop's bytes: every block read once and written once, on the one
+    # card (all processes' copies), and those of one process's crossing
+    block = 8192 * 29 * 4 * 2        # int32 + float32 (rows, 29) blocks
+    head = infos[0]
+    rep = {"processes": nproc, "shards_per_process": per_proc,
+           "wall_s": wall_s, "nnz": nnz,
+           "max_abs_err": max(i["max_abs_err"] for i in infos),
+           "checksum_rel_err": max(i["checksum_rel_err"] for i in infos),
+           "launches": by_run[run],
+           "ring_ms_median": [i["ring_ms_median"] for i in infos],
+           "hop_ms": [i["hop_ms"] for i in infos],
+           "plain_hop_ms": [i["plain_hop_ms"] for i in infos],
+           "kernel_us": head["kernel_us"],
+           "bound_ms_hop": 2 * D * block / PEAK_BYTES_PER_S * 1e3,
+           "bound_ms_crossing": 2 * block / PEAK_BYTES_PER_S * 1e3}
+    print(f"[25] {run}: {nproc} processes x {per_proc} shards of the card "
+          f"over gloo, MULTIPROC_OK from all in {wall_s} s; "
+          + " | ".join(ln for out in outs for ln in out.splitlines()
+                       if " ok" in ln), flush=True)
+    return rep
 
 
 def _tree_leaves(tree):
@@ -1597,8 +1666,9 @@ def main() -> int:
          for r in rep["results"]}), flush=True)
 
     # ---- 22-26. the distributed paths over shards of the card
-    _distributed_phases(A, H, ref_sum, by_run, reset_counts, counts,
-                        launched, same_pattern, time_ms, dev)
+    multiproc = _distributed_phases(A, H, ref_sum, by_run, reset_counts,
+                                    counts, launched, same_pattern, time_ms,
+                                    dev)
 
     # ---- 27. the selector's training path (harvest launch counts from 0)
     _training_phase(by_run, reset_counts, counts, dev)
@@ -1619,7 +1689,11 @@ def main() -> int:
                          else "bytes"),
             "library_ms": st["library_ms"],
             **({"kernel_alone_ms": st["kernel_alone_ms"]}
-               if "kernel_alone_ms" in st else {})})
+               if "kernel_alone_ms" in st else {}),
+            **({"across_processes": {
+                run: {k: r[k] for k in ("hop_ms", "plain_hop_ms",
+                                        "kernel_us", "bound_ms_hop")}
+                for run, r in multiproc.items()}} if name == "K13" else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

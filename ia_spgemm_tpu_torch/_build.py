@@ -34,8 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures per source: pointers and the stream as void*, sizes as
-# int (K13's copy table: the address of a host array of long long);
-# every entry point returns a cudaError_t as int.
+# int (K13's copy table, and its signal-word addresses and targets
+# across processes: each the address of a host array of long long);
+# every entry point returns a cudaError_t as int (ia_k13_chunk_bytes
+# its chunk size).
 SIGNATURES = {
     "bitonic": {
         "ia_k1_expand_sort_compress": [_P] * 5 + [_I] * 8 + [_P],
@@ -56,6 +58,8 @@ SIGNATURES = {
                   "ia_k11_dense_row_f64": [_P] * 4 + [_I] * 3 + [_P]},
     "hash": {"ia_k12_hash": [_P] * 7 + [_I] * 4 + [_P]},
     "ring": {"ia_k13_ring_hop": [_P, _I, _P],
+             "ia_k13_ring_hop_xproc": [_P, _I, _I, _P, _P, _P],
+             "ia_k13_chunk_bytes": [],
              "ia_k13_enable_peer_access": [_I]},
     "slab": {
         "ia_k8_expand_sort_lr": [_P] * 6 + [_I] * 7 + [_P],

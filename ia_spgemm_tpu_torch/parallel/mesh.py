@@ -131,3 +131,27 @@ def gather_shards(mesh: Mesh, tensors, device) -> torch.Tensor:
              for _ in range(dist.get_world_size(mesh.group))]
     dist.all_gather(parts, local, group=mesh.group)
     return torch.cat(parts).to(device)
+
+
+def card_identities(mesh: Mesh) -> list:
+    """Every process's card identities, in rank order (an
+    ``all_gather_object`` over the mesh's group: COLLECTIVE). Each is a
+    dict: "cards", the UUID of each of the process's shards' devices
+    (None for a host shard); "visible", the UUIDs of the cards it sees,
+    by index; "peer", the (i, j) index pairs of those cards where i can
+    reach j's memory."""
+    import torch.distributed as dist
+
+    def uuid(dev) -> str | None:
+        dev = torch.device(dev)
+        return (str(torch.cuda.get_device_properties(dev).uuid)
+                if dev.type == "cuda" else None)
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    mine = {"cards": [uuid(d) for d in mesh.devices],
+            "visible": [uuid(torch.device("cuda", i)) for i in range(n)],
+            "peer": [(i, j) for i in range(n) for j in range(n)
+                     if i != j and torch.cuda.can_device_access_peer(i, j)]}
+    every = [None] * dist.get_world_size(mesh.group)
+    dist.all_gather_object(every, mine, group=mesh.group)
+    return every

@@ -146,28 +146,55 @@ def replicate_to_hosts(C):
         *full, row_start=C.row_start, shape=C.shape))
 
 
+def _args(argv: list[str]):
+    import argparse
+    p = argparse.ArgumentParser(
+        prog="python -m ia_spgemm_tpu_torch.parallel.multihost",
+        description="one worker of the multi-process self-test")
+    p.add_argument("pid", type=int)
+    p.add_argument("nproc", type=int)
+    p.add_argument("port")
+    p.add_argument("device", nargs="?", default="cuda",
+                   choices=("cuda", "cpu"))
+    p.add_argument("backend", nargs="?", default="gloo",
+                   choices=("gloo", "nccl"))
+    p.add_argument("--matrix", default="small", choices=("small", "headline"))
+    p.add_argument("--rdma", default="auto", choices=("auto", "on", "off"))
+    return p.parse_args(argv)
+
+
 def _selftest(argv: list[str]) -> None:
     """Worker of the multi-process self-test: both distributed routes on
-    a random matrix over every process's shards, each local block held
-    to a locally computed scipy oracle.
+    a random 96 x 96 matrix over every process's shards, each local block
+    held to a locally computed scipy oracle; with ``--matrix headline``
+    then the ring on the headline matrix at full width
+    (``_headline_ring``).
 
         python -m ia_spgemm_tpu_torch.parallel.multihost PID NPROC PORT \
-            [cpu|cuda [gloo|nccl]]
+            [cuda|cpu] [gloo|nccl] [--matrix small|headline] \
+            [--rdma auto|on|off]
 
-    with IA_SPGEMM_SHARDS_PER_DEVICE shards per process (the tests: 2
-    processes x 2 CPU shards; chip_smoke.py: 2 x 2 shards of one card
-    over gloo)."""
-    pid, nproc, port = int(argv[0]), int(argv[1]), argv[2]
-    device = argv[3] if len(argv) > 3 else "cpu"
-    backend = argv[4] if len(argv) > 4 else "gloo"
-    initialize(f"127.0.0.1:{port}", nproc, pid, backend=backend)
+    The device is the card unless cpu is named (without a card it
+    raises), the backend gloo unless nccl is named; --rdma is every ring
+    call's use_rdma (auto: K13 wherever ``rdma_available``).
+    IA_SPGEMM_SHARDS_PER_DEVICE shards per process (the tests: 2
+    processes x 2 CPU shards; chip_smoke.py: 2 x 2 and 4 x 1 shards of
+    one card over gloo)."""
+    args = _args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA GPU is available: pass cpu to run the "
+                           "plain versions on the host")
+    pid, device = args.pid, args.device
+    use_rdma = {"auto": "auto", "on": True, "off": False}[args.rdma]
+    initialize(f"127.0.0.1:{args.port}", args.nproc, pid,
+               backend=args.backend)
 
     import scipy.sparse as sp
     import torch.distributed as dist
 
     from ia_spgemm_tpu_torch.formats import convert
     from ia_spgemm_tpu_torch.formats.types import CSR
-    from ia_spgemm_tpu_torch.parallel import distributed, ring
+    from ia_spgemm_tpu_torch.parallel import distributed, rdma_ring, ring
     from ia_spgemm_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(device_type=device)
@@ -202,13 +229,22 @@ def _selftest(argv: list[str]) -> None:
     assert err_g < 1e-4, err_g
 
     # the ring, with contiguous and with flops-balanced (permuted) B
+    gate = rdma_ring.rdma_available(mesh)
+    assert gate or device == "cpu", "K13 cannot run across these processes"
     A_ell = convert.csr_to_ell(A, check_guard=False)
     plan = ring.plan_ring(A_ell, A_ell, D)
     As_e = ring.partition_rows_ell(A_ell, D, mesh=mesh)
+    if not gate:    # K13 cannot run here: use_rdma=True must raise
+        try:
+            ring.ring_spgemm(As_e, As_e, mesh, plan, use_rdma=True)
+        except ValueError as e:
+            assert "use_rdma=True" in str(e), e
+        else:
+            raise AssertionError("use_rdma=True ran without K13")
     err2 = 0.0
     for balance in ("rows", "flops"):
         Bs_e = ring.partition_rows_ell(A_ell, D, mesh=mesh, balance=balance)
-        Ce = ring.ring_spgemm(As_e, Bs_e, mesh, plan)
+        Ce = ring.ring_spgemm(As_e, Bs_e, mesh, plan, use_rdma=use_rdma)
         for rows in local_ell_rows(Ce):
             for r in range(rows.col_ind.shape[0]):
                 g = int(rows.row_ids[r])
@@ -221,9 +257,180 @@ def _selftest(argv: list[str]) -> None:
                         dense[c] += rows.values[r, t]
                 err2 = max(err2, float(np.abs(dense - c_ref[g]).max()))
     assert err2 < 1e-4, err2
-    print(f"[p{pid}] ring ok: err {err2:.2e}", flush=True)
+    print(f"[p{pid}] ring ok: err {err2:.2e}, K13 across processes: "
+          f"{gate}", flush=True)
+    if args.matrix == "headline":
+        _headline_ring(mesh, pid, use_rdma, device)
+    rdma_ring.release_shared()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dist.barrier()
     dist.destroy_process_group()
     print(f"[p{pid}] MULTIPROC_OK", flush=True)
+
+
+HOPS = 20          # hops per timing window of _headline_ring
+RING_CALLS = 5     # timed ring calls of _headline_ring
+ORACLE_TOL = 1e-4  # against scipy, relative to max |C| of the rows held
+
+
+def _rows_against_scipy(C, a64):
+    """This process's rows of C against scipy's float64 rows of A @ A:
+    the pattern exactly, values within ORACLE_TOL of their max |C|.
+    Returns (rows, nnz, max |dval|, checksum's relative error)."""
+    nrows = nnz = 0
+    err = got_sum = want_sum = 0.0
+    for rows in local_ell_rows(C):
+        ok = rows.row_ids >= 0
+        nr = rows.nnz_row[ok].astype(np.int64)
+        mask = np.arange(rows.col_ind.shape[1])[None, :] < nr[:, None]
+        cols = rows.col_ind[ok][mask]
+        vals = rows.values[ok][mask].astype(np.float64)
+        want = (a64[rows.row_ids[ok]] @ a64).tocsr().sorted_indices()
+        if not (np.array_equal(nr, np.diff(want.indptr))
+                and np.array_equal(cols, want.indices)):
+            raise AssertionError(f"shard {rows.shard}: the pattern differs "
+                                 "from scipy's")
+        scale = max(1.0, float(np.abs(want.data).max(initial=0.0)))
+        e = float(np.abs(vals - want.data).max(initial=0.0))
+        if not e <= ORACLE_TOL * scale:
+            raise AssertionError(f"shard {rows.shard}: max |dval| {e} over "
+                                 f"{ORACLE_TOL} x {scale}")
+        nrows += int(ok.sum())
+        nnz += int(nr.sum())
+        err = max(err, e)
+        got_sum += float(vals.sum())
+        want_sum += float(want.data.sum())
+    rel = abs(got_sum - want_sum) / max(1.0, abs(want_sum))
+    if not rel <= ORACLE_TOL:
+        raise AssertionError(f"checksum relative error {rel}")
+    return nrows, nnz, err, rel
+
+
+def _headline_ring(mesh, pid: int, use_rdma, device: str) -> None:
+    """The ring on the headline matrix (``bench.headline.build_matrix``,
+    m = 32768) over every process's shards, use_rdma as given: this
+    process's K13 / K4 launches in one call (K13 in every one of the
+    D - 1 steps where it runs), its rows against scipy's A @ A, host ms
+    per call between synchronisations of every process (RING_CALLS
+    calls), and one hop of the headline's B blocks through K13 against
+    the plain hop bit for bit, with ms per hop of each over HOPS hops
+    and, in process 0, the kernel's device time from torch.profiler.
+    Prints one ``{"multiproc": ...}`` JSON line."""
+    import json
+    import time
+
+    import torch.distributed as dist
+
+    from ia_spgemm_tpu_torch.bench.headline import build_matrix
+    from ia_spgemm_tpu_torch.formats import convert
+    from ia_spgemm_tpu_torch.formats.types import CSR
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
+    from ia_spgemm_tpu_torch.parallel import ring
+
+    def synced():
+        """Every process's queued work done, every process here."""
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
+
+    D = mesh.num_shards
+    a64 = build_matrix()
+    A = convert.csr_to_ell(CSR.from_scipy(a64.astype(np.float32),
+                                          device=mesh.devices[0]),
+                           check_guard=False)
+    plan = ring.plan_ring(A, A, D)
+    S = ring.partition_rows_ell(A, D, mesh=mesh)
+    k13 = (RR.rdma_available(mesh) if use_rdma == "auto"
+           else bool(use_rdma))
+    call = lambda: ring.ring_spgemm(S, S, mesh, plan,  # noqa: E731
+                                    use_rdma=use_rdma)
+
+    synced()
+    K.reset_launch_counts()
+    RR.reset_launch_counts()
+    C = call()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = {**K.launch_counts(), **RR.launch_counts()}
+    on_card = device == "cuda"     # the host runs the plain versions
+    if launches["K13"] != (D - 1 if k13 else 0) or launches["K4"] != (
+            len(mesh.devices) if on_card else 0):
+        raise AssertionError(f"launches {launches} in a ring of {D} shards "
+                             f"({len(mesh.devices)} here), K13 {k13}")
+    nrows, nnz, err, rel = _rows_against_scipy(C, a64)
+    ring_ms = []
+    for _ in range(RING_CALLS):
+        synced()
+        t0 = time.perf_counter()
+        call()
+        synced()
+        ring_ms.append((time.perf_counter() - t0) * 1e3)
+
+    blocks = (S.col_ind, S.values)
+    plain = RR.ring_hop_processes_plain(mesh, *blocks)
+
+    def per_hop(hop):
+        synced()
+        t0 = time.perf_counter()
+        x = blocks
+        for i in range(HOPS):
+            x = hop(i, x)
+        synced()
+        return (time.perf_counter() - t0) * 1e3 / HOPS
+
+    info = {"pid": pid, "processes": dist.get_world_size(),
+            "shards": D, "local_shards": len(mesh.devices),
+            "device": str(mesh.devices[0]), "k13": k13,
+            "launches": launches, "rows": nrows, "nnz": nnz,
+            "max_abs_err": err, "checksum_rel_err": rel,
+            "ring_ms": ring_ms, "ring_ms_median": float(np.median(ring_ms)),
+            "plain_hop_ms": per_hop(
+                lambda i, x: RR.ring_hop_processes_plain(mesh, *x))}
+    if k13:
+        sets = RR.shared_receivers(mesh, *blocks)
+        got = RR.ring_hop_xproc(mesh, *blocks, out=sets[0])
+        RR.check_hops(sets[0])
+        if not all(torch.equal(g, w) for ga, wa in zip(got, plain)
+                   for g, w in zip(ga, wa)):
+            raise AssertionError("K13 across processes differs from the "
+                                 "plain hop")
+        xhop = lambda i, x: RR.ring_hop_xproc(  # noqa: E731
+            mesh, *x, out=sets[i % 2])
+        info["hop_bitwise_equal"] = True
+        info["hop_ms"] = per_hop(xhop)
+        info["kernel_us"] = _profiled_hop_us(xhop, blocks, pid, synced)
+        RR.check_hops(sets[0])
+    print(json.dumps({"multiproc": info}), flush=True)
+    print(f"[p{pid}] headline ring ok: {nrows} rows, nnz {nnz}, max err "
+          f"{err:.2e}, K13 launches {launches['K13']} in {D - 1} steps",
+          flush=True)
+
+
+def _profiled_hop_us(hop, blocks, pid: int, synced):
+    """Device us per launch of the cross-process K13 over HOPS hops that
+    every process makes together; process 0 traces them (the others wait
+    at a barrier while its profiler starts). None where it saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        synced()
+        x = blocks
+        for i in range(HOPS):
+            x = hop(i, x)
+        synced()
+
+    if pid != 0:
+        run()
+        return None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    durs = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and "k13_ring_hop_xproc" in e.name]
+    return sum(durs) / len(durs) if durs else None
 
 
 if __name__ == "__main__":

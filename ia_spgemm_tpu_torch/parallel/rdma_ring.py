@@ -1,15 +1,18 @@
 """The ring's block hop (PyTorch port of
-``ia_spgemm_tpu.parallel.rdma_ring``): wrapper, plain version, count.
+``ia_spgemm_tpu.parallel.rdma_ring``): wrappers, plain versions, count.
 
 =====  ==============  =============================================
  K13   ring_hop_rdma   parallel/rdma_ring.py:31 _hop_kernel
+       ring_hop_xproc  (the same kernel across processes)
 =====  ==============  =============================================
 
 (file:line of the JAX package.) One ring step moves every shard's block
 to its left neighbour: shard d receives the block of shard (d + 1) % D,
 the permutation ``[(i, (i - 1) % D)]`` of the JAX ring. The JAX kernel
 pushed a chip's block by remote DMA after a barrier with both
-neighbours. Here the receivers exist before the launch (the barrier's
+neighbours, whichever process held them.
+
+In one process the receivers exist before the launch (the barrier's
 job): a public call allocates them (one buffer per array and device),
 and the ring passes two sets made once per ring call
 (``alloc_receivers``) and alternates them. ``ring_hop_rdma`` then
@@ -21,14 +24,26 @@ stream order orders the hop; with several cards in one process the
 source card stores into peer memory, after peer access is enabled (once
 per pair), with events ordering the receivers' earlier use, the push and
 their next use. On CPU tensors the plain version runs (``ring_hop_plain``,
-a copy per block). There is no fallback: a failed build or launch, or
-cards that cannot reach each other, raise. Across processes the ring
-hops through ``torch.distributed`` instead (``parallel/ring.py``), never
-through this kernel.
+a copy per block).
+
+Across processes nothing orders the two sides, so ``ring_hop_xproc``
+launches the kernel's other instance, which computes what
+``_hop_kernel`` computes, barrier included: each process's two receiver
+sets and four signal words are shared with its neighbours through CUDA
+IPC (``shared_receivers``, once per layout and process group), and one
+launch per step meets both neighbours at the barrier, copies the local
+blocks and pushes block 0 into the left neighbour's receiver, then
+waits until its own incoming block has landed. The expected counts
+come from ``HopCounters``; every spin is bounded by ``SPIN_LIMIT_S`` and
+``check_hops`` raises on a timeout. Its plain version is the
+point-to-point hop of ``torch.distributed`` (``ring_hop_processes_plain``).
+There is no fallback: a failed build, launch or IPC open, or cards that
+cannot reach each other, raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import weakref
 from array import array
 from itertools import chain
@@ -36,8 +51,15 @@ from itertools import chain
 import torch
 
 from ia_spgemm_tpu_torch import _build
+from ia_spgemm_tpu_torch.parallel.mesh import card_identities, comm_device
 
 MAX_COPIES = 128    # copies one launch carries (csrc/ring.cu kMaxCopies)
+CHUNK_BYTES = 16 * 256 * 4   # csrc/ring.cu kChunkBytes: the delivery unit
+SPIN_LIMIT_S = 10.0          # each spin of the cross-process instance
+# a process's signal words (csrc/ring.cu kFromLeft ... kError)
+FROM_LEFT, FROM_RIGHT, DELIVERED, ERROR = range(4)
+ERRORS = {1: "a neighbour did not arrive at the barrier",
+          2: "the incoming block was not delivered"}
 
 
 class Receivers(list):
@@ -302,15 +324,342 @@ def ring_hop_rdma(*arrays, devices=None, out=None):
 
 
 def rdma_available(mesh) -> bool:
-    """use_rdma='auto' gate: a mesh of more than one shard, in one
-    process, whose every shard lies on a CUDA card that the others can
-    reach (the same card, or peer access)."""
-    devs = set(getattr(mesh, "devices", ()))
-    if (getattr(mesh, "spans_processes", True) or mesh.num_shards < 2
-            or any(d.type != "cuda" for d in devs)):
+    """use_rdma='auto' gate, the same in every process: a mesh of two or
+    more shards, every one on a CUDA card. In one process the cards must
+    reach each other (the same card, or peer access); across processes
+    each process's shards must share one card from which it can map both
+    neighbours' memory (``card_gate``, decided once per process group
+    from every process's card identities: COLLECTIVE the first time)."""
+    if mesh is None or mesh.num_shards < 2:
+        return False
+    if mesh.spans_processes:
+        key = (id(mesh.group), tuple(map(str, mesh.devices)))
+        if key not in _GATES:
+            _GATES[key] = card_gate(card_identities(mesh))
+        return _GATES[key]
+    devs = set(mesh.devices)
+    if any(d.type != "cuda" for d in devs):
         return False
     return all(a == b or torch.cuda.can_device_access_peer(a, b)
                for a in devs for b in devs)
+
+
+def card_gate(infos) -> bool:
+    """The gate across processes from every process's card identities
+    (``mesh.card_identities``): each process's shards on one card, and
+    each neighbour's card seen by the process under the index the
+    neighbour gives it (an IPC handle names its maker's card by index),
+    the same card or one it has peer access to."""
+    W = len(infos)
+    if W < 2 or any(None in i["cards"] or len(set(i["cards"])) != 1
+                    for i in infos):
+        return False
+    for r, me in enumerate(infos):
+        own = me["visible"].index(me["cards"][0])
+        for nb in (infos[(r - 1) % W], infos[(r + 1) % W]):
+            card = nb["cards"][0]
+            if (card not in me["visible"]
+                    or me["visible"].index(card) != nb["visible"].index(card)):
+                return False
+            j = me["visible"].index(card)
+            if j != own and (own, j) not in me["peer"]:
+                return False
+    return True
+
+
+_GATES: dict = {}
+
+
+def ring_hop_processes_plain(mesh, *arrays, out=None):
+    """The plain version of K13 across processes (the counterpart of
+    ``lax.ppermute`` over a mesh that spans processes): blocks move one
+    shard left within the process, and each process's first block goes
+    to the previous process by point-to-point send (host copies under
+    gloo, which has no CUDA send / receive). Returns fresh tensors, one
+    list per array, or fills ``out`` (a set of ``shared_receivers``)."""
+    import torch.distributed as dist
+    world = dist.get_world_size(mesh.group)
+    rank = dist.get_rank(mesh.group)
+    comm = comm_device(mesh)
+    outs = []
+    for arr in arrays:
+        send = arr[0].to(comm).contiguous()
+        recv = torch.empty_like(send)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, (rank - 1) % world, mesh.group),
+            dist.P2POp(dist.irecv, recv, (rank + 1) % world, mesh.group)])
+        for r in reqs:
+            r.wait()
+        L = len(arr)
+        outs.append([arr[i + 1].to(mesh.devices[i], copy=True)
+                     for i in range(L - 1)]
+                    + [recv.to(mesh.devices[L - 1])])
+    if out is None:
+        return outs
+    for o, got in zip(out, outs):
+        for dst, src in zip(o, got):
+            dst.copy_(src)
+    return list(out)
+
+
+class HopCounters:
+    """What a process's signal words must reach at its next hop across
+    processes: ``arrivals``, each of its from-left and from-right words
+    (its hops so far, the next included), and ``delivered`` (the chunks
+    of every block it has received so far). They only grow, across the
+    steps and the calls of the ring, as the words do; none is reset."""
+
+    def __init__(self):
+        self.arrivals = 0
+        self.delivered = 0
+
+    def next(self, incoming_chunks: int) -> tuple:
+        self.arrivals += 1
+        self.delivered += incoming_chunks
+        return self.arrivals, self.delivered
+
+
+def chunks_of(nbytes: int) -> int:
+    """The chunks a copy of nbytes is cut into (and delivered in)."""
+    return -(-nbytes // CHUNK_BYTES)
+
+
+def xproc_copy_table(blocks, receivers, left, nbytes):
+    """The copy table of one hop across processes, from addresses alone:
+    ``blocks[a][i]`` and ``receivers[a][i]``, this process's block i and
+    receiver i of array a; ``left[a]``, the left neighbour's last
+    receiver of array a; ``nbytes[a]``, the bytes of each block of array
+    a. Returns (flat (source, destination, bytes) triples, n_remote): the
+    local copies (block i + 1 into receiver i) first, then each array's
+    block 0 into the left neighbour, the last n_remote; zero-byte arrays
+    are left out."""
+    local, remote = [], []
+    for a, n in enumerate(nbytes):
+        if not n:
+            continue
+        for i in range(len(blocks[a]) - 1):
+            local += (blocks[a][i + 1], receivers[a][i], n)
+        remote += (blocks[a][0], left[a], n)
+    return local + remote, len(remote) // 3
+
+
+@dataclasses.dataclass
+class _Peers:
+    """This process's signal words on its card (int64 FROM_LEFT ...
+    ERROR, zeroed once) and its neighbours', mapped by CUDA IPC, with
+    its hop counters; ``failed`` once a hop timed out."""
+    own: torch.Tensor
+    left: torch.Tensor
+    right: torch.Tensor
+    counters: HopCounters
+    failed: str | None = None
+
+
+class XReceivers(list):
+    """One of the two receiver sets of a ring across processes
+    (``shared_receivers``): per array, this process's L receivers, entry
+    i (shaped like the blocks) for local block i + 1 and entry L - 1,
+    which the right neighbour writes, for the next process's block 0.
+    ``left``: per array, the left neighbour's entry L - 1 of the same
+    set, mapped by CUDA IPC (None for a zero-byte array; empty on the
+    host); ``peers`` the signal words (None on the host); ``chunks`` the
+    chunks of one hop's incoming blocks; ``layout`` the blocks' layout."""
+
+    left: tuple = ()
+    peers = None
+    chunks = 0
+    layout: tuple = ()
+
+
+_SIGNALS: dict = {}     # (group, card) -> _Peers
+_SHARED: dict = {}      # (group, layout) -> the two XReceivers
+_MAX_SHARED = 8
+
+
+def _xlayout(arrays):
+    """(device, per array (blocks, shape, type)), checked: every array
+    holds one contiguous block per local shard, all of one shape and
+    type, all on one device."""
+    if not arrays or not arrays[0]:
+        raise ValueError("ring hop of no blocks")
+    devs = {b.device for arr in arrays for b in arr}
+    if len(devs) != 1:
+        raise ValueError(f"blocks on {sorted(map(str, devs))}: a hop across "
+                         "processes takes one device per process")
+    per = []
+    for arr in arrays:
+        if len({(b.shape, b.dtype) for b in arr}) != 1:
+            raise ValueError("a hop across processes takes blocks of one "
+                             "shape and type per array")
+        if not all(b.is_contiguous() for b in arr):
+            raise ValueError("ring hop blocks must be contiguous")
+        per.append((len(arr), tuple(arr[0].shape), str(arr[0].dtype)))
+    return devs.pop(), tuple(per)
+
+
+def _open(handle, dev):
+    """A neighbour's tensor from its ``reduce_tensor`` pair, mapped for
+    dev, the card whose kernels store into it: CUDA maps an IPC handle
+    into the context that opens it (with peer access enabled lazily), so
+    the handle opens under dev and not under its maker's card, and peer
+    access dev -> maker is enabled first."""
+    import inspect
+    fn, args = handle
+    args = list(args)
+    i = list(inspect.signature(fn).parameters).index("storage_device")
+    maker = torch.device("cuda", args[i])
+    if maker != dev:
+        _enable_peer(dev, maker)
+    args[i] = dev.index
+    return fn(*args)
+
+
+def _peers(mesh, dev) -> _Peers:
+    """The signal words of this process on dev, shared with both
+    neighbours: COLLECTIVE the first time per process group and card."""
+    key = (id(mesh.group), dev)
+    got = _SIGNALS.get(key)
+    if got is None:
+        import torch.distributed as dist
+        from torch.multiprocessing.reductions import reduce_tensor
+        if _build.load()["ia_k13_chunk_bytes"]() != CHUNK_BYTES:
+            raise RuntimeError("csrc/ring.cu's kChunkBytes is not "
+                               f"CHUNK_BYTES ({CHUNK_BYTES})")
+        own = torch.zeros(4, dtype=torch.int64, device=dev)
+        torch.cuda.synchronize(dev)   # zero before a neighbour adds to it
+        world = dist.get_world_size(mesh.group)
+        rank = dist.get_rank(mesh.group)
+        handles = [None] * world
+        dist.all_gather_object(handles, reduce_tensor(own), group=mesh.group)
+        got = _Peers(own, _open(handles[(rank - 1) % world], dev),
+                     _open(handles[(rank + 1) % world], dev), HopCounters())
+        _SIGNALS[key] = got
+    return got
+
+
+def shared_receivers(mesh, *arrays) -> list:
+    """The two receiver sets (``XReceivers``) of a ring across processes
+    for these blocks (each array's blocks of one shape and type, all on
+    this process's one device, the same layout in every process), made
+    once per layout and process group and kept: COLLECTIVE when made
+    (every process of the group calls it together). On a card, the
+    entries the right neighbour writes are shared with it through CUDA
+    IPC (``torch.multiprocessing.reductions.reduce_tensor``: the caching
+    allocator's handle and offset), exchanged with ``all_gather_object``;
+    the mappings, and the storages behind them, live as long as the
+    sets. On the host the sets are plain receivers
+    (``ring_hop_processes_plain`` fills them)."""
+    dev, layout = _xlayout(arrays)
+    key = (id(mesh.group), dev, layout)
+    sets = _SHARED.get(key)
+    if sets is not None:
+        return sets
+    sets = [XReceivers(alloc_receivers(*arrays)) for _ in range(2)]
+    nbytes = [arr[0].numel() * arr[0].element_size() for arr in arrays]
+    if dev.type == "cuda":
+        import torch.distributed as dist
+        from torch.multiprocessing.reductions import reduce_tensor
+        peers = _peers(mesh, dev)
+        world = dist.get_world_size(mesh.group)
+        rank = dist.get_rank(mesh.group)
+        mine = (layout, [[reduce_tensor(o[-1]) if n else None
+                          for o, n in zip(s, nbytes)] for s in sets])
+        every = [None] * world
+        dist.all_gather_object(every, mine, group=mesh.group)
+        if any(lay != layout for lay, _ in every):
+            raise ValueError("the processes of the ring hold blocks of "
+                             f"different layouts: {[e[0] for e in every]}")
+        for s, handles in zip(sets, every[(rank - 1) % world][1]):
+            s.left = tuple(None if h is None else _open(h, dev)
+                           for h in handles)
+            s.peers = peers
+    for s in sets:
+        s.chunks = sum(map(chunks_of, nbytes))
+        s.layout = layout
+    if len(_SHARED) >= _MAX_SHARED:
+        _SHARED.clear()
+    _SHARED[key] = sets
+    return sets
+
+
+def release_shared():
+    """Drops every cached cross-process receiver set, signal word and
+    gate (and with them the IPC mappings): every process of the group
+    together, once no hop is in flight."""
+    _SHARED.clear()
+    _SIGNALS.clear()
+    _GATES.clear()
+
+
+def ring_hop_xproc(mesh, *arrays, out):
+    """K13 across processes: one ring step of this process's blocks
+    (each array's blocks, one per local shard, on its card): block i + 1
+    into receiver i, block 0 into the left neighbour's last receiver;
+    ``out`` is one of the two sets of ``shared_receivers`` for these
+    blocks (the ring alternates them). Returns out's lists. One launch,
+    not synchronised: the barrier with both neighbours, the copies, the
+    wait for this process's incoming block; ``check_hops`` reads the
+    kernel's error word. On host blocks the plain version fills out."""
+    if not isinstance(out, XReceivers) or out.layout != _xlayout(arrays)[1]:
+        raise ValueError("out= takes a set that shared_receivers made for "
+                         "this layout of blocks")
+    dev = arrays[0][0].device
+    if dev.type == "cpu":
+        return ring_hop_processes_plain(mesh, *arrays, out=out)
+    peers = out.peers
+    if peers.failed:
+        raise RuntimeError(peers.failed)
+    table, n, n_remote, words, targets = xproc_launch_args(arrays, out)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _build.load()["ia_k13_ring_hop_xproc"](
+            table.buffer_info()[0], n, n_remote, words.buffer_info()[0],
+            targets.buffer_info()[0], stream)
+    if err != 0:
+        peers.failed = f"ia_k13_ring_hop_xproc launch failed: CUDA error {err}"
+        raise RuntimeError(peers.failed)
+    ring_hop_rdma.launches += 1
+    return list(out)
+
+
+def xproc_launch_args(arrays, out):
+    """The host arguments of one launch of K13 across processes, these
+    blocks into ``out`` (a set of ``shared_receivers``): (int64 table of
+    (source, destination, bytes) triples, copies, copies into the left
+    neighbour, int64 addresses of this process's, the left's and the
+    right's signal words, int64 (arrivals, delivered, spin limit ns)).
+    Advances the process's hop counters."""
+    nbytes = [arr[0].numel() * arr[0].element_size() for arr in arrays]
+    flat, n_remote = xproc_copy_table(
+        [[b.data_ptr() for b in arr] for arr in arrays],
+        [[r.data_ptr() for r in o] for o in out],
+        [0 if t is None else t.data_ptr() for t in out.left], nbytes)
+    if len(flat) > 3 * MAX_COPIES:
+        raise ValueError(f"{len(flat) // 3} copies in one hop across "
+                         f"processes (at most {MAX_COPIES})")
+    peers = out.peers
+    arrivals, delivered = peers.counters.next(out.chunks)
+    return (array("q", flat or [0]), len(flat) // 3, n_remote,
+            array("q", [peers.own.data_ptr(), peers.left.data_ptr(),
+                        peers.right.data_ptr()]),
+            array("q", [arrivals, delivered, int(SPIN_LIMIT_S * 1e9)]))
+
+
+def check_hops(recv) -> None:
+    """Raises if a hop across processes into these receivers (a set of
+    ``shared_receivers``) timed out: reads this process's error word,
+    which synchronises its stream (the ring's call ends with it). A
+    failure stays: every later hop of the process group raises."""
+    peers = recv.peers
+    if peers is None:
+        return
+    if peers.failed:
+        raise RuntimeError(peers.failed)
+    code = int(peers.own[ERROR].item())
+    if code:
+        peers.failed = (f"K13 across processes: {ERRORS.get(code, code)} "
+                        f"within the spin limit of {SPIN_LIMIT_S} s")
+        raise RuntimeError(peers.failed)
 
 
 KERNELS = {"K13": ring_hop_rdma}

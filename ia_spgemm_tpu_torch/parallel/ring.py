@@ -13,9 +13,11 @@ ring instead:
     (forward + reversed) run table (``bitonic.doubled_table_gather``),
     then every block moves one shard to the left: through K13
     (``parallel/rdma_ring.py``) when the mesh's cards can reach each
-    other (``use_rdma``), else through the plain hop (a copy, the
-    counterpart of ``lax.ppermute``), or ``torch.distributed``
-    point-to-point when the mesh spans processes.
+    other (``use_rdma``), in one process or across processes (its
+    instance with the barrier, into receivers shared by CUDA IPC); else
+    through the plain hop (a copy, the counterpart of ``lax.ppermute``),
+    or ``torch.distributed`` point-to-point when the mesh spans
+    processes.
   - After D steps every product run is filled; one row-local sort +
     compress (K4, ``ops/bitonic_kernels.sort_compress_rows``) finishes
     each row block.
@@ -26,12 +28,14 @@ steps only select into it. The JAX loop hops D times and never uses the
 last hop's blocks; this loop skips that hop, so a ring call makes D - 1
 hops (none at D = 1), each one K13 launch on one card carrying the
 column and value blocks together. The hops write into two sets of
-receivers allocated once per call and alternated.
+receivers alternated: allocated once per call in one process, made once
+per layout and shared with the neighbours across processes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -42,11 +46,11 @@ from ia_spgemm_tpu_torch.formats.types import ELL
 from ia_spgemm_tpu_torch.ops import bitonic
 from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
 from ia_spgemm_tpu_torch.parallel.distributed import _placement
-from ia_spgemm_tpu_torch.parallel.mesh import Mesh, comm_device, gather_shards
-from ia_spgemm_tpu_torch.parallel.rdma_ring import (alloc_receivers,
-                                                    rdma_available,
-                                                    ring_hop_plain,
-                                                    ring_hop_rdma)
+from ia_spgemm_tpu_torch.parallel.mesh import Mesh, gather_shards
+from ia_spgemm_tpu_torch.parallel.rdma_ring import (
+    alloc_receivers, check_hops, rdma_available, ring_hop_plain,
+    ring_hop_processes_plain, ring_hop_rdma, ring_hop_xproc,
+    shared_receivers)
 
 
 @dataclasses.dataclass
@@ -152,31 +156,6 @@ def plan_ring(A: ELL, B: ELL, num_shards: int,
                                      allow_split=allow_split)
 
 
-def _hop_processes(mesh: Mesh, *arrays):
-    """One ring step over a mesh that spans processes: blocks move one
-    shard left within the process, and each process's first block goes
-    to the previous process by point-to-point send (host copies under
-    gloo, which has no CUDA send / receive)."""
-    import torch.distributed as dist
-    world = dist.get_world_size(mesh.group)
-    rank = dist.get_rank(mesh.group)
-    comm = comm_device(mesh)
-    outs = []
-    for arr in arrays:
-        send = arr[0].to(comm).contiguous()
-        recv = torch.empty_like(send)
-        reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, send, (rank - 1) % world, mesh.group),
-            dist.P2POp(dist.irecv, recv, (rank + 1) % world, mesh.group)])
-        for r in reqs:
-            r.wait()
-        L = len(arr)
-        outs.append([arr[i + 1].to(mesh.devices[i], copy=True)
-                     for i in range(L - 1)]
-                    + [recv.to(mesh.devices[L - 1])])
-    return outs
-
-
 def ring_spgemm(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
                 plan: bitonic.BitonicPlan, use_rdma="auto") -> ShardedELL:
     """C = A @ B, A and C row-sharded, B streamed around the ring.
@@ -190,7 +169,9 @@ def ring_spgemm(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
 
     use_rdma: True hops through K13 and raises where it cannot run,
     False through the plain hop, "auto" through K13 wherever
-    ``rdma_available(mesh)``."""
+    ``rdma_available(mesh)`` (in one process or across processes, as the
+    JAX gate). A hop across processes that timed out raises at the
+    call's end."""
     keys, vals = ring_products(A, B, mesh, plan, use_rdma)
     cols, outs, nnzs = [], [], []
     for key, val in zip(keys, vals):
@@ -219,9 +200,10 @@ def ring_products(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
     if use_rdma == "auto":
         use_rdma = rdma_available(mesh)
     elif use_rdma and not rdma_available(mesh):
-        raise ValueError("use_rdma=True: K13 needs a one-process mesh of "
-                         "two or more shards on cards that reach each "
-                         "other")
+        raise ValueError("use_rdma=True: K13 needs a mesh of two or more "
+                         "shards on cards that reach each other (across "
+                         "processes: one card per process, from which it "
+                         "can map both neighbours' memory)")
     D = A.num_shards
     m_loc, ka = A.rows_per_shard, A.width
     k_loc, kb = B.rows_per_shard, B.width
@@ -277,11 +259,18 @@ def ring_products(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
                                 device=dev))
 
     bc, bv = list(B.col_ind), list(B.values)
-    # two sets of receivers, made once and alternated: step s's hop
-    # writes the set that step s - 1 read (rdma_ring.ring_hop_rdma)
-    hop = ring_hop_rdma if use_rdma else ring_hop_plain
-    recv = ([alloc_receivers(bc, bv) for _ in range(2)]
-            if D > 1 and not mesh.spans_processes else None)
+    # two sets of receivers, alternated: step s's hop writes the set that
+    # step s - 1 read (rdma_ring.ring_hop_rdma; across processes K13's
+    # barrier waits for the neighbour whose set it writes)
+    if not mesh.spans_processes:
+        hop = ring_hop_rdma if use_rdma else ring_hop_plain
+        recv = [alloc_receivers(bc, bv) for _ in range(2)] if D > 1 else None
+    elif use_rdma:
+        hop = functools.partial(ring_hop_xproc, mesh)
+        recv = shared_receivers(mesh, bc, bv)
+    else:
+        hop = functools.partial(ring_hop_processes_plain, mesh)
+        recv = None
     pad_b = chunks * run - kb
     for s in range(D):
         for i, d in enumerate(A.shards):
@@ -297,10 +286,10 @@ def ring_products(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
                                   vals[i])
         if s == D - 1:
             break      # the last hop's blocks would go unused
-        if mesh.spans_processes:
-            bc, bv = _hop_processes(mesh, bc, bv)
-        else:
-            bc, bv = hop(bc, bv, out=recv[s % 2])
+        bc, bv = hop(bc, bv) if recv is None else hop(bc, bv,
+                                                      out=recv[s % 2])
+    if mesh.spans_processes and use_rdma:
+        check_hops(recv[0])
 
     pad = width - ke * run
     return ([F.pad(k.reshape(m_loc, ke * run), (0, pad),

@@ -1,6 +1,7 @@
 """PyTorch port, the CUDA kernels K1-K13 (K3-K6 and K11 in float32 and
 float64) against their plain PyTorch versions on the card, and the ring
-through K13 (marked `cuda`; they skip without a GPU; the several-card K13 test
+through K13, in one process and across two worker processes sharing the
+card (marked `cuda`; they skip without a GPU; the several-card K13 test
 also skips with one card).
 
 This file imports no jax, so it runs on the GPU machine, where jax is
@@ -1009,6 +1010,157 @@ def test_ring_on_the_card_launches_k13_and_k4(cuda_device):
     got = C1.to_scipy()
     assert got.nnz == want.nnz
     assert abs(got - want).max() < 1e-4 * abs(want).max()
+
+
+# one worker of the K13-across-processes tests: 2 processes x 2 shards of
+# card 0 over gloo, or x 1 card each over NCCL. "hop": three hops of
+# random blocks through K13 into
+# the alternated shared receivers, each bit for bit against the plain hop
+# of torch.distributed, one launch each; the ring on build_matrix(m=1024)
+# through K13 (D - 1 launches) bit for bit against the plain hop; and
+# use_rdma=True on a mesh of host shards spanning the processes raises.
+# "lost": process 1 never hops; process 0's hop must time out within the
+# 1 s spin limit, raise, and keep raising.
+XPROC_WORKER = """
+import sys, time
+sys.modules["jax"] = None
+import numpy as np, torch, torch.distributed as dist
+from ia_spgemm_tpu_torch.bench.headline import build_matrix
+from ia_spgemm_tpu_torch.formats import convert
+from ia_spgemm_tpu_torch.formats.types import CSR
+from ia_spgemm_tpu_torch.parallel import multihost, ring
+from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
+from ia_spgemm_tpu_torch.parallel.mesh import make_mesh
+pid, port, mode, backend = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                            sys.argv[4])
+multihost.initialize(f"127.0.0.1:{port}", 2, pid, backend=backend)
+mesh = (make_mesh(devices=["cuda:0"] * 2) if backend == "gloo"
+        else make_mesh(device_type="cuda"))
+D, dev = mesh.num_shards, mesh.devices[0]
+assert RR.rdma_available(mesh)
+g = torch.Generator(device=dev).manual_seed(pid)
+cols = [torch.randint(-1, 8192, (3001, 29), generator=g, device=dev,
+                      dtype=torch.int32) for _ in mesh.devices]
+vals = [torch.randn((3001, 29), generator=g, device=dev)
+        for _ in mesh.devices]
+sets = RR.shared_receivers(mesh, cols, vals)
+if mode == "hop":
+    x = (cols, vals)
+    for s in range(3):
+        want = RR.ring_hop_processes_plain(mesh, *x)
+        n13 = RR.ring_hop_rdma.launches
+        got = RR.ring_hop_xproc(mesh, *x, out=sets[s % 2])
+        assert RR.ring_hop_rdma.launches == n13 + 1
+        RR.check_hops(sets[s % 2])
+        assert all(torch.equal(a, b) for ga, wa in zip(got, want)
+                   for a, b in zip(ga, wa)), s
+        x = got
+    a = build_matrix(m=1024).astype(np.float32)
+    A = convert.csr_to_ell(CSR.from_scipy(a, device=dev),
+                           check_guard=False)
+    S = ring.partition_rows_ell(A, D, mesh=mesh)
+    plan = ring.plan_ring(A, A, D)
+    n13 = RR.ring_hop_rdma.launches
+    C1 = ring.ring_spgemm(S, S, mesh, plan)
+    assert RR.ring_hop_rdma.launches == n13 + D - 1
+    C0 = ring.ring_spgemm(S, S, mesh, plan, use_rdma=False)
+    assert RR.ring_hop_rdma.launches == n13 + D - 1
+    for f in ("col_ind", "values", "nnz_row"):
+        assert all(torch.equal(p, q) for p, q in zip(getattr(C1, f),
+                                                     getattr(C0, f))), f
+    host = make_mesh(devices=["cpu", "cpu"])
+    assert host.spans_processes and not RR.rdma_available(host)
+    Ah = convert.csr_to_ell(CSR.from_scipy(a, device="cpu"),
+                            check_guard=False)
+    Sh = ring.partition_rows_ell(Ah, host.num_shards, mesh=host)
+    try:
+        ring.ring_spgemm(Sh, Sh, host, plan, use_rdma=True)
+    except ValueError as e:
+        assert "use_rdma=True" in str(e)
+    else:
+        raise AssertionError("use_rdma=True ran on host shards")
+    print("HOP_OK", flush=True)
+else:
+    RR.SPIN_LIMIT_S = 1.0
+    if pid == 0:
+        t0 = time.perf_counter()
+        RR.ring_hop_xproc(mesh, cols, vals, out=sets[0])
+        try:
+            RR.check_hops(sets[0])
+        except RuntimeError as e:
+            took = time.perf_counter() - t0
+            assert "did not arrive" in str(e) and took < 8, (str(e), took)
+        else:
+            raise AssertionError("a lost neighbour did not raise")
+        try:
+            RR.ring_hop_xproc(mesh, cols, vals, out=sets[1])
+        except RuntimeError as e:
+            assert "did not arrive" in str(e)
+        else:
+            raise AssertionError("a failed ring hopped again")
+        print(f"TIMEOUT_OK {took}", flush=True)
+    dist.barrier()
+RR.release_shared()
+dist.destroy_process_group()
+"""
+
+
+def _xproc_workers(mode, backend="gloo"):
+    """Runs XPROC_WORKER's two processes in `mode`; their outputs."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, IA_SPGEMM_SHARDS_PER_DEVICE="1")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", "-c", XPROC_WORKER, str(pid), str(port),
+         mode, backend], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"worker {pid} rc {p.returncode}:\n{out}"
+    return outs
+
+
+@pytest.mark.cuda
+def test_k13_across_processes_matches_plain(cuda_device):
+    """Two processes x 2 shards of the card: K13 across processes (CUDA
+    IPC receivers, the in-kernel barrier) bit for bit against the plain
+    hop of torch.distributed, its launches counted, the ring through it;
+    use_rdma=True on host shards across the processes raises."""
+    outs = _xproc_workers("hop")
+    assert all("HOP_OK" in out for out in outs), outs
+
+
+@pytest.mark.cuda
+def test_k13_across_processes_on_two_cards(cuda_device):
+    """The same over NCCL with a card per process: K13 stores into the
+    other card's IPC-mapped receivers over NVLink. Skips with one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    outs = _xproc_workers("hop", backend="nccl")
+    assert all("HOP_OK" in out for out in outs), outs
+
+
+@pytest.mark.cuda
+def test_k13_across_processes_lost_neighbour_raises(cuda_device):
+    """A worker whose neighbour never hops raises within the spin limit
+    (1 s here), and its next hop raises at once; nothing hangs (each
+    worker is bounded by communicate's timeout)."""
+    outs = _xproc_workers("lost")
+    assert "TIMEOUT_OK" in outs[0], outs
 
 
 @pytest.mark.cuda

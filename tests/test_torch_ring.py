@@ -221,8 +221,9 @@ def test_k13_wrapper_checks_its_blocks():
 
 
 def test_rdma_needs_cards_in_one_process(mesh):
-    """K13 runs only on a one-process mesh of cards: never on the CPU,
-    and use_rdma=True raises there rather than taking the plain hop."""
+    """K13 runs only on meshes of cards (in one process or across
+    processes): never on the CPU, and use_rdma=True raises there rather
+    than taking the plain hop."""
     assert rdma_ring.rdma_available(mesh) is False
     assert rdma_ring.rdma_available(None) is False
     a = fixtures.random_csr(32, 32, density=0.1, seed=1).astype(np.float32)
