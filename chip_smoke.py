@@ -147,11 +147,21 @@ prints no result line:
     gradients within 1e-5); save_params_npz / load_params_npz give the
     same logits; evaluate_pick_accuracy on the harvest with the trained
     weights and with TPU_upcycled_v3; graft_entry.dryrun_multichip(4) on
-    4 shards of the card.
+    4 shards of the card;
+28. the corpus driver (python -m ia_spgemm_tpu_torch.models.harvest):
+    the quick corpus (m = 1024) harvested on the card into a temporary
+    directory, one worker process per entry, no worker started after
+    HARVEST_QUICK_S: every entry it attempted gave a sample, at least
+    two; a second run over those entries resumes and harvests nothing;
+    a retrain of 20 steps and 2 folds on the card writes the JAX
+    report's keys; then the committed card-labelled weights
+    (weights/H100_upcycled.npz) pick on phase 27's four replicas,
+    printed beside phase 27's winners and v3's picks (not a gate).
 
 Every kernel wrapper counts its launches. Phases 4, 5, 7-10, 12-15,
-17-19, 22-23, 25 and 27's harvest each drive a main path on its own input:
-the counts are set to 0 just before each run and read just after it.
+17-19, 22-23, 25, 27's harvest and 28's quick harvest each drive a main
+path on its own input: the counts are set to 0 just before each run and
+read just after it (a worker process starts from 0).
 K1, K2 and K3 must have been launched in phase 4, K2, K3 and K4 in
 phase 5, K8 and K3 in phase 7, K9 and K10 in phase 9, K8 in the hybrid
 run of phase 10, K7a and K7b in phase 12, K12 in 13, K11 in 14, the flat
@@ -160,8 +170,9 @@ f32_wide_flat, K5, K6 and K3 in f64_multiclass, K4 in f64_skew, K13 and
 K4 in the K13 ring runs of 22 (no K13 in the plain-hop run), none in the
 plain-torch dist runs of 23, K13 and K4 in the workers of 25 (their
 counts summed: ring_multiproc_2x2, ring_multiproc_4x1), at least one
-kernel in the harvest of 27. Phase 3's comparison launches and those of
-the CLI, the workers' other runs and the scaling phase are not
+kernel in the harvest of 27 and in the workers of 28 (harvest_quick).
+Phase 3's comparison launches and those of the CLI, the workers' other
+runs and the scaling phase are not
 counted. The line before the last two is a JSON
 object with one entry per kernel
 ("ms"/"plain_ms"/"library_ms"/"bound_ms": summed over its phase-3
@@ -225,6 +236,9 @@ MULTIPROC_RUNS = (("ring_multiproc_2x2", 2, 2), ("ring_multiproc_4x1", 4, 1))
 # family (irregular, exact-k, power law, stencil), harvested with the
 # menu of weights/TPU_upcycled_v3.npz
 HARVEST_NAMES = ("poisson3Da", "m133-b3", "scircuit", "majorbasis")
+# phase 28: the quick corpus's harvest stops starting workers after this
+# many seconds (a worker pays for a torch import and a CUDA context)
+HARVEST_QUICK_S = 40
 # one training step: the loss on the card against the CPU's, and the
 # loss and each gradient (relative to its tensor's max |g|) of 4 shards
 # of the card against one, within TRAIN_TOL; the card's gradients
@@ -1042,6 +1056,83 @@ def _training_phase(by_run, reset_counts, counts, dev):
     info["dryrun"] = graft_entry.dryrun_multichip(RING_SHARDS, device=dev)
     print(json.dumps({"training": info}), flush=True)
     torch.cuda.synchronize()
+    return info, samples
+
+
+def _harvest_driver(*args):
+    """python -m ia_spgemm_tpu_torch.models.harvest ARGS from the repo
+    root, raising on a non-zero exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    r = subprocess.run([sys.executable, "-m",
+                        "ia_spgemm_tpu_torch.models.harvest", *args],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"harvest {args} rc {r.returncode}:\n"
+                             f"{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+
+
+def _corpus_phase(by_run, kernel_names, info27, samples27, dev):
+    """Phase 28: the corpus driver, process-isolated: the quick corpus
+    harvested on the card into a temporary directory within
+    HARVEST_QUICK_S (every entry it attempts gives a sample, at least
+    two), a second run over those entries that resumes and harvests
+    nothing, a retrain of few steps on the card; then the committed card
+    weights' picks on phase 27's replicas beside the winners phase 27
+    measured there (a finding, not a gate)."""
+    from ia_spgemm_tpu_torch.models import harvest, matnet, upcycle, weights
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _harvest_driver("--quick", "--harvest-only", "--out-dir", tmp,
+                        "--max-seconds", str(HARVEST_QUICK_S))
+        first_s = time.perf_counter() - t0
+        log = harvest.read_log(os.path.join(tmp, "harvest_log.json"))
+        run = log["runs"][-1]
+        names = [s.matrix_name for s in upcycle.load_samples(
+            os.path.join(tmp, "samples.npz"))]
+        bad = {n: e for n, e in log["entries"].items() if e["status"] != "ok"}
+        if bad or run["attempted"] != len(names) or len(names) < 2:
+            raise AssertionError(f"quick harvest: {len(names)} samples of "
+                                 f"{run['attempted']} attempted; {bad}")
+        by_run["harvest_quick"] = {n: run["launches"].get(n, 0)
+                                   for n in kernel_names}
+        if not any(by_run["harvest_quick"].values()):
+            raise AssertionError("the quick harvest launched no kernel")
+        t0 = time.perf_counter()
+        _harvest_driver("--quick", "--harvest-only", "--out-dir", tmp,
+                        "--names", ",".join(names))
+        resume_s = time.perf_counter() - t0
+        log = harvest.read_log(os.path.join(tmp, "harvest_log.json"))
+        if log["runs"][-1]["attempted"] != 0:
+            raise AssertionError(f"the resumed run harvested: {log['runs']}")
+        t0 = time.perf_counter()
+        _harvest_driver("--retrain", os.path.join(tmp, "samples.npz"),
+                        "--out-dir", tmp, "--steps", "20", "--kfold", "2")
+        retrain_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "upcycle_report.json")) as f:
+            rep = json.load(f)
+        if list(rep) != list(harvest.REPORT_KEYS) + ["failed"] or \
+                rep["n_samples"] != len(names):
+            raise AssertionError(f"retrain report {rep}")
+    print(f"[28] quick corpus: {len(names)} entries harvested in {first_s} s "
+          f"({[log['entries'][n]['seconds'] for n in names]} s a worker), "
+          f"winners {[log['entries'][n]['winner'] for n in names]}, "
+          f"launches {by_run['harvest_quick']}; resumed run harvested "
+          f"nothing in {resume_s} s; retrain (20 steps, 2 folds) in "
+          f"{retrain_s} s: {rep}", flush=True)
+    params, menu = weights.load_params_npz(os.path.join(
+        weights.LOCAL_WEIGHTS_DIR, "H100_upcycled.npz"), with_menu=True)
+    if tuple(menu) != harvest.MENU:
+        raise AssertionError(f"H100 weights' menu {menu}")
+    picks = {s.matrix_name: menu[matnet.predict_class(
+        params, s.img1, s.img2, s.feats, device=dev)] for s in samples27}
+    got = info27["harvest"]
+    agree = sum(picks[n] == got[n]["winner"] for n in picks)
+    print(f"[28] weights/H100_upcycled.npz picks on phase 27's replicas: "
+          + ", ".join(f"{n} {picks[n]} (winner {got[n]['winner']}, v3 "
+                      f"{got[n]['v3_pick']})" for n in picks)
+          + f"; agrees on {agree} of {len(picks)}", flush=True)
 
 
 def main() -> int:
@@ -1671,7 +1762,10 @@ def main() -> int:
                                     dev)
 
     # ---- 27. the selector's training path (harvest launch counts from 0)
-    _training_phase(by_run, reset_counts, counts, dev)
+    info27, samples27 = _training_phase(by_run, reset_counts, counts, dev)
+
+    # ---- 28. the corpus driver (its workers' launches summed)
+    _corpus_phase(by_run, kernel_names, info27, samples27, dev)
 
     torch.cuda.synchronize()
     kernels = []

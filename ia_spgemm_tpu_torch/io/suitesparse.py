@@ -17,8 +17,9 @@ A"). This module provides:
 
 from __future__ import annotations
 
+import functools
 import os
-from typing import Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -352,13 +353,23 @@ def replica_stats(A: sp.csr_matrix) -> dict:
             "diag_fill": round(float(np.count_nonzero(diag) / k), 3)}
 
 
+def synthetic_entries(m: int = 256, seeds: Tuple[int, ...] = (0, 1, 2)
+                      ) -> Iterator[Tuple[str, Callable[[], sp.csr_matrix]]]:
+    """synthetic_suite's names, each with the call that builds its
+    matrix, so the names can be listed without building anything."""
+    for seed in seeds:
+        yield f"banded_{m}_{seed}", functools.partial(
+            gen_banded, m, bandwidth=2 + seed, seed=seed)
+        yield f"uniform_{m}_{seed}", functools.partial(
+            gen_uniform, m, nnz_per_row=6 + seed, seed=seed)
+        yield f"powerlaw_{m}_{seed}", functools.partial(gen_powerlaw, m,
+                                                        seed=seed)
+        yield f"blockdiag_{m}_{seed}", functools.partial(gen_blockdiag, m,
+                                                         seed=seed)
+
+
 def synthetic_suite(m: int = 256, seeds: Tuple[int, ...] = (0, 1, 2)
                     ) -> Iterator[Tuple[str, sp.csr_matrix]]:
     """A labeled stream of structurally diverse matrices."""
-    for seed in seeds:
-        yield f"banded_{m}_{seed}", gen_banded(m, bandwidth=2 + seed,
-                                               seed=seed)
-        yield f"uniform_{m}_{seed}", gen_uniform(m, nnz_per_row=6 + seed,
-                                                 seed=seed)
-        yield f"powerlaw_{m}_{seed}", gen_powerlaw(m, seed=seed)
-        yield f"blockdiag_{m}_{seed}", gen_blockdiag(m, seed=seed)
+    for name, build in synthetic_entries(m, seeds):
+        yield name, build()
