@@ -156,12 +156,32 @@ prints no result line:
     a retrain of 20 steps and 2 folds on the card writes the JAX
     report's keys; then the committed card-labelled weights
     (weights/H100_upcycled.npz) pick on phase 27's four replicas,
-    printed beside phase 27's winners and v3's picks (not a gate).
+    printed beside phase 27's winners and v3's picks (not a gate);
+29. the acceptance run (ia_spgemm_tpu_torch.bench.acceptance, the port
+    of scripts/acceptance.py), in process: headline_rooflines at full
+    width (the m=32768 headline through the slab engine, its flattening
+    by gathers and by scatter, the global sort, the tiled route, the
+    flat bitonic route, compensated and dense_row against a dense B of
+    2048 columns; the m=32768 skew matrix through the width classes,
+    with and without the pregather, the ESC fallback and plan_csr_auto;
+    dense_row against scipy's CSR @ dense): every route's C held to
+    scipy's float64 product before it is timed (pattern exact, values
+    within 1e-4 of max(1, max|C|), compensated 1e-12), one line per key
+    (ms, device ms, share of the speed of light), the router's pick
+    beside the manual routes' device ms, and no share above SHARE_LIMIT
+    (105%) of its least time (the JAX cost model's; dense_row's: A, B
+    and C once each, since its JAX count charges 8 rows of B per A
+    entry); then fixture_sweeps over three .mtx files (build_matrix(m=
+    4096), a 3000 x 4096 random matrix for A @ A^T, a 5-point Laplacian
+    on 64 x 64): every row ok or skipped, none failed, a winner each; an
+    acceptance JSON line (the rooflines, their costs, the winners, the
+    phase's seconds).
 
 Every kernel wrapper counts its launches. Phases 4, 5, 7-10, 12-15,
-17-19, 22-23, 25, 27's harvest and 28's quick harvest each drive a main
-path on its own input: the counts are set to 0 just before each run and
-read just after it (a worker process starts from 0).
+17-19, 22-23, 25, 27's harvest, 28's quick harvest and 29's rooflines
+each drive a main path on its own input: the counts are set to 0 just
+before each run and read just after it (a worker process starts from
+0).
 K1, K2 and K3 must have been launched in phase 4, K2, K3 and K4 in
 phase 5, K8 and K3 in phase 7, K9 and K10 in phase 9, K8 in the hybrid
 run of phase 10, K7a and K7b in phase 12, K12 in 13, K11 in 14, the flat
@@ -170,11 +190,11 @@ f32_wide_flat, K5, K6 and K3 in f64_multiclass, K4 in f64_skew, K13 and
 K4 in the K13 ring runs of 22 (no K13 in the plain-hop run), none in the
 plain-torch dist runs of 23, K13 and K4 in the workers of 25 (their
 counts summed: ring_multiproc_2x2, ring_multiproc_4x1), at least one
-kernel in the harvest of 27 and in the workers of 28 (harvest_quick).
-Phase 3's comparison launches and those of the CLI, the workers' other
-runs and the scaling phase are not
-counted. The line before the last two is a JSON
-object with one entry per kernel
+kernel in the harvest of 27 and in the workers of 28 (harvest_quick),
+K1-K4 and K8-K11 in the rooflines of 29 (acceptance). Phase 3's
+comparison launches and those of the CLI, the workers' other runs, the
+scaling phase and 29's fixture sweep are not counted. The line before
+the last two is a JSON object with one entry per kernel
 ("ms"/"plain_ms"/"library_ms"/"bound_ms": summed over its phase-3
 shapes, "bound_by" the larger term; "launches": the sum over the
 main-path runs, split in "launches_by_run"; "kernel_alone_ms" for the
@@ -248,6 +268,10 @@ HARVEST_QUICK_S = 40
 # so a gradient near 0 turns a rounding difference into up to 2 * lr.
 TRAIN_TOL = 1e-5
 GRAD_TOL = 1e-4
+# phase 29: the kernels the acceptance run must launch, and the share of
+# its least time no route may beat (a count at fault or a wrong timer)
+ACCEPTANCE_KERNELS = ("K1", "K2", "K3", "K4", "K8", "K9", "K10", "K11")
+SHARE_LIMIT = 105.0
 
 
 def _compare(name, got, want):
@@ -1135,6 +1159,79 @@ def _corpus_phase(by_run, kernel_names, info27, samples27, dev):
           + f"; agrees on {agree} of {len(picks)}", flush=True)
 
 
+def _acceptance_phase(by_run, reset_counts, counts, launched, dev):
+    """Phase 29: the acceptance run (bench.acceptance) in process. Its
+    headline_rooflines at full width is the main-path run "acceptance"
+    (every route's C held to scipy before it is timed; no share above
+    SHARE_LIMIT of its least count); then fixture_sweeps over three
+    .mtx files written here: every row ok or skipped, none failed."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from ia_spgemm_tpu_torch.bench import acceptance, headline, roofline
+    from ia_spgemm_tpu_torch.formats.types import CSR
+    from ia_spgemm_tpu_torch.io import mmio
+    t_phase = time.perf_counter()
+    chip = roofline.detect_chip(dev)
+    costs = {}
+    reset_counts()
+    roofs = acceptance.headline_rooflines(dev, chip=chip, costs=costs)
+    by_run["acceptance"] = counts()
+    launched("acceptance", ACCEPTANCE_KERNELS)
+    roof_s = time.perf_counter() - t_phase
+    for key, e in roofs.items():
+        rd = e.get("roofline_device") or {}
+        print(f"[29] {key}: ms {e.get('time_ms', e.get('wall_ms'))} "
+              f"device_ms {e.get('device_ms')} pct_of_sol "
+              f"{e.get('pct_of_sol')} (device {rd.get('pct_of_sol')})"
+              + "".join(f" {f} {e[f]!r}" for f in ("engine", "route",
+                                                   "assembly") if f in e),
+              flush=True)
+    manual = {k: roofs[k]["device_ms"] for k in
+              ("multiclass_skew", "multiclass_skew_pg", "skew_esc_fallback")}
+    auto = roofs["esc_auto_skew"]
+    print(f"[29] esc_auto_skew picks {auto['route']}: device_ms "
+          f"{auto['device_ms']} beside the manual routes' {manual}; "
+          f"launches {by_run['acceptance']}", flush=True)
+    above = acceptance.shares_above(roofs, costs, chip, SHARE_LIMIT)
+    if above:
+        raise AssertionError(f"acceptance shares above {SHARE_LIMIT}% of "
+                             f"their least time: {above}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(64, 64))
+        mats = {"square": headline.build_matrix(m=4096),
+                "rect": sp.random(3000, 4096, density=8 / 4096,
+                                  format="csr",
+                                  random_state=np.random.default_rng(29)),
+                "laplacian": sp.kron(sp.identity(64), T)
+                + sp.kron(T, sp.identity(64))}
+        for name, a in mats.items():
+            mmio.write_mtx(os.path.join(tmp, f"{name}.mtx"),
+                           CSR.from_scipy(a.tocsr(), device="cpu"))
+        sweeps = acceptance.fixture_sweeps(tmp, dev)
+    sweep_s = time.perf_counter() - t0
+    unread = {n: d["error"] for n, d in sweeps.items() if "error" in d}
+    if unread:
+        raise AssertionError(f"fixture sweep: unread files {unread}")
+    # a row whose checksum missed the baseline's keeps ok and has an error
+    rows = {n: {r["name"]: r["error"] or ("ok" if r["ok"] else "skipped"
+                                          if r["skipped"] else "timed out")
+                for r in d["results"]} for n, d in sweeps.items()}
+    bad = {n: {a: v for a, v in r.items() if v not in ("ok", "skipped")}
+           for n, r in rows.items()}
+    if any(bad.values()) or not all(d["winner"] for d in sweeps.values()):
+        raise AssertionError(f"fixture sweep: failed rows {bad}")
+    print(f"[29] fixture sweep in {sweep_s} s: " + "; ".join(
+        f"{n} winner {d['winner']} rows {rows[n]}"
+        for n, d in sweeps.items()), flush=True)
+    print(json.dumps({"acceptance": {
+        "rooflines": roofs, "costs": costs,
+        "sweep_winners": {n: d["winner"] for n, d in sweeps.items()},
+        "rooflines_s": roof_s, "sweep_s": sweep_s,
+        "phase_s": time.perf_counter() - t_phase}}), flush=True)
+
+
 def main() -> int:
     # the tuned fused width (reports/bench_tuning.json) must be in the
     # environment before the port's ops.bitonic is imported
@@ -1766,6 +1863,9 @@ def main() -> int:
 
     # ---- 28. the corpus driver (its workers' launches summed)
     _corpus_phase(by_run, kernel_names, info27, samples27, dev)
+
+    # ---- 29. the acceptance run (launch counts from 0)
+    _acceptance_phase(by_run, reset_counts, counts, launched, dev)
 
     torch.cuda.synchronize()
     kernels = []

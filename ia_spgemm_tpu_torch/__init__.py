@@ -27,7 +27,10 @@ jax. Its constructors and readers put matrices on the card unless given
   ``models/upcycle.py`` (harvest by device-time winner, retrain,
   score), the named SuiteSparse replicas (``io/suitesparse.py``), the
   native .mtx parser (``io/native.py``), ``bench/profiling.py``,
-  ``bench/roofline.py`` and ``graft_entry.py``.
+  ``bench/roofline.py`` and ``graft_entry.py``;
+- the corpus harvest (``models/harvest.py``) and the acceptance run
+  (``bench/acceptance.py``: every route read against the card's
+  roofline, and the fixture sweep).
 """
 
 __version__ = "0.3.0"
