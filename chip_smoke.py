@@ -90,7 +90,12 @@ prints no result line:
 16. the input-aware CLI on the m=4096 .mtx: --mode all with MatNet
     (Intel), --mode autotune, --profile gpu, --imgs-dir, and --mode dia on
     a 5-point 2-D Laplacian (m = 262,144): rc 0, every row ok or skipped
-    and none failed, a winner and a MatNet verdict, the dia row run;
+    and none failed, a winner and a MatNet verdict, the dia row run; then
+    the port's spgemm-run binary (ia_spgemm_tpu_torch/cli/binary.py
+    builds csrc/spgemm_run.cpp with the host C++ compiler and
+    python3-config --embed; a failed build fails the run) with --mode
+    all on the same .mtx, on the card: rc 0, its winner and verdict
+    lines;
 17. f64_flat and f64_multiclass: the flat spgemm_bitonic (K6 + K3) and
     the chunked width-class route (K5, K6 + K3) on the headline in
     float64: scipy's nnz (7,086,306) and pattern, values and checksum
@@ -116,7 +121,12 @@ prints no result line:
     (IA_SPGEMM_SHARDS_PER_DEVICE=4): rc 0, checksum ok;
 25. multi-process: the ring across processes sharing the card, over
     gloo (python -m ia_spgemm_tpu_torch.parallel.multihost ... --matrix
-    headline): 2 processes x 2 shards, then 4 x 1. Each worker runs the
+    headline): 2 processes x 2 shards, then 4 x 1 (on a machine with
+    several cards the workers see dev's card alone); then, where there
+    are two or more cards, 2 processes x every card, a shard on each
+    (K13 launched on each process's home card, storing into its other
+    cards and its neighbour's by peer access; one line says it did not
+    run on one card). Each worker runs the
     96 x 96 dist and ring checks (MULTIPROC_OK), then the ring on the
     headline with --rdma auto: K13 across processes in every one of the
     3 steps (its launches counted), its rows against scipy's A @ A
@@ -124,7 +134,9 @@ prints no result line:
     1e-4), one hop of the headline's B blocks through K13 bit for bit
     against the plain hop of torch.distributed, and the ms per hop of
     both over 20 hops, with the kernel's profiler time in worker 0 (a
-    multiproc JSON line, the hop's bytes bound beside);
+    multiproc JSON line, the hop's bound beside: bytes once through each
+    card's memory and once over NVLink between cards,
+    multihost.hop_bound_ms);
 26. scaling: bench.scaling's ring scaling on the headline at D = 1, 2, 4
     shards of the card, reported simulated (the shards share the card);
 27. the selector's training path: the harvest (models.upcycle's
@@ -189,7 +201,8 @@ route's kernels in spgemm_auto (15), K6 and K3 in f64_flat and
 f32_wide_flat, K5, K6 and K3 in f64_multiclass, K4 in f64_skew, K13 and
 K4 in the K13 ring runs of 22 (no K13 in the plain-hop run), none in the
 plain-torch dist runs of 23, K13 and K4 in the workers of 25 (their
-counts summed: ring_multiproc_2x2, ring_multiproc_4x1), at least one
+counts summed: ring_multiproc_2x2, ring_multiproc_4x1 and, on several
+cards, ring_multiproc_2xevery), at least one
 kernel in the harvest of 27 and in the workers of 28 (harvest_quick),
 K1-K4 and K8-K11 in the rooflines of 29 (acceptance). Phase 3's
 comparison launches and those of the CLI, the workers' other runs, the
@@ -250,8 +263,11 @@ REPLACES = {"K1": "ia_spgemm_tpu/ops/bitonic.py:1034",
             "K13": "ia_spgemm_tpu/parallel/rdma_ring.py:31"}
 RING_SHARDS = 4          # the ring / dist phases: 4 shards of the one card
 # phase 25: (main-path run, processes, shards per process) of the ring on
-# the headline across processes sharing the card
+# the headline across processes sharing the card; and, on a machine with
+# several cards, (run, processes) of the layout whose every process holds
+# a shard on each card (None: not run on one card)
 MULTIPROC_RUNS = (("ring_multiproc_2x2", 2, 2), ("ring_multiproc_4x1", 4, 1))
+MULTIPROC_EVERY_CARD = ("ring_multiproc_2xevery", 2)
 # phase 27: named replicas at their published sizes, one per structural
 # family (irregular, exact-k, power law, stencil), harvested with the
 # menu of weights/TPU_upcycled_v3.npz
@@ -773,11 +789,20 @@ def _distributed_phases(A, H, ref_sum, by_run, reset_counts, counts,
                       flush=True)
 
         # ---- 25. the ring across processes sharing the card, on the
-        # headline: 2 processes x 2 shards, then 4 x 1, over gloo
+        # headline: 2 processes x 2 shards, then 4 x 1, over gloo; then
+        # 2 processes x every card where the machine has several
         multiproc = {}
         for run, nproc, per_proc in MULTIPROC_RUNS:
             multiproc[run] = _multiproc_run(run, nproc, per_proc, dev,
                                             by_run, list(counts()), launched)
+        run, nproc = MULTIPROC_EVERY_CARD
+        if torch.cuda.device_count() > 1:
+            multiproc[run] = _multiproc_run(run, nproc, None, dev, by_run,
+                                            list(counts()), launched)
+        else:
+            print(f"[25] {run}: not run: this machine has one card (the "
+                  f"layout puts a shard of each of {nproc} processes on "
+                  "every card)", flush=True)
         print(json.dumps({"multiproc": multiproc}), flush=True)
 
         # ---- 26. the ring's scaling over 1, 2, 4 shards of the card
@@ -798,24 +823,38 @@ def _distributed_phases(A, H, ref_sum, by_run, reset_counts, counts,
 def _multiproc_run(run, nproc, per_proc, dev, by_run, names, launched):
     """Phase 25's run: nproc workers (python -m
     ia_spgemm_tpu_torch.parallel.multihost ... --matrix headline), each
-    with per_proc shards of the card, over gloo. Each worker checks its
-    96 x 96 dist and ring runs (MULTIPROC_OK), then on the headline: K13
-    in every one of the D - 1 steps, its rows against scipy, one hop
-    through K13 bit for bit against the plain hop, and prints a
-    multiproc JSON line (launches, ring ms per call, ms per hop of K13
-    and of the plain hop, the kernel's profiler time in worker 0). The
+    with per_proc shards of dev's card (per_proc None: a shard on every
+    card of the machine), over gloo. Each worker checks its 96 x 96 dist
+    and ring runs (MULTIPROC_OK), then on the headline: K13 in every one
+    of the D - 1 steps, its rows against scipy, one hop through K13 bit
+    for bit against the plain hop, and prints a multiproc JSON line
+    (launches, ring ms per call, ms per hop of K13 and of the plain hop,
+    the kernel's profiler time in worker 0, the hop's bound). The
     workers' launches, summed, are main-path run `run`. Returns the
-    run's summary, beside the hop's bytes bound."""
+    run's summary."""
     import socket
 
+    import torch
+
     from ia_spgemm_tpu_torch.bench.kernels import PEAK_BYTES_PER_S
+    from ia_spgemm_tpu_torch.bench.scaling import H100_NVLINK_BYTES_PER_S
     from ia_spgemm_tpu_torch.parallel.mesh import SHARDS_PER_DEVICE_ENV
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
-    env[SHARDS_PER_DEVICE_ENV] = str(per_proc)
+    cards = torch.cuda.device_count()
+    if per_proc is None:
+        env[SHARDS_PER_DEVICE_ENV] = "1"
+        D = nproc * cards
+    else:
+        env[SHARDS_PER_DEVICE_ENV] = str(per_proc)
+        D = nproc * per_proc
+        if cards > 1:     # the workers see dev's card alone
+            seen = os.environ.get("CUDA_VISIBLE_DEVICES")
+            env["CUDA_VISIBLE_DEVICES"] = (seen.split(",")[dev.index]
+                                           if seen else str(dev.index))
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-u", "-m",
@@ -841,7 +880,6 @@ def _multiproc_run(run, nproc, per_proc, dev, by_run, names, launched):
             raise AssertionError(f"{run} worker {pid} rc {p.returncode}:"
                                  f"\n{out}")
         infos.append(json.loads(lines[0])["multiproc"])
-    D = nproc * per_proc
     for i in infos:
         if not (i["k13"] and i["hop_bitwise_equal"] and i["shards"] == D
                 and i["launches"]["K13"] == D - 1):
@@ -852,11 +890,13 @@ def _multiproc_run(run, nproc, per_proc, dev, by_run, names, launched):
     by_run[run] = {n: sum(i["launches"].get(n, 0) for i in infos)
                    for n in names}
     launched(run, ["K13", "K4"])
-    # the hop's bytes: every block read once and written once, on the one
-    # card (all processes' copies), and those of one process's crossing
-    block = 8192 * 29 * 4 * 2        # int32 + float32 (rows, 29) blocks
+    # the hop's bound (every process's copies at once: multihost.
+    # hop_bound_ms) and that of one process's crossing: its block read
+    # and written once in one card's memory, or once over NVLink
     head = infos[0]
-    rep = {"processes": nproc, "shards_per_process": per_proc,
+    block = head["block_bytes"]      # int32 + float32 (rows, 29) blocks
+    rep = {"processes": nproc, "shards_per_process": D // nproc,
+           "cards": head["cards"],
            "wall_s": wall_s, "nnz": nnz,
            "max_abs_err": max(i["max_abs_err"] for i in infos),
            "checksum_rel_err": max(i["checksum_rel_err"] for i in infos),
@@ -865,10 +905,13 @@ def _multiproc_run(run, nproc, per_proc, dev, by_run, names, launched):
            "hop_ms": [i["hop_ms"] for i in infos],
            "plain_hop_ms": [i["plain_hop_ms"] for i in infos],
            "kernel_us": head["kernel_us"],
-           "bound_ms_hop": 2 * D * block / PEAK_BYTES_PER_S * 1e3,
-           "bound_ms_crossing": 2 * block / PEAK_BYTES_PER_S * 1e3}
-    print(f"[25] {run}: {nproc} processes x {per_proc} shards of the card "
-          f"over gloo, MULTIPROC_OK from all in {wall_s} s; "
+           "bound_ms_hop": head["bound_ms_hop"],
+           "bound_ms_crossing": 1e3 * (
+               block / H100_NVLINK_BYTES_PER_S if head["cards"] > 1
+               else 2 * block / PEAK_BYTES_PER_S)}
+    print(f"[25] {run}: {nproc} processes x {D // nproc} shards on "
+          f"{head['cards']} card(s) over gloo, MULTIPROC_OK from all in "
+          f"{wall_s} s; "
           + " | ".join(ln for out in outs for ln in out.splitlines()
                        if " ok" in ln), flush=True)
     return rep
@@ -1732,6 +1775,25 @@ def main() -> int:
             if img.shape != (128, 128) or img.sum() != a4096.nnz:
                 raise AssertionError(f"{fname}: shape {img.shape}, sum "
                                      f"{img.sum()} != nnz {a4096.nnz}")
+        # the port's spgemm-run binary (C++ main embedding CPython, built
+        # here from csrc/spgemm_run.cpp) on the same input
+        from ia_spgemm_tpu_torch.cli import binary
+        t0 = time.perf_counter()
+        exe = binary.build()
+        build_s = time.perf_counter() - t0
+        proc = subprocess.run([str(exe), path, "--mode", "all", "--iters",
+                               "3"], capture_output=True, text=True,
+                              timeout=300)
+        said = {key: [ln for ln in proc.stdout.splitlines()
+                      if ln.startswith(key)]
+                for key in ("Fastest algorithm:", "MatNet pick:")}
+        if proc.returncode != 0 or not all(said.values()):
+            raise AssertionError(f"spgemm-run binary --mode all: rc "
+                                 f"{proc.returncode}\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+        print(f"[16] spgemm-run binary ({exe.name}, built in {build_s:.2f} "
+              f"s) --mode all: rc 0; {said['Fastest algorithm:'][0]}; "
+              f"{said['MatNet pick:'][0]}", flush=True)
     print(json.dumps({"input_aware": input_aware}), flush=True)
 
     # ---- 17-19. the cols layout's routes (launch counts from 0)

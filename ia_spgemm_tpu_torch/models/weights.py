@@ -10,7 +10,9 @@ out)); ``matnet_state_dict`` carries it into the port's MatNet.
 ``save_params_npz`` writes the same flat layout, from a numpy tree or a
 state_dict, so the two packages read each other's files.
 ``load_keras_h5`` reads the reference's Keras h5 files (not shipped
-here) where ``h5py`` is installed.
+here) where ``h5py`` is installed: ``find_weights`` falls back to
+``{name}_weights.h5`` in ``REFERENCE_WEIGHTS_DIR`` for a set that has no
+snapshot, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -25,6 +27,12 @@ import torch
 LOCAL_WEIGHTS_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "weights")
+# the reference's NetWeights/ (MatNet.py:81 reads ./NetWeights/
+# Intel_weights.h5): IA_SPGEMM_REFERENCE_WEIGHTS where it is set, else
+# NetWeights/ beside weights/
+REFERENCE_WEIGHTS_DIR = os.environ.get(
+    "IA_SPGEMM_REFERENCE_WEIGHTS",
+    os.path.join(os.path.dirname(LOCAL_WEIGHTS_DIR), "NetWeights"))
 
 
 def load_params_npz(path: str, with_menu: bool = False):
@@ -109,17 +117,24 @@ def infer_arch(params) -> dict:
 
 
 def find_weights(name: str = "Intel") -> str:
-    """Path of a shipped weight set in the repository's weights/."""
-    p = os.path.join(LOCAL_WEIGHTS_DIR, f"{name}_matnet.npz")
-    if os.path.exists(p):
-        return p
+    """Path of a weight set: the snapshot ``{name}_matnet.npz`` in the
+    repository's weights/ first, then the reference's Keras file
+    ``{name}_weights.h5`` in REFERENCE_WEIGHTS_DIR."""
+    for d, ext in ((LOCAL_WEIGHTS_DIR, "_matnet.npz"),
+                   (REFERENCE_WEIGHTS_DIR, "_weights.h5")):
+        p = os.path.join(d, f"{name}{ext}")
+        if os.path.exists(p):
+            return p
     raise FileNotFoundError(name)
 
 
 @functools.lru_cache(maxsize=8)
 def import_reference_weights(name: str = "Intel"):
-    """A shipped weight set -> (params, arch), loaded once."""
-    params = load_params_npz(find_weights(name))
+    """A weight set (``find_weights``) -> (params, arch), loaded once: an
+    npz snapshot with load_params_npz, a Keras h5 with load_keras_h5."""
+    path = find_weights(name)
+    params = (load_params_npz(path) if path.endswith(".npz")
+              else load_keras_h5(path))
     return params, infer_arch(params)
 
 

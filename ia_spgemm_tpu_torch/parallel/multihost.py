@@ -160,6 +160,10 @@ def _args(argv: list[str]):
                    choices=("gloo", "nccl"))
     p.add_argument("--matrix", default="small", choices=("small", "headline"))
     p.add_argument("--rdma", default="auto", choices=("auto", "on", "off"))
+    p.add_argument("--devices", default=None,
+                   help="this process's shard devices, comma-separated "
+                        "(e.g. cuda:2,cuda:3); default: every visible "
+                        "device, IA_SPGEMM_SHARDS_PER_DEVICE times each")
     return p.parse_args(argv)
 
 
@@ -172,14 +176,17 @@ def _selftest(argv: list[str]) -> None:
 
         python -m ia_spgemm_tpu_torch.parallel.multihost PID NPROC PORT \
             [cuda|cpu] [gloo|nccl] [--matrix small|headline] \
-            [--rdma auto|on|off]
+            [--rdma auto|on|off] [--devices cuda:I,cuda:J,...]
 
     The device is the card unless cpu is named (without a card it
     raises), the backend gloo unless nccl is named; --rdma is every ring
-    call's use_rdma (auto: K13 wherever ``rdma_available``).
-    IA_SPGEMM_SHARDS_PER_DEVICE shards per process (the tests: 2
-    processes x 2 CPU shards; chip_smoke.py: 2 x 2 and 4 x 1 shards of
-    one card over gloo)."""
+    call's use_rdma (auto: K13 wherever ``rdma_available``). The shards
+    are every visible device IA_SPGEMM_SHARDS_PER_DEVICE times (the
+    tests: 2 processes x 2 CPU shards; chip_smoke.py: 2 x 2 and 4 x 1
+    shards of one card over gloo, and 2 processes x every card where
+    there are several), or --devices. On cards K13 must run across the
+    processes (``rdma_available``): the self-test fails where it
+    cannot."""
     args = _args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA GPU is available: pass cpu to run the "
@@ -197,7 +204,8 @@ def _selftest(argv: list[str]) -> None:
     from ia_spgemm_tpu_torch.parallel import distributed, rdma_ring, ring
     from ia_spgemm_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh(device_type=device)
+    mesh = make_mesh(device_type=device, devices=(
+        None if args.devices is None else args.devices.split(",")))
     D = mesh.num_shards
     a = sp.random(96, 96, density=0.08, format="csr", dtype=np.float32,
                   random_state=np.random.RandomState(7))
@@ -262,11 +270,42 @@ def _selftest(argv: list[str]) -> None:
     if args.matrix == "headline":
         _headline_ring(mesh, pid, use_rdma, device)
     rdma_ring.release_shared()
-    if device == "cuda":
-        torch.cuda.synchronize()
+    _synchronize(mesh)
     dist.barrier()
     dist.destroy_process_group()
     print(f"[p{pid}] MULTIPROC_OK", flush=True)
+
+
+def _synchronize(mesh) -> None:
+    """Waits for the queued work of every card of this process's
+    shards."""
+    for d in dict.fromkeys(mesh.devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def hop_bound_ms(cards, nbytes: int, hbm_bytes_per_s: float,
+                 link_bytes_per_s: float) -> float:
+    """The least time of one ring step: ``cards``, the card of each
+    global shard (any hashable identity), each shard sending its block
+    of ``nbytes`` to the previous one. Each card reads the blocks it
+    sends and writes the blocks it receives once, at hbm_bytes_per_s;
+    a block between two cards leaves its card and enters the other once,
+    at link_bytes_per_s each way (NVLink, all to all). The busiest card
+    and direction bound the step."""
+    from collections import Counter
+    hbm, out, into = Counter(), Counter(), Counter()
+    D = len(cards)
+    for d in range(D):
+        src, dst = cards[(d + 1) % D], cards[d]
+        hbm[src] += nbytes
+        hbm[dst] += nbytes
+        if src != dst:
+            out[src] += nbytes
+            into[dst] += nbytes
+    return 1e3 * max(max(hbm.values()) / hbm_bytes_per_s,
+                     max([*out.values(), *into.values(), 0])
+                     / link_bytes_per_s)
 
 
 HOPS = 20          # hops per timing window of _headline_ring
@@ -315,24 +354,27 @@ def _headline_ring(mesh, pid: int, use_rdma, device: str) -> None:
     per call between synchronisations of every process (RING_CALLS
     calls), and one hop of the headline's B blocks through K13 against
     the plain hop bit for bit, with ms per hop of each over HOPS hops
-    and, in process 0, the kernel's device time from torch.profiler.
-    Prints one ``{"multiproc": ...}`` JSON line."""
+    and, in process 0, the kernel's device time from torch.profiler,
+    beside the hop's bound on an H100 (``hop_bound_ms``, from every
+    process's cards). Prints one ``{"multiproc": ...}`` JSON line."""
     import json
     import time
 
     import torch.distributed as dist
 
     from ia_spgemm_tpu_torch.bench.headline import build_matrix
+    from ia_spgemm_tpu_torch.bench.kernels import PEAK_BYTES_PER_S
+    from ia_spgemm_tpu_torch.bench.scaling import H100_NVLINK_BYTES_PER_S
     from ia_spgemm_tpu_torch.formats import convert
     from ia_spgemm_tpu_torch.formats.types import CSR
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
     from ia_spgemm_tpu_torch.parallel import ring
+    from ia_spgemm_tpu_torch.parallel.mesh import card_identities
 
     def synced():
         """Every process's queued work done, every process here."""
-        if device == "cuda":
-            torch.cuda.synchronize()
+        _synchronize(mesh)
         dist.barrier()
 
     D = mesh.num_shards
@@ -351,8 +393,7 @@ def _headline_ring(mesh, pid: int, use_rdma, device: str) -> None:
     K.reset_launch_counts()
     RR.reset_launch_counts()
     C = call()
-    if device == "cuda":
-        torch.cuda.synchronize()
+    _synchronize(mesh)
     launches = {**K.launch_counts(), **RR.launch_counts()}
     on_card = device == "cuda"     # the host runs the plain versions
     if launches["K13"] != (D - 1 if k13 else 0) or launches["K4"] != (
@@ -370,6 +411,8 @@ def _headline_ring(mesh, pid: int, use_rdma, device: str) -> None:
 
     blocks = (S.col_ind, S.values)
     plain = RR.ring_hop_processes_plain(mesh, *blocks)
+    cards = [c for i in card_identities(mesh) for c in i["cards"]]
+    block_bytes = sum(b[0].numel() * b[0].element_size() for b in blocks)
 
     def per_hop(hop):
         synced()
@@ -382,7 +425,13 @@ def _headline_ring(mesh, pid: int, use_rdma, device: str) -> None:
 
     info = {"pid": pid, "processes": dist.get_world_size(),
             "shards": D, "local_shards": len(mesh.devices),
-            "device": str(mesh.devices[0]), "k13": k13,
+            "device": str(mesh.devices[0]),
+            "devices": [str(d) for d in mesh.devices], "k13": k13,
+            "cards": len(set(cards)), "block_bytes": block_bytes,
+            "bound_ms_hop": (
+                hop_bound_ms(cards, block_bytes, PEAK_BYTES_PER_S,
+                             H100_NVLINK_BYTES_PER_S)
+                if device == "cuda" else None),
             "launches": launches, "rows": nrows, "nnz": nnz,
             "max_abs_err": err, "checksum_rel_err": rel,
             "ring_ms": ring_ms, "ring_ms_median": float(np.median(ring_ms)),
@@ -404,8 +453,8 @@ def _headline_ring(mesh, pid: int, use_rdma, device: str) -> None:
         RR.check_hops(sets[0])
     print(json.dumps({"multiproc": info}), flush=True)
     print(f"[p{pid}] headline ring ok: {nrows} rows, nnz {nnz}, max err "
-          f"{err:.2e}, K13 launches {launches['K13']} in {D - 1} steps",
-          flush=True)
+          f"{err:.2e}, K13 launches {launches['K13']} in {D - 1} steps, "
+          f"shards on {sorted(set(info['devices']))}", flush=True)
 
 
 def _profiled_hop_us(hop, blocks, pid: int, synced):

@@ -32,12 +32,17 @@ launches the kernel's other instance, which computes what
 sets and four signal words are shared with its neighbours through CUDA
 IPC (``shared_receivers``, once per layout and process group), and one
 launch per step meets both neighbours at the barrier, copies the local
-blocks and pushes block 0 into the left neighbour's receiver, then
-waits until its own incoming block has landed. The expected counts
-come from ``HopCounters``; every spin is bounded by ``SPIN_LIMIT_S`` and
-``check_hops`` raises on a timeout. Its plain version is the
-point-to-point hop of ``torch.distributed`` (``ring_hop_processes_plain``).
-There is no fallback: a failed build, launch or IPC open, or cards that
+blocks and pushes block 0 into the left neighbour's last receiver, then
+waits until its own incoming block has landed. A process's shards may
+lie on several cards: the launch runs on its home card (``home_slot``),
+which holds its signal words and reads and stores the blocks and
+receivers of its other cards by peer access, with events ordering each
+card's reads of its receivers before the launch and the launch before
+its next reads. The expected counts come from ``HopCounters``; every
+spin is bounded by ``SPIN_LIMIT_S`` and ``check_hops`` raises on a
+timeout. Its plain version is the point-to-point hop of
+``torch.distributed`` (``ring_hop_processes_plain``). There is no
+fallback: a failed build, launch, peer enable or IPC open, or cards that
 cannot reach each other, raise.
 """
 
@@ -327,7 +332,7 @@ def rdma_available(mesh) -> bool:
     """use_rdma='auto' gate, the same in every process: a mesh of two or
     more shards, every one on a CUDA card. In one process the cards must
     reach each other (the same card, or peer access); across processes
-    each process's shards must share one card from which it can map both
+    each process's home card must reach its other cards and map both
     neighbours' memory (``card_gate``, decided once per process group
     from every process's card identities: COLLECTIVE the first time)."""
     if mesh is None or mesh.num_shards < 2:
@@ -344,25 +349,47 @@ def rdma_available(mesh) -> bool:
                for a in devs for b in devs)
 
 
+def home_slot(cards, rank: int) -> int:
+    """Which of a process's shards lies on its home card, the card that
+    launches its hops across processes and holds its signal words:
+    ``cards`` are the shards' devices (or card identities), in shard
+    order. The process's distinct cards, in order of first use, taken at
+    rank modulo their count, so that processes holding the same cards
+    launch on different ones (a kernel waiting at the barrier holds its
+    card's time slice from the other processes' contexts)."""
+    distinct = list(dict.fromkeys(cards))
+    return list(cards).index(distinct[rank % len(distinct)])
+
+
 def card_gate(infos) -> bool:
     """The gate across processes from every process's card identities
-    (``mesh.card_identities``): each process's shards on one card, and
-    each neighbour's card seen by the process under the index the
-    neighbour gives it (an IPC handle names its maker's card by index),
-    the same card or one it has peer access to."""
+    (``mesh.card_identities``, in rank order). Every shard on a card the
+    process sees; the home card (``home_slot``) the same card as, or with
+    peer access to, each card it reads or stores: the process's own
+    cards, the left neighbour's last shard's (its incoming receiver) and
+    both neighbours' home cards (their signal words). A neighbour's card
+    must have the same index in both processes (an IPC handle names its
+    maker's card by index)."""
     W = len(infos)
-    if W < 2 or any(None in i["cards"] or len(set(i["cards"])) != 1
+    if W < 2 or any(not i["cards"] or None in i["cards"]
+                    or not set(i["cards"]) <= set(i["visible"])
                     for i in infos):
         return False
+    homes = [i["cards"][home_slot(i["cards"], r)]
+             for r, i in enumerate(infos)]
     for r, me in enumerate(infos):
-        own = me["visible"].index(me["cards"][0])
-        for nb in (infos[(r - 1) % W], infos[(r + 1) % W]):
-            card = nb["cards"][0]
-            if (card not in me["visible"]
-                    or me["visible"].index(card) != nb["visible"].index(card)):
+        left, right = infos[(r - 1) % W], infos[(r + 1) % W]
+        vis = me["visible"]
+        home = vis.index(homes[r])
+        for card, nb in ([(c, me) for c in me["cards"]]
+                         + [(left["cards"][-1], left),
+                            (homes[(r - 1) % W], left),
+                            (homes[(r + 1) % W], right)]):
+            if (card not in vis
+                    or vis.index(card) != nb["visible"].index(card)):
                 return False
-            j = me["visible"].index(card)
-            if j != own and (own, j) not in me["peer"]:
+            j = vis.index(card)
+            if j != home and (home, j) not in me["peer"]:
                 return False
     return True
 
@@ -458,43 +485,53 @@ class _Peers:
 class XReceivers(list):
     """One of the two receiver sets of a ring across processes
     (``shared_receivers``): per array, this process's L receivers, entry
-    i (shaped like the blocks) for local block i + 1 and entry L - 1,
-    which the right neighbour writes, for the next process's block 0.
-    ``left``: per array, the left neighbour's entry L - 1 of the same
-    set, mapped by CUDA IPC (None for a zero-byte array; empty on the
-    host); ``peers`` the signal words (None on the host); ``chunks`` the
-    chunks of one hop's incoming blocks; ``layout`` the blocks' layout."""
+    i (shaped like the blocks, on shard i's device) for local block i + 1
+    and entry L - 1, which the right neighbour writes, for the next
+    process's block 0. ``left``: per array, the left neighbour's entry
+    L - 1 of the same set, mapped by CUDA IPC under the home card (None
+    for a zero-byte array; empty on the host); ``peers`` the signal words
+    (None on the host); ``home`` the device that launches the hops;
+    ``others`` the process's other cards, ordered against the launch by
+    events; ``chunks`` the chunks of one hop's incoming blocks;
+    ``layout`` the blocks' devices and layout (``_xlayout``)."""
 
     left: tuple = ()
     peers = None
+    home = None
+    others: tuple = ()
     chunks = 0
     layout: tuple = ()
 
 
 _SIGNALS: dict = {}     # (group, card) -> _Peers
-_SHARED: dict = {}      # (group, layout) -> the two XReceivers
+_SHARED: dict = {}      # (group, devices, layout) -> the two XReceivers
 _MAX_SHARED = 8
 
 
 def _xlayout(arrays):
-    """(device, per array (blocks, shape, type)), checked: every array
-    holds one contiguous block per local shard, all of one shape and
-    type, all on one device."""
+    """(each shard's device, per array (blocks, shape, type)), checked:
+    every array holds one contiguous block per local shard, all of one
+    shape and type, and block i of every array lies on shard i's
+    device, all on the host or all on cards. The second part is what
+    the processes of a ring must share."""
     if not arrays or not arrays[0]:
         raise ValueError("ring hop of no blocks")
-    devs = {b.device for arr in arrays for b in arr}
-    if len(devs) != 1:
-        raise ValueError(f"blocks on {sorted(map(str, devs))}: a hop across "
-                         "processes takes one device per process")
+    devs = tuple(b.device for b in arrays[0])
+    if len({d.type for d in devs}) != 1:
+        raise ValueError(f"blocks on {sorted(set(map(str, devs)))}: all on "
+                         "the host or all on cards")
     per = []
     for arr in arrays:
+        if tuple(b.device for b in arr) != devs:
+            raise ValueError("a hop across processes takes block i of every "
+                             "array on shard i's device")
         if len({(b.shape, b.dtype) for b in arr}) != 1:
             raise ValueError("a hop across processes takes blocks of one "
                              "shape and type per array")
         if not all(b.is_contiguous() for b in arr):
             raise ValueError("ring hop blocks must be contiguous")
         per.append((len(arr), tuple(arr[0].shape), str(arr[0].dtype)))
-    return devs.pop(), tuple(per)
+    return devs, tuple(per)
 
 
 def _open(handle, dev):
@@ -539,29 +576,36 @@ def _peers(mesh, dev) -> _Peers:
 
 def shared_receivers(mesh, *arrays) -> list:
     """The two receiver sets (``XReceivers``) of a ring across processes
-    for these blocks (each array's blocks of one shape and type, all on
-    this process's one device, the same layout in every process), made
-    once per layout and process group and kept: COLLECTIVE when made
-    (every process of the group calls it together). On a card, the
-    entries the right neighbour writes are shared with it through CUDA
-    IPC (``torch.multiprocessing.reductions.reduce_tensor``: the caching
-    allocator's handle and offset), exchanged with ``all_gather_object``;
-    the mappings, and the storages behind them, live as long as the
-    sets. On the host the sets are plain receivers
+    for these blocks (each array's blocks of one shape and type, block i
+    on shard i's device, the same shapes and types in every process),
+    made once per layout and process group and kept: COLLECTIVE when
+    made (every process of the group calls it together). Each receiver
+    lies on its shard's device. On cards, the entries the right
+    neighbour writes are shared with it through CUDA IPC
+    (``torch.multiprocessing.reductions.reduce_tensor``: the caching
+    allocator's handle and offset), exchanged with ``all_gather_object``
+    and opened under the neighbour's home card; peer access from the
+    home card to the process's other cards is enabled here. The
+    mappings, and the storages behind them, live as long as the sets.
+    On the host the sets are plain receivers
     (``ring_hop_processes_plain`` fills them)."""
-    dev, layout = _xlayout(arrays)
-    key = (id(mesh.group), dev, layout)
+    devs, layout = _xlayout(arrays)
+    key = (id(mesh.group), devs, layout)
     sets = _SHARED.get(key)
     if sets is not None:
         return sets
     sets = [XReceivers(alloc_receivers(*arrays)) for _ in range(2)]
     nbytes = [arr[0].numel() * arr[0].element_size() for arr in arrays]
-    if dev.type == "cuda":
+    if devs[0].type == "cuda":
         import torch.distributed as dist
         from torch.multiprocessing.reductions import reduce_tensor
-        peers = _peers(mesh, dev)
         world = dist.get_world_size(mesh.group)
         rank = dist.get_rank(mesh.group)
+        home = devs[home_slot(devs, rank)]
+        others = tuple(d for d in dict.fromkeys(devs) if d != home)
+        for d in others:
+            _enable_peer(home, d)
+        peers = _peers(mesh, home)
         mine = (layout, [[reduce_tensor(o[-1]) if n else None
                           for o, n in zip(s, nbytes)] for s in sets])
         every = [None] * world
@@ -570,12 +614,12 @@ def shared_receivers(mesh, *arrays) -> list:
             raise ValueError("the processes of the ring hold blocks of "
                              f"different layouts: {[e[0] for e in every]}")
         for s, handles in zip(sets, every[(rank - 1) % world][1]):
-            s.left = tuple(None if h is None else _open(h, dev)
+            s.left = tuple(None if h is None else _open(h, home)
                            for h in handles)
-            s.peers = peers
+            s.peers, s.home, s.others = peers, home, others
     for s in sets:
         s.chunks = sum(map(chunks_of, nbytes))
-        s.layout = layout
+        s.layout = (devs, layout)
     if len(_SHARED) >= _MAX_SHARED:
         _SHARED.clear()
     _SHARED[key] = sets
@@ -593,32 +637,45 @@ def release_shared():
 
 def ring_hop_xproc(mesh, *arrays, out):
     """K13 across processes: one ring step of this process's blocks
-    (each array's blocks, one per local shard, on its card): block i + 1
-    into receiver i, block 0 into the left neighbour's last receiver;
-    ``out`` is one of the two sets of ``shared_receivers`` for these
-    blocks (the ring alternates them). Returns out's lists. One launch,
-    not synchronised: the barrier with both neighbours, the copies, the
-    wait for this process's incoming block; ``check_hops`` reads the
+    (each array's blocks, one per local shard, on its shard's device):
+    block i + 1 into receiver i, block 0 into the left neighbour's last
+    receiver; ``out`` is one of the two sets of ``shared_receivers`` for
+    these blocks (the ring alternates them). Returns out's lists. One
+    launch on the home card, not synchronised: the barrier with both
+    neighbours, the copies, the wait for this process's incoming block;
+    before it the home card's stream waits for every other card's work
+    so far (their reads of the receivers it writes), after it every
+    other card's stream waits for the launch. ``check_hops`` reads the
     kernel's error word. On host blocks the plain version fills out."""
-    if not isinstance(out, XReceivers) or out.layout != _xlayout(arrays)[1]:
+    devs, layout = _xlayout(arrays)
+    if not isinstance(out, XReceivers) or out.layout != (devs, layout):
         raise ValueError("out= takes a set that shared_receivers made for "
-                         "this layout of blocks")
-    dev = arrays[0][0].device
-    if dev.type == "cpu":
+                         "these blocks' devices and layout")
+    if devs[0].type == "cpu":
         return ring_hop_processes_plain(mesh, *arrays, out=out)
     peers = out.peers
     if peers.failed:
         raise RuntimeError(peers.failed)
     table, n, n_remote, words, targets = xproc_launch_args(arrays, out)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    home = out.home
+    stream = torch.cuda.current_stream(home)
+    for d in out.others:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(d))
+        stream.wait_event(ready)
+    with torch.cuda.device(home):
         err = _build.load()["ia_k13_ring_hop_xproc"](
             table.buffer_info()[0], n, n_remote, words.buffer_info()[0],
-            targets.buffer_info()[0], stream)
+            targets.buffer_info()[0], stream.cuda_stream)
     if err != 0:
         peers.failed = f"ia_k13_ring_hop_xproc launch failed: CUDA error {err}"
         raise RuntimeError(peers.failed)
     ring_hop_rdma.launches += 1
+    if out.others:
+        done = torch.cuda.Event()
+        done.record(stream)
+        for d in out.others:
+            torch.cuda.current_stream(d).wait_event(done)
     return list(out)
 
 

@@ -26,8 +26,10 @@ Capacity is static: each A row has ka * chunks runs of ``run`` slots
 whichever step fills them, so the product buffer is allocated once and
 steps only select into it. The JAX loop hops D times and never uses the
 last hop's blocks; this loop skips that hop, so a ring call makes D - 1
-hops (none at D = 1), each one K13 launch on one card carrying the
-column and value blocks together. The hops write into two sets of
+hops (none at D = 1), each carrying the column and value blocks
+together: one K13 launch per source card in one process, one per
+process (on its home card, whatever cards its shards lie on) across
+processes. The hops write into two sets of
 receivers alternated: allocated once per call in one process, made once
 per layout and shared with the neighbours across processes.
 """
@@ -202,8 +204,10 @@ def ring_products(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
     elif use_rdma and not rdma_available(mesh):
         raise ValueError("use_rdma=True: K13 needs a mesh of two or more "
                          "shards on cards that reach each other (across "
-                         "processes: one card per process, from which it "
-                         "can map both neighbours' memory)")
+                         "processes: each process's home card must reach "
+                         "its other cards, its left neighbour's last card "
+                         "and both neighbours' home cards; rdma_ring."
+                         "card_gate)")
     D = A.num_shards
     m_loc, ka = A.rows_per_shard, A.width
     k_loc, kb = B.rows_per_shard, B.width

@@ -1013,8 +1013,9 @@ def test_ring_on_the_card_launches_k13_and_k4(cuda_device):
 
 
 # one worker of the K13-across-processes tests: 2 processes x 2 shards of
-# card 0 over gloo, or x 1 card each over NCCL. "hop": three hops of
-# random blocks through K13 into
+# card 0 over gloo (layout "card0"), x 1 card each over NCCL, or over gloo
+# x 2 cards each ("pair": cards 2p, 2p + 1 modulo the count) or x every
+# card ("every"). "hop": three hops of random blocks through K13 into
 # the alternated shared receivers, each bit for bit against the plain hop
 # of torch.distributed, one launch each; the ring on build_matrix(m=1024)
 # through K13 (D - 1 launches) bit for bit against the plain hop; and
@@ -1031,19 +1032,23 @@ from ia_spgemm_tpu_torch.formats.types import CSR
 from ia_spgemm_tpu_torch.parallel import multihost, ring
 from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
 from ia_spgemm_tpu_torch.parallel.mesh import make_mesh
-pid, port, mode, backend = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
-                            sys.argv[4])
+pid, port, mode, backend, layout = (int(sys.argv[1]), sys.argv[2],
+                                    sys.argv[3], sys.argv[4], sys.argv[5])
 multihost.initialize(f"127.0.0.1:{port}", 2, pid, backend=backend)
-mesh = (make_mesh(devices=["cuda:0"] * 2) if backend == "gloo"
+n = torch.cuda.device_count()
+devices = {"card0": ["cuda:0"] * 2,
+           "pair": [f"cuda:{(2 * pid + i) % n}" for i in range(2)],
+           "every": [f"cuda:{i}" for i in range(n)]}[layout]
+mesh = (make_mesh(devices=devices) if backend == "gloo"
         else make_mesh(device_type="cuda"))
 D, dev = mesh.num_shards, mesh.devices[0]
 assert RR.rdma_available(mesh)
-g = torch.Generator(device=dev).manual_seed(pid)
-cols = [torch.randint(-1, 8192, (3001, 29), generator=g, device=dev,
-                      dtype=torch.int32) for _ in mesh.devices]
-vals = [torch.randn((3001, 29), generator=g, device=dev)
-        for _ in mesh.devices]
+g = torch.Generator().manual_seed(pid)
+cols = [torch.randint(-1, 8192, (3001, 29), generator=g,
+                      dtype=torch.int32).to(d) for d in mesh.devices]
+vals = [torch.randn((3001, 29), generator=g).to(d) for d in mesh.devices]
 sets = RR.shared_receivers(mesh, cols, vals)
+assert sets[0].home == mesh.devices[RR.home_slot(mesh.devices, pid)]
 if mode == "hop":
     x = (cols, vals)
     for s in range(3):
@@ -1068,6 +1073,8 @@ if mode == "hop":
     for f in ("col_ind", "values", "nnz_row"):
         assert all(torch.equal(p, q) for p, q in zip(getattr(C1, f),
                                                      getattr(C0, f))), f
+    assert all(c.device == d for c, d in zip(C1.col_ind, mesh.devices))
+    multihost._rows_against_scipy(C1, a.astype(np.float64))
     host = make_mesh(devices=["cpu", "cpu"])
     assert host.spans_processes and not RR.rdma_available(host)
     Ah = convert.csr_to_ell(CSR.from_scipy(a, device="cpu"),
@@ -1105,7 +1112,7 @@ dist.destroy_process_group()
 """
 
 
-def _xproc_workers(mode, backend="gloo"):
+def _xproc_workers(mode, backend="gloo", layout="card0"):
     """Runs XPROC_WORKER's two processes in `mode`; their outputs."""
     import os
     import socket
@@ -1118,7 +1125,7 @@ def _xproc_workers(mode, backend="gloo"):
         port = sk.getsockname()[1]
     procs = [subprocess.Popen(
         [sys.executable, "-u", "-c", XPROC_WORKER, str(pid), str(port),
-         mode, backend], cwd=root, env=env, stdout=subprocess.PIPE,
+         mode, backend, layout], cwd=root, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
     outs = []
     try:
@@ -1151,6 +1158,22 @@ def test_k13_across_processes_on_two_cards(cuda_device):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two or more cards")
     outs = _xproc_workers("hop", backend="nccl")
+    assert all("HOP_OK" in out for out in outs), outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["pair", "every"])
+def test_k13_across_processes_over_several_cards(cuda_device, layout):
+    """Two processes over gloo whose shards lie on several cards: 2 cards
+    each, and every card each. The launch on each process's home card
+    reads and stores its other cards' blocks and receivers by peer
+    access: three hops bit for bit against the plain hop, one launch
+    each; the ring on build_matrix(m=1024) through K13 (D - 1 launches)
+    bit for bit against the plain hop, its rows against scipy. Skips
+    with one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    outs = _xproc_workers("hop", layout=layout)
     assert all("HOP_OK" in out for out in outs), outs
 
 

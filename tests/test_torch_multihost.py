@@ -192,3 +192,20 @@ def test_initialize_needs_the_group_layout(monkeypatch):
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(ValueError, match="coordinator"):
         multihost.initialize(num_processes=2, process_id=0)
+
+
+def test_hop_bound_ms_counts_each_cards_bytes():
+    """One ring step's least time on the cards of each global shard:
+    every block read and written once in its card's memory, and once
+    over the link where it changes cards; the busiest card bounds it."""
+    from ia_spgemm_tpu_torch.parallel.multihost import hop_bound_ms
+    n, hbm, link = 1000, 1e6, 1e5           # ms = bytes / rate * 1e3
+    # 4 shards of one card: 4 blocks read and 4 written there
+    assert hop_bound_ms(["A"] * 4, n, hbm, link) == 8 * n / hbm * 1e3
+    # 2 processes x every card of 4: each card sends and receives 2
+    every = list("ABCD") * 2
+    assert hop_bound_ms(every, n, hbm, link) == 2 * n / link * 1e3
+    # 2 x 2 cards: A <- B, B <- C, C <- D, D <- A, one block each
+    assert hop_bound_ms(list("ABCD"), n, hbm, link) == n / link * 1e3
+    # two shards on A: A's memory reads 2 blocks and writes 2
+    assert hop_bound_ms(list("AABC"), n, hbm, 1e9) == 4 * n / hbm * 1e3

@@ -3,7 +3,12 @@
 the port's build directory (never into native/), it parses every .mtx
 kind the tests write (and a file past 100k entries, the parser's OpenMP
 path) to the same header and arrays as the numpy parser and as the JAX
-package's reader, bit for bit. Skips where no C++ compiler is found."""
+package's reader, bit for bit. Skips where no C++ compiler is found.
+
+And the port's ``spgemm-run`` binary (``csrc/spgemm_run.cpp``, built by
+``cli/binary.py`` into the same directory): ``--help``, and the port's
+CLI on the CPU against ``python -m ia_spgemm_tpu_torch.cli``. Skips where
+there is no C++ compiler or no ``python3-config --embed``."""
 
 import os
 import shutil
@@ -94,3 +99,64 @@ def test_use_native_true_raises_without_a_compiler(tmp_path, monkeypatch):
         mmio.read_mtx_to_csr(path, device="cpu", use_native=True)
     # None reads with numpy when the library is absent
     assert int(mmio.read_mtx_to_csr(path, device="cpu").nnz) == 7
+
+
+# the port's spgemm-run binary (csrc/spgemm_run.cpp, cli/binary.py): a
+# C++ main embedding CPython that runs the port's CLI
+
+
+@pytest.fixture(scope="module")
+def spgemm_run():
+    from ia_spgemm_tpu_torch.cli import binary
+    if binary.toolchain() is None:
+        pytest.skip("no C++ compiler or no python3-config --embed")
+    return str(binary.build())
+
+
+def test_binary_builds_into_the_ports_build_directory(spgemm_run):
+    from pathlib import Path
+    p = Path(spgemm_run)
+    assert p.parent.name == "_kernels_build"
+    assert p.parent.parent.name == "ia_spgemm_tpu_torch"
+    assert p.name.startswith("spgemm-run_") and os.access(p, os.X_OK)
+
+
+def test_binary_help_names_spgemm_run(spgemm_run, tmp_path):
+    """--help exits 0 before any heavy import, from any directory."""
+    import subprocess
+    out = subprocess.run([spgemm_run, "--help"], capture_output=True,
+                         text=True, cwd=tmp_path, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "spgemm-run" in out.stdout and "--device" in out.stdout
+
+
+def _csr_row(stdout):
+    rows = [ln.split() for ln in stdout.splitlines()
+            if ln.split()[:1] == ["csr"]]
+    assert len(rows) == 1 and rows[0][-1] == "ok", stdout
+    return rows[0][4]      # verified_sum, as the table prints it
+
+
+def test_binary_runs_the_ports_cli_on_the_cpu(spgemm_run, tmp_path):
+    """--device cpu --mode csr on a small .mtx: the binary and python -m
+    ia_spgemm_tpu_torch.cli exit 0 and print the same checksum, scipy's
+    (the baseline row's)."""
+    import subprocess
+    import sys
+    path = str(tmp_path / "a.mtx")
+    a = fixtures.random_csr(120, 120, density=0.04, seed=61)
+    mmio.write_mtx(path, CSR.from_scipy(a, device="cpu"))
+    argv = [path, "--device", "cpu", "--mode", "csr", "--iters", "1",
+            "--no-matnet"]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    got = subprocess.run([spgemm_run, *argv], capture_output=True,
+                         text=True, cwd=tmp_path, timeout=300)
+    want = subprocess.run([sys.executable, "-m", "ia_spgemm_tpu_torch.cli",
+                           *argv], capture_output=True, text=True,
+                          cwd=root, timeout=300)
+    assert got.returncode == 0 and want.returncode == 0, (got.stderr,
+                                                          want.stderr)
+    assert _csr_row(got.stdout) == _csr_row(want.stdout)
+    assert float(_csr_row(got.stdout)) == pytest.approx(
+        float((a @ a).sum()), rel=1e-5)
+    assert "Fastest algorithm:" in got.stdout

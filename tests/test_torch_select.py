@@ -234,3 +234,65 @@ def test_matnet_same_padding():
     x = torch.zeros((1, 128, 128, 1))
     net = tmatnet.MatNet()
     assert net(x, x, torch.zeros((1, 26))).shape == (1, 5)
+
+
+def test_h5_only_weight_set_matches_jax(tmp_path, monkeypatch):
+    """A weight set that exists only as the reference's Keras h5 (no npz
+    snapshot in weights/): both packages' find_weights fall back to
+    REFERENCE_WEIGHTS_DIR, import_reference_weights parses it to the same
+    arch and the same arrays, exactly, and select_algorithm makes the
+    same pick with it; a name in neither directory raises
+    FileNotFoundError in both. The h5 is written here (the P100 set's
+    shapes, numpy values); skips where h5py is not installed."""
+    h5py = pytest.importorskip("h5py")
+    rng = np.random.default_rng(16)
+    shapes, _ = tweights.import_reference_weights("P100")
+    want = {}
+    with h5py.File(tmp_path / "H5Only_weights.h5", "w") as f:
+        def put(tree, layers, out):
+            for key, layer in layers.items():
+                if isinstance(layer, dict):
+                    put(tree[key], layer, out.setdefault(key, {}))
+                    continue
+                g = f.create_group(layer).create_group(layer)
+                out[key] = {}
+                for part in ("kernel", "bias"):
+                    x = rng.normal(0, 0.1, tree[key][part].shape)
+                    g[f"{part}:0"] = out[key][part] = x.astype(np.float32)
+        put(shapes, tweights._KERAS_LAYERS, want)
+    for mod in (tweights, jweights):
+        monkeypatch.setattr(mod, "REFERENCE_WEIGHTS_DIR", str(tmp_path))
+        mod.import_reference_weights.cache_clear()
+    try:
+        path = str(tmp_path / "H5Only_weights.h5")
+        assert tweights.find_weights("H5Only") == jweights.find_weights(
+            "H5Only") == path
+        # a snapshot in weights/ still comes first
+        assert tweights.find_weights("P100") == jweights.find_weights(
+            "P100")
+        tp, tarch = tweights.import_reference_weights("H5Only")
+        jp, jarch = jweights.import_reference_weights("H5Only")
+        assert tarch == jarch == tweights.infer_arch(shapes)
+        leaves = lambda t, p=(): ([(p, t)] if not isinstance(t, dict)  # noqa: E731
+                                  else [x for k in sorted(t)
+                                        for x in leaves(t[k], p + (k,))])
+        assert [k for k, _ in leaves(tp)] == [k for k, _ in leaves(jp)] \
+            == [k for k, _ in leaves(want)]
+        for (k, t), (_, j), (_, w) in zip(leaves(tp), leaves(jp),
+                                          leaves(want)):
+            assert t.dtype == np.float32, k
+            np.testing.assert_array_equal(t, np.asarray(j), err_msg=str(k))
+            np.testing.assert_array_equal(t, w, err_msg=str(k))
+        J, T = _both(MATS["square"])
+        js = jauto.select_algorithm(J, J, weight_name="H5Only")
+        ts = tauto.select_algorithm(T, T, weight_name="H5Only")
+        assert (ts.algorithm, ts.class_index) == (js.algorithm,
+                                                  js.class_index)
+        np.testing.assert_allclose(ts.logits, np.asarray(js.logits),
+                                   rtol=2e-4, atol=2e-4)
+        for find in (tweights.find_weights, jweights.find_weights):
+            with pytest.raises(FileNotFoundError):
+                find("NoSuchCard")
+    finally:
+        for mod in (tweights, jweights):
+            mod.import_reference_weights.cache_clear()
