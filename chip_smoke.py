@@ -51,12 +51,18 @@ prints no result line:
    bench.kernels.table_read_bytes); K13 also into receivers passed in
    (the ring's way), with the host's microseconds per call
    (time.perf_counter around unsynchronised calls) beside each
-   CUDA-event time and the kernel's own device time (torch.profiler);
-   the kernels of bench.kernels.PROFILE_NAMES (K1-K3, K5, K7a, K7b,
-   K8-K10, K12) with the same two beside each shape's CUDA-event time (a
-   kernel_split JSON line); then cuSPARSE's CSR @ CSR of the headline
-   (torch.sparse.mm), the library time of K12 and of K1 (beside the
-   headline's K1 launches; that plan also launches K2 + K3);
+   CUDA-event time and the kernel's own device time (torch.profiler),
+   and K13 across processes: two worker processes x 2 shards of the
+   card (multihost --hops-only) chain the headline's B blocks through
+   20 hops of the new instance (the barrier and the delivery as stream
+   waits, a copy launch per source card), each bit for bit against the
+   plain hop of torch.distributed, with ms per hop of both and the
+   kernel's profiler time; the kernels of bench.kernels.PROFILE_NAMES
+   (K1-K3, K5, K7a, K7b, K8-K10, K12) with the same two beside each
+   shape's CUDA-event time (a kernel_split JSON line); then cuSPARSE's
+   CSR @ CSR of the headline (torch.sparse.mm), the library time of K12
+   and of K1 (beside the headline's K1 launches; that plan also launches
+   K2 + K3);
 4. headline: bench.headline at m=32768 (nnz 7,086,306, checksum within
    1e-4 of scipy, scipy's sparsity pattern exactly);
 5. skew: the width-class route on a row-skewed matrix whose classes need
@@ -124,19 +130,24 @@ prints no result line:
     headline): 2 processes x 2 shards, then 4 x 1 (on a machine with
     several cards the workers see dev's card alone); then, where there
     are two or more cards, 2 processes x every card, a shard on each
-    (K13 launched on each process's home card, storing into its other
-    cards and its neighbour's by peer access; one line says it did not
-    run on one card). Each worker runs the
+    (each card's launch copies the blocks it holds, storing into its
+    neighbour card's receivers and, from shard 0's card, the left
+    process's by peer access; one line says it did not run on one
+    card). Each worker runs the
     96 x 96 dist and ring checks (MULTIPROC_OK), then the ring on the
-    headline with --rdma auto: K13 across processes in every one of the
-    3 steps (its launches counted), its rows against scipy's A @ A
-    (pattern exact, values within 1e-4 of max |C|, checksum within
-    1e-4), one hop of the headline's B blocks through K13 bit for bit
-    against the plain hop of torch.distributed, and the ms per hop of
-    both over 20 hops, with the kernel's profiler time in worker 0 (a
-    multiproc JSON line, the hop's bound beside: bytes once through each
-    card's memory and once over NVLink between cards,
-    multihost.hop_bound_ms);
+    headline with --rdma auto: K13 across processes on each of the
+    process's cards in every one of the D - 1 steps (its launches
+    counted; the hop of step s on side streams beside the gather of
+    step s), its rows against scipy's A @ A (pattern exact, values
+    within 1e-4 of max |C|, checksum within 1e-4), one hop of the
+    headline's B blocks through K13 bit for bit against the plain hop of
+    torch.distributed, the ms per hop of both over 20 hops, with the
+    kernel's profiler time in worker 0, and the ring's ms per call
+    through K13 and through the plain hop in the same run (a multiproc
+    JSON line, the hop's bound beside: bytes once through each card's
+    memory and once over NVLink between cards, multihost.hop_bound_ms;
+    worker 0's steps of one ring call from its home card's events:
+    gather, hop issue, barrier, copies, delivery wait);
 26. scaling: bench.scaling's ring scaling on the headline at D = 1, 2, 4
     shards of the card, reported simulated (the shards share the card);
 27. the selector's training path: the harvest (models.upcycle's
@@ -212,8 +223,9 @@ the last two is a JSON object with one entry per kernel
 shapes, "bound_by" the larger term; "launches": the sum over the
 main-path runs, split in "launches_by_run"; "kernel_alone_ms" for the
 kernels of PROFILE_NAMES: the kernel alone, summed over its shapes;
-K13's "across_processes": phase 25's ms per hop through K13 and through
-the plain hop, the kernel's us and the hop's bound, per run); then the
+K13's "across_processes": phase 3's hop check and, per run of phase 25,
+the ms per hop through K13 and through the plain hop, the kernel's us
+(per card, per launch, and per hop the longest card's), the hop's bound and the ring's ms per call through each); then the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -625,7 +637,8 @@ def _check_ring_kernels(H, stats, time_ms, dev):
     one shard's products of the D = 4 ring."""
     import torch
 
-    from ia_spgemm_tpu_torch.bench.kernels import host_us, kernel_us
+    from ia_spgemm_tpu_torch.bench.kernels import (host_us, k13_host_split,
+                                                   kernel_us)
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
     from ia_spgemm_tpu_torch.parallel import ring
@@ -667,7 +680,8 @@ def _check_ring_kernels(H, stats, time_ms, dev):
                 "ring_call_host_us": host_us(ring_call),
                 "roll_event_ms": time_ms(roll, dev, 2, 20),
                 "roll_host_us": host_us(roll),
-                "kernel_us": kernel_us(ring_call, "k13_ring_hop")}
+                "kernel_us": kernel_us(ring_call, "k13_ring_hop"),
+                "host_split_us": k13_host_split(blocks)}
         print(f"  K13 D={D} host: {json.dumps(host)}", flush=True)
         del got, want, stk, sets, first
     mesh = make_mesh(devices=[dev] * RING_SHARDS)
@@ -820,38 +834,27 @@ def _distributed_phases(A, H, ref_sum, by_run, reset_counts, counts,
     return multiproc
 
 
-def _multiproc_run(run, nproc, per_proc, dev, by_run, names, launched):
-    """Phase 25's run: nproc workers (python -m
-    ia_spgemm_tpu_torch.parallel.multihost ... --matrix headline), each
-    with per_proc shards of dev's card (per_proc None: a shard on every
-    card of the machine), over gloo. Each worker checks its 96 x 96 dist
-    and ring runs (MULTIPROC_OK), then on the headline: K13 in every one
-    of the D - 1 steps, its rows against scipy, one hop through K13 bit
-    for bit against the plain hop, and prints a multiproc JSON line
-    (launches, ring ms per call, ms per hop of K13 and of the plain hop,
-    the kernel's profiler time in worker 0, the hop's bound). The
-    workers' launches, summed, are main-path run `run`. Returns the
-    run's summary."""
+def _workers(nproc, per_proc, dev, *args):
+    """nproc worker processes (python -m
+    ia_spgemm_tpu_torch.parallel.multihost PID NPROC PORT cuda gloo
+    *args), each with per_proc shards of dev's card (per_proc None: a
+    shard on every card of the machine), over gloo; their outputs once
+    every one exited 0 with MULTIPROC_OK, and the wall seconds."""
     import socket
 
     import torch
 
-    from ia_spgemm_tpu_torch.bench.kernels import PEAK_BYTES_PER_S
-    from ia_spgemm_tpu_torch.bench.scaling import H100_NVLINK_BYTES_PER_S
     from ia_spgemm_tpu_torch.parallel.mesh import SHARDS_PER_DEVICE_ENV
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
-    cards = torch.cuda.device_count()
     if per_proc is None:
         env[SHARDS_PER_DEVICE_ENV] = "1"
-        D = nproc * cards
     else:
         env[SHARDS_PER_DEVICE_ENV] = str(per_proc)
-        D = nproc * per_proc
-        if cards > 1:     # the workers see dev's card alone
+        if torch.cuda.device_count() > 1:     # the workers see dev's card
             seen = os.environ.get("CUDA_VISIBLE_DEVICES")
             env["CUDA_VISIBLE_DEVICES"] = (seen.split(",")[dev.index]
                                            if seen else str(dev.index))
@@ -859,9 +862,9 @@ def _multiproc_run(run, nproc, per_proc, dev, by_run, names, launched):
     procs = [subprocess.Popen(
         [sys.executable, "-u", "-m",
          "ia_spgemm_tpu_torch.parallel.multihost", str(pid), str(nproc),
-         str(port), dev.type, "gloo", "--matrix", "headline", "--rdma",
-         "auto"], cwd=root, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for pid in range(nproc)]
+         str(port), dev.type, "gloo", *args], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in range(nproc)]
     outs = []
     try:
         for p in procs:
@@ -871,18 +874,77 @@ def _multiproc_run(run, nproc, per_proc, dev, by_run, names, launched):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    wall_s = time.perf_counter() - t0
-    infos = []
     for pid, (p, out) in enumerate(zip(procs, outs)):
-        lines = [ln for ln in out.splitlines()
-                 if ln.startswith('{"multiproc"')]
-        if p.returncode != 0 or "MULTIPROC_OK" not in out or not lines:
-            raise AssertionError(f"{run} worker {pid} rc {p.returncode}:"
+        if p.returncode != 0 or "MULTIPROC_OK" not in out:
+            raise AssertionError(f"{args} worker {pid} rc {p.returncode}:"
                                  f"\n{out}")
-        infos.append(json.loads(lines[0])["multiproc"])
+    return outs, time.perf_counter() - t0
+
+
+def _json_lines(outs, key):
+    """Each worker's first JSON line of `key`, in process order."""
+    infos = []
+    for pid, out in enumerate(outs):
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith('{"%s"' % key)]
+        if not lines:
+            raise AssertionError(f"worker {pid} printed no {key} line:\n"
+                                 f"{out}")
+        infos.append(json.loads(lines[0])[key])
+    return infos
+
+
+def _check_xproc_hop(dev):
+    """K13 across processes against its plain version (phase 3): two
+    worker processes x 2 shards of dev's card, the headline's B blocks
+    through multihost.HOPS hops of K13 chained into the shared receiver
+    sets, each bit for bit against the plain hop of torch.distributed
+    (``multihost --hops-only``); returns the summary (ms per hop of
+    both, the kernel's us, launches)."""
+    outs, wall_s = _workers(2, 2, dev, "--hops-only")
+    infos = _json_lines(outs, "xproc_hop")
+    if any(i["launches"] != i["hops"] for i in infos):
+        raise AssertionError(f"K13 across processes launches: {infos}")
+    rep = {"processes": 2, "shards_per_process": 2, "wall_s": wall_s,
+           "hops": infos[0]["hops"], "launches": sum(
+               i["launches"] for i in infos),
+           "max_abs_err": max(i["max_abs_err"] for i in infos),
+           "hop_ms": [i["hop_ms"] for i in infos],
+           "plain_hop_ms": [i["plain_hop_ms"] for i in infos],
+           "issue_us_median": [i["issue_us_median"] for i in infos],
+           "kernel_us": infos[0]["kernel_us"]}
+    print(f"  K13 across processes (2 x 2 shards of the card): "
+          f"{json.dumps(rep)}", flush=True)
+    return rep
+
+
+def _multiproc_run(run, nproc, per_proc, dev, by_run, names, launched):
+    """Phase 25's run: nproc workers (``_workers`` with --matrix
+    headline), each with per_proc shards of dev's card (per_proc None: a
+    shard on every card of the machine), over gloo. Each worker checks
+    its 96 x 96 dist and ring runs (MULTIPROC_OK), then on the headline:
+    K13 on each of its cards in every one of the D - 1 steps, its rows
+    against scipy, one hop through K13 bit for bit against the plain
+    hop, and prints a multiproc JSON line (launches, ring ms per call
+    through K13 and through the plain hop, ms per hop of K13 and of the
+    plain hop, the kernel's profiler time in worker 0 (per card and the
+    longest card's a hop), the hop's bound, the steps of one ring call).
+    The workers'
+    launches, summed, are main-path run `run`. Returns the run's
+    summary."""
+    import torch
+
+    from ia_spgemm_tpu_torch.bench.kernels import PEAK_BYTES_PER_S
+    from ia_spgemm_tpu_torch.bench.scaling import H100_NVLINK_BYTES_PER_S
+    cards = torch.cuda.device_count()
+    D = nproc * (cards if per_proc is None else per_proc)
+    outs, wall_s = _workers(nproc, per_proc, dev, "--matrix", "headline",
+                            "--rdma", "auto")
+    infos = _json_lines(outs, "multiproc")
     for i in infos:
         if not (i["k13"] and i["hop_bitwise_equal"] and i["shards"] == D
-                and i["launches"]["K13"] == D - 1):
+                and i["launches"]["K13"]
+                == (D - 1) * len(set(i["devices"]))):
             raise AssertionError(f"{run}: {i}")
     nnz = sum(i["nnz"] for i in infos)
     if nnz != HEADLINE_NNZ:
@@ -902,9 +964,12 @@ def _multiproc_run(run, nproc, per_proc, dev, by_run, names, launched):
            "checksum_rel_err": max(i["checksum_rel_err"] for i in infos),
            "launches": by_run[run],
            "ring_ms_median": [i["ring_ms_median"] for i in infos],
+           "ring_ms_plain_hop_median": [i["ring_ms_plain_hop_median"]
+                                        for i in infos],
            "hop_ms": [i["hop_ms"] for i in infos],
            "plain_hop_ms": [i["plain_hop_ms"] for i in infos],
            "kernel_us": head["kernel_us"],
+           "steps": head.get("steps"),
            "bound_ms_hop": head["bound_ms_hop"],
            "bound_ms_crossing": 1e3 * (
                block / H100_NVLINK_BYTES_PER_S if head["cards"] > 1
@@ -1413,6 +1478,7 @@ def main() -> int:
         del key, val
     print(json.dumps({"k5_beside_k6_k3": split}), flush=True)
     _check_ring_kernels(H, stats, time_ms, dev)
+    stats["K13"]["across_processes"] = _check_xproc_hop(dev)
     # cuSPARSE CSR @ CSR of the headline (torch.sparse.mm), the library
     # yardstick of the whole product: for K12 (the hash route computes
     # all of it) and for K1 beside the headline's K1 launches (its plan
@@ -1947,9 +2013,13 @@ def main() -> int:
             **({"kernel_alone_ms": st["kernel_alone_ms"]}
                if "kernel_alone_ms" in st else {}),
             **({"across_processes": {
-                run: {k: r[k] for k in ("hop_ms", "plain_hop_ms",
-                                        "kernel_us", "bound_ms_hop")}
-                for run, r in multiproc.items()}} if name == "K13" else {})})
+                "phase3": st["across_processes"], **{
+                    run: {k: r[k] for k in (
+                        "hop_ms", "plain_hop_ms", "kernel_us",
+                        "bound_ms_hop", "ring_ms_median",
+                        "ring_ms_plain_hop_median")}
+                    for run, r in multiproc.items()}}}
+               if name == "K13" else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

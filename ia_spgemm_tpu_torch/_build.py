@@ -30,14 +30,17 @@ HEADERS = (_CSRC / "sort_common.cuh",)
 BUILD_DIR = _PKG / "_kernels_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# after the source: ring.cu's stream memory operations come from libcuda
+NVCC_LIBS = ("-lcuda",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures per source: pointers and the stream as void*, sizes as
-# int (K13's copy table, and its signal-word addresses and targets
-# across processes: each the address of a host array of long long);
-# every entry point returns a cudaError_t as int (ia_k13_chunk_bytes
-# its chunk size).
+# int (K13's copy table and its stream operations: each the address of
+# a host array of long long), addresses passed by value as long long;
+# every entry point returns a cudaError_t as int (ia_k13_stream_ops a
+# CUresult, ia_k13_can_wait 1 / 0 or a negative CUresult).
 SIGNATURES = {
     "bitonic": {
         "ia_k1_expand_sort_compress": [_P] * 5 + [_I] * 8 + [_P],
@@ -58,8 +61,12 @@ SIGNATURES = {
                   "ia_k11_dense_row_f64": [_P] * 4 + [_I] * 3 + [_P]},
     "hash": {"ia_k12_hash": [_P] * 7 + [_I] * 4 + [_P]},
     "ring": {"ia_k13_ring_hop": [_P, _I, _P],
-             "ia_k13_ring_hop_xproc": [_P, _I, _I, _P, _P, _P],
-             "ia_k13_chunk_bytes": [],
+             "ia_k13_ring_hop_xproc": [_P, _I, _L, _L, _P],
+             "ia_k13_stream_ops": [_P, _I, _P],
+             "ia_k13_can_wait": [_I],
+             "ia_k13_load_kernels": [],
+             "ia_k13_host_map": [_L, _L, _P],
+             "ia_k13_host_unmap": [_L],
              "ia_k13_enable_peer_access": [_I]},
     "slab": {
         "ia_k8_expand_sort_lr": [_P] * 6 + [_I] * 7 + [_P],
@@ -83,7 +90,7 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LIBS).encode())
     for src in HEADERS + (SOURCES[name],):
         h.update(src.read_bytes())
     return BUILD_DIR / f"libia_spgemm_{name}_{h.hexdigest()[:16]}.so"
@@ -105,7 +112,8 @@ def build() -> dict:
     for name, out in todo.items():
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[name]),
+               *NVCC_LIBS]
         jobs[name] = (cmd, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))

@@ -596,6 +596,20 @@ def measure(dev) -> dict:
         del key, val
     out["K11"].append(_measure_k11(dev))
     print(json.dumps(out["K11"][-1]), file=sys.stderr, flush=True)
+    out["K13"] = measure_k13(dev)
+    return out
+
+
+def measure_k13(dev) -> list:
+    """K13 at the headline's B block shapes (K13_SHARDS), as a public
+    call and as the ring calls it, beside two torch.rolls; with the
+    host's microseconds split by ``k13_host_split``."""
+    import torch
+
+    from ia_spgemm_tpu_torch.bench.harness import time_ms
+    from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
+
+    out = []
     gen = torch.Generator(device=dev).manual_seed(0)
     for D in K13_SHARDS:
         rows = HEADLINE_ROWS // D
@@ -616,7 +630,7 @@ def measure(dev) -> dict:
         public = lambda: RR.ring_hop_rdma(cols, vals)  # noqa: E731
         ring = lambda: RR.ring_hop_rdma(*first, out=sets[1])  # noqa: E731
         roll = lambda: [torch.roll(x, -1, 0) for x in stk]  # noqa: E731
-        out["K13"].append({
+        out.append({
             "shape": f"D={D} x ({rows}, {HEADLINE_KB}) int32 + float32",
             "call_ms": time_ms(public, dev, 2, 20),
             "call_host_us": host_us(public),
@@ -624,9 +638,27 @@ def measure(dev) -> dict:
             "ring_call_host_us": host_us(ring),
             "kernel_us": kernel_us(ring, "k13_ring_hop"),
             "torch_roll_ms": time_ms(roll, dev, 2, 20),
-            "torch_roll_host_us": host_us(roll)})
-        print(json.dumps(out["K13"][-1]), file=sys.stderr, flush=True)
+            "torch_roll_host_us": host_us(roll),
+            "host_split_us": k13_host_split((cols, vals))})
+        print(json.dumps(out[-1]), file=sys.stderr, flush=True)
     return out
+
+
+def k13_host_split(arrays, calls: int = 200) -> dict:
+    """Host microseconds per call (``host_us``) of the parts of a public
+    K13 call (``ring_hop_rdma`` without out=) on these blocks: the
+    layout's lookup, the fresh receivers' allocation, the hop into
+    receivers made once (the ring's call: the table's pointers, the
+    launch), and the whole public call."""
+    from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
+    hit = RR._layout(arrays, None)
+    sets = [RR.alloc_receivers(*arrays) for _ in range(2)]
+    first = RR.ring_hop_rdma(*arrays, out=sets[0])
+    return {"layout_us": host_us(lambda: RR._layout(arrays, None), calls),
+            "alloc_us": host_us(lambda: RR._alloc(hit), calls),
+            "into_receivers_us": host_us(
+                lambda: RR.ring_hop_rdma(*first, out=sets[1]), calls),
+            "public_us": host_us(lambda: RR.ring_hop_rdma(*arrays), calls)}
 
 
 def main(argv=None) -> int:

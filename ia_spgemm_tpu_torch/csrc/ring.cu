@@ -35,40 +35,45 @@
 // it agrees with the plain version bit for bit.
 //
 // Across processes (ia_k13_ring_hop_xproc) nothing orders the two sides,
-// so that instance does what _hop_kernel does, barrier included. Each
-// process holds four 64-bit signal words (kFromLeft, kFromRight,
-// kDelivered, kError), mapped into both neighbours by CUDA IPC, and one
-// launch per ring step:
-//   - barrier: block 0 adds 1 to the left neighbour's kFromRight and to
-//     the right neighbour's kFromLeft (red.release.sys); every block then
-//     spins until both of its own words reach `arrivals` (the count of
-//     this process's hops so far, this one included). A neighbour's
-//     arrival means its stream finished everything enqueued before, the
-//     reads of the receivers written now included
-//     (semaphore_signal x2 + semaphore_wait of rdma_ring.py:35-38). One
-//     word per neighbour, not one sum: a sum can be filled by one
-//     neighbour a step ahead while the other has not arrived;
-//   - copy: the table's local copies (shard i + 1 -> receiver i, same
-//     card) and, last, the copies into the left neighbour's receivers
-//     through its IPC-mapped pointers; after each such chunk every thread
-//     fences at system scope and one adds 1 to the left's kDelivered;
-//   - delivery: block 0 spins until its own kDelivered reaches
-//     `delivered`, the chunks of every incoming block so far, which the
-//     receiver counts from its own receivers' bytes and kChunkBytes
-//     (rdma.wait()).
-// The counters only grow, across the steps and the calls of a process's
-// ring; the wrapper keeps the expected values. Every spin is bounded by
-// `timeout_ns` of %globaltimer, with __nanosleep backoff: at the limit
-// the kernel stores an error code into its own kError and exits, and a
-// launch that finds kError set does nothing, so a lost peer costs one
-// limit and never hangs the card. The wrapper reads kError at the ring
-// call's end and raises. What bounds it: the same bytes as above, but
-// processes sharing one card are CUDA contexts that time-slice, so a hop
-// there waits out the other processes' slices (milliseconds against a
-// 4.5 us copy on the headline's blocks, PERF.md); the spin backs off
-// with __nanosleep and leaves the copies to run at full width once the
-// neighbours have arrived.
+// so that instance does what _hop_kernel does, barrier included, but no
+// kernel waits for a neighbour: the barrier and the delivery wait are
+// stream memory operations (ia_k13_stream_ops: cuStreamWriteValue64 and
+// cuStreamWaitValue64 with CU_STREAM_WAIT_VALUE_GEQ), enqueued by the
+// wrapper around one copy launch per card that holds a source block.
+// Each process's signal words (from-left, from-right, delivered, its own
+// error, a neighbour's alert; int64) lie in a page of pinned host memory
+// that its neighbours map too, and each word has one writer, which
+// writes the running count of its hops by value:
+//   - barrier: the home card's stream writes the count into the left
+//     neighbour's from-right and the right neighbour's from-left word,
+//     then waits until both of its own reach it. A neighbour's arrival
+//     means its gathers of the step before are done, so the receivers
+//     written now are free (semaphore_signal x2 + semaphore_wait of
+//     rdma_ring.py:35-38);
+//   - copy: on each card whose blocks are sources, after the barrier,
+//     this kernel (the table's copies: block i + 1 into receiver i, and
+//     from shard 0's card block 0 into the left neighbour's last
+//     receiver through its IPC-mapped pointer), loads local, stores local
+//     or over NVLink;
+//   - delivery: after every card's copies the home card's stream writes
+//     the count into the left's delivered word (a write without
+//     CU_STREAM_WRITE_VALUE_NO_MEMORY_BARRIER is preceded by a memory
+//     fence, so the stores land first), and waits until its own reaches
+//     the count before anything reads the incoming receiver (rdma.wait()).
+// A waiting stream gives up its context's time slice: two processes of
+// one card pass a write and a wait back and forth in 11.6 us
+// (bench/ring_wait_probe.py, PERF.md), where a spinning kernel held the
+// slice and a hop took 4.6 ms. A stream wait has no time limit, so the
+// watchdog is a thread of each process on the host (rdma_ring._watch):
+// once a pending hop's words have not moved for its limit it sets
+// this process's error word, alerts both neighbours and writes a value
+// past every target into its own words, which releases the waits; a
+// launch that pushes into the left neighbour copies the error word into
+// the card's memory first and copies nothing if it is set, so a lost
+// peer costs one limit, never hangs the card and is never written after
+// the limit. What bounds it: the same bytes as above.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -141,92 +146,20 @@ k13_ring_hop(const __grid_constant__ CopyTable t) {
 
 int sm_count[kMaxDevices];
 
-// each process's signal words (int64 each, zeroed once, never reset)
-enum : int { kFromLeft = 0, kFromRight = 1, kDelivered = 2, kError = 3 };
-enum : unsigned long long { kBarrierTimeout = 1, kDeliveryTimeout = 2 };
-
-struct XprocParams {
-  CopyTable t;                    // copies [first_remote, n) go left
-  unsigned long long* own;        // this process's signal words
-  unsigned long long* left;       // the left neighbour's (IPC-mapped)
-  unsigned long long* right;      // the right neighbour's (IPC-mapped)
-  unsigned long long arrivals;    // each of own[kFromLeft/kFromRight]
-  unsigned long long delivered;   // own[kDelivered]
-  unsigned long long timeout_ns;  // per spin
-  int first_remote;
-};
-static_assert(sizeof(XprocParams) <= 4096, "kernel parameter limit");
-
-__device__ __forceinline__ unsigned long long ld_acquire_sys(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void red_release_sys(unsigned long long* p,
-                                                unsigned long long v) {
-  asm volatile("red.release.sys.global.add.u64 [%0], %1;"
-               :: "l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Spins until own[a] >= target and own[b] >= target (b < 0: a alone).
-// Returns false, with kError set, at the time limit or when kError is
-// already set (another block timed out).
-__device__ bool spin_until(unsigned long long* own, int a, int b,
-                           unsigned long long target,
-                           unsigned long long timeout_ns,
-                           unsigned long long code) {
-  const unsigned long long t0 = global_ns();
-  unsigned ns = 32;
-  while (ld_acquire_sys(own + a) < target
-         || (b >= 0 && ld_acquire_sys(own + b) < target)) {
-    if (ld_acquire_sys(own + kError) != 0) return false;
-    if (global_ns() - t0 > timeout_ns) {
-      atomicCAS_system(own + kError, 0ULL, code);
-      return false;
-    }
-    __nanosleep(ns);
-    if (ns < 4096) ns <<= 1;
-  }
-  return true;
-}
-
+// Copies the table unless *halt (a copy in device memory of this
+// process's error word, made in stream order just before the launch;
+// nullptr: never halted) is set. Each block reads it once.
 __global__ void __launch_bounds__(kThreads)
-k13_ring_hop_xproc(const __grid_constant__ XprocParams p) {
-  __shared__ int go;
-  if (threadIdx.x == 0) {
-    bool ok = ld_acquire_sys(p.own + kError) == 0;
-    if (ok && blockIdx.x == 0) {           // arrive at both neighbours
-      red_release_sys(p.left + kFromRight, 1);
-      red_release_sys(p.right + kFromLeft, 1);
-    }
-    go = ok && spin_until(p.own, kFromLeft, kFromRight, p.arrivals,
-                          p.timeout_ns, kBarrierTimeout);
-  }
-  __syncthreads();
-  if (!go) return;
-  const int total = p.t.first_chunk[p.t.n];
-  for (int chunk = blockIdx.x; chunk < total; chunk += gridDim.x) {
-    if (copy_chunk<true>(p.t, chunk) >= p.first_remote) {
-      // a chunk of the left's block: every thread's stores, then one
-      // release of the count the left waits on
-      __threadfence_system();
-      __syncthreads();
-      if (threadIdx.x == 0) red_release_sys(p.left + kDelivered, 1);
-    }
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0)
-    spin_until(p.own, kDelivered, -1, p.delivered, p.timeout_ns,
-               kDeliveryTimeout);
+k13_ring_hop_xproc(const __grid_constant__ CopyTable t,
+                   const unsigned long long* halt) {
+  if (halt != nullptr && *halt != 0) return;
+  const int total = t.first_chunk[t.n];
+  for (int chunk = blockIdx.x; chunk < total; chunk += gridDim.x)
+    copy_chunk<true>(t, chunk);
 }
+
+// the kinds of ia_k13_stream_ops' operations
+enum : long long { kWrite = 0, kWait = 1 };
 
 // Fills t from host triples; returns the chunk count, or -1 when the
 // table is refused (over kMaxCopies, a count <= 0, too many chunks).
@@ -284,39 +217,108 @@ extern "C" int ia_k13_ring_hop(const long long* triples, int n_copies,
   return (int)cudaGetLastError();
 }
 
-// One ring step across processes on `stream`: the barrier, the copies
-// and the delivery wait above. triples: n_copies (source, destination,
-// bytes) int64 triples, 0 <= n_copies <= 128, every count > 0; the last
-// n_remote go into the left neighbour's receivers. words: the addresses
-// of this process's, the left's and the right's signal words; targets:
-// (arrivals, delivered, timeout_ns). Returns cudaGetLastError().
+// The copies of one ring step across processes whose sources lie on the
+// current device, on `stream`: triples as ia_k13_ring_hop's (1 <= n_copies
+// <= 128). halt: 0 (no check), or the address of this process's error
+// word in pinned host memory, copied into the 8 bytes at halt_copy
+// (device memory of the current device) in stream order before the
+// launch: every block of the kernel then reads it from the card's memory
+// (read from host memory by every block, the reads go one at a time
+// over PCIe, ~1 us each). Does not synchronise; returns
+// cudaGetLastError().
 extern "C" int ia_k13_ring_hop_xproc(const long long* triples, int n_copies,
-                                     int n_remote, const long long* words,
-                                     const long long* targets,
+                                     long long halt, long long halt_copy,
                                      void* stream) {
-  XprocParams p;
-  const long long chunks = fill_table(p.t, triples, n_copies);
-  if (chunks < 0 || n_remote < 0 || n_remote > n_copies)
-    return (int)cudaErrorInvalidValue;
-  p.first_remote = n_copies - n_remote;
-  p.own = reinterpret_cast<unsigned long long*>(words[0]);
-  p.left = reinterpret_cast<unsigned long long*>(words[1]);
-  p.right = reinterpret_cast<unsigned long long*>(words[2]);
-  p.arrivals = (unsigned long long)targets[0];
-  p.delivered = (unsigned long long)targets[1];
-  p.timeout_ns = (unsigned long long)targets[2];
+  if (n_copies < 1) return (int)cudaErrorInvalidValue;
+  CopyTable t;
+  const long long chunks = fill_table(t, triples, n_copies);
+  if (chunks < 0) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   long long grid = grid_cap(&err);
   if (grid == 0) return (int)err;
   if (grid > chunks) grid = chunks;
-  if (grid < 1) grid = 1;           // the barrier runs without copies too
-  k13_ring_hop_xproc<<<(unsigned)grid, kThreads, 0,
-                       (cudaStream_t)stream>>>(p);
+  const unsigned long long* flag = nullptr;
+  if (halt != 0) {
+    flag = reinterpret_cast<const unsigned long long*>(halt_copy);
+    err = cudaMemcpyAsync((void*)flag, reinterpret_cast<const void*>(halt),
+                          sizeof(*flag), cudaMemcpyDefault,
+                          (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  k13_ring_hop_xproc<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      t, flag);
   return (int)cudaGetLastError();
 }
 
-// The chunk size both sides of a cross-process hop count deliveries in.
-extern "C" int ia_k13_chunk_bytes() { return (int)kChunkBytes; }
+// Enqueues n_ops (kind, device address, value) int64 triples on `stream`
+// in order: kind kWrite writes value into the 64-bit word (after a
+// memory fence), kWait holds the stream until the word is >= value.
+// Returns 0 or the first failing CUresult.
+extern "C" int ia_k13_stream_ops(const long long* ops, int n_ops,
+                                 void* stream) {
+  for (int i = 0; i < n_ops; ++i) {
+    const CUdeviceptr addr = (CUdeviceptr)ops[3 * i + 1];
+    const cuuint64_t value = (cuuint64_t)ops[3 * i + 2];
+    CUresult r;
+    if (ops[3 * i] == kWrite)
+      r = cuStreamWriteValue64((CUstream)stream, addr, value,
+                               CU_STREAM_WRITE_VALUE_DEFAULT);
+    else if (ops[3 * i] == kWait)
+      r = cuStreamWaitValue64((CUstream)stream, addr, value,
+                              CU_STREAM_WAIT_VALUE_GEQ);
+    else
+      r = CUDA_ERROR_INVALID_VALUE;
+    if (r != CUDA_SUCCESS) return (int)r;
+  }
+  return 0;
+}
+
+// Loads both kernels into the current device's context now. Lazy
+// module loading (CUDA_MODULE_LOADING=LAZY, PyTorch's default) loads a
+// kernel at its first launch and waits for the context to go idle, so a
+// first launch behind a stream wait would block the host until the
+// neighbours arrive, or for ever if one is lost. Returns a cudaError_t.
+extern "C" int ia_k13_load_kernels() {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, k13_ring_hop);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k13_ring_hop_xproc);
+  return (int)e;
+}
+
+// 1 if `device` takes 64-bit stream memory operations, 0 if not, a
+// negative CUresult on error.
+extern "C" int ia_k13_can_wait(int device) {
+  CUdevice dev;
+  int v = 0;
+  CUresult r = cuDeviceGet(&dev, device);
+  if (r == CUDA_SUCCESS)
+    r = cuDeviceGetAttribute(
+        &v, CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS, dev);
+  return r == CUDA_SUCCESS ? (v != 0) : -(int)r;
+}
+
+// Pins nbytes of host memory at `host` for every device (portable,
+// mapped) and stores its device address into *device_address; returns
+// a cudaError_t. ia_k13_host_unmap undoes it.
+extern "C" int ia_k13_host_map(long long host, long long nbytes,
+                               long long* device_address) {
+  void* p = reinterpret_cast<void*>(host);
+  cudaError_t e = cudaHostRegister(
+      p, (size_t)nbytes, cudaHostRegisterPortable | cudaHostRegisterMapped);
+  if (e != cudaSuccess) return (int)e;
+  void* d = nullptr;
+  e = cudaHostGetDevicePointer(&d, p, 0);
+  if (e != cudaSuccess) {
+    cudaHostUnregister(p);
+    return (int)e;
+  }
+  *device_address = reinterpret_cast<long long>(d);
+  return 0;
+}
+
+extern "C" int ia_k13_host_unmap(long long host) {
+  return (int)cudaHostUnregister(reinterpret_cast<void*>(host));
+}
 
 // Lets the current device's kernels store into `peer`'s memory; returns
 // 0 when it is enabled (now or before), the CUDA error otherwise.

@@ -160,6 +160,9 @@ def _args(argv: list[str]):
                    choices=("gloo", "nccl"))
     p.add_argument("--matrix", default="small", choices=("small", "headline"))
     p.add_argument("--rdma", default="auto", choices=("auto", "on", "off"))
+    p.add_argument("--hops-only", action="store_true",
+                   help="only K13 across processes against the plain hop "
+                        "on the headline's B blocks (_hop_check)")
     p.add_argument("--devices", default=None,
                    help="this process's shard devices, comma-separated "
                         "(e.g. cuda:2,cuda:3); default: every visible "
@@ -206,6 +209,9 @@ def _selftest(argv: list[str]) -> None:
 
     mesh = make_mesh(device_type=device, devices=(
         None if args.devices is None else args.devices.split(",")))
+    if args.hops_only:
+        _hop_check(mesh, pid)
+        return _close(mesh, pid)
     D = mesh.num_shards
     a = sp.random(96, 96, density=0.08, format="csr", dtype=np.float32,
                   random_state=np.random.RandomState(7))
@@ -269,6 +275,15 @@ def _selftest(argv: list[str]) -> None:
           f"{gate}", flush=True)
     if args.matrix == "headline":
         _headline_ring(mesh, pid, use_rdma, device)
+    _close(mesh, pid)
+
+
+def _close(mesh, pid: int) -> None:
+    """Drops the shared receivers, waits for every process, leaves the
+    group, and prints MULTIPROC_OK."""
+    import torch.distributed as dist
+
+    from ia_spgemm_tpu_torch.parallel import rdma_ring
     rdma_ring.release_shared()
     _synchronize(mesh)
     dist.barrier()
@@ -349,14 +364,17 @@ def _rows_against_scipy(C, a64):
 def _headline_ring(mesh, pid: int, use_rdma, device: str) -> None:
     """The ring on the headline matrix (``bench.headline.build_matrix``,
     m = 32768) over every process's shards, use_rdma as given: this
-    process's K13 / K4 launches in one call (K13 in every one of the
-    D - 1 steps where it runs), its rows against scipy's A @ A, host ms
-    per call between synchronisations of every process (RING_CALLS
-    calls), and one hop of the headline's B blocks through K13 against
-    the plain hop bit for bit, with ms per hop of each over HOPS hops
-    and, in process 0, the kernel's device time from torch.profiler,
-    beside the hop's bound on an H100 (``hop_bound_ms``, from every
-    process's cards). Prints one ``{"multiproc": ...}`` JSON line."""
+    process's K13 / K4 launches in one call (K13 on each of its cards in
+    every one of the D - 1 steps where it runs), its rows against
+    scipy's A @ A, host ms per call between synchronisations of every
+    process (RING_CALLS calls), and one hop of the headline's B blocks
+    through K13 against the plain hop bit for bit, with ms per hop of
+    each over HOPS hops and, in process 0, the kernel's device time from
+    torch.profiler, beside the hop's bound on an H100 (``hop_bound_ms``,
+    from every process's cards); where K13 runs, also the ring through
+    the plain hop in the same run and one ring call's steps
+    (``_step_breakdown``). Prints one ``{"multiproc": ...}``
+    JSON line."""
     import json
     import time
 
@@ -396,25 +414,29 @@ def _headline_ring(mesh, pid: int, use_rdma, device: str) -> None:
     _synchronize(mesh)
     launches = {**K.launch_counts(), **RR.launch_counts()}
     on_card = device == "cuda"     # the host runs the plain versions
-    if launches["K13"] != (D - 1 if k13 else 0) or launches["K4"] != (
-            len(mesh.devices) if on_card else 0):
+    per_hop = len(set(mesh.devices))    # a launch per source card
+    if launches["K13"] != ((D - 1) * per_hop if k13 else 0) or launches[
+            "K4"] != (len(mesh.devices) if on_card else 0):
         raise AssertionError(f"launches {launches} in a ring of {D} shards "
                              f"({len(mesh.devices)} here), K13 {k13}")
     nrows, nnz, err, rel = _rows_against_scipy(C, a64)
-    ring_ms = []
-    for _ in range(RING_CALLS):
-        synced()
-        t0 = time.perf_counter()
-        call()
-        synced()
-        ring_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def ring_ms(fn):
+        out = []
+        for _ in range(RING_CALLS):
+            synced()
+            t0 = time.perf_counter()
+            fn()
+            synced()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
 
     blocks = (S.col_ind, S.values)
     plain = RR.ring_hop_processes_plain(mesh, *blocks)
     cards = [c for i in card_identities(mesh) for c in i["cards"]]
     block_bytes = sum(b[0].numel() * b[0].element_size() for b in blocks)
 
-    def per_hop(hop):
+    def hop_ms(hop):
         synced()
         t0 = time.perf_counter()
         x = blocks
@@ -434,9 +456,10 @@ def _headline_ring(mesh, pid: int, use_rdma, device: str) -> None:
                 if device == "cuda" else None),
             "launches": launches, "rows": nrows, "nnz": nnz,
             "max_abs_err": err, "checksum_rel_err": rel,
-            "ring_ms": ring_ms, "ring_ms_median": float(np.median(ring_ms)),
-            "plain_hop_ms": per_hop(
+            "plain_hop_ms": hop_ms(
                 lambda i, x: RR.ring_hop_processes_plain(mesh, *x))}
+    info["ring_ms"] = ring_ms(call)
+    info["ring_ms_median"] = float(np.median(info["ring_ms"]))
     if k13:
         sets = RR.shared_receivers(mesh, *blocks)
         got = RR.ring_hop_xproc(mesh, *blocks, out=sets[0])
@@ -448,19 +471,128 @@ def _headline_ring(mesh, pid: int, use_rdma, device: str) -> None:
         xhop = lambda i, x: RR.ring_hop_xproc(  # noqa: E731
             mesh, *x, out=sets[i % 2])
         info["hop_bitwise_equal"] = True
-        info["hop_ms"] = per_hop(xhop)
+        info["hop_ms"] = hop_ms(xhop)
         info["kernel_us"] = _profiled_hop_us(xhop, blocks, pid, synced)
         RR.check_hops(sets[0])
+        # the same call's ring through the plain hop, and one ring call's
+        # steps from the home card's events
+        plain_ring = ring_ms(lambda: ring.ring_spgemm(S, S, mesh, plan,
+                                                      use_rdma=False))
+        info["ring_ms_plain_hop"] = plain_ring
+        info["ring_ms_plain_hop_median"] = float(np.median(plain_ring))
+        info["steps"] = _step_breakdown(
+            lambda tl: ring.ring_products(S, S, mesh, plan, timeline=tl),
+            synced)
     print(json.dumps({"multiproc": info}), flush=True)
     print(f"[p{pid}] headline ring ok: {nrows} rows, nnz {nnz}, max err "
           f"{err:.2e}, K13 launches {launches['K13']} in {D - 1} steps, "
           f"shards on {sorted(set(info['devices']))}", flush=True)
 
 
+def _hop_check(mesh, pid: int) -> None:
+    """K13 across processes against its plain version: the headline's B
+    blocks (``bench.headline.build_matrix``, m = 32768, over every
+    process's shards) through HOPS hops chained into the two shared
+    receiver sets, each bit for bit against the plain hop
+    (``ring_hop_processes_plain``) of the same blocks, with the host's
+    us to issue each; the ms per hop of both (host, between
+    synchronisations of every process) and, in process 0, the kernel's
+    device us from torch.profiler (``_profiled_hop_us``). Prints one ``{"xproc_hop": ...}``
+    JSON line."""
+    import json
+    import time
+
+    import torch.distributed as dist
+
+    from ia_spgemm_tpu_torch.bench.headline import build_matrix
+    from ia_spgemm_tpu_torch.formats import convert
+    from ia_spgemm_tpu_torch.formats.types import CSR
+    from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
+    from ia_spgemm_tpu_torch.parallel import ring
+
+    def synced():
+        _synchronize(mesh)
+        dist.barrier()
+
+    D = mesh.num_shards
+    A = convert.csr_to_ell(CSR.from_scipy(
+        build_matrix().astype(np.float32), device=mesh.devices[0]),
+        check_guard=False)
+    S = ring.partition_rows_ell(A, D, mesh=mesh)
+    blocks = (S.col_ind, S.values)
+    sets = RR.shared_receivers(mesh, *blocks)
+    n13, x, err, issue = RR.ring_hop_rdma.launches, blocks, 0.0, []
+    for i in range(HOPS):
+        want = RR.ring_hop_processes_plain(mesh, *x)
+        t0 = time.perf_counter()
+        x = RR.ring_hop_xproc(mesh, *x, out=sets[i % 2])
+        issue.append((time.perf_counter() - t0) * 1e6)
+        RR.check_hops(sets[i % 2])
+        if not all(torch.equal(g, w) for ga, wa in zip(x, want)
+                   for g, w in zip(ga, wa)):
+            raise AssertionError(f"hop {i}: K13 across processes differs "
+                                 "from the plain hop")
+    launches = RR.ring_hop_rdma.launches - n13
+
+    def hop_ms(hop):
+        synced()
+        t0 = time.perf_counter()
+        y = blocks
+        for i in range(HOPS):
+            y = hop(i, y)
+        synced()
+        return (time.perf_counter() - t0) * 1e3 / HOPS
+
+    xhop = lambda i, y: RR.ring_hop_xproc(  # noqa: E731
+        mesh, *y, out=sets[i % 2])
+    info = {"pid": pid, "shards": D, "devices": [str(d) for d in
+                                                  mesh.devices],
+            "hops": HOPS, "launches": launches, "max_abs_err": err,
+            "issue_us_median": float(np.median(issue)),
+            "hop_ms": hop_ms(xhop),
+            "plain_hop_ms": hop_ms(
+                lambda i, y: RR.ring_hop_processes_plain(mesh, *y)),
+            "kernel_us": _profiled_hop_us(xhop, blocks, pid, synced)}
+    RR.check_hops(sets[0])
+    print(json.dumps({"xproc_hop": info}), flush=True)
+
+
+def _step_breakdown(call, synced) -> list:
+    """One ring call's steps (its products, ``ring.ring_products``)
+    through K13 across processes, from the timeline's events, in ms: the
+    gather, the host's issue of the hop (us), the side stream's wait for
+    the previous gather ("queued": from the end of the previous gather
+    to the hop's start), the barrier, the copies, the delivery wait, the
+    hop, and the part of it the next gather waits for ("exposed": from
+    the gather's end to the hop's end, 0 where the hop ended first)."""
+    timeline = []
+    synced()
+    call(timeline)
+    synced()
+    steps, prev = [], None
+    for m in timeline:
+        st = {"gather_ms": m["gather_start"].elapsed_time(m["gather_end"])}
+        if "done" in m:
+            t = lambda a, b: m[a].elapsed_time(m[b])  # noqa: E731
+            st.update(issue_us=m["issue_us"], barrier_ms=t("start", "barrier"),
+                      copy_ms=t("barrier", "copied"),
+                      delivery_wait_ms=t("copied", "done"),
+                      hop_ms=t("start", "done"),
+                      exposed_ms=max(0.0, t("gather_end", "done")))
+            if prev is not None:
+                st["queued_ms"] = prev["gather_end"].elapsed_time(m["start"])
+        steps.append(st)
+        prev = m
+    return steps
+
+
 def _profiled_hop_us(hop, blocks, pid: int, synced):
-    """Device us per launch of the cross-process K13 over HOPS hops that
-    every process makes together; process 0 traces them (the others wait
-    at a barrier while its profiler starts). None where it saw none."""
+    """Device us of the cross-process K13 over HOPS hops that every
+    process makes together; process 0 traces them (the others wait at a
+    barrier while its profiler starts): {"per_card": each card's kernel
+    us a hop, "per_hop": the largest of those (a hop launches once on
+    each card that holds a source block, and the launches run side by
+    side), "per_launch": the mean launch}. None where it saw none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -476,10 +608,17 @@ def _profiled_hop_us(hop, blocks, pid: int, synced):
         return None
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
-    durs = [e.time_range.end - e.time_range.start for e in prof.events()
-            if e.device_type == DeviceType.CUDA
-            and "k13_ring_hop_xproc" in e.name]
-    return sum(durs) / len(durs) if durs else None
+    cards: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "k13_ring_hop_xproc" in e.name:
+            cards.setdefault(f"cuda:{e.device_index}", []).append(
+                e.time_range.end - e.time_range.start)
+    if not cards:
+        return None
+    per_card = {c: sum(d) / HOPS for c, d in sorted(cards.items())}
+    durs = [x for d in cards.values() for x in d]
+    return {"per_card": per_card, "per_hop": max(per_card.values()),
+            "per_launch": sum(durs) / len(durs)}
 
 
 if __name__ == "__main__":

@@ -27,28 +27,43 @@ their next use. On CPU tensors the plain version runs (``ring_hop_plain``,
 a copy per block).
 
 Across processes nothing orders the two sides, so ``ring_hop_xproc``
-launches the kernel's other instance, which computes what
-``_hop_kernel`` computes, barrier included: each process's two receiver
-sets and four signal words are shared with its neighbours through CUDA
-IPC (``shared_receivers``, once per layout and process group), and one
-launch per step meets both neighbours at the barrier, copies the local
-blocks and pushes block 0 into the left neighbour's last receiver, then
-waits until its own incoming block has landed. A process's shards may
-lie on several cards: the launch runs on its home card (``home_slot``),
-which holds its signal words and reads and stores the blocks and
-receivers of its other cards by peer access, with events ordering each
-card's reads of its receivers before the launch and the launch before
-its next reads. The expected counts come from ``HopCounters``; every
-spin is bounded by ``SPIN_LIMIT_S`` and ``check_hops`` raises on a
-timeout. Its plain version is the point-to-point hop of
+computes what ``_hop_kernel`` computes, barrier included, and no kernel
+waits: each process's two receiver sets are shared with its neighbours
+through CUDA IPC (``shared_receivers``, once per layout and process
+group), and its signal words lie in a page of pinned host memory that
+its neighbours map too (``_signals``). A hop runs on side streams of the
+process's cards. On its home card (``home_slot``), after every card's
+work so far (the gathers that read the receivers it writes), the
+barrier: the stream writes the running hop count into both neighbours'
+arrival words and waits until its own two reach it. Then on every card
+that holds a source block the copy kernel of ``csrc/ring.cu`` (block
+i + 1 into receiver i, and from shard 0's card block 0 into the left
+neighbour's last receiver: loads local, stores local or over NVLink).
+Then, after every card's copies, it writes the count into the left's
+delivered word and waits until its own reaches it. Each card's current
+stream waits for the hop before it reads the receivers: at once
+(``join=True``), or when the caller joins, so that the ring overlaps the
+hop of step s with the gather of step s, which also only reads the
+blocks. The counts come from ``HopCounters``. A stream wait has no time
+limit, so a thread of each process is the watchdog (``_watch``): once its
+words have not moved for ``SPIN_LIMIT_S`` while a hop is pending, it
+halts this process's later pushes, alerts its neighbours and releases
+its own waits, so that no wait outlasts the limit whoever synchronises
+behind it; ``check_hops`` waits for a ring call's hops and raises if the
+watchdog gave up. Its plain version is the point-to-point hop of
 ``torch.distributed`` (``ring_hop_processes_plain``). There is no
-fallback: a failed build, launch, peer enable or IPC open, or cards that
-cannot reach each other, raise.
+fallback: a failed build, launch, peer enable, IPC open or page mapping,
+a card without 64-bit stream memory operations, or cards that cannot
+reach each other, raise.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
+import operator
+import threading
 import weakref
 from array import array
 from itertools import chain
@@ -59,12 +74,17 @@ from ia_spgemm_tpu_torch import _build
 from ia_spgemm_tpu_torch.parallel.mesh import card_identities, comm_device
 
 MAX_COPIES = 128    # copies one launch carries (csrc/ring.cu kMaxCopies)
-CHUNK_BYTES = 16 * 256 * 4   # csrc/ring.cu kChunkBytes: the delivery unit
-SPIN_LIMIT_S = 10.0          # each spin of the cross-process instance
-# a process's signal words (csrc/ring.cu kFromLeft ... kError)
-FROM_LEFT, FROM_RIGHT, DELIVERED, ERROR = range(4)
+SPIN_LIMIT_S = 10.0     # the watchdog's limit on a hop that does not move
+WATCH_TICK_S = 0.02     # how often the watchdog looks at a pending hop
+# a process's signal words (int64 in its shared page): the arrival counts
+# its neighbours write, the delivered count its right neighbour writes,
+# its own error code (its watchdog's; it halts its pushes) and an alert
+# (a neighbour's watchdog's code)
+FROM_LEFT, FROM_RIGHT, DELIVERED, ERROR, ALERT = range(5)
 ERRORS = {1: "a neighbour did not arrive at the barrier",
           2: "the incoming block was not delivered"}
+RELEASE = 1 << 62   # past every count: the watchdog's release of its waits
+WRITE, WAIT = 0, 1  # the kinds of csrc/ring.cu ia_k13_stream_ops (kWrite...)
 
 
 class Receivers(list):
@@ -90,6 +110,7 @@ class _Views(list):
 
 
 _LAYOUTS: dict = {}     # layout key -> _layout's tuple
+_OWN: dict = {}         # layout key -> its receivers' own _layout tuple
 _MAX_LAYOUTS = 64
 
 
@@ -145,6 +166,7 @@ def _layout(arrays, devices):
             raise ValueError(f"no kernel for device {targets[0]}")
         if len(_LAYOUTS) >= _MAX_LAYOUTS:
             _LAYOUTS.clear()
+            _OWN.clear()
         D = len(targets)
         plan = {}
         for a, arr in enumerate(arrays):
@@ -208,7 +230,12 @@ def _alloc(hit) -> Receivers:
         out.owner = owner
         outs.append(out)
     outs.layout = key
-    outs.own = hit if same else _layout(tuple(outs), None)
+    if same:
+        outs.own = hit
+    else:   # the receivers' own layout follows from the blocks'
+        outs.own = _OWN.get(key)
+        if outs.own is None:
+            outs.own = _OWN[key] = _layout(tuple(outs), None)
     return outs
 
 
@@ -332,9 +359,9 @@ def rdma_available(mesh) -> bool:
     """use_rdma='auto' gate, the same in every process: a mesh of two or
     more shards, every one on a CUDA card. In one process the cards must
     reach each other (the same card, or peer access); across processes
-    each process's home card must reach its other cards and map both
-    neighbours' memory (``card_gate``, decided once per process group
-    from every process's card identities: COLLECTIVE the first time)."""
+    each card that stores a block must reach the card it stores into
+    (``card_gate``, decided once per process group from every process's
+    card identities: COLLECTIVE the first time)."""
     if mesh is None or mesh.num_shards < 2:
         return False
     if mesh.spans_processes:
@@ -350,13 +377,13 @@ def rdma_available(mesh) -> bool:
 
 
 def home_slot(cards, rank: int) -> int:
-    """Which of a process's shards lies on its home card, the card that
-    launches its hops across processes and holds its signal words:
-    ``cards`` are the shards' devices (or card identities), in shard
-    order. The process's distinct cards, in order of first use, taken at
-    rank modulo their count, so that processes holding the same cards
-    launch on different ones (a kernel waiting at the barrier holds its
-    card's time slice from the other processes' contexts)."""
+    """Which of a process's shards lies on its home card, whose side
+    stream carries the barrier and the delivery of its hops across
+    processes and orders its other cards' copies: ``cards`` are the
+    shards' devices (or card identities), in shard order. The process's
+    distinct cards, in order of first use, taken at rank modulo their
+    count, so that processes holding the same cards wait on different
+    ones."""
     distinct = list(dict.fromkeys(cards))
     return list(cards).index(distinct[rank % len(distinct)])
 
@@ -364,32 +391,27 @@ def home_slot(cards, rank: int) -> int:
 def card_gate(infos) -> bool:
     """The gate across processes from every process's card identities
     (``mesh.card_identities``, in rank order). Every shard on a card the
-    process sees; the home card (``home_slot``) the same card as, or with
-    peer access to, each card it reads or stores: the process's own
-    cards, the left neighbour's last shard's (its incoming receiver) and
-    both neighbours' home cards (their signal words). A neighbour's card
-    must have the same index in both processes (an IPC handle names its
-    maker's card by index)."""
+    process sees; each card that stores a block the same card as, or
+    with peer access to, the card it stores into: the card of shard i + 1
+    into shard i's (the local copies) and the card of shard 0 into the
+    left neighbour's last shard's (its incoming receiver), which must
+    have the same index in both processes (an IPC handle names its
+    maker's card by index). The signal words lie in host memory, which
+    every card reaches."""
     W = len(infos)
     if W < 2 or any(not i["cards"] or None in i["cards"]
                     or not set(i["cards"]) <= set(i["visible"])
                     for i in infos):
         return False
-    homes = [i["cards"][home_slot(i["cards"], r)]
-             for r, i in enumerate(infos)]
     for r, me in enumerate(infos):
-        left, right = infos[(r - 1) % W], infos[(r + 1) % W]
-        vis = me["visible"]
-        home = vis.index(homes[r])
-        for card, nb in ([(c, me) for c in me["cards"]]
-                         + [(left["cards"][-1], left),
-                            (homes[(r - 1) % W], left),
-                            (homes[(r + 1) % W], right)]):
-            if (card not in vis
-                    or vis.index(card) != nb["visible"].index(card)):
-                return False
-            j = vis.index(card)
-            if j != home and (home, j) not in me["peer"]:
+        left = infos[(r - 1) % W]
+        vis, cards, into = me["visible"], me["cards"], left["cards"][-1]
+        if (into not in vis
+                or vis.index(into) != left["visible"].index(into)):
+            return False
+        for src, dst in [*zip(cards[1:], cards), (cards[0], into)]:
+            i, j = vis.index(src), vis.index(dst)
+            if i != j and (i, j) not in me["peer"]:
                 return False
     return True
 
@@ -430,56 +452,68 @@ def ring_hop_processes_plain(mesh, *arrays, out=None):
 
 
 class HopCounters:
-    """What a process's signal words must reach at its next hop across
-    processes: ``arrivals``, each of its from-left and from-right words
-    (its hops so far, the next included), and ``delivered`` (the chunks
-    of every block it has received so far). They only grow, across the
-    steps and the calls of the ring, as the words do; none is reset."""
+    """The running count of a process's hops across processes: the value
+    it writes into its neighbours' words, and that its own words must
+    reach, at its next hop. It only grows, across the steps and the calls
+    of the ring, as the words do; it is never reset."""
 
     def __init__(self):
-        self.arrivals = 0
-        self.delivered = 0
+        self.hops = 0
 
-    def next(self, incoming_chunks: int) -> tuple:
-        self.arrivals += 1
-        self.delivered += incoming_chunks
-        return self.arrivals, self.delivered
+    def next(self) -> int:
+        self.hops += 1
+        return self.hops
 
 
-def chunks_of(nbytes: int) -> int:
-    """The chunks a copy of nbytes is cut into (and delivered in)."""
-    return -(-nbytes // CHUNK_BYTES)
-
-
-def xproc_copy_table(blocks, receivers, left, nbytes):
-    """The copy table of one hop across processes, from addresses alone:
-    ``blocks[a][i]`` and ``receivers[a][i]``, this process's block i and
-    receiver i of array a; ``left[a]``, the left neighbour's last
-    receiver of array a; ``nbytes[a]``, the bytes of each block of array
-    a. Returns (flat (source, destination, bytes) triples, n_remote): the
-    local copies (block i + 1 into receiver i) first, then each array's
-    block 0 into the left neighbour, the last n_remote; zero-byte arrays
-    are left out."""
-    local, remote = [], []
+def xproc_copy_tables(blocks, receivers, left, nbytes, cards):
+    """The copies of one hop across processes, from addresses alone, by
+    the card that holds their source: ``blocks[a][i]`` and
+    ``receivers[a][i]``, this process's block i and receiver i of array
+    a; ``left[a]``, the left neighbour's last receiver of array a;
+    ``nbytes[a]``, the bytes of each block of array a; ``cards[i]``,
+    shard i's card. Returns {card: (flat (source, destination, bytes)
+    triples, pushes)} over the cards in shard order that hold a copy:
+    block i + 1 into receiver i on block i + 1's card, then each array's
+    block 0 into the left neighbour on shard 0's card, whose ``pushes``
+    is True; zero-byte arrays are left out."""
+    out = {c: ([], False) for c in dict.fromkeys(cards)}
     for a, n in enumerate(nbytes):
         if not n:
             continue
         for i in range(len(blocks[a]) - 1):
-            local += (blocks[a][i + 1], receivers[a][i], n)
-        remote += (blocks[a][0], left[a], n)
-    return local + remote, len(remote) // 3
+            out[cards[i + 1]][0].extend((blocks[a][i + 1], receivers[a][i],
+                                         n))
+    for a, n in enumerate(nbytes):
+        if n:
+            out[cards[0]] = (out[cards[0]][0], True)
+            out[cards[0]][0].extend((blocks[a][0], left[a], n))
+    return {c: t for c, t in out.items() if t[0]}
 
 
 @dataclasses.dataclass
-class _Peers:
-    """This process's signal words on its card (int64 FROM_LEFT ...
-    ERROR, zeroed once) and its neighbours', mapped by CUDA IPC, with
-    its hop counters; ``failed`` once a hop timed out."""
-    own: torch.Tensor
-    left: torch.Tensor
-    right: torch.Tensor
+class _Signals:
+    """This process's signal words and its neighbours' (``_signals``):
+    ``words``, ``left_words``, ``right_words``, the host's views of the
+    three pages (int64, FROM_LEFT ... ALERT); ``own``, ``left``,
+    ``right``, the cards' addresses of the same words; ``counters`` its
+    hops; ``pages`` the host addresses it pinned; ``halts``, per card
+    that pushes, the int64 in its memory that each push copies its error
+    word into first; ``done`` the event after its last hop; ``failed``
+    once its watchdog gave up (every later hop raises); ``stop`` ends its
+    watchdog thread, ``watchdog``."""
+    words: object
+    left_words: object
+    right_words: object
+    own: int
+    left: int
+    right: int
     counters: HopCounters
+    pages: list
+    halts: dict = dataclasses.field(default_factory=dict)
+    done: object = None
     failed: str | None = None
+    stop: threading.Event = dataclasses.field(default_factory=threading.Event)
+    watchdog: threading.Thread | None = None
 
 
 class XReceivers(list):
@@ -488,24 +522,49 @@ class XReceivers(list):
     i (shaped like the blocks, on shard i's device) for local block i + 1
     and entry L - 1, which the right neighbour writes, for the next
     process's block 0. ``left``: per array, the left neighbour's entry
-    L - 1 of the same set, mapped by CUDA IPC under the home card (None
-    for a zero-byte array; empty on the host); ``peers`` the signal words
-    (None on the host); ``home`` the device that launches the hops;
-    ``others`` the process's other cards, ordered against the launch by
-    events; ``chunks`` the chunks of one hop's incoming blocks;
-    ``layout`` the blocks' devices and layout (``_xlayout``)."""
+    L - 1 of the same set, mapped by CUDA IPC under shard 0's card, which
+    pushes into it (None for a zero-byte array; empty on the host);
+    ``peers`` the signal words (None on the host); ``home`` the card
+    whose side stream carries the barrier and the delivery; ``cards`` the
+    process's cards; ``done`` the event after the last hop into the set;
+    ``layout`` the blocks' devices and layout (``_xlayout``); ``pair``
+    both sets; ``tables`` the launch tables by the blocks' addresses and
+    ``events`` the set's events, both kept (an event is recorded again
+    at each hop; a wait already enqueued keeps the record it saw)."""
 
     left: tuple = ()
     peers = None
     home = None
-    others: tuple = ()
-    chunks = 0
+    cards: tuple = ()
+    done = None
     layout: tuple = ()
+    pair: tuple = ()
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.tables = {}
+        self.events = {}
+
+    def event(self, name):
+        ev = self.events.get(name)
+        if ev is None:
+            ev = self.events[name] = torch.cuda.Event()
+        return ev
+
+    def join(self) -> None:
+        """Every card's current stream waits for the last hop into this
+        set (its receivers written, its incoming block delivered) before
+        the work enqueued after this call."""
+        if self.done is not None:
+            for d in self.cards:
+                torch.cuda.current_stream(d).wait_event(self.done)
 
 
-_SIGNALS: dict = {}     # (group, card) -> _Peers
+_SIGNALS: dict = {}     # process group -> _Signals
 _SHARED: dict = {}      # (group, devices, layout) -> the two XReceivers
 _MAX_SHARED = 8
+_READY: set = set()     # cards checked for stream waits, kernels loaded
+_SIDE: dict = {}        # card -> the side stream of its hops
 
 
 def _xlayout(arrays):
@@ -551,26 +610,93 @@ def _open(handle, dev):
     return fn(*args)
 
 
-def _peers(mesh, dev) -> _Peers:
-    """The signal words of this process on dev, shared with both
-    neighbours: COLLECTIVE the first time per process group and card."""
-    key = (id(mesh.group), dev)
-    got = _SIGNALS.get(key)
+def _side(dev: torch.device):
+    got = _SIDE.get(dev)
     if got is None:
-        import torch.distributed as dist
-        from torch.multiprocessing.reductions import reduce_tensor
-        if _build.load()["ia_k13_chunk_bytes"]() != CHUNK_BYTES:
-            raise RuntimeError("csrc/ring.cu's kChunkBytes is not "
-                               f"CHUNK_BYTES ({CHUNK_BYTES})")
-        own = torch.zeros(4, dtype=torch.int64, device=dev)
-        torch.cuda.synchronize(dev)   # zero before a neighbour adds to it
-        world = dist.get_world_size(mesh.group)
-        rank = dist.get_rank(mesh.group)
-        handles = [None] * world
-        dist.all_gather_object(handles, reduce_tensor(own), group=mesh.group)
-        got = _Peers(own, _open(handles[(rank - 1) % world], dev),
-                     _open(handles[(rank + 1) % world], dev), HopCounters())
-        _SIGNALS[key] = got
+        got = _SIDE[dev] = torch.cuda.Stream(device=dev)
+    return got
+
+
+def _page(path: str, create: bool):
+    """One page of POSIX shared memory at path (created zeroed, or
+    opened), pinned and mapped for every card: (int64 view of its first
+    8 words, host address, the cards' address)."""
+    import mmap
+    import os
+    fd = os.open(path, os.O_RDWR | (os.O_CREAT | os.O_EXCL if create
+                                    else 0), 0o600)
+    try:
+        if create:
+            os.ftruncate(fd, mmap.PAGESIZE)
+        mm = mmap.mmap(fd, mmap.PAGESIZE)
+    finally:
+        os.close(fd)
+    view = (ctypes.c_int64 * 8).from_buffer(mm)
+    host = ctypes.addressof(view)
+    dev = ctypes.c_longlong()
+    err = _build.load()["ia_k13_host_map"](host, mmap.PAGESIZE,
+                                           ctypes.addressof(dev))
+    if err != 0:
+        raise RuntimeError(f"pinning the signal page {path}: CUDA error "
+                           f"{err}")
+    return view, host, dev.value
+
+
+def _signals(mesh, home, cards) -> _Signals:
+    """This process's signal words, shared with both neighbours: a page
+    of shared memory each (``/dev/shm``, unlinked once every neighbour
+    has mapped it), pinned for every card. COLLECTIVE the first time per
+    process group. Checks first that each of ``cards`` takes 64-bit
+    stream memory operations, and loads the kernels onto it (a lazy load
+    at a launch behind a stream wait would wait for the neighbours)."""
+    for d in cards:
+        if d not in _READY:
+            lib = _build.load()
+            r = lib["ia_k13_can_wait"](d.index)
+            if r != 1:
+                raise RuntimeError(
+                    f"{d} takes no 64-bit stream memory operations, which "
+                    "K13 across processes waits with" + (
+                        f" (CUresult {-r})" if r < 0 else ""))
+            with torch.cuda.device(d):
+                err = lib["ia_k13_load_kernels"]()
+            if err != 0:
+                raise RuntimeError(f"loading K13 onto {d}: CUDA error {err}")
+            _READY.add(d)
+    got = _SIGNALS.get(id(mesh.group))
+    if got is not None:
+        return got
+    import os
+    import secrets
+
+    import torch.distributed as dist
+    world = dist.get_world_size(mesh.group)
+    rank = dist.get_rank(mesh.group)
+    path = f"/dev/shm/ia_spgemm_k13_{os.getpid()}_{secrets.token_hex(8)}"
+    with torch.cuda.device(home):
+        try:
+            pages = {path: _page(path, True)}
+            paths = [None] * world
+            dist.all_gather_object(paths, path, group=mesh.group)
+            for r in ((rank - 1) % world, (rank + 1) % world):
+                if paths[r] not in pages:
+                    pages[paths[r]] = _page(paths[r], False)
+            # every neighbour has mapped this page: it may go from /dev/shm
+            dist.all_gather_object([None] * world, None, group=mesh.group)
+        finally:
+            if os.path.exists(path):
+                os.unlink(path)
+    own = pages[path]
+    left, right = (pages[paths[(rank + d) % world]] for d in (-1, 1))
+    got = _Signals(own[0], left[0], right[0], own[2], left[2], right[2],
+                   HopCounters(), [p[1] for p in pages.values()])
+    if not _SIGNALS:
+        import atexit
+        atexit.register(_stop_watchdogs)
+    got.watchdog = threading.Thread(target=_watch, args=(got, home),
+                                    name="k13-watchdog", daemon=True)
+    got.watchdog.start()
+    _SIGNALS[id(mesh.group)] = got
     return got
 
 
@@ -584,8 +710,9 @@ def shared_receivers(mesh, *arrays) -> list:
     neighbour writes are shared with it through CUDA IPC
     (``torch.multiprocessing.reductions.reduce_tensor``: the caching
     allocator's handle and offset), exchanged with ``all_gather_object``
-    and opened under the neighbour's home card; peer access from the
-    home card to the process's other cards is enabled here. The
+    and opened under the card of the neighbour's shard 0, which pushes
+    into them; peer access from each card to the card it stores into is
+    enabled here, and the signal words are made (``_signals``). The
     mappings, and the storages behind them, live as long as the sets.
     On the host the sets are plain receivers
     (``ring_hop_processes_plain`` fills them)."""
@@ -602,10 +729,14 @@ def shared_receivers(mesh, *arrays) -> list:
         world = dist.get_world_size(mesh.group)
         rank = dist.get_rank(mesh.group)
         home = devs[home_slot(devs, rank)]
-        others = tuple(d for d in dict.fromkeys(devs) if d != home)
-        for d in others:
-            _enable_peer(home, d)
-        peers = _peers(mesh, home)
+        cards = tuple(dict.fromkeys(devs))
+        for src, dst in zip(devs[1:], devs):   # block i + 1 -> receiver i
+            if src != dst:
+                _enable_peer(src, dst)
+        peers = _signals(mesh, home, cards)
+        if devs[0] not in peers.halts:
+            peers.halts[devs[0]] = torch.zeros(1, dtype=torch.int64,
+                                               device=devs[0])
         mine = (layout, [[reduce_tensor(o[-1]) if n else None
                           for o, n in zip(s, nbytes)] for s in sets])
         every = [None] * world
@@ -614,12 +745,11 @@ def shared_receivers(mesh, *arrays) -> list:
             raise ValueError("the processes of the ring hold blocks of "
                              f"different layouts: {[e[0] for e in every]}")
         for s, handles in zip(sets, every[(rank - 1) % world][1]):
-            s.left = tuple(None if h is None else _open(h, home)
+            s.left = tuple(None if h is None else _open(h, devs[0])
                            for h in handles)
-            s.peers, s.home, s.others = peers, home, others
+            s.peers, s.home, s.cards = peers, home, cards
     for s in sets:
-        s.chunks = sum(map(chunks_of, nbytes))
-        s.layout = (devs, layout)
+        s.layout, s.pair = (devs, layout), tuple(sets)
     if len(_SHARED) >= _MAX_SHARED:
         _SHARED.clear()
     _SHARED[key] = sets
@@ -627,96 +757,242 @@ def shared_receivers(mesh, *arrays) -> list:
 
 
 def release_shared():
-    """Drops every cached cross-process receiver set, signal word and
-    gate (and with them the IPC mappings): every process of the group
-    together, once no hop is in flight."""
+    """Drops every cached cross-process receiver set, signal page and
+    gate (and with them the IPC mappings, the pinned pages and the
+    watchdogs): every process of the group together, once no hop is in
+    flight. A set still held raises at its next hop."""
+    _stop_watchdogs()
+    for sig in _SIGNALS.values():
+        sig.failed = "K13 across processes: the shared receivers were released"
+        for host in sig.pages:
+            _build.load()["ia_k13_host_unmap"](host)
     _SHARED.clear()
     _SIGNALS.clear()
     _GATES.clear()
 
 
-def ring_hop_xproc(mesh, *arrays, out):
+def _on(dev):
+    """dev as the current device (a guard only where it is not)."""
+    return (contextlib.nullcontext() if torch.cuda.current_device()
+            == dev.index else torch.cuda.device(dev))
+
+
+def _launch_xproc(dev, table, n, halt, halt_copy, stream):
+    with _on(dev):
+        err = _build.load()["ia_k13_ring_hop_xproc"](
+            table.buffer_info()[0], n, halt, halt_copy, stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ia_k13_ring_hop_xproc launch failed: CUDA error "
+                           f"{err}")
+    ring_hop_rdma.launches += 1
+
+
+def _stream_ops(dev, ops, stream):
+    with _on(dev):
+        err = _build.load()["ia_k13_stream_ops"](ops.buffer_info()[0],
+                                                 len(ops) // 3,
+                                                 stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ia_k13_stream_ops failed: CUresult {err}")
+
+
+def _mark(marks, name, stream):
+    if marks is not None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        marks[name] = ev
+
+
+def ring_hop_xproc(mesh, *arrays, out, join=True, marks=None):
     """K13 across processes: one ring step of this process's blocks
     (each array's blocks, one per local shard, on its shard's device):
     block i + 1 into receiver i, block 0 into the left neighbour's last
     receiver; ``out`` is one of the two sets of ``shared_receivers`` for
-    these blocks (the ring alternates them). Returns out's lists. One
-    launch on the home card, not synchronised: the barrier with both
-    neighbours, the copies, the wait for this process's incoming block;
-    before it the home card's stream waits for every other card's work
-    so far (their reads of the receivers it writes), after it every
-    other card's stream waits for the launch. ``check_hops`` reads the
-    kernel's error word. On host blocks the plain version fills out."""
-    devs, layout = _xlayout(arrays)
-    if not isinstance(out, XReceivers) or out.layout != (devs, layout):
+    these blocks (the ring alternates them). Returns out's lists.
+
+    Nothing waits on the host. On the side streams of the process's
+    cards, after every card's work enqueued so far: the barrier on the
+    home card's, one copy launch on each card that holds a source block,
+    the delivery on the home card's. ``join=True``: every card's current
+    stream then waits for the hop; ``join=False``: the caller may enqueue
+    work that only reads the blocks (the ring's gather of the same step)
+    and calls ``out.join()`` before anything reads the receivers.
+    ``marks``: a dict that receives timed events of the home card's side
+    stream ("start", "barrier", "copied", "done"). The watchdog thread
+    bounds every wait; ``check_hops`` reports its verdict. On host blocks
+    the plain version fills out."""
+    if not isinstance(out, XReceivers):
+        raise ValueError("out= takes a set that shared_receivers made")
+    # the other set's receivers (the ring's later steps) need no check
+    if not any(len(arrays) == len(s) and all(map(operator.is_, arrays, s))
+               for s in out.pair) and _xlayout(arrays) != out.layout:
         raise ValueError("out= takes a set that shared_receivers made for "
                          "these blocks' devices and layout")
-    if devs[0].type == "cpu":
+    if out.layout[0][0].type == "cpu":
         return ring_hop_processes_plain(mesh, *arrays, out=out)
-    peers = out.peers
-    if peers.failed:
-        raise RuntimeError(peers.failed)
-    table, n, n_remote, words, targets = xproc_launch_args(arrays, out)
+    sig = out.peers
+    if sig.words[ALERT] and not sig.failed:
+        sig.failed = _alerted(sig)
+    if sig.failed:
+        raise RuntimeError(sig.failed)
+    tables, barrier, delivery = xproc_launch_args(arrays, out)
     home = out.home
-    stream = torch.cuda.current_stream(home)
-    for d in out.others:
-        ready = torch.cuda.Event()
+    side = _side(home)
+    for d in out.cards:     # the receivers' readers so far
+        ready = out.event(("ready", d))
         ready.record(torch.cuda.current_stream(d))
-        stream.wait_event(ready)
-    with torch.cuda.device(home):
-        err = _build.load()["ia_k13_ring_hop_xproc"](
-            table.buffer_info()[0], n, n_remote, words.buffer_info()[0],
-            targets.buffer_info()[0], stream.cuda_stream)
-    if err != 0:
-        peers.failed = f"ia_k13_ring_hop_xproc launch failed: CUDA error {err}"
-        raise RuntimeError(peers.failed)
-    ring_hop_rdma.launches += 1
-    if out.others:
-        done = torch.cuda.Event()
-        done.record(stream)
-        for d in out.others:
-            torch.cuda.current_stream(d).wait_event(done)
+        side.wait_event(ready)
+    _mark(marks, "start", side)
+    _stream_ops(home, barrier, side)
+    _mark(marks, "barrier", side)
+    if any(d != home for d in tables):
+        passed = out.event("passed")
+        passed.record(side)
+    copied = []
+    for d, args in tables.items():
+        if d != home:
+            s = _side(d)
+            s.wait_event(passed)
+            _launch_xproc(d, *args, s)
+            copied.append(out.event(("copied", d)))
+            copied[-1].record(s)
+    if home in tables:
+        _launch_xproc(home, *tables[home], side)
+    for ev in copied:
+        side.wait_event(ev)
+    _mark(marks, "copied", side)
+    _stream_ops(home, delivery, side)
+    out.done = sig.done = out.event("done")
+    out.done.record(side)
+    _mark(marks, "done", side)
+    if join:
+        out.join()
     return list(out)
 
 
 def xproc_launch_args(arrays, out):
-    """The host arguments of one launch of K13 across processes, these
-    blocks into ``out`` (a set of ``shared_receivers``): (int64 table of
-    (source, destination, bytes) triples, copies, copies into the left
-    neighbour, int64 addresses of this process's, the left's and the
-    right's signal words, int64 (arrivals, delivered, spin limit ns)).
-    Advances the process's hop counters."""
-    nbytes = [arr[0].numel() * arr[0].element_size() for arr in arrays]
-    flat, n_remote = xproc_copy_table(
-        [[b.data_ptr() for b in arr] for arr in arrays],
-        [[r.data_ptr() for r in o] for o in out],
-        [0 if t is None else t.data_ptr() for t in out.left], nbytes)
-    if len(flat) > 3 * MAX_COPIES:
-        raise ValueError(f"{len(flat) // 3} copies in one hop across "
-                         f"processes (at most {MAX_COPIES})")
-    peers = out.peers
-    arrivals, delivered = peers.counters.next(out.chunks)
-    return (array("q", flat or [0]), len(flat) // 3, n_remote,
-            array("q", [peers.own.data_ptr(), peers.left.data_ptr(),
-                        peers.right.data_ptr()]),
-            array("q", [arrivals, delivered, int(SPIN_LIMIT_S * 1e9)]))
+    """The host arguments of one hop across processes, these blocks into
+    ``out`` (a set of ``shared_receivers``): ({card: (int64 table of
+    (source, destination, bytes) triples, copies, the host address of
+    the halt word and of its copy in the card's memory, or 0, 0)}, the
+    barrier's and the delivery's int64 (kind, address, value) triples
+    for ``ia_k13_stream_ops``). Only the launch that pushes into the left
+    neighbour reads the halt word (this process's error word). Advances
+    the process's hop count. The tables are kept by the blocks' addresses
+    (the layout is the set's, so the addresses fix the copies)."""
+    sig = out.peers
+    ptrs = tuple(b.data_ptr() for arr in arrays for b in arr)
+    tables = out.tables.get(ptrs)
+    if tables is None:
+        nbytes = [arr[0].numel() * arr[0].element_size() for arr in arrays]
+        per = xproc_copy_tables(
+            [[b.data_ptr() for b in arr] for arr in arrays],
+            [[r.data_ptr() for r in o] for o in out],
+            [0 if t is None else t.data_ptr() for t in out.left], nbytes,
+            out.layout[0])
+        tables = {}
+        for d, (flat, pushes) in per.items():
+            if len(flat) > 3 * MAX_COPIES:
+                raise ValueError(f"{len(flat) // 3} copies from {d} in one "
+                                 f"hop across processes (at most "
+                                 f"{MAX_COPIES})")
+            halt = (ctypes.addressof(sig.words) + 8 * ERROR,
+                    sig.halts[d].data_ptr()) if pushes else (0, 0)
+            tables[d] = (array("q", flat), len(flat) // 3, *halt)
+        if len(out.tables) >= _MAX_SHARED:
+            out.tables.clear()
+        out.tables[ptrs] = tables
+    hops = sig.counters.next()
+    barrier = array("q", [WRITE, sig.left + 8 * FROM_RIGHT, hops,
+                          WRITE, sig.right + 8 * FROM_LEFT, hops,
+                          WAIT, sig.own + 8 * FROM_LEFT, hops,
+                          WAIT, sig.own + 8 * FROM_RIGHT, hops])
+    delivery = array("q", [WRITE, sig.left + 8 * DELIVERED, hops,
+                           WAIT, sig.own + 8 * DELIVERED, hops])
+    return tables, barrier, delivery
 
 
 def check_hops(recv) -> None:
-    """Raises if a hop across processes into these receivers (a set of
-    ``shared_receivers``) timed out: reads this process's error word,
-    which synchronises its stream (the ring's call ends with it). A
-    failure stays: every later hop of the process group raises."""
-    peers = recv.peers
-    if peers is None:
+    """The report of the watchdog on this process's hops across processes
+    (``recv``, a set of ``shared_receivers``): waits on the host, polling,
+    until its last hop has ended or its watchdog (``_watch``) gave up, and
+    raises if it gave up or a neighbour's watchdog alerted it. A failure
+    stays: every later hop of the process group raises."""
+    sig = recv.peers
+    if sig is None:
         return
-    if peers.failed:
-        raise RuntimeError(peers.failed)
-    code = int(peers.own[ERROR].item())
-    if code:
-        peers.failed = (f"K13 across processes: {ERRORS.get(code, code)} "
-                        f"within the spin limit of {SPIN_LIMIT_S} s")
-        raise RuntimeError(peers.failed)
+    while not sig.failed and sig.done is not None and not sig.done.query():
+        pass
+    if sig.words[ALERT] and not sig.failed:
+        sig.failed = _alerted(sig)
+    if sig.failed:
+        raise RuntimeError(sig.failed)
+
+
+def _watch(sig: _Signals, home) -> None:
+    """The watchdog of sig's hops, a thread that ``_signals`` starts, so
+    that a stream wait is bounded whoever synchronises behind it: every
+    WATCH_TICK_S, ``_tick``; it ends with sig's first failure or at
+    ``sig.stop``."""
+    import time
+    torch.cuda.set_device(home)     # no context on a card it does not use
+    since = seen = None
+    while not sig.stop.wait(WATCH_TICK_S) and not sig.failed:
+        since, seen = _tick(sig, since, seen, time.monotonic())
+
+
+def _tick(sig: _Signals, since, seen, now):
+    """One look of the watchdog at sig, (since, seen) carried from the
+    last: while a hop is pending (its last hop's event not reached), the
+    time its own words last moved and their values. It gives up
+    (``_give_up``) on a neighbour's alert, or once the words have not
+    moved for SPIN_LIMIT_S."""
+    if sig.done is None or sig.done.query():
+        return None, None
+    w = sig.words
+    if w[ALERT]:
+        _give_up(sig)
+        return None, None
+    words = (w[FROM_LEFT], w[FROM_RIGHT], w[DELIVERED])
+    if words != seen:
+        return now, words
+    if now - since > SPIN_LIMIT_S:
+        _give_up(sig)
+    return since, seen
+
+
+def _alerted(sig: _Signals) -> str:
+    code = sig.words[ALERT]
+    return ("K13 across processes: a neighbour's watchdog gave up "
+            f"({ERRORS.get(code, code)})")
+
+
+def _give_up(sig: _Signals) -> None:
+    """Fails sig: sets its error word (its later pushes copy nothing),
+    alerts both neighbours, and writes a value past every count into its
+    own words until its side streams have drained (for at most
+    SPIN_LIMIT_S), so that the card takes new work."""
+    import time
+    w = sig.words
+    if w[ALERT]:
+        why, sig.failed = w[ALERT], _alerted(sig)
+    else:   # a stream held at a delivery has passed that hop's barrier
+        why = 2 if w[DELIVERED] < min(w[FROM_LEFT], w[FROM_RIGHT]) else 1
+        sig.failed = (f"K13 across processes: {ERRORS[why]} within the "
+                      f"watchdog's limit of {SPIN_LIMIT_S} s")
+    w[ERROR] = why
+    sig.left_words[ALERT] = sig.right_words[ALERT] = why
+    limit = time.monotonic() + SPIN_LIMIT_S
+    while not sig.done.query() and time.monotonic() < limit:
+        # a neighbour's later write of its count may land after ours
+        w[FROM_LEFT] = w[FROM_RIGHT] = w[DELIVERED] = RELEASE
+
+
+def _stop_watchdogs() -> None:
+    for sig in list(_SIGNALS.values()):
+        sig.stop.set()
+        if sig.watchdog is not None:
+            sig.watchdog.join(timeout=1.0)
 
 
 KERNELS = {"K13": ring_hop_rdma}

@@ -27,17 +27,21 @@ whichever step fills them, so the product buffer is allocated once and
 steps only select into it. The JAX loop hops D times and never uses the
 last hop's blocks; this loop skips that hop, so a ring call makes D - 1
 hops (none at D = 1), each carrying the column and value blocks
-together: one K13 launch per source card in one process, one per
-process (on its home card, whatever cards its shards lie on) across
-processes. The hops write into two sets of
-receivers alternated: allocated once per call in one process, made once
-per layout and shared with the neighbours across processes.
+together: one K13 launch per source card, in one process and across
+processes. Across processes through K13 the hop of step s is issued
+before the gather of step s, on side streams (the two only read the
+blocks), and the gather of step s + 1 waits for it, as the JAX design
+overlaps the remote copy with the local product. The hops write into
+two sets of receivers alternated: allocated once per call in one
+process, made once per layout and shared with the neighbours across
+processes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import List, Tuple
 
 import numpy as np
@@ -189,10 +193,16 @@ def ring_spgemm(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
 
 
 def ring_products(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
-                  plan: bitonic.BitonicPlan, use_rdma="auto"):
+                  plan: bitonic.BitonicPlan, use_rdma="auto",
+                  timeline: list | None = None):
     """The ring's D steps: every shard's products, (m_loc, plan.width)
     keys (SENTINEL in empty slots) and values, in the alternating-run
-    layout that K4 sorts from start_kk = 2 * run."""
+    layout that K4 sorts from start_kk = 2 * run. ``timeline``: a list
+    that receives, per step, timed events of one card (across processes
+    through K13 the home card of the hops, elsewhere the first shard's)
+    around its gather ("gather_start", "gather_end") and, across
+    processes through K13, the hop's ("start", "barrier", "copied",
+    "done" of ``rdma_ring.ring_hop_xproc``) and its host "issue_us"."""
     if not plan.viable:
         raise ValueError(
             f"ring plan not viable (width {plan.width}); split sub-runs "
@@ -204,9 +214,8 @@ def ring_products(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
     elif use_rdma and not rdma_available(mesh):
         raise ValueError("use_rdma=True: K13 needs a mesh of two or more "
                          "shards on cards that reach each other (across "
-                         "processes: each process's home card must reach "
-                         "its other cards, its left neighbour's last card "
-                         "and both neighbours' home cards; rdma_ring."
+                         "processes: each card that stores a block must "
+                         "reach the card it stores into; rdma_ring."
                          "card_gate)")
     D = A.num_shards
     m_loc, ka = A.rows_per_shard, A.width
@@ -266,17 +275,28 @@ def ring_products(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
     # two sets of receivers, alternated: step s's hop writes the set that
     # step s - 1 read (rdma_ring.ring_hop_rdma; across processes K13's
     # barrier waits for the neighbour whose set it writes)
+    overlap = mesh.spans_processes and use_rdma
     if not mesh.spans_processes:
         hop = ring_hop_rdma if use_rdma else ring_hop_plain
         recv = [alloc_receivers(bc, bv) for _ in range(2)] if D > 1 else None
     elif use_rdma:
-        hop = functools.partial(ring_hop_xproc, mesh)
+        # issued before the step's gather, on side streams: the two only
+        # read the blocks; the next gather joins the hop
+        hop = functools.partial(ring_hop_xproc, mesh, join=False)
         recv = shared_receivers(mesh, bc, bv)
     else:
         hop = functools.partial(ring_hop_processes_plain, mesh)
         recv = None
+    marked = recv[0].home if overlap and recv[0].home else devs[0]
     pad_b = chunks * run - kb
     for s in range(D):
+        marks = None if timeline is None else {}
+        if overlap and s < D - 1:
+            t0 = time.perf_counter()
+            nxt = hop(bc, bv, out=recv[s % 2], marks=marks)
+            if marks is not None:
+                marks["issue_us"] = (time.perf_counter() - t0) * 1e6
+        _mark(marks, "gather_start", marked)
         for i, d in enumerate(A.shards):
             in_blk = (owner_of[i] == (d + s) % D)[:, :, None]
             bc_p = F.pad(bc[i], (0, pad_b), value=-1).reshape(kc, run)
@@ -288,11 +308,18 @@ def ring_products(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
                                   keys[i])
             vals[i] = torch.where(sel, (a_val_e[i] * gv).to(vals[i].dtype),
                                   vals[i])
+        _mark(marks, "gather_end", marked)
+        if timeline is not None:
+            timeline.append(marks)
         if s == D - 1:
             break      # the last hop's blocks would go unused
-        bc, bv = hop(bc, bv) if recv is None else hop(bc, bv,
-                                                      out=recv[s % 2])
-    if mesh.spans_processes and use_rdma:
+        if overlap:
+            recv[s % 2].join()
+            bc, bv = nxt
+        else:
+            bc, bv = hop(bc, bv) if recv is None else hop(bc, bv,
+                                                          out=recv[s % 2])
+    if overlap:
         check_hops(recv[0])
 
     pad = width - ke * run
@@ -300,6 +327,13 @@ def ring_products(A: ShardedELL, B: ShardedELL, mesh: Mesh | None,
                    value=K.SENTINEL).contiguous() for k in keys],
             [F.pad(v.reshape(m_loc, ke * run), (0, pad)).contiguous()
              for v in vals])
+
+
+def _mark(marks, name, dev):
+    if marks is not None and dev.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(dev))
+        marks[name] = ev
 
 
 def gather_result_ell(C: ShardedELL) -> ELL:

@@ -1017,11 +1017,16 @@ def test_ring_on_the_card_launches_k13_and_k4(cuda_device):
 # x 2 cards each ("pair": cards 2p, 2p + 1 modulo the count) or x every
 # card ("every"). "hop": three hops of random blocks through K13 into
 # the alternated shared receivers, each bit for bit against the plain hop
-# of torch.distributed, one launch each; the ring on build_matrix(m=1024)
-# through K13 (D - 1 launches) bit for bit against the plain hop; and
-# use_rdma=True on a mesh of host shards spanning the processes raises.
-# "lost": process 1 never hops; process 0's hop must time out within the
-# 1 s spin limit, raise, and keep raising.
+# of torch.distributed, one launch per card a hop; the ring on
+# build_matrix(m=1024) through K13 (D - 1 launches per card) bit for bit
+# against the plain hop; and use_rdma=True on a mesh of host shards
+# spanning the processes raises. "lost": process 1 never hops; process
+# 0's hop must time out within the 1 s limit, raise, and keep raising;
+# then its card takes new work (an in-process K13 hop bit for bit, a
+# sum). "late": process 1 starts each of its last three hops 0.3 s after
+# process 0; process 0's profiler must see every K13 kernel end within
+# LATE_SLACK_US (20 us) of the longest of three hops on time (a kernel that
+# waited for the neighbour would last 0.3 s), and every hop bit for bit.
 XPROC_WORKER = """
 import sys, time
 sys.modules["jax"] = None
@@ -1034,6 +1039,7 @@ from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
 from ia_spgemm_tpu_torch.parallel.mesh import make_mesh
 pid, port, mode, backend, layout = (int(sys.argv[1]), sys.argv[2],
                                     sys.argv[3], sys.argv[4], sys.argv[5])
+LATE_SLACK_US = 20.0     # a launch's time
 multihost.initialize(f"127.0.0.1:{port}", 2, pid, backend=backend)
 n = torch.cuda.device_count()
 devices = {"card0": ["cuda:0"] * 2,
@@ -1049,13 +1055,14 @@ cols = [torch.randint(-1, 8192, (3001, 29), generator=g,
 vals = [torch.randn((3001, 29), generator=g).to(d) for d in mesh.devices]
 sets = RR.shared_receivers(mesh, cols, vals)
 assert sets[0].home == mesh.devices[RR.home_slot(mesh.devices, pid)]
+per_hop = len(set(mesh.devices))      # a launch per source card
 if mode == "hop":
     x = (cols, vals)
     for s in range(3):
         want = RR.ring_hop_processes_plain(mesh, *x)
         n13 = RR.ring_hop_rdma.launches
         got = RR.ring_hop_xproc(mesh, *x, out=sets[s % 2])
-        assert RR.ring_hop_rdma.launches == n13 + 1
+        assert RR.ring_hop_rdma.launches == n13 + per_hop
         RR.check_hops(sets[s % 2])
         assert all(torch.equal(a, b) for ga, wa in zip(got, want)
                    for a, b in zip(ga, wa)), s
@@ -1067,9 +1074,9 @@ if mode == "hop":
     plan = ring.plan_ring(A, A, D)
     n13 = RR.ring_hop_rdma.launches
     C1 = ring.ring_spgemm(S, S, mesh, plan)
-    assert RR.ring_hop_rdma.launches == n13 + D - 1
+    assert RR.ring_hop_rdma.launches == n13 + (D - 1) * per_hop
     C0 = ring.ring_spgemm(S, S, mesh, plan, use_rdma=False)
-    assert RR.ring_hop_rdma.launches == n13 + D - 1
+    assert RR.ring_hop_rdma.launches == n13 + (D - 1) * per_hop
     for f in ("col_ind", "values", "nnz_row"):
         assert all(torch.equal(p, q) for p, q in zip(getattr(C1, f),
                                                      getattr(C0, f))), f
@@ -1087,11 +1094,44 @@ if mode == "hop":
     else:
         raise AssertionError("use_rdma=True ran on host shards")
     print("HOP_OK", flush=True)
+elif mode == "late":
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, runs = (cols, vals), []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for s in range(6):
+            dist.barrier()
+            t0 = time.perf_counter()
+            if pid == 1 and s >= 3:
+                time.sleep(0.3)
+            # K13 first: the plain hop below waits for the neighbour
+            got = RR.ring_hop_xproc(mesh, *x, out=sets[s % 2])
+            want = RR.ring_hop_processes_plain(mesh, *x)
+            RR.check_hops(sets[s % 2])
+            runs.append(time.perf_counter() - t0)
+            assert all(torch.equal(a, b) for ga, wa in zip(got, want)
+                       for a, b in zip(ga, wa)), s
+            x = got
+    us = [e.time_range.end - e.time_range.start for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA
+         and "k13_ring_hop_xproc" in e.name),
+        key=lambda e: e.time_range.start)]
+    assert len(us) == 6 * per_hop, us
+    if pid == 0:
+        assert min(runs[3:]) > 0.25, runs      # the neighbour was late
+        on_time = max(us[:3 * per_hop])
+        assert max(us) <= on_time + LATE_SLACK_US, (us, on_time)
+        print(f"LATE_OK {us}", flush=True)
+    dist.barrier()
 else:
     RR.SPIN_LIMIT_S = 1.0
     if pid == 0:
         t0 = time.perf_counter()
         RR.ring_hop_xproc(mesh, cols, vals, out=sets[0])
+        # nothing checks the hop: the watchdog thread alone bounds the sync
+        torch.cuda.synchronize(dev)
+        synced = time.perf_counter() - t0
+        assert synced < 8, synced
         try:
             RR.check_hops(sets[0])
         except RuntimeError as e:
@@ -1106,6 +1146,16 @@ else:
         else:
             raise AssertionError("a failed ring hopped again")
         print(f"TIMEOUT_OK {took}", flush=True)
+        # the card takes new work: its streams drained at the release
+        blocks = [torch.full((5000, 29), float(d), device=dev)
+                  for d in range(3)]
+        got = RR.ring_hop_rdma(blocks)[0]
+        for d in mesh.devices:
+            torch.cuda.synchronize(d)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got, RR.ring_hop_plain(blocks)[0]))
+        assert float(torch.ones(1000, device=dev).sum()) == 1000.0
+        print("NEW_WORK_OK", flush=True)
     dist.barrier()
 RR.release_shared()
 dist.destroy_process_group()
@@ -1144,7 +1194,7 @@ def _xproc_workers(mode, backend="gloo", layout="card0"):
 @pytest.mark.cuda
 def test_k13_across_processes_matches_plain(cuda_device):
     """Two processes x 2 shards of the card: K13 across processes (CUDA
-    IPC receivers, the in-kernel barrier) bit for bit against the plain
+    IPC receivers, the barrier as stream waits) bit for bit against the plain
     hop of torch.distributed, its launches counted, the ring through it;
     use_rdma=True on host shards across the processes raises."""
     outs = _xproc_workers("hop")
@@ -1165,25 +1215,54 @@ def test_k13_across_processes_on_two_cards(cuda_device):
 @pytest.mark.parametrize("layout", ["pair", "every"])
 def test_k13_across_processes_over_several_cards(cuda_device, layout):
     """Two processes over gloo whose shards lie on several cards: 2 cards
-    each, and every card each. The launch on each process's home card
-    reads and stores its other cards' blocks and receivers by peer
-    access: three hops bit for bit against the plain hop, one launch
-    each; the ring on build_matrix(m=1024) through K13 (D - 1 launches)
-    bit for bit against the plain hop, its rows against scipy. Skips
-    with one card."""
+    each, and every card each. Each card that holds a source block
+    launches its copies, storing into its own or a peer card's
+    receivers: three hops bit for bit against the plain hop, a launch
+    per card each; the ring on build_matrix(m=1024) through K13 ((D - 1)
+    launches per card) bit for bit against the plain hop, its rows
+    against scipy. Skips with one card."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two or more cards")
     outs = _xproc_workers("hop", layout=layout)
     assert all("HOP_OK" in out for out in outs), outs
 
 
+@pytest.fixture(scope="module")
+def lost_neighbour_outs():
+    """The outputs of XPROC_WORKER's "lost" run, shared by its tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (and nvcc to build the kernels)")
+    return _xproc_workers("lost")
+
+
 @pytest.mark.cuda
-def test_k13_across_processes_lost_neighbour_raises(cuda_device):
-    """A worker whose neighbour never hops raises within the spin limit
-    (1 s here), and its next hop raises at once; nothing hangs (each
-    worker is bounded by communicate's timeout)."""
-    outs = _xproc_workers("lost")
-    assert "TIMEOUT_OK" in outs[0], outs
+def test_k13_across_processes_lost_neighbour_raises(lost_neighbour_outs):
+    """A worker whose neighbour never hops: a synchronisation of its card
+    right after the hop returns within the watchdog's limit (1 s here)
+    though nothing checked the hop, check_hops then raises, and its next
+    hop raises at once; nothing hangs (each worker is bounded by
+    communicate's timeout)."""
+    assert "TIMEOUT_OK" in lost_neighbour_outs[0], lost_neighbour_outs
+
+
+@pytest.mark.cuda
+def test_card_takes_new_work_after_the_watchdog_raises(
+        lost_neighbour_outs):
+    """After the watchdog gave up on a lost neighbour (it released the
+    stream waits), the worker's card runs new work: an in-process K13
+    hop bit for bit against the plain hop, and a sum."""
+    assert "NEW_WORK_OK" in lost_neighbour_outs[0], lost_neighbour_outs
+
+
+@pytest.mark.cuda
+def test_k13_across_processes_kernels_never_wait(cuda_device):
+    """The barrier is a stream wait, not a spin: while the neighbour
+    starts its hops 0.3 s late, no K13 kernel in the worker's profiler
+    trace lasts more than a launch's time (20 us) beyond the longest
+    kernel of its hops on time, and every hop equals the plain hop bit
+    for bit."""
+    outs = _xproc_workers("late")
+    assert "LATE_OK" in outs[0], outs
 
 
 @pytest.mark.cuda
