@@ -198,11 +198,20 @@ prints no result line:
     4096), a 3000 x 4096 random matrix for A @ A^T, a 5-point Laplacian
     on 64 x 64): every row ok or skipped, none failed, a winner each; an
     acceptance JSON line (the rooflines, their costs, the winners, the
-    phase's seconds).
+    phase's seconds);
+30. bench: bench.py's route competition on the port
+    (bench.headline.run_bench at m=32768, what ``python -m
+    ia_spgemm_tpu_torch.bench.headline`` prints): the flat bitonic,
+    multiclass, multiclass_pg and slab routes, each timed (wall, device
+    ms over a chain of 8 calls) with its checksum within 1e-4 of
+    scipy's and scipy's nnz (7,086,306), 9,467,057 products, the winner
+    by device ms and its pipelined wall, the three serving modes of the
+    flat plan (sparse, bf16, bf16 + sparse) measured, no roofline share
+    above SHARE_LIMIT of a peak; its JSON line, then a [30] line.
 
 Every kernel wrapper counts its launches. Phases 4, 5, 7-10, 12-15,
-17-19, 22-23, 25, 27's harvest, 28's quick harvest and 29's rooflines
-each drive a main path on its own input: the counts are set to 0 just
+17-19, 22-23, 25, 27's harvest, 28's quick harvest, 29's rooflines and
+30 each drive a main path on its own input: the counts are set to 0 just
 before each run and read just after it (a worker process starts from
 0).
 K1, K2 and K3 must have been launched in phase 4, K2, K3 and K4 in
@@ -215,7 +224,8 @@ plain-torch dist runs of 23, K13 and K4 in the workers of 25 (their
 counts summed: ring_multiproc_2x2, ring_multiproc_4x1 and, on several
 cards, ring_multiproc_2xevery), at least one
 kernel in the harvest of 27 and in the workers of 28 (harvest_quick),
-K1-K4 and K8-K11 in the rooflines of 29 (acceptance). Phase 3's
+K1-K4 and K8-K11 in the rooflines of 29 (acceptance), K1-K3, K7a, K7b
+and K8 in 30 (bench). Phase 3's
 comparison launches and those of the CLI, the workers' other runs, the
 scaling phase and 29's fixture sweep are not counted. The line before
 the last two is a JSON object with one entry per kernel
@@ -300,6 +310,10 @@ GRAD_TOL = 1e-4
 # its least time no route may beat (a count at fault or a wrong timer)
 ACCEPTANCE_KERNELS = ("K1", "K2", "K3", "K4", "K8", "K9", "K10", "K11")
 SHARE_LIMIT = 105.0
+# phase 30: the kernels of bench.py's routes and serving modes, and the
+# headline's intermediate products
+BENCH_KERNELS = ("K1", "K2", "K3", "K7a", "K7b", "K8")
+HEADLINE_PRODUCTS = 9_467_057
 
 
 def _compare(name, got, want):
@@ -1340,6 +1354,48 @@ def _acceptance_phase(by_run, reset_counts, counts, launched, dev):
         "phase_s": time.perf_counter() - t_phase}}), flush=True)
 
 
+def _bench_phase(by_run, reset_counts, counts, launched):
+    """Phase 30: bench.headline.run_bench on the card at m=32768, the
+    main-path run "bench"; its JSON line, then its checks."""
+    from ia_spgemm_tpu_torch.bench import headline
+    t0 = time.perf_counter()
+    reset_counts()
+    r = headline.run_bench(m=32768)
+    by_run["bench"] = counts()
+    launched("bench", BENCH_KERNELS)
+    print(json.dumps(r), flush=True)
+    d = r["detail"]
+    bad = {k: (v["nnz"], v["checksum_rel_err"]) for k, v in
+           d["routes"].items() if v["nnz"] != HEADLINE_NNZ
+           or not v["checksum_rel_err"] <= ORACLE_TOL}
+    if bad or set(d["routes"]) != {"bitonic", "multiclass",
+                                   "multiclass_pg", "slab"}:
+        raise AssertionError(f"bench routes {sorted(d['routes'])}: "
+                             f"(nnz, checksum error) off {bad}")
+    if (d["nnz_out"], d["intermediate_products"]) != (HEADLINE_NNZ,
+                                                       HEADLINE_PRODUCTS):
+        raise AssertionError(f"bench: nnz {d['nnz_out']}, products "
+                             f"{d['intermediate_products']}")
+    modes = ("sparse_mode_device_ms", "bf16_mode_device_ms",
+             "bf16_sparse_mode_device_ms")
+    if not all(d[k] for k in modes) or d["algorithm"] not in d["routes"]:
+        raise AssertionError(f"bench: modes {[d[k] for k in modes]}, "
+                             f"algorithm {d['algorithm']}")
+    shares = {f"{k}.{s}": d[k][s] for k in ("roofline", "roofline_device")
+              for s in ("pct_hbm_peak", "pct_compute_peak", "pct_of_sol")}
+    above = {k: v for k, v in shares.items() if v > SHARE_LIMIT}
+    if above:
+        raise AssertionError(f"bench shares above {SHARE_LIMIT}% of a "
+                             f"peak: {above}")
+    print(f"[30] bench: {d['algorithm']} wins, ours_ms {d['ours_ms']}, "
+          f"{r['value']} GFLOPS, vs scipy {r['vs_baseline']}; routes "
+          + "; ".join(f"{k} wall {v['wall_ms']} device {v['device_ms']}"
+                      for k, v in d["routes"].items())
+          + "; modes " + ", ".join(f"{k} {d[k]}" for k in modes)
+          + f"; launches {by_run['bench']}; "
+          f"{time.perf_counter() - t0} s", flush=True)
+
+
 def main() -> int:
     # the tuned fused width (reports/bench_tuning.json) must be in the
     # environment before the port's ops.bitonic is imported
@@ -1994,6 +2050,9 @@ def main() -> int:
 
     # ---- 29. the acceptance run (launch counts from 0)
     _acceptance_phase(by_run, reset_counts, counts, launched, dev)
+
+    # ---- 30. bench.py's route competition (launch counts from 0)
+    _bench_phase(by_run, reset_counts, counts, launched)
 
     torch.cuda.synchronize()
     kernels = []

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 ``nvcc`` compiles each source into its own shared library with a plain C
-interface, loaded with ``ctypes``; nothing includes PyTorch's headers, so
+interface, linked to the shared CUDA runtime (the one torch loads) and
+loaded with ``ctypes``; nothing includes PyTorch's headers, so
 a build takes seconds, and the sources build in parallel (one ``nvcc``
 each, all started together). A library is built at first use, from the
 checkout's sources only, into ``_kernels_build/`` beside this file
@@ -28,8 +29,15 @@ SOURCES = {"bitonic": _CSRC / "bitonic.cu", "slab": _CSRC / "slab.cu",
            "ring": _CSRC / "ring.cu"}
 HEADERS = (_CSRC / "sort_common.cuh",)
 BUILD_DIR = _PKG / "_kernels_build"
+# -cudart shared: the libraries use the process's one CUDA runtime, the
+# shared libcudart.so that torch loads. Each with a static runtime of its
+# own, that runtime's exit handler released the card's primary context
+# during exit(), after a torch.profiler trace had torn down the state
+# CUPTI still calls back into: free() of an invalid pointer, an abort at
+# exit (process 0 of the NCCL ring, which traces, in 4 of 5 runs).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-cudart", "shared")
 # after the source: ring.cu's stream memory operations come from libcuda
 NVCC_LIBS = ("-lcuda",)
 
@@ -89,6 +97,13 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit (PATH or CUDA_HOME)")
 
 
+def _runtime_path() -> tuple:
+    """Linker flags that find the toolkit's libcudart.so where the process
+    has loaded none (torch's, loaded first, is the one used)."""
+    lib = os.path.join(os.path.dirname(os.path.dirname(_nvcc())), "lib64")
+    return ("-Xlinker", f"-rpath,{lib}")
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LIBS).encode())
     for src in HEADERS + (SOURCES[name],):
@@ -113,7 +128,7 @@ def build() -> dict:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[name]),
-               *NVCC_LIBS]
+               *NVCC_LIBS, *_runtime_path()]
         jobs[name] = (cmd, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))

@@ -55,7 +55,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import scipy.sparse as sp
 
-from ia_spgemm_tpu_torch.bench.headline import build_matrix
+from ia_spgemm_tpu_torch.bench.headline import build_matrix, card_name
 from ia_spgemm_tpu_torch.io import suitesparse
 from ia_spgemm_tpu_torch.models import upcycle
 
@@ -343,18 +343,6 @@ def _worker_command(name: str, out: str, quick: bool,
     return cmd + ["--quick"] if quick else cmd
 
 
-def _card() -> Optional[str]:
-    """The card's name and power limit, from nvidia-smi (no CUDA
-    context)."""
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True, timeout=60).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return None
-
-
 def _run_worker(cmd: List[str], timeout_s: float):
     """(exit code or None on timeout, output) of one worker in its own
     session; past timeout_s its whole process group is killed."""
@@ -395,7 +383,7 @@ def harvest(samples_path: str, log_path: str, *, quick: bool = False,
     if samples:
         print(f"resuming with {len(samples)} saved samples", flush=True)
     log = read_log(log_path)
-    run = {"card": _card() if device == "cuda" else None, "device": device,
+    run = {"card": card_name() if device == "cuda" else None, "device": device,
            "timeout_s": timeout_s, "attempted": 0, "harvested": 0,
            "seconds": 0.0, "launches": {}}
     log["runs"].append(run)

@@ -279,13 +279,16 @@ def _selftest(argv: list[str]) -> None:
 
 
 def _close(mesh, pid: int) -> None:
-    """Drops the shared receivers, waits for every process, leaves the
-    group, and prints MULTIPROC_OK."""
+    """Waits for this process's cards, drops the shared receivers with
+    every process (``rdma_ring.release_shared``: the IPC mappings closed
+    and the shared blocks freed while CUDA and the group are up, so that
+    nothing is left for the exit to free), waits for every process,
+    leaves the group, and prints MULTIPROC_OK."""
     import torch.distributed as dist
 
     from ia_spgemm_tpu_torch.parallel import rdma_ring
-    rdma_ring.release_shared()
     _synchronize(mesh)
+    rdma_ring.release_shared()
     dist.barrier()
     dist.destroy_process_group()
     print(f"[p{pid}] MULTIPROC_OK", flush=True)

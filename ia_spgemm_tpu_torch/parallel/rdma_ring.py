@@ -500,7 +500,7 @@ class _Signals:
     that pushes, the int64 in its memory that each push copies its error
     word into first; ``done`` the event after its last hop; ``failed``
     once its watchdog gave up (every later hop raises); ``stop`` ends its
-    watchdog thread, ``watchdog``."""
+    watchdog thread, ``watchdog``; ``group`` the process group."""
     words: object
     left_words: object
     right_words: object
@@ -514,6 +514,7 @@ class _Signals:
     failed: str | None = None
     stop: threading.Event = dataclasses.field(default_factory=threading.Event)
     watchdog: threading.Thread | None = None
+    group: object = None
 
 
 class XReceivers(list):
@@ -689,7 +690,8 @@ def _signals(mesh, home, cards) -> _Signals:
     own = pages[path]
     left, right = (pages[paths[(rank + d) % world]] for d in (-1, 1))
     got = _Signals(own[0], left[0], right[0], own[2], left[2], right[2],
-                   HopCounters(), [p[1] for p in pages.values()])
+                   HopCounters(), [p[1] for p in pages.values()],
+                   group=mesh.group)
     if not _SIGNALS:
         import atexit
         atexit.register(_stop_watchdogs)
@@ -759,14 +761,46 @@ def shared_receivers(mesh, *arrays) -> list:
 def release_shared():
     """Drops every cached cross-process receiver set, signal page and
     gate (and with them the IPC mappings, the pinned pages and the
-    watchdogs): every process of the group together, once no hop is in
-    flight. A set still held raises at its next hop."""
+    watchdogs): COLLECTIVE, every process of each group together, once
+    no hop is in flight. A set still held raises at its next hop.
+
+    The order lets the process exit cleanly. A block shared by CUDA IPC
+    that its maker frees while a neighbour still has it open waits in
+    torch's IPC limbo, and what the limbo still holds at exit is freed by
+    its static destructor, after the CUDA state it frees into has gone
+    (glibc then aborts the process, or torch warns that the "producer
+    process has been terminated before all shared CUDA tensors
+    released"). So: the watchdogs stop; every card's queued work ends;
+    this process closes its mappings of its left neighbour's receivers;
+    a barrier of each group (every mapping of this process's receivers is
+    closed); then its own receivers are freed, ``torch.cuda.ipc_collect``
+    frees what waited in the limbo, and the signal pages are unpinned.
+    The sets refer to each other (``pair``), so each is emptied here
+    rather than left to the garbage collector."""
     _stop_watchdogs()
+    sets = [s for pair in _SHARED.values() for s in pair]
+    _SHARED.clear()
+    cards = list(dict.fromkeys(d for s in sets for d in s.cards))
+    for d in cards:
+        torch.cuda.synchronize(d)
+    for s in sets:
+        s.left = ()
+    if _SIGNALS:
+        import torch.distributed as dist
+        for sig in _SIGNALS.values():
+            dist.barrier(group=sig.group)
+    for s in sets:
+        s.clear()
+        s.pair = ()
+        s.tables.clear()
+        s.events.clear()
+    sets = s = None
+    if cards:
+        torch.cuda.ipc_collect()
     for sig in _SIGNALS.values():
         sig.failed = "K13 across processes: the shared receivers were released"
         for host in sig.pages:
             _build.load()["ia_k13_host_unmap"](host)
-    _SHARED.clear()
     _SIGNALS.clear()
     _GATES.clear()
 

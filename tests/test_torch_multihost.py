@@ -209,3 +209,118 @@ def test_hop_bound_ms_counts_each_cards_bytes():
     assert hop_bound_ms(list("ABCD"), n, hbm, link) == n / link * 1e3
     # two shards on A: A's memory reads 2 blocks and writes 2
     assert hop_bound_ms(list("AABC"), n, hbm, 1e9) == 4 * n / hbm * 1e3
+
+
+def test_release_shared_closes_the_mappings_before_it_frees_its_own(
+        monkeypatch):
+    """The teardown order of the shared receivers (on fake cards): the
+    cards synchronised, the mappings of the left neighbour's receivers
+    closed, a barrier of the group, then this process's receivers freed
+    and ``torch.cuda.ipc_collect``. A block freed by its maker while a
+    neighbour still maps it waits in torch's IPC limbo, and what the
+    limbo holds at exit is freed after CUDA's state has gone (process 0
+    aborted there over NCCL). The sets refer to each other, so nothing
+    may wait for the garbage collector: it is off here."""
+    import gc
+    import weakref
+
+    import torch
+    import torch.distributed as dist
+
+    from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
+    card = torch.device("cuda", 0)
+    group = object()
+    events = []
+
+    def alive(refs):
+        return [r() is not None for r in refs]
+
+    sets = [RR.XReceivers([[torch.zeros(4)], [torch.zeros(4)]])
+            for _ in range(2)]
+    mine = [weakref.ref(t) for s in sets for o in s for t in o]
+    maps = [torch.ones(4), torch.ones(4)]
+    mapped = [weakref.ref(t) for t in maps]
+    sig = RR._Signals(None, None, None, 0, 0, 0, RR.HopCounters(), [],
+                      group=group)
+    for s, t in zip(sets, maps):
+        s.left, s.peers, s.cards, s.pair = (t,), sig, (card,), tuple(sets)
+    held = [weakref.ref(s) for s in sets]
+    del maps, t, s
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda d=None: events.append(("sync", d)))
+    monkeypatch.setattr(
+        dist, "barrier", lambda group=None: events.append(
+            ("barrier", group is sig.group, alive(mapped), alive(mine))))
+    monkeypatch.setattr(torch.cuda, "ipc_collect", lambda: events.append(
+        ("collect", alive(mine), alive(held))))
+    monkeypatch.setattr(RR, "_SHARED", {"key": sets})
+    monkeypatch.setattr(RR, "_SIGNALS", {id(group): sig})
+    del sets
+    gc.disable()
+    try:
+        RR.release_shared()
+    finally:
+        gc.enable()
+    assert events == [("sync", card),
+                      ("barrier", True, [False] * 2, [True] * 4),
+                      ("collect", [False] * 4, [False] * 2)]
+    assert not RR._SHARED and not RR._SIGNALS
+    assert sig.failed and "released" in sig.failed
+
+
+def test_close_synchronises_then_releases_before_it_leaves(monkeypatch,
+                                                           capsys):
+    """multihost's exit: this process's cards, then the collective
+    release of the shared receivers, a barrier, and only then the group
+    destroyed (the release needs the group)."""
+    import torch.distributed as dist
+
+    from ia_spgemm_tpu_torch.parallel import multihost
+    from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
+    calls = []
+    monkeypatch.setattr(multihost, "_synchronize",
+                        lambda mesh: calls.append("synchronize"))
+    monkeypatch.setattr(RR, "release_shared",
+                        lambda: calls.append("release_shared"))
+    monkeypatch.setattr(dist, "barrier", lambda: calls.append("barrier"))
+    monkeypatch.setattr(dist, "destroy_process_group",
+                        lambda: calls.append("destroy"))
+    multihost._close(None, 3)
+    assert calls == ["synchronize", "release_shared", "barrier", "destroy"]
+    assert capsys.readouterr().out == "[p3] MULTIPROC_OK\n"
+
+
+def test_kernels_link_the_processes_shared_cuda_runtime(tmp_path,
+                                                        monkeypatch):
+    """Every kernel library links the shared CUDA runtime (``-cudart
+    shared``, the libcudart.so torch loads), with the toolkit's lib64 as
+    a fallback path. With a static runtime in each library, that
+    runtime's exit handler released the card's primary context during
+    exit(), after a torch.profiler trace had torn down the state CUPTI
+    calls back into: process 0 of the NCCL ring aborted at exit."""
+    import subprocess
+
+    from ia_spgemm_tpu_torch import _build
+    cmds = []
+
+    class Nvcc:
+        def __init__(self, cmd, **kw):
+            cmds.append(cmd)
+            self.returncode = 0
+            open(cmd[cmd.index("-o") + 1], "w").close()
+
+        def communicate(self):
+            return ("", None)
+
+    monkeypatch.setattr(_build, "_nvcc", lambda: "/opt/cuda/bin/nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(subprocess, "Popen", Nvcc)
+    paths = _build.build()
+    assert sorted(paths) == sorted(_build.SOURCES)
+    assert len(cmds) == len(_build.SOURCES)
+    for cmd in cmds:
+        i = cmd.index("-cudart")
+        assert cmd[i + 1] == "shared"
+        j = cmd.index("-Xlinker", cmd.index("-o"))
+        assert cmd[j + 1] == "-rpath,/opt/cuda/lib64"
+    assert all(p.parent == tmp_path and p.exists() for p in paths.values())
