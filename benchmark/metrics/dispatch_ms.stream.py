@@ -1,0 +1,8 @@
+"""dispatch_ms.stream: median host ms to issue one planned call without
+waiting for it, each sample drained afterwards, taken before the
+profiler starts (the cells whose caller streams, as BENCHMARK.json
+lists them)."""
+
+
+def read(run):
+    return run.dispatch_ms
