@@ -36,6 +36,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from ia_spgemm_tpu_torch import tracing
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
@@ -51,9 +53,8 @@ def trace(log_dir: str):
         yield log_dir
 
 
-def annotate(name: str):
-    """Named span that shows up inside profiler traces."""
-    return torch.profiler.record_function(name)
+# a named span that shows up inside profiler traces: the port's one span
+annotate = tracing.span
 
 
 def _result_device(out) -> torch.device:

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ia_spgemm_tpu_torch import config as cfg
+from ia_spgemm_tpu_torch import tracing
 from ia_spgemm_tpu_torch.formats.types import ELL, BlockCSR
 from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
 
@@ -609,21 +610,29 @@ def _host_fragments(A, b_len_h, widths, run, startp, F_B, idx_h, kas,
 
 # ---------------------------------------------------------- kernel routing
 
+def _gather_source(table, rT, width: int):
+    """(src, rT) of a class read from the wide table through the fragment
+    index rT, as _sort_compress_from_gather takes them: K1 (up to
+    FUSED_MAX_WIDTH) reads the gather g = table[rT]; K2 reads the table
+    through rT itself."""
+    if width <= FUSED_MAX_WIDTH:
+        return K.table_gather(table, rT), None
+    return table, rT
+
+
 def _sort_compress_from_gather(src, avT, *, width: int, run: int, ka: int,
                                start_kk: int, out_width: int | None = None,
                                compact: bool = True, pack: int = 1,
                                rT=None):
     """Expand-from-gather pipeline of one width class, from the gather
-    ``src`` = g, or (``rT`` given) the wide table ``src`` read through
-    the fragment index rT: K1 up to FUSED_MAX_WIDTH (which always
-    compacts, as in the JAX package; it takes g = table[rT]), K2 + K3
-    above (K2 reads the table itself). Returns (col (m, out_w), val, nnz
-    (m, 1))."""
+    ``src`` = g, or (``rT`` given, K2 only: ``_gather_source``) the wide
+    table ``src`` read through the fragment index rT: K1 up to
+    FUSED_MAX_WIDTH (which always compacts, as in the JAX package), K2 +
+    K3 above. Returns (col (m, out_w), val, nnz (m, 1))."""
     out_w = width if (out_width is None or not compact) \
         else min(out_width, width)
     if width <= FUSED_MAX_WIDTH:
-        g = src if rT is None else K.table_gather(src, rT)
-        return K.expand_sort_compress(g, avT, ka=ka, run=run, width=width,
+        return K.expand_sort_compress(src, avT, ka=ka, run=run, width=width,
                                       start_kk=start_kk, out_w=out_w,
                                       pack=pack)
     key, val = K.expand_sort(src, avT, ka=ka, run=run, width=width,
@@ -657,7 +666,17 @@ class MulticlassCall:
     fragments' A values (F_c, n_pad); with ``plan_device`` both lists
     are empty and every call builds them on the device. ``src_full`` /
     ``blk_ptr`` are the BlockCSR assembly map and spans
-    (assemble="bcsr")."""
+    (assemble="bcsr"). ``sort_slots`` (sum of counts x widths: the slots
+    the kernels sort, bucket padding included) and ``out_slots`` (the
+    result's slots: blk_ptr[-1] x 128, or m x out_w) are plan constants
+    that each call adds to the counters ``tiled.sort_slots`` /
+    ``tiled.out_slots``.
+
+    Spans (``tracing``; recorded only while tracing is active):
+    ``tiled.call`` (args ``call=<n>``, n the call's ``tiled.calls``)
+    around ``tiled.expand.w<W>`` (the torch work that builds class W's
+    products or fragment rows), ``tiled.sort.w<W>`` (its kernel
+    launches), ``tiled.assemble`` and ``tiled.result``."""
 
     A: ELL
     B: ELL
@@ -677,72 +696,99 @@ class MulticlassCall:
     src_full: torch.Tensor | None = None
     blk_ptr: torch.Tensor | None = None
     plan_device: bool = False
+    sort_slots: int = 0
+    out_slots: int = 0
 
     def __call__(self):
-        return _results(self, _multiclass_fn(self))
+        tracing.count_all((("tiled.calls", 1),
+                           ("tiled.sort_slots", self.sort_slots),
+                           ("tiled.out_slots", self.out_slots)))
+        sp = tracing.tracer(self.table.device)
+        if sp is None:
+            return _results(self, _multiclass_fn(self, None))
+        with sp.top("tiled.call", f"call={tracing.counter('tiled.calls')}"):
+            out = _multiclass_fn(self, sp)
+            sp.leaf("tiled.result")
+            return _results(self, out)
 
 
-def _multiclass_fn(c: MulticlassCall):
-    """Run every class's kernels and assemble the rows."""
+def _multiclass_fn(c: MulticlassCall, sp):
+    """Run every class's kernels and assemble the rows. ``sp``, the
+    call's ``tracing.Tracer`` (None: tracing off), opens the leaf spans
+    in turn: per class ``tiled.expand.w<W>`` (the torch work that builds
+    its products or fragment rows) and ``tiled.sort.w<W>`` (its kernel
+    launches), then ``tiled.assemble``."""
     run = c.run
     start_kk = 2 * run
     kt = c.table.shape[0] - 1
     f32 = c.A.dtype == torch.float32 and c.B.dtype == torch.float32
-    frags, avts = c.frags, c.avts
-    if c.plan_device:
-        # the fragment matrices built on the device in every call, the
-        # JAX package's in-graph plan_device path
-        frags, avts = zip(*(
-            _pregather_class(c.A.col_ind, c.A.values, c.B.nnz_row,
-                             c.idxs[i], c.table, run=run, F_c=c.kas[i],
-                             F_B=kt, m=c.A.nrows, gather=False)
-            for i in range(len(c.widths))))
     cols_p, vals_p, nnz_p = [], [], []
     for i, w in enumerate(c.widths):
         out_c = min(c.out_w, w)
+        if sp:
+            sp.leaf(f"tiled.expand.w{w}")
         if c.ragged:
-            F_c, avT = c.kas[i], avts[i]
-            if w <= TRANSPOSED_MAX_WIDTH and c.pregather:
-                out = _sort_compress_from_gather(
-                    frags[i], avT, width=w, run=run, ka=F_c,
-                    start_kk=start_kk, out_width=out_c,
-                    pack=_pg_pack(run, w))
-            elif w <= TRANSPOSED_MAX_WIDTH:
-                out = _sort_compress_from_gather(
-                    c.table, avT, width=w, run=run, ka=F_c,
-                    start_kk=start_kk, out_width=out_c, rT=frags[i])
+            F_c = c.kas[i]
+            if c.plan_device:
+                # the fragment matrices built on the device in every call,
+                # the JAX package's in-graph plan_device path
+                frag, avT = _pregather_class(
+                    c.A.col_ind, c.A.values, c.B.nnz_row, c.idxs[i],
+                    c.table, run=run, F_c=F_c, F_B=kt, m=c.A.nrows,
+                    gather=False)
             else:
-                key, val = _expand_rows(c.table, frags[i].T, avT.T,
-                                        run=run, width=w)
+                frag, avT = c.frags[i], c.avts[i]
+            if w > TRANSPOSED_MAX_WIDTH:
+                key, val = _expand_rows(c.table, frag.T, avT.T, run=run,
+                                        width=w)
+                if sp:
+                    sp.leaf(f"tiled.sort.w{w}")
                 out = K.sort_compress_rows(key, val, width=w,
                                            start_kk=start_kk)
+            else:
+                src, rT, pack = ((frag, None, _pg_pack(run, w))
+                                 if c.pregather else
+                                 _gather_source(c.table, frag, w) + (1,))
+                if sp:
+                    sp.leaf(f"tiled.sort.w{w}")
+                out = _sort_compress_from_gather(
+                    src, avT, width=w, run=run, ka=F_c, start_kk=start_kk,
+                    out_width=out_c, pack=pack, rT=rT)
+        elif w <= TRANSPOSED_MAX_WIDTH and f32:
+            # every float32 class of these widths takes the gather
+            # kernels: the JAX package's entry-budget gate (K5 above it)
+            # is a VMEM limit with no counterpart here, same results
+            ac = _take_rows(c.A.col_ind, c.idxs[i])[:, :c.kas[i]]
+            av = _take_rows(c.A.values, c.idxs[i])[:, :c.kas[i]]
+            ac_e, av_e, ka_e = _chunk_entries(ac, av, c.chunks)
+            src, rT = _gather_source(
+                c.table, _table_rows(ac_e, kt).T.to(torch.int32).contiguous(),
+                w)
+            avT = av_e.T.contiguous()
+            if sp:
+                sp.leaf(f"tiled.sort.w{w}")
+            out = _sort_compress_from_gather(
+                src, avT, width=w, run=run, ka=ka_e, start_kk=start_kk,
+                out_width=out_c, rT=rT)
         else:
             ac = _take_rows(c.A.col_ind, c.idxs[i])[:, :c.kas[i]]
             av = _take_rows(c.A.values, c.idxs[i])[:, :c.kas[i]]
-            if w <= TRANSPOSED_MAX_WIDTH and f32:
-                # every float32 class of these widths takes the gather
-                # kernels: the JAX package's entry-budget gate (K5 above
-                # it) is a VMEM limit with no counterpart here, same
-                # results
-                ac_e, av_e, ka_e = _chunk_entries(ac, av, c.chunks)
-                rT = _table_rows(ac_e, kt).T.to(torch.int32).contiguous()
-                out = _sort_compress_from_gather(
-                    c.table, av_e.T.contiguous(), width=w, run=run,
-                    ka=ka_e, start_kk=start_kk, out_width=out_c, rT=rT)
-            else:
-                key, val = _expand_ell(ac, av, c.B.col_ind, c.B.values,
-                                       width=w, run=run, chunks=c.chunks)
-                out = (_sort_compress_cols(key, val, width=w,
-                                           start_kk=start_kk,
-                                           out_width=out_c)
-                       if w <= TRANSPOSED_MAX_WIDTH else
-                       K.sort_compress_rows(key, val, width=w,
-                                            start_kk=start_kk))
+            key, val = _expand_ell(ac, av, c.B.col_ind, c.B.values,
+                                   width=w, run=run, chunks=c.chunks)
+            if sp:
+                sp.leaf(f"tiled.sort.w{w}")
+            out = (_sort_compress_cols(key, val, width=w, start_kk=start_kk,
+                                       out_width=out_c)
+                   if w <= TRANSPOSED_MAX_WIDTH else
+                   K.sort_compress_rows(key, val, width=w,
+                                        start_kk=start_kk))
         col_c, val_c, nnz_c = out
         cols_p.append(col_c[:, :out_c])
         vals_p.append(val_c[:, :out_c])
         nnz_p.append(nnz_c)
     m = c.A.nrows
+    if sp:
+        sp.leaf("tiled.assemble")
     if c.assemble == "bcsr":
         return _assemble_bcsr(cols_p, vals_p, nnz_p, c.idxs, c.src_full, m=m)
     dev = c.table.device
@@ -777,8 +823,9 @@ def _finish_build(A, B, *, widths, kas, counts, run, chunks, out_w, ragged,
     """BlockCSR assembly map (host, m-sized) and the runnable call.
     Row r owns ocs[class(r)]/128 blocks, 0 when its A row is empty."""
     src_full = blk_ptr = None
+    m = A.nrows
+    out_slots = m * out_w
     if assemble == "bcsr":
-        m = A.nrows
         ocs = [min(out_w, int(w)) for w in widths]
         nblk = [counts[c] * ocs[c] // 128 for c in range(len(widths))]
         base = np.concatenate([[0], np.cumsum(nblk)])
@@ -792,6 +839,7 @@ def _finish_build(A, B, *, widths, kas, counts, run, chunks, out_w, ragged,
         bpr_h[lens_h == 0] = 0
         blk_ptr_h = np.concatenate([[0], np.cumsum(bpr_h)])
         nb_out = int(blk_ptr_h[-1])
+        out_slots = nb_out * 128
         src_full_h = np.repeat(src_start_h, bpr_h) \
             + (np.arange(nb_out, dtype=np.int64)
                - np.repeat(blk_ptr_h[:-1], bpr_h))
@@ -802,7 +850,10 @@ def _finish_build(A, B, *, widths, kas, counts, run, chunks, out_w, ragged,
                           out_w=out_w, ragged=ragged, assemble=assemble,
                           pregather=pregather, idxs=idxs, frags=frags,
                           avts=avts, table=table, src_full=src_full,
-                          blk_ptr=blk_ptr, plan_device=plan_device)
+                          blk_ptr=blk_ptr, plan_device=plan_device,
+                          sort_slots=sum(int(n) * int(w) for n, w in
+                                         zip(counts, widths)),
+                          out_slots=out_slots)
 
 
 def _results(call: MulticlassCall, out):
@@ -820,19 +871,21 @@ def _results(call: MulticlassCall, out):
 # Planned calls keyed by the identity AND the version counter of the
 # operand tensors: torch tensors are mutable, so an in-place edit bumps
 # `_version` and misses. Entries pin their anchors (ids stay unique); the
-# FIFO bound caps how much device memory cached plans hold.
+# FIFO bound caps how much device memory cached plans hold. Hits and
+# misses are the counters plan_cache.hits / plan_cache.misses.
 _BUILD_CACHE: dict = {}
-_BUILD_CACHE_STATS = {"hits": 0, "misses": 0}
 _BUILD_CACHE_MAX = 2
+_CACHE_COUNTERS = ("plan_cache.hits", "plan_cache.misses")
 
 
 def clear_plan_cache():
     _BUILD_CACHE.clear()
-    _BUILD_CACHE_STATS.update(hits=0, misses=0)
+    tracing.reset_counters(_CACHE_COUNTERS)
 
 
 def plan_cache_stats():
-    return dict(_BUILD_CACHE_STATS)
+    return {"hits": tracing.counter("plan_cache.hits"),
+            "misses": tracing.counter("plan_cache.misses")}
 
 
 def _multiclass_build(A: ELL, B: ELL, **kw):
@@ -842,9 +895,9 @@ def _multiclass_build(A: ELL, B: ELL, **kw):
            tuple(sorted(kw.items())))
     cached = _BUILD_CACHE.get(key)
     if cached is not None:
-        _BUILD_CACHE_STATS["hits"] += 1
+        tracing.count("plan_cache.hits")
         return cached[0]
-    _BUILD_CACHE_STATS["misses"] += 1
+    tracing.count("plan_cache.misses")
     call = _multiclass_build_uncached(A, B, **kw)
     if len(_BUILD_CACHE) >= _BUILD_CACHE_MAX:
         _BUILD_CACHE.pop(next(iter(_BUILD_CACHE)))
@@ -875,9 +928,11 @@ def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
     b_len_h = B.nnz_row.cpu().numpy().astype(np.int64) if f32 else None
     probe = (dict(a_col_dev=A.col_ind, b_len_dev=B.nnz_row) if plan_device
              else dict(a_col_h=A.col_ind.cpu().numpy(), b_len_h=b_len_h))
-    plan, W = plan_multiclass(lens, kb, max_classes=max_classes,
-                              **(probe if f32 else {}), layout=layout,
-                              run_override=run_override)
+    dev = A.device
+    with tracing.span("plan.classes", device=dev):
+        plan, W = plan_multiclass(lens, kb, max_classes=max_classes,
+                                  **(probe if f32 else {}), layout=layout,
+                                  run_override=run_override)
     if not plan.viable:
         return None
     widths, run, chunks = plan.widths, plan.run, plan.chunks
@@ -910,9 +965,10 @@ def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
             idx_h.append(idx)
             kas.append(max(1, int(w) // run))
             counts.append(int(n_pad))
-        table = _ragged_table(B.col_ind, B.values,
-                              torch.from_numpy(frag_src).to(A.device),
-                              run=run, cm=cm)
+        with tracing.span("plan.table", device=dev):
+            table = _ragged_table(B.col_ind, B.values,
+                                  torch.from_numpy(frag_src).to(A.device),
+                                  run=run, cm=cm)
         pregather = pregather and not plan_device
         if pregather:
             lanes = int(table.shape[1])
@@ -923,14 +979,14 @@ def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
             if g_bytes > PREGATHER_BUDGET_BYTES or not any(
                     int(w) <= TRANSPOSED_MAX_WIDTH for w in widths):
                 pregather = False
-        if plan_device:
-            pass    # every call builds them (_multiclass_fn)
-        elif pregather:
-            frags, avts = _pregather_fragments_device(
-                A, B, widths, run, idxs, kas, table, m)
-        else:
-            frags, avts = _host_fragments(A, b_len_h, widths, run, startp,
-                                          F_B, idx_h, kas, counts)
+        if not plan_device:     # plan_device: every call builds them
+            with tracing.span("plan.fragments", device=dev):
+                frags, avts = (
+                    _pregather_fragments_device(A, B, widths, run, idxs,
+                                                kas, table, m)
+                    if pregather else
+                    _host_fragments(A, b_len_h, widths, run, startp, F_B,
+                                    idx_h, kas, counts))
     else:
         pregather = False
         per_entry = chunks * run
@@ -941,16 +997,19 @@ def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
             kas.append(max(1, min(A.max_nnz_per_row, w // per_entry)))
             counts.append(int(n_pad))
         # other types take _expand_ell: a one-row sentinel table
-        table = (_build_wide_table(B.col_ind, B.values, run=run,
-                                   chunks=chunks)[0] if f32 else
-                 torch.full((1, 128), -1, dtype=torch.int32,
-                            device=A.device))
-    return _finish_build(A, B, widths=widths, kas=kas, counts=counts,
-                         run=run, chunks=0 if plan.ragged else chunks,
-                         out_w=out_w, ragged=plan.ragged,
-                         assemble=assemble, pregather=pregather, idxs=idxs,
-                         idx_h=idx_h, frags=frags, avts=avts, table=table,
-                         plan_device=plan_device and plan.ragged)
+        with tracing.span("plan.table", device=dev):
+            table = (_build_wide_table(B.col_ind, B.values, run=run,
+                                       chunks=chunks)[0] if f32 else
+                     torch.full((1, 128), -1, dtype=torch.int32,
+                                device=A.device))
+    with tracing.span("plan.assembly_map", device=dev):
+        return _finish_build(A, B, widths=widths, kas=kas, counts=counts,
+                             run=run, chunks=0 if plan.ragged else chunks,
+                             out_w=out_w, ragged=plan.ragged,
+                             assemble=assemble, pregather=pregather,
+                             idxs=idxs, idx_h=idx_h, frags=frags, avts=avts,
+                             table=table,
+                             plan_device=plan_device and plan.ragged)
 
 
 def multiclass_planned(A: ELL, B: ELL, *, max_classes: int = 4,
@@ -1067,8 +1126,9 @@ def spgemm_bitonic(A: ELL, B: ELL, plan: BitonicPlan | None = None,
         table, rT, avT = _flat_table(A.col_ind, A.values, B.col_ind,
                                      B.values, run=plan.run,
                                      chunks=plan.chunks)
+        src, rT = _gather_source(table, rT, plan.width)
         col, val, nnz = _sort_compress_from_gather(
-            table, avT, width=plan.width, run=plan.run, ka=ka_eff,
+            src, avT, width=plan.width, run=plan.run, ka=ka_eff,
             start_kk=start_kk, out_width=out_width, compact=compact, rT=rT)
     else:
         key, v = _expand_ell(A.col_ind, A.values, B.col_ind, B.values,

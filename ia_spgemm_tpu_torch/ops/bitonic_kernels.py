@@ -22,10 +22,10 @@ K7a reads the table.
 
 (file:line of the JAX package.) Each wrapper checks its operands, then:
 on CUDA tensors it launches the hand-written kernel of
-``csrc/bitonic.cu`` on the current stream and adds one to its
-``launches`` count; on CPU tensors it runs the plain PyTorch version of the
-same function (the ``*_plain`` function beside it). There is no fallback:
-a failed build or launch raises.
+``csrc/bitonic.cu`` on the current stream and adds one to its launch
+counter (``launch.<K>`` in ``tracing``); on CPU tensors it runs the plain
+PyTorch version of the same function (the ``*_plain`` function beside
+it). There is no fallback: a failed build or launch raises.
 
 Layouts (row-major, one output row per matrix row):
 
@@ -58,6 +58,8 @@ so duplicate sums agree to the values' rounding, and structure exactly.
 from __future__ import annotations
 
 import torch
+
+from ia_spgemm_tpu_torch import tracing
 
 SENTINEL = 2**31 - 1
 MIN_WIDTH = 128
@@ -335,7 +337,7 @@ def expand_sort_compress(g, avT, *, ka: int, run: int, width: int,
         _launch("ia_k1_expand_sort_compress", g, avT, col, val, nnz, m, ka,
                 g.shape[2], run, pack, width, start_kk, out_w,
                 device=avT.device)
-        expand_sort_compress.launches += 1
+        tracing.count("launch.K1")
     return col, val, nnz
 
 
@@ -368,7 +370,7 @@ def expand_sort(src, avT, *, ka: int, run: int, width: int,
             _launch("ia_k2_expand_sort_table", src, rT, avT, key, val, m,
                     ka, src.shape[1], run, width, start_kk,
                     device=avT.device)
-        expand_sort.launches += 1
+        tracing.count("launch.K2")
     return key, val
 
 
@@ -390,7 +392,7 @@ def compress(key, val, *, width: int, out_w: int, compact: bool = True):
     if col.shape[0]:
         _launch(_entry("ia_k3_compress", val), key, val, col, out, nnz,
                 col.shape[0], width, out_w, int(compact), device=key.device)
-        compress.launches += 1
+        tracing.count("launch.K3")
     return col, out, nnz
 
 
@@ -408,7 +410,7 @@ def sort_compress_rows(key, val, *, width: int, start_kk: int):
     if col.shape[0]:
         _launch(_entry("ia_k4_sort_compress_rows", val), key, val, col, out,
                 nnz, col.shape[0], width, start_kk, device=key.device)
-        sort_compress_rows.launches += 1
+        tracing.count("launch.K4")
     return col, out, nnz
 
 
@@ -429,7 +431,7 @@ def sort_compress(key, val, *, width: int, start_kk: int, out_w: int):
     if col.shape[0]:
         _launch(_entry("ia_k5_sort_compress", val), key, val, col, out, nnz,
                 col.shape[0], width, start_kk, out_w, device=key.device)
-        sort_compress.launches += 1
+        tracing.count("launch.K5")
     return col, out, nnz
 
 
@@ -445,7 +447,7 @@ def sort_only(key, val, *, width: int, start_kk: int):
     if key.shape[0]:
         _launch(_entry("ia_k6_sort", val), key, val, k_s, v_s, key.shape[0],
                 width, start_kk, device=key.device)
-        sort_only.launches += 1
+        tracing.count("launch.K6")
     return k_s, v_s
 
 
@@ -467,7 +469,7 @@ def expand_sort_packed(table, rT, avT, *, ka: int, run: int, width: int,
     if m:
         _launch("ia_k7a_expand_sort_packed", table, rT, avT, p, m, ka,
                 table.shape[1], run, width, start_kk, device=avT.device)
-        expand_sort_packed.launches += 1
+        tracing.count("launch.K7a")
     return p
 
 
@@ -492,21 +494,18 @@ def compress_packed(p, *, width: int, out_w: int, compact: bool = True):
     if m:
         _launch("ia_k7b_compress_packed", p, col, out, nnz, m, width, out_w,
                 int(compact), device=p.device)
-        compress_packed.launches += 1
+        tracing.count("launch.K7b")
     return col, out, nnz
 
 
 KERNELS = {"K1": expand_sort_compress, "K2": expand_sort, "K3": compress,
            "K4": sort_compress_rows, "K5": sort_compress, "K6": sort_only,
            "K7a": expand_sort_packed, "K7b": compress_packed}
-for _fn in KERNELS.values():
-    _fn.launches = 0
 
 
 def reset_launch_counts():
-    for fn in KERNELS.values():
-        fn.launches = 0
+    tracing.reset_launches(KERNELS)
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return tracing.launches(KERNELS)

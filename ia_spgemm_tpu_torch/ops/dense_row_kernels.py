@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ia_spgemm_tpu_torch import tracing
 from ia_spgemm_tpu_torch.ops.bitonic_kernels import (_VALUE_TYPES,
                                                      _check_tensor,
                                                      _cuda_or_raise, _entry,
@@ -64,17 +65,16 @@ def dense_row(a_col, a_val, b):
     if m and n:
         _launch(_entry("ia_k11_dense_row", b), a_col, a_val, b, out, m, K,
                 n, device=dev)
-        dense_row.launches += 1
+        tracing.count("launch.K11")
     return out
 
 
 KERNELS = {"K11": dense_row}
-dense_row.launches = 0
 
 
 def reset_launch_counts():
-    dense_row.launches = 0
+    tracing.reset_launches(KERNELS)
 
 
 def launch_counts() -> dict:
-    return {"K11": dense_row.launches}
+    return tracing.launches(KERNELS)

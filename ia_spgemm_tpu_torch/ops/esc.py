@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ia_spgemm_tpu_torch import config as cfg
+from ia_spgemm_tpu_torch import tracing
 from ia_spgemm_tpu_torch.formats.types import COO, CSR
 from ia_spgemm_tpu_torch.utils.scans import entry_rows, segment_broadcast
 
@@ -438,13 +439,14 @@ def plan_csr_tiled(A: CSR, B: CSR, *, out_width: int | None = None):
         return None
     from ia_spgemm_tpu_torch.formats import convert
     from ia_spgemm_tpu_torch.ops import bitonic
-    ka = convert.plan_ell_width(A)
-    kb = convert.plan_ell_width(B)
-    if (A.nrows * max(ka, 1) > TILED_ELL_BUDGET_ELEMS
-            or B.nrows * max(kb, 1) > TILED_ELL_BUDGET_ELEMS):
-        return None
-    A_ell = convert.csr_to_ell(A, width=ka, check_guard=False)
-    B_ell = convert.csr_to_ell(B, width=kb, check_guard=False)
+    with tracing.span("plan.ell", device=A.device):
+        ka = convert.plan_ell_width(A)
+        kb = convert.plan_ell_width(B)
+        if (A.nrows * max(ka, 1) > TILED_ELL_BUDGET_ELEMS
+                or B.nrows * max(kb, 1) > TILED_ELL_BUDGET_ELEMS):
+            return None
+        A_ell = convert.csr_to_ell(A, width=ka, check_guard=False)
+        B_ell = convert.csr_to_ell(B, width=kb, check_guard=False)
     return bitonic.multiclass_planned(A_ell, B_ell, assemble="bcsr",
                                       out_width=out_width)
 
@@ -524,22 +526,29 @@ def plan_csr_auto(A: CSR, B: CSR, plan: SpGEMMPlan | None = None,
     """Plan the production CSR @ CSR route: the cheapest predicted engine
     whose full planner accepts the problem. Returns (route, zero-argument
     call); the call returns BlockCSR (tiled), SlabCSR (slab), HybridCSR
-    (hybrid) or CSR (global), all with checksum/to_scipy/nnz."""
+    (hybrid) or CSR (global), all with checksum/to_scipy/nnz.
+
+    Spans (``tracing``, while it is active): ``plan`` around the whole,
+    ``plan.route`` around the cost model, and the tiled planner's
+    ``plan.ell``, ``plan.classes``, ``plan.table``, ``plan.fragments``,
+    ``plan.assembly_map``."""
     from ia_spgemm_tpu_torch.ops import slab as slab_mod
-    pred = predict_csr_route_ms(A, B)
-    for route in sorted(pred, key=pred.get):
-        if route == "tiled":
-            call = plan_csr_tiled(A, B)
-        elif route == "slab":
-            call = slab_mod.plan_slab_csr(A, B)
-        elif route == "hybrid":
-            call = slab_mod.plan_slab_hybrid(A, B)
-        else:
-            esc_plan = plan if plan is not None \
-                else plan_spgemm(A, B, bucket=bucket)
-            return "global", lambda: spgemm_csr(A, B, esc_plan)
-        if call is not None:
-            return route, call
+    with tracing.span("plan", device=A.device):
+        with tracing.span("plan.route", device=A.device):
+            pred = predict_csr_route_ms(A, B)
+        for route in sorted(pred, key=pred.get):
+            if route == "tiled":
+                call = plan_csr_tiled(A, B)
+            elif route == "slab":
+                call = slab_mod.plan_slab_csr(A, B)
+            elif route == "hybrid":
+                call = slab_mod.plan_slab_hybrid(A, B)
+            else:
+                esc_plan = plan if plan is not None \
+                    else plan_spgemm(A, B, bucket=bucket)
+                return "global", lambda: spgemm_csr(A, B, esc_plan)
+            if call is not None:
+                return route, call
     raise AssertionError("unreachable: 'global' is always a candidate")
 
 

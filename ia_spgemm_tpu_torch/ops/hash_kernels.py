@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ia_spgemm_tpu_torch import tracing
 from ia_spgemm_tpu_torch.ops import bitonic_kernels as BK
 from ia_spgemm_tpu_torch.ops.bitonic_kernels import (SENTINEL, _check_tensor,
                                                      _cuda_or_raise, _launch)
@@ -71,17 +72,16 @@ def hash_accumulate(a_col, a_val, b_col, b_val, *, table_size: int):
     if m:
         _launch("ia_k12_hash", a_col, a_val, b_col, b_val, col, val, nnz, m,
                 Ka, b_col.shape[1], table_size, device=dev)
-        hash_accumulate.launches += 1
+        tracing.count("launch.K12")
     return col, val, nnz
 
 
 KERNELS = {"K12": hash_accumulate}
-hash_accumulate.launches = 0
 
 
 def reset_launch_counts():
-    hash_accumulate.launches = 0
+    tracing.reset_launches(KERNELS)
 
 
 def launch_counts() -> dict:
-    return {"K12": hash_accumulate.launches}
+    return tracing.launches(KERNELS)

@@ -10,7 +10,7 @@
 sums is K3 (``bitonic_kernels.compress``) on the slab rows. Each wrapper
 checks its operands, then: on CUDA tensors it launches the hand-written
 kernel of ``csrc/slab.cu`` on the current stream and adds one to its
-``launches`` count; on CPU tensors it runs the plain PyTorch version
+launch counter; on CPU tensors it runs the plain PyTorch version
 beside it. There is no fallback: a failed build or launch raises.
 
 Layouts (row-major, one slab per row):
@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import torch
 
+from ia_spgemm_tpu_torch import tracing
 from ia_spgemm_tpu_torch.ops import bitonic_kernels as BK
 from ia_spgemm_tpu_torch.ops.bitonic_kernels import SENTINEL
 
@@ -119,7 +120,7 @@ def compress_dd_plain(key, val, *, width):
 
 # ------------------------------------------------------------------ wrappers
 
-def _expand_sort(wrapper, plain, name, val_dtype, table, mt, avT, lrT, ka,
+def _expand_sort(kernel, plain, name, val_dtype, table, mt, avT, lrT, ka,
                  run, width, n, start_kk):
     _check_width(width, start_kk)
     _check_slab_gather(table, mt, avT, lrT, ka, run, width, n)
@@ -134,7 +135,7 @@ def _expand_sort(wrapper, plain, name, val_dtype, table, mt, avT, lrT, ka,
     if S:
         BK._launch(name, table, mt, avT, lrT, key, val, S, ka,
                    table.shape[1], run, width, n, start_kk, device=dev)
-        wrapper.launches += 1
+        tracing.count("launch." + kernel)
     return key, val
 
 
@@ -143,7 +144,7 @@ def expand_sort_lr(table, mt, avT, lrT, *, ka: int, run: int, width: int,
     """K8: expand from the table through mt, with slab-local row keys, +
     one sort per slab. Returns sorted (key (S, width) int32, val (S,
     width) float32)."""
-    return _expand_sort(expand_sort_lr, expand_sort_lr_plain,
+    return _expand_sort("K8", expand_sort_lr_plain,
                         "ia_k8_expand_sort_lr", torch.float32, table, mt,
                         avT, lrT, ka, run, width, n, start_kk)
 
@@ -152,7 +153,7 @@ def expand_sort_lr_dd(table, mt, avT, lrT, *, ka: int, run: int, width: int,
                       n: int, start_kk: int):
     """K9: K8 with exact float64 products. Returns sorted (key (S, width)
     int32, val (S, width) float64)."""
-    return _expand_sort(expand_sort_lr_dd, expand_sort_lr_dd_plain,
+    return _expand_sort("K9", expand_sort_lr_dd_plain,
                         "ia_k9_expand_sort_lr_dd", torch.float64, table, mt,
                         avT, lrT, ka, run, width, n, start_kk)
 
@@ -178,20 +179,17 @@ def compress_dd(key, val, *, width: int):
     if S:
         BK._launch("ia_k10_compress_dd", key, val, col, hi, lo, nnz, S,
                    width, device=dev)
-        compress_dd.launches += 1
+        tracing.count("launch.K10")
     return col, hi, lo, nnz
 
 
 KERNELS = {"K8": expand_sort_lr, "K9": expand_sort_lr_dd,
            "K10": compress_dd}
-for _fn in KERNELS.values():
-    _fn.launches = 0
 
 
 def reset_launch_counts():
-    for fn in KERNELS.values():
-        fn.launches = 0
+    tracing.reset_launches(KERNELS)
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return tracing.launches(KERNELS)

@@ -524,7 +524,7 @@ def _hop_check(mesh, pid: int) -> None:
     S = ring.partition_rows_ell(A, D, mesh=mesh)
     blocks = (S.col_ind, S.values)
     sets = RR.shared_receivers(mesh, *blocks)
-    n13, x, err, issue = RR.ring_hop_rdma.launches, blocks, 0.0, []
+    n13, x, err, issue = RR.launch_counts()["K13"], blocks, 0.0, []
     for i in range(HOPS):
         want = RR.ring_hop_processes_plain(mesh, *x)
         t0 = time.perf_counter()
@@ -535,7 +535,7 @@ def _hop_check(mesh, pid: int) -> None:
                    for g, w in zip(ga, wa)):
             raise AssertionError(f"hop {i}: K13 across processes differs "
                                  "from the plain hop")
-    launches = RR.ring_hop_rdma.launches - n13
+    launches = RR.launch_counts()["K13"] - n13
 
     def hop_ms(hop):
         synced()

@@ -70,7 +70,7 @@ from itertools import chain
 
 import torch
 
-from ia_spgemm_tpu_torch import _build
+from ia_spgemm_tpu_torch import _build, tracing
 from ia_spgemm_tpu_torch.parallel.mesh import card_identities, comm_device
 
 MAX_COPIES = 128    # copies one launch carries (csrc/ring.cu kMaxCopies)
@@ -296,7 +296,7 @@ def _launch_k13(tables, stream):
         if err != 0:
             raise RuntimeError(f"ia_k13_ring_hop launch failed: CUDA error "
                                f"{err}")
-        ring_hop_rdma.launches += 1
+        tracing.count("launch.K13")
 
 
 def _push(src_dev: torch.device, flat, remote_dsts):
@@ -818,7 +818,7 @@ def _launch_xproc(dev, table, n, halt, halt_copy, stream):
     if err != 0:
         raise RuntimeError(f"ia_k13_ring_hop_xproc launch failed: CUDA error "
                            f"{err}")
-    ring_hop_rdma.launches += 1
+    tracing.count("launch.K13")
 
 
 def _stream_ops(dev, ops, stream):
@@ -1030,12 +1030,11 @@ def _stop_watchdogs() -> None:
 
 
 KERNELS = {"K13": ring_hop_rdma}
-ring_hop_rdma.launches = 0
 
 
 def reset_launch_counts():
-    ring_hop_rdma.launches = 0
+    tracing.reset_launches(KERNELS)
 
 
 def launch_counts() -> dict:
-    return {"K13": ring_hop_rdma.launches}
+    return tracing.launches(KERNELS)

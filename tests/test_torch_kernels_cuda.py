@@ -86,11 +86,11 @@ def test_k1_k2_k3_kernels_match_plain(cuda_device, ka, pack, out_width):
     avT = avT.to(cuda_device)
     out_w = width if out_width is None else min(out_width, width)
     kw = dict(ka=ka, run=RUN, width=width, start_kk=2 * RUN, pack=pack)
-    n1 = K.expand_sort_compress.launches
+    n1 = K.launch_counts()["K1"]
     assert_kernel_outputs_match(
         K.expand_sort_compress(gp, avT, out_w=out_w, **kw),
         K.expand_sort_compress_plain(gp, avT, out_w=out_w, **kw))
-    assert K.expand_sort_compress.launches == n1 + 1
+    assert K.launch_counts()["K1"] == n1 + 1
     key, val = K.expand_sort(gp, avT, **kw)
     pkey, pval = K.expand_sort_plain(gp, avT, **kw)
     assert torch.equal(key, pkey)
@@ -128,9 +128,9 @@ def test_k4_k3_float64_kernels_match_plain(cuda_device, width):
     key[::5, width // 3:] = K.SENTINEL
     val = torch.randn((48, width), device=cuda_device, generator=gen,
                       dtype=torch.float64)
-    n4 = K.sort_compress_rows.launches
+    n4 = K.launch_counts()["K4"]
     got = K.sort_compress_rows(key, val, width=width, start_kk=2)
-    assert K.sort_compress_rows.launches == n4 + 1
+    assert K.launch_counts()["K4"] == n4 + 1
     assert got[1].dtype == torch.float64
     assert_kernel_outputs_match(
         got, K.sort_compress_rows_plain(key, val, width=width, start_kk=2),
@@ -183,9 +183,9 @@ def _k4_rows(m, width, start_kk, dtype, seed=0, kind="random"):
 
 
 def _check_k4(key, val, width, start_kk):
-    n4 = K.sort_compress_rows.launches
+    n4 = K.launch_counts()["K4"]
     got = K.sort_compress_rows(key, val, width=width, start_kk=start_kk)
-    assert K.sort_compress_rows.launches == n4 + 1
+    assert K.launch_counts()["K4"] == n4 + 1
     assert got[1].dtype == val.dtype
     assert_kernel_outputs_match(
         got, K.sort_compress_rows_plain(key, val, width=width,
@@ -197,9 +197,9 @@ def _check_k6(key, val, width, start_kk):
     """K6: the sorted keys equal the plain version's; values within a
     duplicate run may sit in another order, so the run sums (the plain
     compress of each) are compared."""
-    n6 = K.sort_only.launches
+    n6 = K.launch_counts()["K6"]
     sk, sv = K.sort_only(key, val, width=width, start_kk=start_kk)
-    assert K.sort_only.launches == n6 + 1
+    assert K.launch_counts()["K6"] == n6 + 1
     assert sv.dtype == val.dtype
     pk, pv = K.sort_only_plain(key, val, width=width, start_kk=start_kk)
     assert torch.equal(sk, pk)
@@ -214,10 +214,10 @@ def _check_k5(key, val, width, start_kk, out_w=None):
     out_w slots: three quarters of the row plus one (off the 4-slot
     grid, so the stores go slot by slot) unless given."""
     out_w = width * 3 // 4 + 1 if out_w is None else out_w
-    n5 = K.sort_compress.launches
+    n5 = K.launch_counts()["K5"]
     got = K.sort_compress(key, val, width=width, start_kk=start_kk,
                           out_w=out_w)
-    assert K.sort_compress.launches == n5 + 1
+    assert K.launch_counts()["K5"] == n5 + 1
     assert got[1].dtype == val.dtype and got[0].shape[1] == out_w
     assert_kernel_outputs_match(
         got, K.sort_compress_plain(key, val, width=width, start_kk=start_kk,
@@ -286,9 +286,9 @@ def test_k4_rows_off_the_vector_grid(cuda_device, dtype, width, kernel):
 def _check_k1(g, avT, *, ka, run, width, pack, out_w):
     kw = dict(ka=ka, run=run, width=width, start_kk=2 * run, out_w=out_w,
               pack=pack)
-    n1 = K.expand_sort_compress.launches
+    n1 = K.launch_counts()["K1"]
     got = K.expand_sort_compress(g, avT, **kw)
-    assert K.expand_sort_compress.launches == n1 + 1
+    assert K.launch_counts()["K1"] == n1 + 1
     assert_kernel_outputs_match(got,
                                 K.expand_sort_compress_plain(g, avT, **kw))
 
@@ -361,9 +361,9 @@ def test_k1_gather_off_the_vector_grid(cuda_device, run):
 
 
 def _check_k3(key, val, width, out_w, compact):
-    n3 = K.compress.launches
+    n3 = K.launch_counts()["K3"]
     got = K.compress(key, val, width=width, out_w=out_w, compact=compact)
-    assert K.compress.launches == n3 + 1
+    assert K.launch_counts()["K3"] == n3 + 1
     assert got[1].dtype == val.dtype
     assert_kernel_outputs_match(
         got, K.compress_plain(key, val, width=width, out_w=out_w,
@@ -474,9 +474,9 @@ def test_k5_k6_k3_kernels_match_plain(cuda_device, dtype, ka, out_width,
     out_w = width if out_width is None else min(out_width, width)
     kw = dict(width=width, start_kk=start_kk)
     rtol = value_rtol(val)
-    n5 = K.sort_compress.launches
+    n5 = K.launch_counts()["K5"]
     got = K.sort_compress(key, val, out_w=out_w, **kw)
-    assert K.sort_compress.launches == n5 + 1
+    assert K.launch_counts()["K5"] == n5 + 1
     assert got[1].dtype == val.dtype and got[0].shape[1] == out_w
     assert_kernel_outputs_match(
         got, K.sort_compress_plain(key, val, out_w=out_w, **kw), rtol=rtol)
@@ -517,9 +517,9 @@ def test_k7b_every_width(cuda_device, width, kind, compact):
 
 
 def _check_k7b(p, width, out_w, compact):
-    n7 = K.compress_packed.launches
+    n7 = K.launch_counts()["K7b"]
     got = K.compress_packed(p, width=width, out_w=out_w, compact=compact)
-    assert K.compress_packed.launches == n7 + 1
+    assert K.launch_counts()["K7b"] == n7 + 1
     assert_kernel_outputs_match(
         got, K.compress_packed_plain(p, width=width, out_w=out_w,
                                      compact=compact))
@@ -618,10 +618,10 @@ def test_k8_k9_table_off_the_grid(cuda_device, name):
 
 def _check_k8(args, kw):
     w = kw["width"]
-    n8 = SK.expand_sort_lr.launches
+    n8 = SK.launch_counts()["K8"]
     key, val = SK.expand_sort_lr(*args, **kw)
     pkey, pval = SK.expand_sort_lr_plain(*args, **kw)
-    assert SK.expand_sort_lr.launches == n8 + 1
+    assert SK.launch_counts()["K8"] == n8 + 1
     assert torch.equal(key, pkey)
     assert_kernel_outputs_match(K.compress(key, val, width=w, out_w=w),
                                 K.compress_plain(pkey, pval, width=w,
@@ -639,9 +639,9 @@ def _check_k9(args, kw):
     pkey, pval = SK.expand_sort_lr_dd_plain(*args, **kw)
     assert val.dtype == torch.float64
     assert torch.equal(key, pkey)
-    n10 = SK.compress_dd.launches
+    n10 = SK.launch_counts()["K10"]
     got = SK.compress_dd(key, val, width=kw["width"])
-    assert SK.compress_dd.launches == n10 + 1
+    assert SK.launch_counts()["K10"] == n10 + 1
     assert_dd_outputs_match(got, SK.compress_dd_plain(pkey, pval,
                                                       width=kw["width"]))
 
@@ -655,9 +655,9 @@ def test_k7_kernels_match_plain(cuda_device, ka):
     *ops, width = table_inputs(ka)
     ops = [x.to(cuda_device) for x in ops]
     kw = dict(ka=ka, run=RUN, width=width, start_kk=2 * RUN)
-    n7 = K.expand_sort_packed.launches
+    n7 = K.launch_counts()["K7a"]
     p = K.expand_sort_packed(*ops, **kw)
-    assert K.expand_sort_packed.launches == n7 + 1
+    assert K.launch_counts()["K7a"] == n7 + 1
     assert torch.equal(p, K.expand_sort_packed_plain(*ops, **kw))
     for compact, out_w in ((True, width), (True, 128), (False, width)):
         assert_kernel_outputs_match(
@@ -697,18 +697,18 @@ def _check_k2_sources(ops, kw):
     want = K.compress_plain(pkey, pval, width=w, out_w=w)
     for src, extra in ((table, dict(rT=rT)),
                        (K.table_gather(table, rT), {})):
-        n2 = K.expand_sort.launches
+        n2 = K.launch_counts()["K2"]
         key, val = K.expand_sort(src, avT, **kw, **extra)
-        assert K.expand_sort.launches == n2 + 1
+        assert K.launch_counts()["K2"] == n2 + 1
         assert torch.equal(key, pkey)
         assert_kernel_outputs_match(
             K.compress_plain(key, val, width=w, out_w=w), want)
 
 
 def _check_k7a(ops, kw):
-    n7 = K.expand_sort_packed.launches
+    n7 = K.launch_counts()["K7a"]
     p = K.expand_sort_packed(*ops, **kw)
-    assert K.expand_sort_packed.launches == n7 + 1
+    assert K.launch_counts()["K7a"] == n7 + 1
     assert torch.equal(p, K.expand_sort_packed_plain(*ops, **kw))
 
 
@@ -820,9 +820,9 @@ def test_k11_kernel_matches_plain(cuda_device, case):
     """Bit for bit on canonical ELL (NaN where the plain version has
     NaN), within the values' tolerance on unsorted rows."""
     a_col, a_val, b, exact = _k11_inputs(case, cuda_device)
-    n11 = DK.dense_row.launches
+    n11 = DK.launch_counts()["K11"]
     got = DK.dense_row(a_col, a_val, b)
-    assert DK.dense_row.launches == n11 + 1
+    assert DK.launch_counts()["K11"] == n11 + 1
     assert got.dtype == b.dtype
     want = DK.dense_row_plain(a_col, a_val, b)
     if exact:
@@ -845,9 +845,9 @@ def test_k12_kernel_matches_plain(cuda_device, m, k, n, density, table_size):
         2 * A.max_nnz_per_row * B.max_nnz_per_row),
         hash_spgemm._next_pow2(2 * n))
     args = (A.col_ind, A.values, B.col_ind, B.values)
-    n12 = HK.hash_accumulate.launches
+    n12 = HK.launch_counts()["K12"]
     got = HK.hash_accumulate(*args, table_size=H)
-    assert HK.hash_accumulate.launches == n12 + 1
+    assert HK.launch_counts()["K12"] == n12 + 1
     assert_tables_match(got, HK.hash_accumulate_plain(*args, table_size=H),
                         (m, n))
 
@@ -876,9 +876,9 @@ def test_k13_ring_hop_matches_plain(cuda_device, D, dtype):
             for _ in range(D)]
     vals = [(torch.randn((37, 29), generator=gen, device=cuda_device)
              * 100).to(dtype) for _ in range(D)]
-    n13 = RR.ring_hop_rdma.launches
+    n13 = RR.launch_counts()["K13"]
     got = RR.ring_hop_rdma(cols, vals)
-    assert RR.ring_hop_rdma.launches == n13 + 1
+    assert RR.launch_counts()["K13"] == n13 + 1
     _assert_hops_equal(got, RR.ring_hop_plain(cols, vals), (cols, vals))
 
 
@@ -896,9 +896,9 @@ def test_k13_odd_bytes_unaligned_and_large_blocks(cuda_device):
     big = [torch.randn((300000, 8), generator=gen, device=cuda_device)
            for _ in range(4)]
     for arrays in ((odd, unaligned), (big,)):
-        n13 = RR.ring_hop_rdma.launches
+        n13 = RR.launch_counts()["K13"]
         got = RR.ring_hop_rdma(*arrays)
-        assert RR.ring_hop_rdma.launches == n13 + 1
+        assert RR.launch_counts()["K13"] == n13 + 1
         _assert_hops_equal(got, RR.ring_hop_plain(*arrays), arrays)
 
 
@@ -919,9 +919,9 @@ def test_k13_reused_receivers(cuda_device, D):
     bc, bv = cols, vals
     for s in range(D - 1):
         want = RR.ring_hop_plain(bc, bv)
-        n13 = RR.ring_hop_rdma.launches
+        n13 = RR.launch_counts()["K13"]
         got = RR.ring_hop_rdma(bc, bv, out=recv[s % 2])
-        assert RR.ring_hop_rdma.launches == n13 + 1
+        assert RR.launch_counts()["K13"] == n13 + 1
         assert [[t.data_ptr() for t in arr] for arr in got] == ptrs[s % 2]
         _assert_hops_equal(got, want, (bc, bv) if s == 0 else ())
         bc, bv = got
@@ -935,9 +935,9 @@ def test_k13_more_copies_than_one_launch(cuda_device):
     arrays = [[torch.randint(0, 99, (n, 3), generator=gen,
                              device=cuda_device, dtype=torch.int32)
                for _ in range(50)] for n in (1, 17, 64)]
-    n13 = RR.ring_hop_rdma.launches
+    n13 = RR.launch_counts()["K13"]
     got = RR.ring_hop_rdma(*arrays)
-    assert RR.ring_hop_rdma.launches == n13 + 2
+    assert RR.launch_counts()["K13"] == n13 + 2
     _assert_hops_equal(got, RR.ring_hop_plain(*arrays), arrays)
 
 
@@ -948,9 +948,9 @@ def test_k13_zero_size_and_unaligned_blocks(cuda_device):
     byte counts, beside aligned ones in one launch."""
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     empty = [torch.zeros((0, 29), device=cuda_device) for _ in range(4)]
-    n13 = RR.ring_hop_rdma.launches
+    n13 = RR.launch_counts()["K13"]
     got = RR.ring_hop_rdma(empty)
-    assert RR.ring_hop_rdma.launches == n13
+    assert RR.launch_counts()["K13"] == n13
     assert [tuple(t.shape) for t in got[0]] == [(0, 29)] * 4
     flat = torch.randint(-9, 9, (4 * 333 + 3,), generator=gen,
                          device=cuda_device, dtype=torch.int32)
@@ -962,9 +962,9 @@ def test_k13_zero_size_and_unaligned_blocks(cuda_device):
     mixed = [torch.randn((n, 5), generator=gen, device=cuda_device)
              for n in (0, 70000, 70000, 0)]
     for arrays in ((unaligned, odd), (mixed,)):
-        n13 = RR.ring_hop_rdma.launches
+        n13 = RR.launch_counts()["K13"]
         got = RR.ring_hop_rdma(*arrays)
-        assert RR.ring_hop_rdma.launches == n13 + 1
+        assert RR.launch_counts()["K13"] == n13 + 1
         _assert_hops_equal(got, RR.ring_hop_plain(*arrays), arrays)
 
 
@@ -980,9 +980,9 @@ def test_k13_across_cards(cuda_device):
     assert RR.rdma_available(make_mesh(devices=devs))
     blocks = [torch.full((5000, 29), float(d), device=dv)
               for d, dv in enumerate(devs)]
-    n13 = RR.ring_hop_rdma.launches
+    n13 = RR.launch_counts()["K13"]
     got = RR.ring_hop_rdma(blocks)
-    assert RR.ring_hop_rdma.launches == n13 + n      # one per source card
+    assert RR.launch_counts()["K13"] == n13 + n      # one per source card
     _assert_hops_equal(got, RR.ring_hop_plain(blocks), (blocks,))
 
 
@@ -997,13 +997,13 @@ def test_ring_on_the_card_launches_k13_and_k4(cuda_device):
     mesh = make_mesh(devices=[cuda_device] * 4)
     S = ring.partition_rows_ell(A, 4, mesh=mesh)
     plan = ring.plan_ring(A, A, 4)
-    n13, n4 = RR.ring_hop_rdma.launches, K.sort_compress_rows.launches
+    n13, n4 = RR.launch_counts()["K13"], K.launch_counts()["K4"]
     C1 = ring.gather_result_ell(ring.ring_spgemm(S, S, mesh, plan))
-    assert RR.ring_hop_rdma.launches == n13 + 3
-    assert K.sort_compress_rows.launches == n4 + 4
+    assert RR.launch_counts()["K13"] == n13 + 3
+    assert K.launch_counts()["K4"] == n4 + 4
     C0 = ring.gather_result_ell(ring.ring_spgemm(S, S, mesh, plan,
                                                  use_rdma=False))
-    assert RR.ring_hop_rdma.launches == n13 + 3
+    assert RR.launch_counts()["K13"] == n13 + 3
     for f in ("col_ind", "values", "nnz_row"):
         assert torch.equal(getattr(C1, f), getattr(C0, f)), f
     want = (a.astype(np.float64) @ a.astype(np.float64)).tocsr()
@@ -1060,9 +1060,9 @@ if mode == "hop":
     x = (cols, vals)
     for s in range(3):
         want = RR.ring_hop_processes_plain(mesh, *x)
-        n13 = RR.ring_hop_rdma.launches
+        n13 = RR.launch_counts()["K13"]
         got = RR.ring_hop_xproc(mesh, *x, out=sets[s % 2])
-        assert RR.ring_hop_rdma.launches == n13 + per_hop
+        assert RR.launch_counts()["K13"] == n13 + per_hop
         RR.check_hops(sets[s % 2])
         assert all(torch.equal(a, b) for ga, wa in zip(got, want)
                    for a, b in zip(ga, wa)), s
@@ -1072,11 +1072,11 @@ if mode == "hop":
                            check_guard=False)
     S = ring.partition_rows_ell(A, D, mesh=mesh)
     plan = ring.plan_ring(A, A, D)
-    n13 = RR.ring_hop_rdma.launches
+    n13 = RR.launch_counts()["K13"]
     C1 = ring.ring_spgemm(S, S, mesh, plan)
-    assert RR.ring_hop_rdma.launches == n13 + (D - 1) * per_hop
+    assert RR.launch_counts()["K13"] == n13 + (D - 1) * per_hop
     C0 = ring.ring_spgemm(S, S, mesh, plan, use_rdma=False)
-    assert RR.ring_hop_rdma.launches == n13 + (D - 1) * per_hop
+    assert RR.launch_counts()["K13"] == n13 + (D - 1) * per_hop
     for f in ("col_ind", "values", "nnz_row"):
         assert all(torch.equal(p, q) for p, q in zip(getattr(C1, f),
                                                      getattr(C0, f))), f

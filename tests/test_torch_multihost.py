@@ -104,7 +104,7 @@ assert [[t.data_ptr() for t in g] for g in got] == [
     [t.data_ptr() for t in o] for o in sets[0]]
 assert all(bool((p == q).all()) for ga, wa in zip(got, want)
            for p, q in zip(ga, wa))
-assert rdma_ring.ring_hop_rdma.launches == 0
+assert rdma_ring.launch_counts()["K13"] == 0
 for bal in ("rows", "flops"):
     S = ring.partition_rows_ell(A, D, mesh=mesh, balance=bal, B=A)
     rows = list(multihost.local_ell_rows(ring.ring_spgemm(S, S, mesh, plan)))

@@ -195,7 +195,7 @@ def test_k13_plain_version_is_a_roll(D_, dtype):
     x = (rng.standard_normal((D_, 13, 29)) * 100).astype(dtype)
     blocks = [torch.from_numpy(x[d].copy()) for d in range(D_)]
     v = [torch.from_numpy(x[d][::-1].copy()) for d in range(D_)]
-    n0 = rdma_ring.ring_hop_rdma.launches
+    n0 = rdma_ring.launch_counts()["K13"]
     for fn in (rdma_ring.ring_hop_plain, rdma_ring.ring_hop_rdma):
         out, out_v = fn(blocks, v)
         assert_same(np.stack([t.numpy() for t in out]), np.roll(x, -1, 0))
@@ -205,7 +205,7 @@ def test_k13_plain_version_is_a_roll(D_, dtype):
         assert all(o.data_ptr() != b.data_ptr()
                    for o in out for b in blocks)
     # the CPU wrapper runs the plain version and counts nothing
-    assert rdma_ring.ring_hop_rdma.launches == n0
+    assert rdma_ring.launch_counts()["K13"] == n0
 
 
 def test_k13_wrapper_checks_its_blocks():
