@@ -11,21 +11,25 @@ prints no result line:
 2. build: compiles csrc/*.cu for sm_90a, one nvcc per source, in
    parallel (ia_spgemm_tpu_torch/_build.py);
 3. kernels against their plain PyTorch versions on the card, on the
-   inputs the main paths give them: first K1-K3, K5, K7a, K7b, K8 and K9
-   at every case of ia_spgemm_tpu_torch.bench.kernels.network_cases (the
+   inputs the main paths give them: first K1-K3, K4t, K5, K7a, K7b, K8
+   and K9 at every case of ia_spgemm_tpu_torch.bench.kernels.network_cases (the
    one definition of the register network's shapes, which
    bench/kernels.py measures too: K1 on the headline's and the skew
    matrix's classes, K2 on their 1024 classes (from the headline's
    pregathered g, and from the B table through the skew class's
    fragment index) and on the headline's flat plan (width 1024, run 32,
-   from the table), K8 and K9 on the headline's slab plan, sorted keys
+   from the table), K4t on the skew matrix's and the benchmark's cant
+   replica's classes above 1024 slots (beside it the torch expand and K4
+   it replaced), K8 and K9 on the headline's slab plan, sorted keys
    exactly and run sums within tolerance; K7a on the flat plan, sorted
    packed keys bit-identical, and K7b on K7a's sorted keys, in place and
    compacted; K5 on the float64 headline's and the skew x band's chunked
    classes up to FUSED_MAX_WIDTH; K3 on the rows that K2, K8 and K6 sort
    for the inputs named next); then K4 on the skew matrix's wide
-   classes, K10 on K9's sorted slabs, K11 on build_matrix(m=16384) (A as
-   ELL times dense B, 16384 x 16384; bit for bit, and its float64
+   classes as the torch expand writes them (and K4t's outputs equal to
+   K4's there, bit for bit), K10 on K9's sorted slabs, K11 on
+   build_matrix(m=16384) (A as ELL times dense B, 16384 x 16384; bit for
+   bit, and its float64
    instance bit for bit on build_matrix(m=4096)), K12 on the headline
    ELL pair (Ka = Kb = 29, H = 2048; each row's slots compared sorted by
    column); K6 (float64) on the float64 headline's chunked 1024 class,
@@ -46,7 +50,7 @@ prints no result line:
    at 3.35 TB/s, or K11's float32 operations at 67 TFLOP/s, whichever
    is longer; of g, the gather kernels K1 and K2 read only each
    fragment's 2 * run lanes: bench.kernels.gather_bytes; the table
-   sources of K2, K7a, K8 and K9 read each table half a fragment names
+   sources of K2, K4t, K7a, K8 and K9 read each table half a fragment names
    once, and the fragment index, avT and (K8, K9) lrT:
    bench.kernels.table_read_bytes); K13 also into receivers passed in
    (the ring's way), with the host's microseconds per call
@@ -58,7 +62,7 @@ prints no result line:
    waits, a copy launch per source card), each bit for bit against the
    plain hop of torch.distributed, with ms per hop of both and the
    kernel's profiler time; the kernels of bench.kernels.PROFILE_NAMES
-   (K1-K3, K5, K7a, K7b, K8-K10, K12) with the same two beside each
+   (K1-K3, K4t, K5, K7a, K7b, K8-K10, K12) with the same two beside each
    shape's CUDA-event time (a kernel_split JSON line); then cuSPARSE's
    CSR @ CSR of the headline (torch.sparse.mm), the library time of K12
    and of K1 (beside the headline's K1 launches; that plan also launches
@@ -66,7 +70,7 @@ prints no result line:
 4. headline: bench.headline at m=32768 (nnz 7,086,306, checksum within
    1e-4 of scipy, scipy's sparsity pattern exactly);
 5. skew: the width-class route on a row-skewed matrix whose classes need
-   K2/K3 and K4, against scipy;
+   K2/K3 and K4t, against scipy;
 6. CLI: ``--mode bitonic --no-matnet`` on a .mtx file, in-process;
 7. slab: spgemm_csr_slab on the headline (nnz exact, slab_to_csr gives
    scipy's row pointers and columns, checksum within 1e-4);
@@ -214,7 +218,7 @@ Every kernel wrapper counts its launches. Phases 4, 5, 7-10, 12-15,
 30 each drive a main path on its own input: the counts are set to 0 just
 before each run and read just after it (a worker process starts from
 0).
-K1, K2 and K3 must have been launched in phase 4, K2, K3 and K4 in
+K1, K2 and K3 must have been launched in phase 4, K2, K3 and K4t in
 phase 5, K8 and K3 in phase 7, K9 and K10 in phase 9, K8 in the hybrid
 run of phase 10, K7a and K7b in phase 12, K12 in 13, K11 in 14, the flat
 route's kernels in spgemm_auto (15), K6 and K3 in f64_flat and
@@ -224,7 +228,7 @@ plain-torch dist runs of 23, K13 and K4 in the workers of 25 (their
 counts summed: ring_multiproc_2x2, ring_multiproc_4x1 and, on several
 cards, ring_multiproc_2xevery), at least one
 kernel in the harvest of 27 and in the workers of 28 (harvest_quick),
-K1-K4 and K8-K11 in the rooflines of 29 (acceptance), K1-K3, K7a, K7b
+K1-K3, K4t and K8-K11 in the rooflines of 29 (acceptance), K1-K3, K7a, K7b
 and K8 in 30 (bench). Phase 3's
 comparison launches and those of the CLI, the workers' other runs, the
 scaling phase and 29's fixture sweep are not counted. The line before
@@ -273,6 +277,7 @@ REPLACES = {"K1": "ia_spgemm_tpu/ops/bitonic.py:1034",
             "K2": "ia_spgemm_tpu/ops/bitonic.py:977",
             "K3": "ia_spgemm_tpu/ops/bitonic.py:523",
             "K4": "ia_spgemm_tpu/ops/bitonic.py:241",
+            "K4t": "ia_spgemm_tpu/ops/bitonic.py:241",
             "K5": "ia_spgemm_tpu/ops/bitonic.py:657",
             "K6": "ia_spgemm_tpu/ops/bitonic.py:346",
             "K7a": "ia_spgemm_tpu/ops/bitonic.py:1056",
@@ -308,7 +313,7 @@ TRAIN_TOL = 1e-5
 GRAD_TOL = 1e-4
 # phase 29: the kernels the acceptance run must launch, and the share of
 # its least time no route may beat (a count at fault or a wrong timer)
-ACCEPTANCE_KERNELS = ("K1", "K2", "K3", "K4", "K8", "K9", "K10", "K11")
+ACCEPTANCE_KERNELS = ("K1", "K2", "K3", "K4t", "K8", "K9", "K10", "K11")
 SHARE_LIMIT = 105.0
 # phase 30: the kernels of bench.py's routes and serving modes, and the
 # headline's intermediate products
@@ -472,9 +477,11 @@ def _k5_beside_k6_k3(key, val, *, width, start_kk, time_ms, dev):
 def _check_kernels(call, stats, label, time_ms, dev):
     """Each class of a planned call: its kernel(s) against the plain
     version(s) on the class's own inputs. A ragged (float32) call's
-    classes up to TRANSPOSED_MAX_WIDTH take K1, or K2 + K3 (cases of
-    bench.kernels.network_cases), the wider ones K4 (here); a chunked
-    float64 call's the cols layout over the torch expand."""
+    classes up to TRANSPOSED_MAX_WIDTH take K1, or K2 + K3, the wider
+    ones K4t (cases of bench.kernels.network_cases); here K4 on those
+    classes' rows as the torch expand writes them, and K4t's outputs
+    equal to K4's bit for bit; a chunked float64 call's the cols layout
+    over the torch expand."""
     import torch
 
     from ia_spgemm_tpu_torch.bench import kernels as KB
@@ -498,20 +505,29 @@ def _check_kernels(call, stats, label, time_ms, dev):
         if w <= bt.TRANSPOSED_MAX_WIDTH:
             continue
         shape = f"width={w} rows={call.counts[i]} run={run}"
-        key, val = bt._expand_rows(call.table, call.frags[i].T,
-                                   call.avts[i].T, run=run, width=w)
+        key, val = K.expand_rows_plain(call.table, call.frags[i].T,
+                                       call.avts[i].T, run=run, width=w)
         f = lambda fn: fn(key, val, width=w,  # noqa: E731
                           start_kk=2 * run)
         err = _compare(f"K4 {shape}", f(K.sort_compress_rows),
                        f(K.sort_compress_rows_plain))
+        # K4t (a case of network_cases) on the same class: K4's outputs
+        # on these rows, bit for bit
+        k4t = K.expand_sort_compress_rows(
+            call.table, call.frags[i], call.avts[i], ka=call.kas[i],
+            run=run, width=w, start_kk=2 * run)
+        if not all(torch.equal(x, y)
+                   for x, y in zip(k4t, f(K.sort_compress_rows))):
+            raise AssertionError(f"{label} K4t {shape}: not K4's outputs")
+        del k4t
         record("K4", shape, err, lambda: f(K.sort_compress_rows),
                lambda: f(K.sort_compress_rows_plain), (key, val),
                _torch_sort(key))
 
 
 def _check_network(stats, time_ms, dev):
-    """K1-K3, K5, K7a, K7b, K8 and K9 against their plain versions at
-    every case of bench.kernels.network_cases (the main paths' shapes);
+    """K1-K3, K4t, K5, K7a, K7b, K8 and K9 against their plain versions
+    at every case of bench.kernels.network_cases (the main paths' shapes);
     returns their ms on the headline's pregathered classes."""
     from ia_spgemm_tpu_torch.bench import kernels as KB
     ms = {}
@@ -1456,7 +1472,7 @@ def main() -> int:
                "ring": RR}
     kernel_names = sorted((n for mod in modules.values()
                            for n in mod.KERNELS),
-                          key=lambda n: (int(n[1:].rstrip("ab")), n))
+                          key=lambda n: (int(n[1:].rstrip("abt")), n))
     source = {n: SOURCES[src] for src, mod in modules.items()
               for n in mod.KERNELS}
 
@@ -1606,7 +1622,7 @@ def main() -> int:
     by_run["skew"] = counts()
     err = _against_scipy("skew", Cs, (skew.astype(np.float64)
                                       @ skew.astype(np.float64)).tocsr())
-    launched("skew", ["K2", "K3", "K4"])
+    launched("skew", ["K2", "K3", "K4t"])
     print(f"[5] skew: widths={call.widths} nnz={int(Cs.nnz)} "
           f"max_err={err} launches={by_run['skew']}", flush=True)
     del S, Cs, call

@@ -58,6 +58,7 @@ SIGNATURES = {
         "ia_k3_compress_f64": [_P] * 5 + [_I] * 4 + [_P],
         "ia_k4_sort_compress_rows": [_P] * 5 + [_I] * 3 + [_P],
         "ia_k4_sort_compress_rows_f64": [_P] * 5 + [_I] * 3 + [_P],
+        "ia_k4_expand_sort_compress_table": [_P] * 6 + [_I] * 6 + [_P],
         "ia_k5_sort_compress": [_P] * 5 + [_I] * 4 + [_P],
         "ia_k5_sort_compress_f64": [_P] * 5 + [_I] * 4 + [_P],
         "ia_k6_sort": [_P] * 4 + [_I] * 3 + [_P],

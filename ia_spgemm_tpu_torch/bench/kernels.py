@@ -18,14 +18,16 @@ shape. K1's, K2's, K3's, K5's, K7a's, K7b's, K8's and K9's cases are
 headline's and the skew matrix's width classes up to FUSED_MAX_WIDTH (the
 tuned 512), K2 on their 1024 classes (the headline's from its pregathered
 g, the skew matrix's from the table) and on the headline's flat plan
-(from the table), K7a on that flat plan and K7b on K7a's sorted keys, K5
+(from the table), K4t on the skew matrix's and the benchmark's cant
+replica's classes above TRANSPOSED_MAX_WIDTH (beside it the torch expand
+and K4 it replaced), K7a on that flat plan and K7b on K7a's sorted keys, K5
 on the float64 headline's and the skew x band's chunked classes up to
 FUSED_MAX_WIDTH, K3 on the rows K2, K8 and K6 sort for the main paths'
 1024-slot rows, K8 and K9 on the headline's slab plan; each beside its
 bytes bound (what the kernel must read, once, and its outputs written
 once, at 3.35 TB/s: K5 the rows, K7b the packed keys; ``gather_bytes``
 for K1 and K2 on g, ``table_read_bytes`` for the table sources of K2,
-K7a, K8 and K9). K4's and K6's inputs are rows in their
+K4t, K7a, K8 and K9). K4's and K6's inputs are rows in their
 input layout (sorted runs of start_kk / 2 slots, ascending and
 descending in turn; keys uniform below 32768, a fifth SENTINEL); K11's A
 is ``build_matrix(m=16384)`` as ELL (16384, 29) times itself dense;
@@ -36,7 +38,7 @@ receivers hopped into the other set).
 
 ``PROFILE_NAMES`` names the kernels whose own device time (and host us
 per call) is recorded at each shape, here and in ``chip_smoke.py`` phase
-3: the register network's K1-K3, K5, K7a, K7b, K8 and K9, and K10 and
+3: the register network's K1-K3, K4t, K5, K7a, K7b, K8 and K9, and K10 and
 K12, which are left as they are while they run within twice their
 bound.
 """
@@ -77,7 +79,8 @@ PEAK_F64_FLOPS = 34e12
 # the kernels measured alone at each of their shapes, by the name the
 # profiler gives each
 PROFILE_NAMES = {"K1": "k1_expand_sort_compress", "K2": "k2_expand_sort",
-                 "K3": "k3_compress", "K5": "k5_sort_compress",
+                 "K3": "k3_compress", "K4t": "k4_expand_sort_compress",
+                 "K5": "k5_sort_compress",
                  "K7a": "k7a_expand_sort_packed",
                  "K7b": "k7b_compress_packed", "K8": "k8_expand_sort_lr",
                  "K9": "k9_expand_sort_lr_dd", "K10": "k10_compress_dd",
@@ -246,7 +249,7 @@ def gather_bytes(run, avT) -> int:
 
 
 def table_read_bytes(table, rT, run, *arrays) -> int:
-    """Bytes a table-source kernel (K2 and K7a from the wide table, K8
+    """Bytes a table-source kernel (K2, K4t and K7a from the wide table, K8
     and K9 from the slab table) must read: the fragment index rT and the
     arrays beside it (avT; K8 and K9 also lrT) once, and of the packed
     table each half (2 * run lanes: run columns and run value bits) that
@@ -320,7 +323,8 @@ class Case(NamedTuple):
     """One kernel at one phase-3 shape: its wrapper call and its plain
     version on the same inputs, the bytes it must read (what it writes
     is counted from what it returns), and the one PyTorch call computing
-    the same function where there is one (``torch.sort`` of K5's keys)."""
+    the same function where there is one (``torch.sort`` of K5's keys;
+    for K4t the torch expand then K4, the path it replaced)."""
     kernel: str
     source: str
     shape: str
@@ -338,17 +342,35 @@ def _k3_case(source, shape, key, val, width, out_w, compact=True):
                 partial(K.compress_plain, key, val, **kw), _nbytes(key, val))
 
 
+def k4_on_expanded_rows(table, rT, avT, *, ka, run, width, start_kk):
+    """K4 on the rows the torch expand writes: what K4t replaced."""
+    from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
+    key, val = K.expand_rows_plain(table, rT.T, avT.T, run=run, width=width)
+    return K.sort_compress_rows(key, val, width=width, start_kk=start_kk)
+
+
 def _ragged_cases(call, source):
     """K1 on each class of at most FUSED_MAX_WIDTH slots; K3, compacted
     and in place, on the rows K2 sorts for each class above it, up to
-    TRANSPOSED_MAX_WIDTH (K4 takes the wider ones)."""
+    TRANSPOSED_MAX_WIDTH; K4t on the wider ones (the ragged layout's
+    fragment index is never pregathered there)."""
     from ia_spgemm_tpu_torch.ops import bitonic as bt
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     for i, w in enumerate(call.widths):
-        if w > bt.TRANSPOSED_MAX_WIDTH:
-            continue
         src, avT, kw = class_inputs(call, i)
         shape = f"{source} width={w} rows={call.counts[i]} run={call.run}"
+        if w > bt.TRANSPOSED_MAX_WIDTH:
+            ops = (call.table, call.frags[i], avT)
+            kw = dict(ka=call.kas[i], run=call.run, width=w,
+                      start_kk=2 * call.run)
+            yield Case("K4t", source, shape,
+                       partial(K.expand_sort_compress_rows, *ops, **kw),
+                       partial(K.expand_sort_compress_rows_plain, *ops,
+                               **kw),
+                       table_read_bytes(call.table, call.frags[i],
+                                        call.run, avT),
+                       partial(k4_on_expanded_rows, *ops, **kw))
+            continue
         if w <= bt.FUSED_MAX_WIDTH:
             rT = kw.pop("rT", None)
             g = src if rT is None else K.table_gather(src, rT)
@@ -433,12 +455,37 @@ def _cols_cases(source, key, val, *, width, start_kk, out_w):
     yield _k3_case(source, shape, key, val, width, out_w)
 
 
+def cant_matrix(grid=(9, 9, 257), seed=0):
+    """The benchmark's cant replica (``benchmark/inputs/hex_mesh.py`` at
+    ``benchmark/configs/cant.json``'s structure seed) on a hex mesh of
+    `grid` nodes, 3 dof a node, nnz scaled with the rows; 9 x 9 x 257 is
+    the configuration itself (C = A @ A in width classes 2048-8192, run
+    32). Values standard normal from `seed`, float32."""
+    import importlib.util
+    from pathlib import Path
+    bench = Path(__file__).resolve().parents[2] / "benchmark"
+    spec = importlib.util.spec_from_file_location(
+        "hex_mesh", bench / "inputs" / "hex_mesh.py")
+    hex_mesh = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(hex_mesh)
+    cfg = json.loads((bench / "configs" / "cant.json").read_text())
+    m = int(np.prod(grid)) * cfg["dof"]
+    a = hex_mesh.build(dict(cfg, grid=list(grid), m=m, n=m,
+                            nnz=round(cfg["nnz"] * m / cfg["m"])),
+                       cfg["structure_seed"])
+    a.data = np.random.default_rng(seed).standard_normal(a.nnz)
+    return a.astype(np.float32)
+
+
 def network_cases(dev, m=HEADLINE_ROWS):
-    """The register network's phase-3 cases (K1-K3, K5, K7a, K7b, K8,
-    K9), one at a time, so that the float64 rows of one shape are freed
-    before the next is built: K1 on the headline's classes (pregathered,
-    run 8) and the skew matrix's, K2 on their 1024 classes (the
-    pregathered g; the table); K2, K7a and K7b (in place and compacted)
+    """The register network's phase-3 cases (K1-K3, K4t, K5, K7a, K7b,
+    K8, K9), one at a time, so that the float64 rows of one shape are
+    freed before the next is built: K1 on the headline's classes
+    (pregathered, run 8) and the skew matrix's, K2 on their 1024 classes
+    (the pregathered g; the table), K4t on the skew matrix's classes
+    above TRANSPOSED_MAX_WIDTH and on the cant replica's (the tiled
+    route's plan: 9 x 9 x 257 nodes at the headline's m, 9 x 9 x 8 below
+    it); K2, K7a and K7b (in place and compacted)
     on the headline's flat plan (width 1024, run 32, the table:
     spgemm_auto's bitonic pick and the serve lane); K8 and K9 on the
     headline's slab plan (the slab and compensated routes); K5 on the
@@ -453,7 +500,7 @@ def network_cases(dev, m=HEADLINE_ROWS):
     from ia_spgemm_tpu_torch.formats import convert
     from ia_spgemm_tpu_torch.formats.types import CSR
     from ia_spgemm_tpu_torch.ops import bitonic as bt
-    from ia_spgemm_tpu_torch.ops import slab
+    from ia_spgemm_tpu_torch.ops import esc, slab
     from ia_spgemm_tpu_torch.ops import slab_kernels as SK
 
     def ell(a, dtype=np.float32):
@@ -472,6 +519,10 @@ def network_cases(dev, m=HEADLINE_ROWS):
     yield from _ragged_cases(bt.multiclass_planned(S, S, assemble="bcsr"),
                              "skew")
     del S
+    C = CSR.from_scipy(
+        cant_matrix((9, 9, max(8, 257 * m // HEADLINE_ROWS))), device=dev)
+    yield from _ragged_cases(esc.plan_csr_tiled(C, C), "cant")
+    del C
     A = CSR.from_scipy(a64.astype(np.float32), device=dev)
     p = slab.plan_slab_csr(A, A).plan
     ops, kw = slab_operands(p)
@@ -537,8 +588,8 @@ def _measure_network(dev) -> dict:
     """Each network case against its plain version, then its call ms,
     host us and kernel us, its bytes bound, and its library call's ms."""
     from ia_spgemm_tpu_torch.bench.harness import time_ms
-    out = {"K1": [], "K2": [], "K3": [], "K5": [], "K7a": [], "K7b": [],
-           "K8": [], "K9": []}
+    out = {"K1": [], "K2": [], "K3": [], "K4t": [], "K5": [], "K7a": [],
+           "K7b": [], "K8": [], "K9": []}
     for c in network_cases(dev):
         got, want = c.call(), c.plain()
         err = check_case(c, got, want)

@@ -5,12 +5,14 @@
 //   K2 ia_k2_expand_sort[_table]   <- _expand_sort_kernel_t          (:977)
 //   K3 ia_k3_compress[_f64]        <- _compress_kernel_t             (:523)
 //   K4 ia_k4_sort_compress_rows[_f64] <- _kernel                     (:241)
+//      ia_k4_expand_sort_compress_table
 //   K5 ia_k5_sort_compress[_f64]   <- _fused_kernel_t                (:657)
 //   K6 ia_k6_sort[_f64]            <- _sort_only_kernel_t            (:346)
 //   K7a ia_k7a_expand_sort_packed  <- _expand_sort_kernel_packed     (:1056)
 //   K7b ia_k7b_compress_packed     <- _compress_kernel_packed        (:1086)
 // (an _f64 entry is the float64-value instance of the same kernel; K2's
-// _table entry reads the B table through rT instead of the gather g)
+// _table entry reads the B table through rT instead of the gather g, and
+// K4's expands its rows from it instead of reading pre-expanded rows)
 //
 // They compute what the Pallas kernels compute, not how: each owns whole
 // output rows, sorts a row's (key, value) products with a bitonic network
@@ -29,17 +31,18 @@
 // (TableIn, K8's source without slab rows), so the flat route and the
 // serve lane write no gathered copy of the table; K3 compresses rows K2,
 // K6 or K8 sorted, with no sort; K4 sorts and compresses pre-expanded rows
-// (the wide classes, the ring's shards) and K5 the same rows of the cols
-// layout, its first out_w survivors kept; K6 sorts them only, for K3; K7a
-// (the bf16 serve lane) packs each of K2's table-source slots into one
-// int32 key and sorts the keys alone (value type NoVal: no value shuffles,
-// half the shared slots; 16 slots a thread, as keys alone leave the
-// registers for them); K7b unpacks K7a's sorted keys in registers as it
-// loads them (PackedRowsIn) and runs K3's compress on them. Bound: bytes
-// (read the row or its fragments once, write out_w slots once, at 3.35
-// TB/s); the network leaves the sorting kernels instruction-bound, a few
-// times above it, and the compress alone (K3, K7b) within 1.3x of it on
-// the main paths' rows (PERF.md).
+// (the ELL layout's wide classes, the ring's shards), or expands the
+// ragged layout's wide classes from the table itself (TableIn, as K2);
+// K5 the same rows of the cols layout, its first out_w survivors kept; K6
+// sorts them only, for K3; K7a (the bf16 serve lane) packs each of K2's
+// table-source slots into one int32 key and sorts the keys alone (value
+// type NoVal: no value shuffles, half the shared slots; 16 slots a
+// thread, as keys alone leave the registers for them); K7b unpacks K7a's
+// sorted keys in registers as it loads them (PackedRowsIn) and runs K3's
+// compress on them. Bound: bytes (read the row or its fragments once,
+// write out_w slots once, at 3.35 TB/s); the network leaves the sorting
+// kernels instruction-bound, a few times above it, and the compress alone
+// (K3, K7b) within 1.3x of it on the main paths' rows (PERF.md).
 //
 // K5 and K6 take rows the torch expand (ops/bitonic.py _expand_ell) has
 // already written to device memory: (m, width) int32 keys and float32 or
@@ -117,6 +120,22 @@ k4_sort_compress_rows(RowsIn<V> in, int* __restrict__ out_col,
   row_net_rows<V, E, true, NetOut::kCompact>(in, out_col, out_val, nnz, m,
                                              width, start_kk, out_w,
                                              rows_per_block, vec_out);
+}
+
+// K4 from the table: K4's sort + compress of the wide ragged classes'
+// rows, each expanded into registers from the B table through the
+// fragment index rT (TableIn, K2's table source) instead of read from
+// rows the torch expand wrote; every survivor kept (out_w = width). The
+// same slots in the same order as K4 on those rows, so the same outputs.
+template <int E, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads)
+k4_expand_sort_compress(TableIn<float> in, int* __restrict__ out_col,
+                        float* __restrict__ out_val, int* __restrict__ nnz,
+                        int m, int width, int start_kk, int out_w,
+                        int rows_per_block, int vec_out) {
+  row_net_rows<float, E, true, NetOut::kCompact>(
+      in, out_col, out_val, nnz, m, width, start_kk, out_w, rows_per_block,
+      vec_out);
 }
 
 // K5: K4's network on the cols layout's pre-expanded rows (the classes up
@@ -207,9 +226,10 @@ k7b_compress_packed(PackedRowsIn in, int* __restrict__ out_col,
 }
 
 // The kernel of a (value type, E, launch bound, sort, output, source):
-// K1 and K2 for the gather and the table, K7a for the packed table, K7b
-// for the packed rows, K3 without the sort, K6 for the sorted row, K4 (K5
-// where kK5: the same instance under K5's symbol).
+// K1 and K2 for the gather, K2 (sorted) and K4 from the table (compacted)
+// for the table, K7a for the packed table, K7b for the packed rows, K3
+// without the sort, K6 for the sorted row, K4 (K5 where kK5: the same
+// instance under K5's symbol).
 template <typename V, int E, int kMaxThreads, bool kSort, NetOut kOut,
           bool kK5, typename In>
 auto net_kernel() {
@@ -217,6 +237,9 @@ auto net_kernel() {
     return &k7a_expand_sort_packed<E, kMaxThreads>;
   else if constexpr (std::is_same_v<In, PackedRowsIn>)
     return &k7b_compress_packed<E, kMaxThreads, kOut>;
+  else if constexpr (std::is_same_v<In, TableIn<float>>
+                     && kOut == NetOut::kCompact)
+    return &k4_expand_sort_compress<E, kMaxThreads>;
   else if constexpr (!std::is_same_v<In, RowsIn<V>>) {
     if constexpr (kOut == NetOut::kCompact)
       return &k1_expand_sort_compress<E, kMaxThreads>;
@@ -395,6 +418,15 @@ extern "C" int ia_k4_sort_compress_rows(const void* key, const void* val,
   return launch_rows<float, true, NetOut::kCompact>(
       rows_in<float>(key, val), out_col, out_val, nnz, m, width, start_kk,
       width, stream);
+}
+
+extern "C" int ia_k4_expand_sort_compress_table(
+    const void* table, const void* rT, const void* avT, void* out_col,
+    void* out_val, void* nnz, int m, int ka, int lanes, int run, int width,
+    int start_kk, void* stream) {
+  return launch_rows<float, true, NetOut::kCompact>(
+      table_in(table, rT, avT, ka, lanes, run), out_col, out_val, nnz, m,
+      width, start_kk, width, stream);
 }
 
 extern "C" int ia_k4_sort_compress_rows_f64(const void* key,

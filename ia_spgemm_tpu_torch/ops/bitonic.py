@@ -23,7 +23,9 @@ operands read through the fragment gather:
   then K3 (compress); K2 reads the pregathered g, or the wide B table
   itself through the fragment index rT (the flat route, the serve lane's
   K7a and the classes not pregathered write no gathered copy);
-- wider classes: torch expand, then K4 (sort + compress of rows).
+- wider classes (the ragged layout): K4t, K4's sort + compress with
+  each row expanded in registers from the wide B table through the
+  fragment index, as K2 reads it.
 
 Operands of another type (float64), and the flat route's float32 plans
 outside the gather budget, take the cols layout over the torch expand
@@ -380,30 +382,6 @@ def _flat_table(a_col, a_val, b_col, b_val, *, run: int, chunks: int = 1):
     return wide, rT, a_val.T.contiguous()
 
 
-def _expand_rows(table, rows, av, *, run: int, width: int):
-    """Row-major products for K4: rows (n, F) table row ids, av (n, F)
-    A values per fragment -> keys/vals (n, width), odd fragments taken
-    reversed, empty slots SENTINEL / 0 (a select keeps NaN pad values
-    out)."""
-    n, nf = rows.shape
-    lanes = table.shape[1]
-    g2 = table[rows.reshape(-1).to(torch.int64)].reshape(n, nf, lanes)
-    par = (torch.arange(nf, device=table.device) & 1).bool()[None, :, None]
-    bc = torch.where(par, g2[:, :, 2 * run:3 * run], g2[:, :, :run])
-    bvb = torch.where(par, g2[:, :, 3 * run:4 * run],
-                      g2[:, :, run:2 * run])
-    valid = bc >= 0
-    key = torch.where(valid, bc, SENTINEL).reshape(n, nf * run)
-    val = torch.where(valid, av[:, :, None] * bvb.view(torch.float32),
-                      torch.zeros((), dtype=torch.float32,
-                                  device=table.device)).reshape(n, nf * run)
-    pad = width - nf * run
-    if pad:
-        key = F.pad(key, (0, pad), value=SENTINEL)
-        val = F.pad(val, (0, pad))
-    return key.contiguous(), val.contiguous()
-
-
 def _expand_ell(a_col, a_val, b_col, b_val, *, width: int, run: int,
                 chunks: int = 1):
     """Row-major products (m, width) for the cols layout (K5, K6 + K3)
@@ -739,12 +717,11 @@ def _multiclass_fn(c: MulticlassCall, sp):
             else:
                 frag, avT = c.frags[i], c.avts[i]
             if w > TRANSPOSED_MAX_WIDTH:
-                key, val = _expand_rows(c.table, frag.T, avT.T, run=run,
-                                        width=w)
                 if sp:
                     sp.leaf(f"tiled.sort.w{w}")
-                out = K.sort_compress_rows(key, val, width=w,
-                                           start_kk=start_kk)
+                out = K.expand_sort_compress_rows(
+                    c.table, frag, avT, ka=F_c, run=run, width=w,
+                    start_kk=start_kk)
             else:
                 src, rT, pack = ((frag, None, _pg_pack(run, w))
                                  if c.pregather else

@@ -5,20 +5,26 @@
  K2    expand_sort                 ops/bitonic.py:977  _expand_sort_kernel_t
  K3    compress                    ops/bitonic.py:523  _compress_kernel_t
  K4    sort_compress_rows          ops/bitonic.py:241  _kernel
+ K4t   expand_sort_compress_rows   ops/bitonic.py:241  _kernel
  K5    sort_compress               ops/bitonic.py:657  _fused_kernel_t
  K6    sort_only                   ops/bitonic.py:346  _sort_only_kernel_t
  K7a   expand_sort_packed          ops/bitonic.py:1056 _expand_sort_kernel_packed
  K7b   compress_packed             ops/bitonic.py:1086 _compress_kernel_packed
 =====  ==========================  ==========================================
 
+K4t is K4 on the ragged layout's wide classes, each row expanded in
+registers from the wide B table through the fragment index rT (K2's
+table source) instead of read from rows the torch expand wrote
+(``expand_rows_plain``, its plain expand); the same rows, sorted and
+compressed by the same network, so the same outputs bit for bit.
 K7a/K7b are the bf16 serve lane: each product rounds to bfloat16 and
 travels with its column in one int32 sort key (``_pack_colval``). K5 and
 K6 sort rows the torch expand (``ops/bitonic._expand_ell``) wrote to
 device memory, the JAX package's cols layout; K5 compresses them too, K6
 leaves that to K3. K3-K6 take float32 or float64 values (a float64 key /
 value pair launches the kernel's ``_f64`` instance) and return values of
-the same type; K1, K2 and K7 take float32. K2 reads either source below;
-K7a reads the table.
+the same type; K1, K2, K4t and K7 take float32. K2 reads either source
+below; K4t and K7a read the table.
 
 (file:line of the JAX package.) Each wrapper checks its operands, then:
 on CUDA tensors it launches the hand-written kernel of
@@ -33,7 +39,7 @@ Layouts (row-major, one output row per matrix row):
   e // pack holds [col_f | val_bits_f | col_rev | val_bits_rev] of one B
   sub-run of length ``run`` at lane offset (e % pack) * 4 * run; col -1
   marks an empty slot. ``avT`` (ka, m) float32: the A value of fragment e.
-- or (K2, K7a) the wide B table ``table`` (F + 1, lanes) int32, one such
+- or (K2, K4t, K7a) the wide B table ``table`` (F + 1, lanes) int32, one such
   [col_f | val_bits_f | col_rev | val_bits_rev] row per B sub-run (lanes
   >= 4 * run, a multiple of 4; the last row all -1, for empty slots) and
   the fragment index ``rT`` (ka, m) int32: fragment e of row r is table
@@ -207,6 +213,30 @@ def _expand_plain(g, avT, ka, run, width, pack):
     return key.contiguous(), val.contiguous()
 
 
+def expand_rows_plain(table, rows, av, *, run: int, width: int):
+    """Row-major products (n, width) of the ragged layout's wide classes,
+    K4t's plain expand: rows (n, F) table row ids, av (n, F) A values per
+    fragment -> keys/vals (n, width), odd fragments taken reversed, empty
+    slots SENTINEL / 0 (a select keeps NaN pad values out)."""
+    n, nf = rows.shape
+    lanes = table.shape[1]
+    g2 = table[rows.reshape(-1).to(torch.int64)].reshape(n, nf, lanes)
+    par = (torch.arange(nf, device=table.device) & 1).bool()[None, :, None]
+    bc = torch.where(par, g2[:, :, 2 * run:3 * run], g2[:, :, :run])
+    bvb = torch.where(par, g2[:, :, 3 * run:4 * run],
+                      g2[:, :, run:2 * run])
+    valid = bc >= 0
+    key = torch.where(valid, bc, SENTINEL).reshape(n, nf * run)
+    val = torch.where(valid, av[:, :, None] * bvb.view(torch.float32),
+                      torch.zeros((), dtype=torch.float32,
+                                  device=table.device)).reshape(n, nf * run)
+    pad = width - nf * run
+    if pad:
+        key = torch.nn.functional.pad(key, (0, pad), value=SENTINEL)
+        val = torch.nn.functional.pad(val, (0, pad))
+    return key.contiguous(), val.contiguous()
+
+
 def table_gather(table, rT):
     """g = table[rT] (ka, m, lanes): the table rows rT names, K1's gather
     at pack 1."""
@@ -270,6 +300,13 @@ def compress_plain(key, val, *, width, out_w, compact=True):
 
 def sort_compress_rows_plain(key, val, *, width, start_kk):
     return _compress_plain(*_sort_plain(key, val), width, True)
+
+
+def expand_sort_compress_rows_plain(table, rT, avT, *, ka, run, width,
+                                    start_kk):
+    key, val = expand_rows_plain(table, rT.T, avT.T, run=run, width=width)
+    return sort_compress_rows_plain(key, val, width=width,
+                                    start_kk=start_kk)
 
 
 def sort_compress_plain(key, val, *, width, start_kk, out_w):
@@ -414,6 +451,30 @@ def sort_compress_rows(key, val, *, width: int, start_kk: int):
     return col, out, nnz
 
 
+def expand_sort_compress_rows(table, rT, avT, *, ka: int, run: int,
+                              width: int, start_kk: int):
+    """K4t: K4 on the ragged layout's wide classes, each row expanded in
+    registers from the wide B table read through the fragment index rT
+    (rT and avT (ka, m), as K2 takes them), every survivor kept. Returns
+    (col (m, width), val, nnz), K4's on ``expand_rows_plain``'s rows bit
+    for bit."""
+    _check_width(width, start_kk)
+    _check_table(table, rT, avT, ka, run, width)
+    if avT.device.type == "cpu":
+        return expand_sort_compress_rows_plain(table, rT, avT, ka=ka,
+                                               run=run, width=width,
+                                               start_kk=start_kk)
+    _cuda_or_raise(avT)
+    m = avT.shape[1]
+    col, val, nnz = _row_outputs(m, width, torch.float32, avT.device)
+    if m:
+        _launch("ia_k4_expand_sort_compress_table", table, rT, avT, col, val,
+                nnz, m, ka, table.shape[1], run, width, start_kk,
+                device=avT.device)
+        tracing.count("launch.K4t")
+    return col, val, nnz
+
+
 def sort_compress(key, val, *, width: int, start_kk: int, out_w: int):
     """K5: sort + compress of pre-expanded rows (the cols layout up to
     FUSED_MAX_WIDTH), the first out_w survivors of each row kept.
@@ -499,7 +560,8 @@ def compress_packed(p, *, width: int, out_w: int, compact: bool = True):
 
 
 KERNELS = {"K1": expand_sort_compress, "K2": expand_sort, "K3": compress,
-           "K4": sort_compress_rows, "K5": sort_compress, "K6": sort_only,
+           "K4": sort_compress_rows, "K4t": expand_sort_compress_rows,
+           "K5": sort_compress, "K6": sort_only,
            "K7a": expand_sort_packed, "K7b": compress_packed}
 
 

@@ -26,8 +26,9 @@ from tests.torch_parity import (GATHER_CASES, GATHER_RUNS, RUN,
                                 assert_dd_outputs_match,
                                 assert_kernel_outputs_match,
                                 assert_tables_match, assert_values_close,
-                                cols_inputs, ell_pair, fragment_gather,
-                                gather_inputs, ill_conditioned,
+                                check_oracle, cols_inputs, ell_pair,
+                                fragment_gather, gather_inputs,
+                                ill_conditioned,
                                 pack_fragments, packed_rows,
                                 slab_fragments, slab_operands,
                                 table_fragments,
@@ -762,6 +763,120 @@ def test_k2_k7a_table_off_the_grid(cuda_device, width, run):
     ops, kw = _table_case(cuda_device, 37, width, run, unaligned=True)
     _check_k2_sources(ops, kw)
     _check_k7a(ops, kw)
+
+
+def _check_k4t(ops, kw):
+    """K4t from the table through rT against K4 on the rows the torch
+    expand writes from the same operands (``expand_rows_plain``, the path
+    K4t replaced): col, val and nnz bit for bit, since the network sees
+    the same slots in the same order; and against the plain version."""
+    table, rT, avT = ops
+    n4t, n4 = K.launch_counts()["K4t"], K.launch_counts()["K4"]
+    got = K.expand_sort_compress_rows(*ops, **kw)
+    assert K.launch_counts()["K4t"] == n4t + 1
+    key, val = K.expand_rows_plain(table, rT.T, avT.T, run=kw["run"],
+                                   width=kw["width"])
+    want = K.sort_compress_rows(key, val, width=kw["width"],
+                                start_kk=kw["start_kk"])
+    assert K.launch_counts()["K4"] == n4 + 1
+    torch.cuda.synchronize()
+    for name, x, y in zip(("col", "val", "nnz"), got, want):
+        assert torch.equal(x, y), name
+    assert_kernel_outputs_match(got,
+                                K.expand_sort_compress_rows_plain(*ops, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("run", [8, 32])
+@pytest.mark.parametrize("kind", ["random", "one_key"])
+@pytest.mark.parametrize("short", [False, True])
+def test_k4t_equals_k4_on_the_torch_expand(cuda_device, width, run, kind,
+                                           short):
+    """K4t at the widths above TRANSPOSED_MAX_WIDTH (every launch bound's
+    instance), runs 8 (a thread's slots span fragments, slot by slot) and
+    32: fragments reading the all -1 fill row under NaN A values, the
+    last two rows padding (the fill row alone, NaN A values: SENTINEL /
+    0 out), rows using fewer than ka fragments, or (short) ka three
+    fragments below width / run; odd fragments read reversed; one key
+    (column 32767) over whole rows."""
+    m = 37 if width <= 2048 else 9
+    _check_k4t(*_table_case(cuda_device, m, width, run, kind=kind,
+                            short=short))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [8, 32])
+def test_k4t_table_off_the_grid(cuda_device, run):
+    """A table 4 bytes off the 16-byte grid: K4t reads it slot by slot
+    and still gives K4's outputs."""
+    _check_k4t(*_table_case(cuda_device, 37, 2048, run, unaligned=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_device", [False, True])
+def test_k4t_hex_mesh_through_the_tiled_route(cuda_device, monkeypatch,
+                                              plan_device):
+    """A 3 x 3 x 20 node hex mesh (the benchmark's cant family, C = A @ A
+    in ragged classes 4096 and 8192, run 8) through plan_csr_auto (the
+    tiled route), or with the fragment index built on the card in every
+    call (plan_device): each wide class one K4t launch and no K4; C's
+    stored arrays bit for bit those of the path K4t replaced (the torch
+    expand, then K4), and scipy's product; the kernel under its own
+    name, which the benchmark's kernel pattern counts as a kernel."""
+    import importlib.util
+    from pathlib import Path
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ia_spgemm_tpu_torch.bench.kernels import (cant_matrix,
+                                                   k4_on_expanded_rows)
+    from ia_spgemm_tpu_torch.formats import convert
+    from ia_spgemm_tpu_torch.formats.types import CSR
+    from ia_spgemm_tpu_torch.ops import bitonic as bt
+    from ia_spgemm_tpu_torch.ops import esc
+    a = cant_matrix((3, 3, 20), seed=5)
+    A = CSR.from_scipy(a, device=cuda_device)
+    if plan_device:
+        E = convert.csr_to_ell(A, check_guard=False)
+        call = bt.multiclass_planned(E, E, assemble="bcsr", plan_device=True)
+        assert call.plan_device
+    else:
+        route, call = esc.plan_csr_auto(A, A)
+        assert route == "tiled"
+    wide = sum(w > bt.TRANSPOSED_MAX_WIDTH for w in call.widths)
+    assert call.ragged and wide == 2
+    n = K.launch_counts()
+    C = call()
+    got = K.launch_counts()
+    assert got["K4t"] - n["K4t"] == wide and got["K4"] == n["K4"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA}
+    spec = importlib.util.spec_from_file_location(
+        "trace", Path(__file__).resolve().parent.parent / "benchmark"
+        / "benchlib" / "trace.py")
+    trace = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trace)
+    k4t = [n for n in names if "k4_expand_sort_compress" in n]
+    assert k4t and all(trace.KERNEL.search(n) for n in k4t), names
+    assert not any("k4_sort_compress_rows" in n for n in names), names
+
+    monkeypatch.setattr(K, "expand_sort_compress_rows", k4_on_expanded_rows)
+    P = call()
+    torch.cuda.synchronize()
+    for name in ("blk_ptr", "col_blocks", "val_blocks", "nnz_row", "nnz"):
+        assert torch.equal(getattr(C, name), getattr(P, name)), name
+    want = (a.astype(np.float64) @ a.astype(np.float64)).tocsr()
+    want.sort_indices()
+    c = C.to_scipy()
+    c.sort_indices()
+    assert np.array_equal(c.indptr, want.indptr)
+    assert np.array_equal(c.indices, want.indices)
+    check_oracle(a, a, C)
 
 
 def _k11_inputs(case, device):
