@@ -20,22 +20,6 @@ TINY = {"tiny_graph": {"family": "window_graph", "m": 400, "n": 400,
         "tiny_mesh": {"family": "hex_mesh", "m": 243, "n": 243,
                       "nnz": 9000, "structure_seed": 0, "grid": [3, 3, 9],
                       "dof": 3}}
-# the metrics of a caller that waits: no cell of BENCHMARK.json has one
-# yet, so the tiny sync cells bring their entries
-SYNC_METRICS = {
-    "end_to_end": [
-        {"name": "call_ms", "unit": "ms", "better": "lower", "bound": 0.05,
-         "source": "host_clock"},
-        {"name": "call_ms_p95", "unit": "ms", "better": "lower",
-         "bound": 0.05, "source": "host_clock"}],
-    "per_layer": [
-        {"name": "dispatch_ms.sync", "unit": "ms", "better": "lower",
-         "source": "host_clock", "layer": "entry and host issue",
-         "moves": "call_ms"},
-        {"name": "idle_pct.sync", "unit": "%", "better": "lower",
-         "source": "device_trace", "layer": "device", "moves": "call_ms"}]}
-
-
 def load_run():
     spec = importlib.util.spec_from_file_location("bench_run_under_test",
                                                   BENCH / "run.py")
@@ -46,17 +30,11 @@ def load_run():
 
 def tiny_root(tmp_path, mixes=("f32-stream", "f32-sync", "f64-stream")):
     """A root holding BENCHMARK.json with the tiny cells added (every
-    metric that lists a cell of the same loop lists them too; the sync
-    cells bring their own metrics) and their configuration files; the
-    benchmark's own files are read from the repository."""
+    metric that lists a cell of the same traffic mix lists them too) and
+    their configuration files; the benchmark's own files are read from
+    the repository."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    sync = []
-    for kind, entries in SYNC_METRICS.items():
-        for m in entries:
-            bench[kind].append(dict(m, workloads=sync))
-    loop_of = {w["name"]: json.loads(
-        (BENCH / "traffic" / f"{w['traffic']}.json").read_text())["loop"]
-        for w in bench["workloads"]}
+    mix_of = {w["name"]: w["traffic"] for w in bench["workloads"]}
     (tmp_path / "benchmark" / "configs").mkdir(parents=True)
     for name, cfg in TINY.items():
         f = f"benchmark/configs/{name}.json"
@@ -64,16 +42,10 @@ def tiny_root(tmp_path, mixes=("f32-stream", "f32-sync", "f64-stream")):
         bench["configs"].append({"name": name, "source": "tiny", "file": f,
                                  "reduced": [], "why": "CPU test"})
         for mix in mixes:
-            cell = f"{name}.{mix}"
-            loop = json.loads(
-                (BENCH / "traffic" / f"{mix}.json").read_text())["loop"]
-            if loop == "sync":
-                sync.append(cell)
-                continue
             for m in bench["end_to_end"] + bench["per_layer"]:
-                if any(loop_of.get(w) == loop
+                if any(mix_of.get(w) == mix
                        for w in m.get("workloads", ())):
-                    m["workloads"].append(cell)
+                    m["workloads"].append(f"{name}.{mix}")
     for name in TINY:
         for mix in mixes:
             bench["workloads"].append({"name": f"{name}.{mix}",

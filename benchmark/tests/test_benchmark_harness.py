@@ -29,9 +29,11 @@ def test_a_tiny_cell_prints_the_contracts_last_line(tiny, bench_run, capsys,
     assert list(line)[:5] == KEYS and list(line)[-1] == "checks"
     assert line["correct"] is True and line["failed"] == 0
     assert line["attempted"] >= 1
-    want = {"setup_s"} | ({"gflops"} if "stream" in mix
-                          else {"call_ms", "call_ms_p95"})
-    assert set(line["metrics"]) == want     # peak_mem_gib: the card only
+    bench = json.loads((tiny / "BENCHMARK.json").read_text())
+    want = {m["name"] for m in bench["end_to_end"]
+            if f"{config}.{mix}" in m.get("workloads", [f"{config}.{mix}"])}
+    assert "setup_s" in want and len(want - {"peak_mem_gib"}) >= 2
+    assert set(line["metrics"]) == want - {"peak_mem_gib"}  # the card only
     assert line["device"]["platform"] == "cpu"
     for name, c in line["checks"].items():
         assert c["value"] is not None and c["value"] <= c["limit"], name

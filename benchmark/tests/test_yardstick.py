@@ -47,6 +47,15 @@ def test_the_roofline_share_is_the_least_time_over_busy_per_product():
     assert read(SimpleNamespace(least_s=None, trace=run.trace)) is None
 
 
+def test_a_waiting_callers_time_is_the_median_call():
+    read = spec.load_module(BENCH / "metrics" / "call_ms.py", "t").read
+    loop = {"latencies_s": [0.003, 0.001, 0.002, 0.050], "completed": 4,
+            "window_s": 0.056}
+    # the median of the calls, not the window over the calls (14 ms)
+    assert read(SimpleNamespace(loop=loop)) == pytest.approx(2.5)
+    assert read(SimpleNamespace(loop={"completed": 4})) is None
+
+
 def test_the_reference_of_the_hand_product():
     ref = reference.square(A4.indptr, A4.indices, A4.data, A4.shape)
     np.testing.assert_array_equal(sp.csr_matrix(
