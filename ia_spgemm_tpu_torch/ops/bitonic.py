@@ -442,14 +442,23 @@ def doubled_table_gather(bc_p, bv_p, rows_flat, *, run: int, out_shape):
             bv_t[rows_flat].reshape(out_shape))
 
 
-def _ragged_table(b_col, b_val, frag_src, *, run: int, cm: int):
-    """Packed table over B's fragments (B rows cut into cm sub-runs of
-    `run`; frag_src lists the non-empty ones) + a final -1 sentinel row."""
-    k, kb = b_col.shape
-    bc_p = F.pad(b_col, (0, cm * run - kb), value=-1).reshape(k * cm, run)
-    bv_p = F.pad(b_val, (0, cm * run - kb)).reshape(k * cm, run)
-    packed = torch.cat([bc_p, bv_p.view(torch.int32)], dim=1)[frag_src]
-    return _wide_rows(packed[:, :run], packed[:, run:])
+def _ragged_table(row_ptr, col_ind, values, frag_row, frag_within, *,
+                  run: int):
+    """Packed table over B's fragments + a final -1 sentinel row:
+    fragment f holds entries [row_ptr[j] + run*w, row_ptr[j] + run*w +
+    run) of row j = frag_row[f], w = frag_within[f], cut at the row's
+    end and padded with column -1, value 0. Its size follows the
+    fragments, not B's rows times its longest row. An ELL (k, kb) is
+    read as the CSR whose row j starts at j*kb (its padding is already
+    column -1, value 0)."""
+    start = row_ptr.long()[frag_row] + run * frag_within
+    end = row_ptr.long()[frag_row + 1]
+    idx = start[:, None] + torch.arange(run, device=start.device)
+    ok = idx < end[:, None]
+    idx = torch.where(ok, idx, 0)
+    bc = torch.where(ok, col_ind[idx], -1)
+    bv = torch.where(ok, values[idx].view(torch.int32), 0)
+    return _wide_rows(bc, bv)
 
 
 def _device_fragments(a_col, b_len, startp, idx, *, run: int, F_c: int,
@@ -928,14 +937,12 @@ def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
     idxs, idx_h, kas, counts = [], [], [], []
     frags, avts = [], []
     if plan.ragged:
-        cm = -(-max(kb, 1) // run)
         b_frag_cnt = np.maximum(-(-np.maximum(b_len_h, 0) // run),
                                 1).astype(np.int64)
         startp = np.concatenate([[0], np.cumsum(b_frag_cnt)])
         F_B = int(startp[-1])
         js = np.repeat(np.arange(len(b_frag_cnt)), b_frag_cnt)
         within_b = np.arange(F_B) - np.repeat(startp[:-1], b_frag_cnt)
-        frag_src = js * cm + within_b
         for w in widths:
             idx, n_pad, idx_d = class_rows(w)
             idxs.append(idx_d)
@@ -943,9 +950,12 @@ def _multiclass_build_uncached(A: ELL, B: ELL, *, max_classes: int,
             kas.append(max(1, int(w) // run))
             counts.append(int(n_pad))
         with tracing.span("plan.table", device=dev):
-            table = _ragged_table(B.col_ind, B.values,
-                                  torch.from_numpy(frag_src).to(A.device),
-                                  run=run, cm=cm)
+            kw = B.col_ind.shape[1]
+            table = _ragged_table(
+                torch.arange(0, (B.nrows + 1) * kw, kw, device=dev),
+                B.col_ind.reshape(-1), B.values.reshape(-1),
+                torch.from_numpy(js).to(dev),
+                torch.from_numpy(within_b).to(dev), run=run)
         pregather = pregather and not plan_device
         if pregather:
             lanes = int(table.shape[1])

@@ -216,11 +216,16 @@ def _segmented_scan_add(v, head):
     return s
 
 
-def _sort_compress(i, j, v, valid, *, out_cap: int, m: int, n: int):
+def _sort_compress(i, j, v, valid, *, out_cap: int, m: int, n: int,
+                   sp=None):
     """Sort products by (i, j), sum duplicate runs, compact. Returns
     (row_ptr, col_ind, values, nnz) padded to out_cap (col n, value 0
     past nnz). float64 runs are summed by a scatter-add, others by the
-    segmented scan (as in the JAX package)."""
+    segmented scan (as in the JAX package). ``sp`` (a call's
+    ``tracing.Tracer``, None: tracing off) opens the leaves ``esc.sort``
+    and ``esc.compress``."""
+    if sp:
+        sp.leaf("esc.sort")
     e_cap = v.shape[0]
     dev = v.device
     if out_cap > e_cap:
@@ -230,10 +235,14 @@ def _sort_compress(i, j, v, valid, *, out_cap: int, m: int, n: int):
         e_cap = out_cap
     kd = torch.int32 if (m + 1) * (n + 1) < 2**31 else torch.int64
     inval = m * n
-    key = torch.where(valid, i.to(kd) * n + j.to(kd),
-                      torch.tensor(inval, dtype=kd, device=dev))
+    # a Python scalar, not a tensor made on the host: copying one from
+    # pageable memory would hold the host until the card caught up, in
+    # every call
+    key = torch.where(valid, i.to(kd) * n + j.to(kd), inval)
     key_s, order = torch.sort(key, stable=True)
     v_s = v[order]
+    if sp:
+        sp.leaf("esc.compress")
     valid_s = key_s < inval
     edge = torch.full((1,), -1, dtype=kd, device=dev)
     head = valid_s & (key_s != torch.cat([edge, key_s[:-1]]))
@@ -269,22 +278,28 @@ def _sort_compress(i, j, v, valid, *, out_cap: int, m: int, n: int):
 
 def _esc_core(a_row, a_col, a_val, a_nnz, b_row_ptr, b_col, b_val, *,
               e_cap: int, out_cap: int, m: int, k: int, n: int,
-              val_dtype=None):
+              val_dtype=None, sp=None):
     """ESC over A's entry list: expand, then sort-compress. Returns
-    (row_ptr, col_ind, values, nnz) of C = A @ B padded to out_cap."""
+    (row_ptr, col_ind, values, nnz) of C = A @ B padded to out_cap.
+    ``sp``: the leaves ``esc.expand``, then _sort_compress's."""
+    if sp:
+        sp.leaf("esc.expand")
     nnzA_cap = a_col.shape[0]
     ent_valid = torch.arange(nnzA_cap, device=a_col.device) < a_nnz
     i, j, v, valid = _expand_products(
         a_row, a_col.clamp(0, k - 1), a_val, ent_valid, b_row_ptr, b_col,
         b_val, e_cap=e_cap, val_dtype=val_dtype)
-    return _sort_compress(i, j, v, valid, out_cap=out_cap, m=m, n=n)
+    return _sort_compress(i, j, v, valid, out_cap=out_cap, m=m, n=n, sp=sp)
 
 
 def _esc_core_rowexpand(a_row, a_col, a_val, a_nnz, b_col_ell, b_val_ell,
-                        *, out_cap: int, m: int, n: int, run: int):
+                        *, out_cap: int, m: int, n: int, run: int,
+                        sp=None):
     """ESC with the B-row-gather expansion: one row gather of B's padded
     ELL row per A entry into a (nnzA_cap, run) grid (empty slots masked),
-    then the shared sort-compress."""
+    then the shared sort-compress (``sp`` as in _esc_core)."""
+    if sp:
+        sp.leaf("esc.expand")
     nnzA_cap = a_col.shape[0]
     k, kb = b_col_ell.shape
     dev = a_col.device
@@ -304,7 +319,8 @@ def _esc_core_rowexpand(a_row, a_col, a_val, a_nnz, b_col_ell, b_val_ell,
     v = torch.where(valid, a_val[:, None].to(val_dtype) * bv.to(val_dtype),
                     torch.zeros((), dtype=val_dtype, device=dev))
     return _sort_compress(i.reshape(-1), bc.reshape(-1), v.reshape(-1),
-                          valid.reshape(-1), out_cap=out_cap, m=m, n=n)
+                          valid.reshape(-1), out_cap=out_cap, m=m, n=n,
+                          sp=sp)
 
 
 # ------------------------------------------------------------- slicing
@@ -331,7 +347,7 @@ def _slab_write(col_out, val_out, rp_out, piece_col, piece_val, piece_rp,
     rp_out[r0:r0 + piece_rp.shape[0]] = piece_rp + off
 
 
-def _spgemm_csr_sliced(A: CSR, B: CSR, plan: SpGEMMPlan) -> CSR:
+def _spgemm_csr_sliced(A: CSR, B: CSR, plan: SpGEMMPlan, sp=None) -> CSR:
     """Workspace-sliced ESC: the core per row slab, concatenated on the
     device (the reference's sliced coo_spmm_helper loop,
     coo_dev/common_coo_dev.h:388-450); each slab's nnz is read back."""
@@ -358,7 +374,7 @@ def _spgemm_csr_sliced(A: CSR, B: CSR, plan: SpGEMMPlan) -> CSR:
         prow, pcol, pval, pnnz = _esc_core(
             a_row, col, val, s1 - s0, B.row_ptr, B.col_ind, B.values,
             e_cap=plan.expansion_capacity, out_cap=plan.out_capacity,
-            m=plan.rows_capacity, k=A.ncols, n=n)
+            m=plan.rows_capacity, k=A.ncols, n=n, sp=sp)
         _slab_write(col_out, val_out, rp_out, pcol, pval, prow, off, r0)
         off += int(pnnz)
     rp_out[m] = off
@@ -404,20 +420,30 @@ def spgemm_csr(A: CSR, B: CSR, plan: SpGEMMPlan | None = None,
             return slab_mod.slab_to_csr(call(), out_cap=call.plan.out_cap)
     if plan is None:
         plan = plan_spgemm(A, B)
+    return spgemm_csr_global(A, B, plan)
+
+
+def spgemm_csr_global(A: CSR, B: CSR, plan: SpGEMMPlan, sp=None) -> CSR:
+    """The global engine under a plan. ``sp``, the caller's
+    ``tracing.Tracer`` whose top is open (None: no spans), opens the
+    leaves ``esc.expand``, ``esc.sort`` and ``esc.compress`` (once a row
+    slab when sliced)."""
     if plan.slabs is not None:
-        return _spgemm_csr_sliced(A, B, plan)
+        return _spgemm_csr_sliced(A, B, plan, sp)
     a_row = entry_rows(A.row_ptr, A.capacity)
     if plan.variant == "rowexpand":
         from ia_spgemm_tpu_torch.formats.convert import csr_to_ell
         B_ell = csr_to_ell(B, check_guard=False)
         row_ptr, col, val, nnz = _esc_core_rowexpand(
             a_row, A.col_ind, A.values, A.nnz, B_ell.col_ind, B_ell.values,
-            out_cap=plan.out_capacity, m=A.nrows, n=B.ncols, run=plan.b_run)
+            out_cap=plan.out_capacity, m=A.nrows, n=B.ncols, run=plan.b_run,
+            sp=sp)
     else:
         row_ptr, col, val, nnz = _esc_core(
             a_row, A.col_ind, A.values, A.nnz, B.row_ptr, B.col_ind,
             B.values, e_cap=plan.expansion_capacity,
-            out_cap=plan.out_capacity, m=A.nrows, k=A.ncols, n=B.ncols)
+            out_cap=plan.out_capacity, m=A.nrows, k=A.ncols, n=B.ncols,
+            sp=sp)
     return CSR(row_ptr=row_ptr, col_ind=col, values=val, nnz=nnz,
                shape=(A.nrows, B.ncols))
 

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ia_spgemm_tpu_torch import config as cfg
-from ia_spgemm_tpu_torch.formats import convert
+from ia_spgemm_tpu_torch import tracing
 from ia_spgemm_tpu_torch.formats.types import CSR, SlabCSR
 from ia_spgemm_tpu_torch.ops import bitonic
 from ia_spgemm_tpu_torch.ops import bitonic_kernels as BK
@@ -67,21 +67,30 @@ class SlabPlan:
     slab_first_row: torch.Tensor  # (n_slabs, 1) global row of local row 0
 
 
-def _slab_run(table, mt, avt, lrt, *, F_c: int, W: int, run: int, n: int):
+def _slab_run(table, mt, avt, lrt, *, F_c: int, W: int, run: int, n: int,
+              sp=None):
     """K8 (expand from the table + sort) -> K3 (compress) -> nnz fold.
     Returns (keys (S, W), vals, nnz_s (S, 1), total)."""
+    if sp:
+        sp.leaf("slab.sort")
     key, val = SK.expand_sort_lr(table, mt, avt, lrt, ka=F_c, run=run,
                                  width=W, n=n, start_kk=2 * run)
+    if sp:
+        sp.leaf("slab.compress")
     keys, vals, nnz_s = BK.compress(key, val, width=W, out_w=W)
     return keys, vals, nnz_s, nnz_s.sum(dtype=torch.int32)
 
 
 def _slab_run_dd(table, mt, avt, lrt, *, F_c: int, W: int, run: int,
-                 n: int):
+                 n: int, sp=None):
     """The compensated pipeline: K9 -> K10 -> nnz fold. Returns (keys, hi,
     lo, nnz_s, total)."""
+    if sp:
+        sp.leaf("slab.sort")
     key, val = SK.expand_sort_lr_dd(table, mt, avt, lrt, ka=F_c, run=run,
                                     width=W, n=n, start_kk=2 * run)
+    if sp:
+        sp.leaf("slab.compress")
     keys, his, los, nnz_s = SK.compress_dd(key, val, width=W)
     return keys, his, los, nnz_s, nnz_s.sum(dtype=torch.int32)
 
@@ -94,16 +103,21 @@ class SlabCall:
     dd: bool
     shape: tuple
 
-    def __call__(self) -> SlabCSR:
+    def __call__(self, sp=None) -> SlabCSR:
+        """The product. ``sp``, the caller's ``tracing.Tracer`` whose top
+        is open (None: no spans), opens the leaves ``slab.sort`` (K8 /
+        K9) and ``slab.compress`` (K3 / K10 and the nnz fold). Counts the
+        plan's padded slots (``slab.padded_slots``)."""
         p = self.plan
+        tracing.count("slab.padded_slots", p.padded_slots)
         kw = dict(F_c=p.width // p.run, W=p.width, run=p.run, n=p.n)
         lo = None
         if self.dd:
             keys, vals, lo, nnz_s, total = _slab_run_dd(
-                p.table, p.mt, p.avt, p.lrt, **kw)
+                p.table, p.mt, p.avt, p.lrt, sp=sp, **kw)
         else:
             keys, vals, nnz_s, total = _slab_run(
-                p.table, p.mt, p.avt, p.lrt, **kw)
+                p.table, p.mt, p.avt, p.lrt, sp=sp, **kw)
         return SlabCSR(keys=keys, values=vals, values_lo=lo,
                        nnz_slab=nnz_s[:, 0],
                        slab_first_row=p.slab_first_row[:, 0], nnz=total,
@@ -202,17 +216,12 @@ def _plan_slab_csr_uncached(A: CSR, B: CSR, *, width: int | None = None,
     if rspan * n >= 2**31:
         return None  # slab-local keys must fit int32 below SENTINEL
 
-    # B's fragment grid + packed table (pre-reversed runs, 128 lanes)
-    kb = convert.plan_ell_width(B)
-    if B.nrows * max(kb, 1) > (1 << 28):
-        return None
-    cm = max(-(-kb // run), 1)
+    # B's fragments (its nonempty rows cut into runs), in row order
     b_cnt = -(-b_len // run)
     startp = np.concatenate([[0], np.cumsum(b_cnt)])
     F_B = int(startp[-1])
     js = np.repeat(np.arange(len(b_cnt)), b_cnt)
     within_b = np.arange(F_B) - np.repeat(startp[:-1], b_cnt)
-    frag_src = js * cm + within_b
 
     # global fragment stream over A's entries -> (slab, fragment slot)
     F_total = int(ecs[-1])
@@ -244,10 +253,10 @@ def _plan_slab_csr_uncached(A: CSR, B: CSR, *, width: int | None = None,
         return torch.from_numpy(np.ascontiguousarray(
             flat.reshape(S_pad, F_c).T)).to(dev)
 
-    B_ell = convert.csr_to_ell(B, width=kb, check_guard=False)
+    # the packed table (pre-reversed runs, 128 lanes) from B's CSR arrays
     table = bitonic._ragged_table(
-        B_ell.col_ind, B_ell.values,
-        torch.from_numpy(frag_src.astype(np.int64)).to(dev), run=run, cm=cm)
+        B.row_ptr, B.col_ind, B.values, torch.from_numpy(js).to(dev),
+        torch.from_numpy(within_b).to(dev), run=run)
 
     sfr_h = np.zeros((S_pad, 1), np.int32)
     sfr_h[:n_slabs, 0] = live_rows[bounds[:-1]]
@@ -424,11 +433,29 @@ class HybridCall:
     shape: tuple
 
     def __call__(self) -> HybridCSR:
-        return HybridCSR(
-            light=self.light_call(),
-            heavy=esc.spgemm_csr(self.A_heavy, self.B, self.heavy_plan,
-                                 engine="global"),
-            shape=self.shape)
+        """Counters (plan constants, once a call): ``hybrid.calls``,
+        ``hybrid.light_products``, ``hybrid.heavy_products``. Spans, while
+        tracing is active: ``hybrid.call``, inside it ``hybrid.light``
+        (the slab call's leaves) and ``hybrid.heavy`` (the global
+        engine's)."""
+        tracing.count_all((
+            ("hybrid.calls", 1),
+            ("hybrid.light_products", self.light_call.plan.true_flops),
+            ("hybrid.heavy_products", self.heavy_plan.flops)))
+        sp = tracing.tracer(self.B.row_ptr.device)
+        if sp is None:
+            light = self.light_call()
+            heavy = esc.spgemm_csr_global(self.A_heavy, self.B,
+                                          self.heavy_plan)
+        else:
+            with sp.top("hybrid.call",
+                        f"call={tracing.counter('hybrid.calls')}"):
+                with sp.child("hybrid.light") as t:
+                    light = self.light_call(t)
+                with sp.child("hybrid.heavy") as t:
+                    heavy = esc.spgemm_csr_global(self.A_heavy, self.B,
+                                                  self.heavy_plan, t)
+        return HybridCSR(light=light, heavy=heavy, shape=self.shape)
 
 
 def plan_slab_hybrid(A: CSR, B: CSR):

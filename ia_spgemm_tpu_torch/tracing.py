@@ -22,11 +22,12 @@ a ``torch.profiler`` window is open. An active span
 A hot call opens its spans through ``tracer(device)``: None when tracing
 is off, so the call checks once and opens nothing. Its spans are a top
 span and a run of leaves that follow one another inside it (``leaf``),
-so one event marks each boundary. Inside ``enable()`` every call is
-timed. Under a profiler window alone, a card times one call in
-``TIME_EVERY_NS`` of host time at most: each event is a command on the
-stream of its own, and a window that measures the device would count
-them. At most ``MAX_PENDING`` events wait unresolved; past that a span
+so one event marks each boundary; an engine run as a part of another
+call nests its own top and leaves there (``child``), on the same clock.
+Inside ``enable()`` every call is timed. Under a profiler window alone,
+a card times one call in ``TIME_EVERY_NS`` of host time at most: each
+event is a command on the stream of its own, and a window that measures
+the device would count them. At most ``MAX_PENDING`` events wait unresolved; past that a span
 is not timed. A span's ``timed`` counts its timed calls, over which
 ``stream_ms`` is summed.
 
@@ -245,6 +246,12 @@ class Tracer:
     def top(self, name: str, args: str | None = None):
         self.span = _Span(name, args, self.clock)
         return self
+
+    def child(self, name: str):
+        """A Tracer whose top span ``name`` nests inside this one, timed
+        as this call is: an engine that runs as a part of another call
+        opens its leaves there."""
+        return Tracer(self.clock).top(name)
 
     def __enter__(self):
         self.span.__enter__()
