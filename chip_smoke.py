@@ -27,8 +27,11 @@ prints no result line:
    classes up to FUSED_MAX_WIDTH; K3 on the rows that K2, K8 and K6 sort
    for the inputs named next); then K4 on the skew matrix's wide
    classes as the torch expand writes them (and K4t's outputs equal to
-   K4's there, bit for bit), K10 on K9's sorted slabs, K11 on
-   build_matrix(m=16384) (A as ELL times dense B, 16384 x 16384; bit for
+   K4's there, bit for bit), K10 on K9's sorted slabs, K14 at
+   bench.kernels.esc_expand_cases (the cage12 replica in float64 through
+   the global engine's plan, 41.9 M slots; the webbase-1M replica's heavy
+   rows, 8.4 M slots; int64 keys in both; keys and values bit for bit),
+   K11 on build_matrix(m=16384) (A as ELL times dense B, 16384 x 16384; bit for
    bit, and its float64
    instance bit for bit on build_matrix(m=4096)), K12 on the headline
    ELL pair (Ka = Kb = 29, H = 2048; each row's slots compared sorted by
@@ -62,7 +65,7 @@ prints no result line:
    waits, a copy launch per source card), each bit for bit against the
    plain hop of torch.distributed, with ms per hop of both and the
    kernel's profiler time; the kernels of bench.kernels.PROFILE_NAMES
-   (K1-K3, K4t, K5, K7a, K7b, K8-K10, K12) with the same two beside each
+   (K1-K3, K4t, K5, K7a, K7b, K8-K10, K12, K14) with the same two beside each
    shape's CUDA-event time (a kernel_split JSON line); then cuSPARSE's
    CSR @ CSR of the headline (torch.sparse.mm), the library time of K12
    and of K1 (beside the headline's K1 launches; that plan also launches
@@ -219,12 +222,12 @@ Every kernel wrapper counts its launches. Phases 4, 5, 7-10, 12-15,
 before each run and read just after it (a worker process starts from
 0).
 K1, K2 and K3 must have been launched in phase 4, K2, K3 and K4t in
-phase 5, K8 and K3 in phase 7, K9 and K10 in phase 9, K8 in the hybrid
-run of phase 10, K7a and K7b in phase 12, K12 in 13, K11 in 14, the flat
+phase 5, K8 and K3 in phase 7, K9 and K10 in phase 9, K8 and K14 in the
+hybrid run of phase 10, K7a and K7b in phase 12, K12 in 13, K11 in 14, the flat
 route's kernels in spgemm_auto (15), K6 and K3 in f64_flat and
 f32_wide_flat, K5, K6 and K3 in f64_multiclass, K4 in f64_skew, K13 and
-K4 in the K13 ring runs of 22 (no K13 in the plain-hop run), none in the
-plain-torch dist runs of 23, K13 and K4 in the workers of 25 (their
+K4 in the K13 ring runs of 22 (no K13 in the plain-hop run), K14 in the
+dist runs of 23, K13 and K4 in the workers of 25 (their
 counts summed: ring_multiproc_2x2, ring_multiproc_4x1 and, on several
 cards, ring_multiproc_2xevery), at least one
 kernel in the harvest of 27 and in the workers of 28 (harvest_quick),
@@ -272,7 +275,8 @@ SOURCES = {"bitonic": "ia_spgemm_tpu_torch/csrc/bitonic.cu",
            "slab": "ia_spgemm_tpu_torch/csrc/slab.cu",
            "dense_row": "ia_spgemm_tpu_torch/csrc/dense_row.cu",
            "hash": "ia_spgemm_tpu_torch/csrc/hash.cu",
-           "ring": "ia_spgemm_tpu_torch/csrc/ring.cu"}
+           "ring": "ia_spgemm_tpu_torch/csrc/ring.cu",
+           "esc": "ia_spgemm_tpu_torch/csrc/esc.cu"}
 REPLACES = {"K1": "ia_spgemm_tpu/ops/bitonic.py:1034",
             "K2": "ia_spgemm_tpu/ops/bitonic.py:977",
             "K3": "ia_spgemm_tpu/ops/bitonic.py:523",
@@ -287,7 +291,8 @@ REPLACES = {"K1": "ia_spgemm_tpu/ops/bitonic.py:1034",
             "K10": "ia_spgemm_tpu/ops/slab.py:369",
             "K11": "ia_spgemm_tpu/ops/dense_row.py:35",
             "K12": "ia_spgemm_tpu/ops/hash_spgemm.py:58",
-            "K13": "ia_spgemm_tpu/parallel/rdma_ring.py:31"}
+            "K13": "ia_spgemm_tpu/parallel/rdma_ring.py:31",
+            "K14": "none (XLA: ia_spgemm_tpu/ops/esc.py:214)"}
 RING_SHARDS = 4          # the ring / dist phases: 4 shards of the one card
 # phase 25: (main-path run, processes, shards per process) of the ring on
 # the headline across processes sharing the card; and, on a machine with
@@ -559,6 +564,26 @@ def _check_k10(A, stats, time_ms, dev):
             lambda: f(SK.compress_dd_plain), (key, val))
 
 
+def _check_k14(stats, time_ms, dev):
+    """K14 against its plain version at the benchmark's global-engine
+    shapes (bench.kernels.esc_expand_cases: the cage12 replica in
+    float64, the webbase-1M replica's heavy rows), keys and values bit
+    for bit."""
+    from ia_spgemm_tpu_torch.bench import kernels as KB
+    from ia_spgemm_tpu_torch.ops import esc_kernels as EK
+    for label, args, kw in KB.esc_expand_cases(dev):
+        f = lambda fn: fn(*args, **kw)  # noqa: E731
+        got, want = f(EK.esc_expand), f(EK.esc_expand_plain)
+        for part, x, y in zip(("keys", "values"), got, want):
+            _same_bits(f"K14 {label} {part}", x, y)
+        del got, want
+        shape = (f"{label} slots={kw['e_cap']} "
+                 f"{str(kw['val_dtype'])[6:]}")
+        _record(stats, time_ms, dev, "K14", shape, 0.0,
+                lambda: f(EK.esc_expand), lambda: f(EK.esc_expand_plain),
+                KB.esc_expand_read_bytes(args))
+
+
 def _values_err(name, got, want, tol):
     """max |got - want| on the card, within tol * max(1, max|want|)."""
     import torch
@@ -801,14 +826,15 @@ def _distributed_phases(A, H, ref_sum, by_run, reset_counts, counts,
             As, Bs, mesh, plan, use_rdma=rdma), ell_csr, want, never)
     del As, Bf
 
-    # ---- 23. dist: B all-gathered, B replicated (plain torch ESC)
+    # ---- 23. dist: B all-gathered, B replicated (the ESC engine: K14's
+    # expansion, then plain torch)
     e_cap, out_cap = pdist.plan_dist_spgemm(A, A, D, balance="flops")
     Ad = pdist.partition_rows(A, D, balance="flops", B=A, mesh=mesh)
     Bd = pdist.partition_rows(A, D, mesh=mesh)
     for run, Bx in (("dist_allgather", Bd), ("dist_replicated", A)):
         route(run, lambda Bx=Bx: pdist.dist_spgemm(
             Ad, Bx, mesh, e_cap=e_cap, out_cap=out_cap),
-            pdist.gather_result, [])
+            pdist.gather_result, ["K14"])
     del Ad, Bd
     print(json.dumps({"distributed": dist_info}), flush=True)
 
@@ -1464,12 +1490,13 @@ def main() -> int:
     from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
     from ia_spgemm_tpu_torch.ops import dense_row_kernels as DK
     from ia_spgemm_tpu_torch.ops import esc, slab
+    from ia_spgemm_tpu_torch.ops import esc_kernels as EK
     from ia_spgemm_tpu_torch.ops import hash_kernels as HK
     from ia_spgemm_tpu_torch.ops import slab_kernels as SK
     from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
 
     modules = {"bitonic": K, "slab": SK, "dense_row": DK, "hash": HK,
-               "ring": RR}
+               "ring": RR, "esc": EK}
     kernel_names = sorted((n for mod in modules.values()
                            for n in mod.KERNELS),
                           key=lambda n: (int(n[1:].rstrip("abt")), n))
@@ -1528,6 +1555,7 @@ def main() -> int:
                    "skew", time_ms, dev)
     del S
     _check_k10(A, stats, time_ms, dev)
+    _check_k14(stats, time_ms, dev)
     a16 = headline.build_matrix(m=DENSE_ROW_M).astype(np.float32)
     A16 = CSR.from_scipy(a16, device=dev)
     A16_ell = convert.csr_to_ell(A16, check_guard=False)
@@ -1708,7 +1736,7 @@ def main() -> int:
     if route != "hybrid":
         raise AssertionError(f"plan_csr_auto picked {route} on the hybrid "
                              "matrix")
-    launched("hybrid", ["K8"])
+    launched("hybrid", ["K8", "K14"])
     err = _against_scipy("hybrid", Ch, (h.astype(np.float64)
                                         @ h.astype(np.float64)).tocsr())
     measured["hybrid"]["hybrid"] = time_ms(hcall, dev, 1, 5)

@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 SOURCES = {"bitonic": _CSRC / "bitonic.cu", "slab": _CSRC / "slab.cu",
            "dense_row": _CSRC / "dense_row.cu", "hash": _CSRC / "hash.cu",
-           "ring": _CSRC / "ring.cu"}
+           "ring": _CSRC / "ring.cu", "esc": _CSRC / "esc.cu"}
 HEADERS = (_CSRC / "sort_common.cuh",)
 BUILD_DIR = _PKG / "_kernels_build"
 # -cudart shared: the libraries use the process's one CUDA runtime, the
@@ -77,6 +77,7 @@ SIGNATURES = {
              "ia_k13_host_map": [_L, _L, _P],
              "ia_k13_host_unmap": [_L],
              "ia_k13_enable_peer_access": [_I]},
+    "esc": {"ia_k14_esc_expand": [_P] * 9 + [_I] * 7 + [_P]},
     "slab": {
         "ia_k8_expand_sort_lr": [_P] * 6 + [_I] * 7 + [_P],
         "ia_k9_expand_sort_lr_dd": [_P] * 6 + [_I] * 7 + [_P],

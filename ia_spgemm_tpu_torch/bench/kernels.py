@@ -38,9 +38,10 @@ receivers hopped into the other set).
 
 ``PROFILE_NAMES`` names the kernels whose own device time (and host us
 per call) is recorded at each shape, here and in ``chip_smoke.py`` phase
-3: the register network's K1-K3, K4t, K5, K7a, K7b, K8 and K9, and K10 and
+3: the register network's K1-K3, K4t, K5, K7a, K7b, K8 and K9, K10 and
 K12, which are left as they are while they run within twice their
-bound.
+bound, and K14, the global engine's expansion (at
+``esc_expand_cases``' shapes, in ``chip_smoke.py`` alone).
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ PROFILE_NAMES = {"K1": "k1_expand_sort_compress", "K2": "k2_expand_sort",
                  "K7a": "k7a_expand_sort_packed",
                  "K7b": "k7b_compress_packed", "K8": "k8_expand_sort_lr",
                  "K9": "k9_expand_sort_lr_dd", "K10": "k10_compress_dd",
-                 "K12": "k12_hash"}
+                 "K12": "k12_hash", "K14": "k14_esc_expand"}
 # the network kernels whose output is the sorted row, not the compress
 SORTED_CASES = ("K2", "K8", "K9")
 
@@ -455,26 +456,82 @@ def _cols_cases(source, key, val, *, width, start_kk, out_w):
     yield _k3_case(source, shape, key, val, width, out_w)
 
 
+def _benchmark_file(*parts):
+    """A file of the repository's ``benchmark/`` directory: a module
+    (loaded, under its file's stem) or a configuration (parsed JSON)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[2].joinpath("benchmark", *parts)
+    if path.suffix == ".json":
+        return json.loads(path.read_text())
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def cant_matrix(grid=(9, 9, 257), seed=0):
     """The benchmark's cant replica (``benchmark/inputs/hex_mesh.py`` at
     ``benchmark/configs/cant.json``'s structure seed) on a hex mesh of
     `grid` nodes, 3 dof a node, nnz scaled with the rows; 9 x 9 x 257 is
     the configuration itself (C = A @ A in width classes 2048-8192, run
     32). Values standard normal from `seed`, float32."""
-    import importlib.util
-    from pathlib import Path
-    bench = Path(__file__).resolve().parents[2] / "benchmark"
-    spec = importlib.util.spec_from_file_location(
-        "hex_mesh", bench / "inputs" / "hex_mesh.py")
-    hex_mesh = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(hex_mesh)
-    cfg = json.loads((bench / "configs" / "cant.json").read_text())
+    hex_mesh = _benchmark_file("inputs", "hex_mesh.py")
+    cfg = _benchmark_file("configs", "cant.json")
     m = int(np.prod(grid)) * cfg["dof"]
     a = hex_mesh.build(dict(cfg, grid=list(grid), m=m, n=m,
                             nnz=round(cfg["nnz"] * m / cfg["m"])),
                        cfg["structure_seed"])
     a.data = np.random.default_rng(seed).standard_normal(a.nnz)
     return a.astype(np.float32)
+
+
+def benchmark_replica(config, dtype=np.float32, seed=0):
+    """The benchmark's replica of `config` (``benchmark/configs/<config>
+    .json``: its family's generator in ``benchmark/inputs/`` at the
+    configuration's structure seed, nnz calibrated as
+    ``benchmark/benchlib/inputs.py`` does), values standard normal from
+    `seed`, as scipy CSR of `dtype`."""
+    cfg = _benchmark_file("configs", f"{config}.json")
+    inputs = _benchmark_file("benchlib", "inputs.py")
+    family = _benchmark_file("inputs", f"{cfg['family']}.py")
+    return inputs.generate(family, cfg, seed).astype(dtype)
+
+
+def esc_expand_cases(dev):
+    """K14's inputs at the benchmark's global-engine shapes, one at a
+    time: (label, the wrapper's positional operands, its keywords). The
+    cage12 replica in float64 through the global engine's plan (41.9 M
+    slots, int64 keys); the webbase-1M replica's heavy rows (the
+    hybrid's global part: 8.4 M slots, float32, int64 keys)."""
+    from ia_spgemm_tpu_torch.formats.types import CSR
+    from ia_spgemm_tpu_torch.ops import esc, slab
+    a = CSR.from_scipy(benchmark_replica("cage12", np.float64), device=dev)
+    yield ("cage12 float64",) + esc_expand_operands(a, a,
+                                                    esc.plan_spgemm(a, a))
+    del a
+    w = CSR.from_scipy(benchmark_replica("webbase-1M"), device=dev)
+    call = slab.plan_slab_hybrid(w, w)
+    yield ("webbase-1M heavy rows",) + esc_expand_operands(
+        call.A_heavy, call.B, call.heavy_plan)
+
+
+def esc_expand_operands(A, B, plan):
+    """(args, kw) of the global engine's K14 call for C = A @ B under an
+    unsliced plan."""
+    import torch
+    return ((A.row_ptr, A.col_ind, A.values, A.nnz, B.row_ptr, B.col_ind,
+             B.values),
+            dict(e_cap=plan.expansion_capacity, m=A.nrows, k=A.ncols,
+                 n=B.ncols, val_dtype=torch.promote_types(A.values.dtype,
+                                                          B.values.dtype)))
+
+
+def esc_expand_read_bytes(args) -> int:
+    """What K14 must read, once: A's and B's CSR arrays and the entries'
+    slot offsets (int32, one an entry of A)."""
+    a_rp, a_col, a_val, _, b_rp, b_col, b_val = args
+    return _nbytes(a_rp, a_col, a_val, b_rp, b_col, b_val) + 4 * len(a_col)
 
 
 def network_cases(dev, m=HEADLINE_ROWS):

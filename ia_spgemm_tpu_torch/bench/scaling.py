@@ -146,7 +146,6 @@ def _local_program(As, s: int, *, e_cap: int, out_cap: int, k: int, n: int):
     shard repeat; here B = A) and the ESC engine on its rows."""
     from ia_spgemm_tpu_torch.ops import esc
     from ia_spgemm_tpu_torch.parallel import distributed as dist
-    from ia_spgemm_tpu_torch.utils.scans import entry_rows
 
     dev = As.row_ptr[s].device
     g = [torch.stack([t.to(dev) for t in x])
@@ -158,10 +157,9 @@ def _local_program(As, s: int, *, e_cap: int, out_cap: int, k: int, n: int):
         b_rp, b_col, b_val, _ = dist._assemble_global_csr(
             *g, n_cols=n, row_start=rs, n_rows=k)
         a_rp, a_col = As.row_ptr[s], As.col_ind[s]
-        return esc._esc_core(entry_rows(a_rp, a_col.shape[0]), a_col,
-                             As.values[s], As.nnz[s], b_rp, b_col, b_val,
-                             e_cap=e_cap, out_cap=out_cap, m=m_loc, k=k,
-                             n=n)
+        return esc._esc_core(a_rp, a_col, As.values[s], As.nnz[s], b_rp,
+                             b_col, b_val, e_cap=e_cap, out_cap=out_cap,
+                             m=m_loc, k=k, n=n)
     return run
 
 

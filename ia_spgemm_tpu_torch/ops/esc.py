@@ -8,7 +8,9 @@
   plain XLA in the JAX package, so it is plain torch here
   (``torch.sort``, scans, gathers) on the operands' device. Where
   (m+1)(n+1) >= 2^31 the sort key is one int64 ``i*n + j`` (the JAX
-  package sorts two int32 keys); the order is the same.
+  package sorts two int32 keys); the order is the same. The expansion
+  that feeds the sort is kernel K14 on the card
+  (``ops/esc_kernels.esc_expand``).
 - ``plan_csr_auto`` / ``spgemm_csr_auto``: a cost model picks the tiled
   width-class route (``ops/bitonic.py``), the slab engine
   (``ops/slab.py``), the slab + global hybrid, or the global engine. The
@@ -35,7 +37,8 @@ import torch.nn.functional as F
 from ia_spgemm_tpu_torch import config as cfg
 from ia_spgemm_tpu_torch import tracing
 from ia_spgemm_tpu_torch.formats.types import COO, CSR
-from ia_spgemm_tpu_torch.utils.scans import entry_rows, segment_broadcast
+from ia_spgemm_tpu_torch.ops import esc_kernels as EK
+from ia_spgemm_tpu_torch.utils.scans import entry_rows
 
 # Single-slab workspace ceiling, in intermediate products (the JAX
 # package's value, sized for a 16 GB TPU; kept so plans stay equal).
@@ -125,79 +128,6 @@ def plan_spgemm(A: CSR, B: CSR, *, bucket: bool = True,
                       flops=E, variant=variant, b_run=b_run)
 
 
-# ------------------------------------------------------------ expand
-
-def _packed_gather2(x_int, x_f, idx):
-    """(x_int[idx], x_f[idx]), as one gather of (int, value-bits) pairs
-    for float32 values."""
-    if x_f.dtype == torch.float32:
-        g = torch.stack([x_int, x_f.view(torch.int32)], dim=1)[idx]
-        return g[:, 0], g[:, 1].view(torch.float32)
-    return x_int[idx], x_f[idx]
-
-
-def _delta_broadcast(cols, positions, out_size: int):
-    """Per-segment int32 constants broadcast to every covered position:
-    each entry's delta to the previous entry is added at its segment
-    start, then a cumsum telescopes back to the entry's value. Entries of
-    zero length share a start with the next one; their deltas stack and
-    still telescope. Positions at/after out_size fall into a dropped
-    slot. The sums run in int64, so they never wrap.
-
-    cols: (nnzA_cap, C) int32; positions: (nnzA_cap,) non-decreasing.
-    Each constant is scanned as its own 1-D tensor: on CUDA only a 1-D
-    cumsum takes the device-wide scan, while a few long rows of a 2-D
-    tensor are scanned one block (or, along dim 0, one thread) each."""
-    c = cols.long().T
-    deltas = torch.cat([c[:, :1], c[:, 1:] - c[:, :-1]], dim=1)
-    pos = positions.long().clamp(max=out_size)
-    buf = torch.zeros((cols.shape[1], out_size + 1), dtype=torch.int64,
-                      device=cols.device)
-    buf.index_add_(1, pos, deltas)
-    return torch.stack([torch.cumsum(row[:out_size], 0) for row in buf],
-                       dim=1).to(torch.int32)
-
-
-def _expand_products(a_row, a_col_local, a_val, ent_active, b_row_ptr,
-                     b_col, b_val, *, e_cap: int, val_dtype=None):
-    """Materialise the intermediate products (i, j, v, valid), padded to
-    e_cap, in A-entry order. a_col_local is clipped into B's rows; rows of
-    active entries are non-decreasing. val_dtype (default: the operands'
-    promoted type) is the type the products are formed in."""
-    nnzA_cap = a_col_local.shape[0]
-    dev = a_col_local.device
-    if val_dtype is None:
-        val_dtype = torch.promote_types(a_val.dtype, b_val.dtype)
-    ent = torch.arange(nnzA_cap, dtype=torch.int32, device=dev)
-    ac = a_col_local.long()
-    b_start = b_row_ptr[ac]
-    b_len = torch.where(ent_active, b_row_ptr[ac + 1] - b_start, 0)
-    offs_end = torch.cumsum(b_len, 0, dtype=torch.int32)
-    E = offs_end[-1] if nnzA_cap else torch.zeros((), dtype=torch.int32,
-                                                   device=dev)
-    offs_start = offs_end - b_len
-    e = torch.arange(e_cap, dtype=torch.int32, device=dev)
-    valid = e < E
-    if a_val.dtype == torch.float32:
-        cols = torch.stack([a_row.to(torch.int32), a_val.view(torch.int32),
-                            b_start - offs_start], dim=1)
-        bcast = _delta_broadcast(cols, offs_start, e_cap)
-        i = bcast[:, 0]
-        av_t = bcast[:, 1].view(torch.float32)
-        bpos = bcast[:, 2] + e
-    else:
-        t = segment_broadcast(ent + 1, offs_start, b_len > 0, e_cap, 0) - 1
-        t = t.clamp(0, max(nnzA_cap - 1, 0)).long()
-        i = a_row[t]
-        av_t = a_val[t]
-        bpos = b_start[t] + (e - offs_start[t])
-    bpos = bpos.clamp(0, b_col.shape[0] - 1).long()
-    j, bv = _packed_gather2(b_col, b_val, bpos)
-    v = torch.where(valid, av_t.to(val_dtype) * bv.to(val_dtype),
-                    torch.zeros((), dtype=val_dtype, device=dev))
-    return i, j, v, valid
-
-
 # ------------------------------------------------------- sort + compress
 
 def _segmented_scan_add(v, head):
@@ -216,29 +146,25 @@ def _segmented_scan_add(v, head):
     return s
 
 
-def _sort_compress(i, j, v, valid, *, out_cap: int, m: int, n: int,
-                   sp=None):
-    """Sort products by (i, j), sum duplicate runs, compact. Returns
-    (row_ptr, col_ind, values, nnz) padded to out_cap (col n, value 0
-    past nnz). float64 runs are summed by a scatter-add, others by the
-    segmented scan (as in the JAX package). ``sp`` (a call's
-    ``tracing.Tracer``, None: tracing off) opens the leaves ``esc.sort``
-    and ``esc.compress``."""
+def _sort_compress(key, v, *, out_cap: int, m: int, n: int, sp=None):
+    """Sort products by their keys i*n + j (``EK.key_dtype``; m*n marks
+    an empty slot), sum duplicate runs, compact. Returns (row_ptr,
+    col_ind, values, nnz) padded to out_cap (col n, value 0 past nnz).
+    float64 runs are summed by a scatter-add, others by the segmented
+    scan (as in the JAX package). ``sp`` (a call's ``tracing.Tracer``,
+    None: tracing off) opens the leaves ``esc.sort`` and
+    ``esc.compress``."""
     if sp:
         sp.leaf("esc.sort")
     e_cap = v.shape[0]
     dev = v.device
+    kd = key.dtype
+    inval = m * n
     if out_cap > e_cap:
         pad = out_cap - e_cap
-        i, j, v = F.pad(i, (0, pad)), F.pad(j, (0, pad)), F.pad(v, (0, pad))
-        valid = F.pad(valid, (0, pad))
+        key = torch.cat([key, key.new_full((pad,), inval)])
+        v = F.pad(v, (0, pad))
         e_cap = out_cap
-    kd = torch.int32 if (m + 1) * (n + 1) < 2**31 else torch.int64
-    inval = m * n
-    # a Python scalar, not a tensor made on the host: copying one from
-    # pageable memory would hold the host until the card caught up, in
-    # every call
-    key = torch.where(valid, i.to(kd) * n + j.to(kd), inval)
     key_s, order = torch.sort(key, stable=True)
     v_s = v[order]
     if sp:
@@ -276,28 +202,28 @@ def _sort_compress(i, j, v, valid, *, out_cap: int, m: int, n: int,
     return row_ptr, c_col, c_val, nnz_c
 
 
-def _esc_core(a_row, a_col, a_val, a_nnz, b_row_ptr, b_col, b_val, *,
+def _esc_core(a_row_ptr, a_col, a_val, a_nnz, b_row_ptr, b_col, b_val, *,
               e_cap: int, out_cap: int, m: int, k: int, n: int,
               val_dtype=None, sp=None):
-    """ESC over A's entry list: expand, then sort-compress. Returns
-    (row_ptr, col_ind, values, nnz) of C = A @ B padded to out_cap.
-    ``sp``: the leaves ``esc.expand``, then _sort_compress's."""
+    """ESC over A's CSR arrays (row pointer (m+1,), non-decreasing):
+    expand (K14), then sort-compress. Returns (row_ptr, col_ind, values,
+    nnz) of C = A @ B padded to out_cap. ``sp``: the leaves
+    ``esc.expand``, then _sort_compress's."""
     if sp:
         sp.leaf("esc.expand")
-    nnzA_cap = a_col.shape[0]
-    ent_valid = torch.arange(nnzA_cap, device=a_col.device) < a_nnz
-    i, j, v, valid = _expand_products(
-        a_row, a_col.clamp(0, k - 1), a_val, ent_valid, b_row_ptr, b_col,
-        b_val, e_cap=e_cap, val_dtype=val_dtype)
-    return _sort_compress(i, j, v, valid, out_cap=out_cap, m=m, n=n, sp=sp)
+    key, v = EK.esc_expand(a_row_ptr, a_col, a_val, a_nnz, b_row_ptr, b_col,
+                           b_val, e_cap=e_cap, m=m, k=k, n=n,
+                           val_dtype=val_dtype)
+    return _sort_compress(key, v, out_cap=out_cap, m=m, n=n, sp=sp)
 
 
-def _esc_core_rowexpand(a_row, a_col, a_val, a_nnz, b_col_ell, b_val_ell,
-                        *, out_cap: int, m: int, n: int, run: int,
+def _esc_core_rowexpand(a_row_ptr, a_col, a_val, a_nnz, b_col_ell,
+                        b_val_ell, *, out_cap: int, m: int, n: int, run: int,
                         sp=None):
-    """ESC with the B-row-gather expansion: one row gather of B's padded
-    ELL row per A entry into a (nnzA_cap, run) grid (empty slots masked),
-    then the shared sort-compress (``sp`` as in _esc_core)."""
+    """ESC with the B-row-gather expansion (float32; no K14): one row
+    gather of B's padded ELL row per A entry into a (nnzA_cap, run) grid
+    (empty slots masked), then the shared sort-compress (``sp`` as in
+    _esc_core)."""
     if sp:
         sp.leaf("esc.expand")
     nnzA_cap = a_col.shape[0]
@@ -314,23 +240,25 @@ def _esc_core_rowexpand(a_row, a_col, a_val, a_nnz, b_col_ell, b_val_ell,
     else:
         bc, bv = bc_p[rows], bv_p[rows]
     valid = ent_valid[:, None] & (bc >= 0)
+    a_row = entry_rows(a_row_ptr, nnzA_cap)
     val_dtype = torch.promote_types(a_val.dtype, b_val_ell.dtype)
-    i = a_row[:, None].expand(nnzA_cap, run)
+    kd = EK.key_dtype(m, n)
+    key = torch.where(valid, a_row[:, None].to(kd) * n + bc.to(kd), m * n)
     v = torch.where(valid, a_val[:, None].to(val_dtype) * bv.to(val_dtype),
                     torch.zeros((), dtype=val_dtype, device=dev))
-    return _sort_compress(i.reshape(-1), bc.reshape(-1), v.reshape(-1),
-                          valid.reshape(-1), out_cap=out_cap, m=m, n=n,
-                          sp=sp)
+    return _sort_compress(key.reshape(-1), v.reshape(-1), out_cap=out_cap,
+                          m=m, n=n, sp=sp)
 
 
 # ------------------------------------------------------------- slicing
 
 def _slab_inputs(row_ptr, col_ind, values, *, r0: int, s0: int, s1: int,
                  rows_cap: int, nnza_cap: int):
-    """One row slab of a CSR at fixed capacities (rebased row pointer;
-    tail rows and entries padded empty)."""
+    """One row slab of a CSR at fixed capacities (rebased row pointer,
+    non-decreasing; tail rows and entries padded empty)."""
     m1 = row_ptr.shape[0] - 1
-    rp = F.pad(row_ptr, (0, rows_cap))[r0:r0 + rows_cap + 1]
+    rp = torch.cat([row_ptr, row_ptr[-1:].expand(rows_cap)])
+    rp = rp[r0:r0 + rows_cap + 1]
     rp = (rp - s0).clamp(0, s1 - s0)
     col = F.pad(col_ind, (0, nnza_cap), value=m1)[s0:s0 + nnza_cap]
     val = F.pad(values, (0, nnza_cap))[s0:s0 + nnza_cap]
@@ -370,9 +298,8 @@ def _spgemm_csr_sliced(A: CSR, B: CSR, plan: SpGEMMPlan, sp=None) -> CSR:
         rp, col, val = _slab_inputs(
             A.row_ptr, A.col_ind, A.values, r0=r0, s0=s0, s1=s1,
             rows_cap=plan.rows_capacity, nnza_cap=plan.nnza_capacity)
-        a_row = entry_rows(rp, plan.nnza_capacity)
         prow, pcol, pval, pnnz = _esc_core(
-            a_row, col, val, s1 - s0, B.row_ptr, B.col_ind, B.values,
+            rp, col, val, s1 - s0, B.row_ptr, B.col_ind, B.values,
             e_cap=plan.expansion_capacity, out_cap=plan.out_capacity,
             m=plan.rows_capacity, k=A.ncols, n=n, sp=sp)
         _slab_write(col_out, val_out, rp_out, pcol, pval, prow, off, r0)
@@ -387,7 +314,7 @@ def _spgemm_csr_sliced(A: CSR, B: CSR, plan: SpGEMMPlan, sp=None) -> CSR:
 def spgemm_coo(A: COO, B: COO, plan: SpGEMMPlan | None = None) -> COO:
     """C = A @ B with both operands COO. The reference's COO_MUL_COO
     probes the output row linearly (coo/common_coo.h:72-161); here the
-    same products go through the global engine with A's per-entry rows
+    same products go through the global engine with A's row pointer
     (the sliced engine for a sliced plan)."""
     from ia_spgemm_tpu_torch.formats.convert import coo_to_csr, csr_to_coo
     if plan is None:
@@ -396,7 +323,7 @@ def spgemm_coo(A: COO, B: COO, plan: SpGEMMPlan | None = None) -> COO:
         return csr_to_coo(_spgemm_csr_sliced(coo_to_csr(A), coo_to_csr(B),
                                              plan))
     row_ptr, col, val, nnz = _esc_core(
-        A.row_ind, A.col_ind, A.values, A.nnz, B.row_offset, B.col_ind,
+        A.row_offset, A.col_ind, A.values, A.nnz, B.row_offset, B.col_ind,
         B.values, e_cap=plan.expansion_capacity,
         out_cap=plan.out_capacity, m=A.nrows, k=A.ncols, n=B.ncols)
     return csr_to_coo(CSR(row_ptr=row_ptr, col_ind=col, values=val, nnz=nnz,
@@ -430,17 +357,16 @@ def spgemm_csr_global(A: CSR, B: CSR, plan: SpGEMMPlan, sp=None) -> CSR:
     slab when sliced)."""
     if plan.slabs is not None:
         return _spgemm_csr_sliced(A, B, plan, sp)
-    a_row = entry_rows(A.row_ptr, A.capacity)
     if plan.variant == "rowexpand":
         from ia_spgemm_tpu_torch.formats.convert import csr_to_ell
         B_ell = csr_to_ell(B, check_guard=False)
         row_ptr, col, val, nnz = _esc_core_rowexpand(
-            a_row, A.col_ind, A.values, A.nnz, B_ell.col_ind, B_ell.values,
-            out_cap=plan.out_capacity, m=A.nrows, n=B.ncols, run=plan.b_run,
-            sp=sp)
+            A.row_ptr, A.col_ind, A.values, A.nnz, B_ell.col_ind,
+            B_ell.values, out_cap=plan.out_capacity, m=A.nrows, n=B.ncols,
+            run=plan.b_run, sp=sp)
     else:
         row_ptr, col, val, nnz = _esc_core(
-            a_row, A.col_ind, A.values, A.nnz, B.row_ptr, B.col_ind,
+            A.row_ptr, A.col_ind, A.values, A.nnz, B.row_ptr, B.col_ind,
             B.values, e_cap=plan.expansion_capacity,
             out_cap=plan.out_capacity, m=A.nrows, k=A.ncols, n=B.ncols,
             sp=sp)
@@ -600,14 +526,14 @@ def dd_sum(hi: torch.Tensor, lo: torch.Tensor):
     return _split_dd((hi.double() + lo.double()).sum())
 
 
-def _esc_core_dd(a_row, a_col, a_val, a_nnz, b_row_ptr, b_col, b_val, *,
+def _esc_core_dd(a_row_ptr, a_col, a_val, a_nnz, b_row_ptr, b_col, b_val, *,
                  e_cap: int, out_cap: int, m: int, k: int, n: int):
     """ESC with exact float64 products (two float32 factors fit a float64
     mantissa) and float64 run sums, split into a float32 (hi, lo) pair.
     Returns (row_ptr, col_ind, hi, lo, nnz)."""
     row_ptr, col, val, nnz = _esc_core(
-        a_row, a_col, a_val, a_nnz, b_row_ptr, b_col, b_val, e_cap=e_cap,
-        out_cap=out_cap, m=m, k=k, n=n, val_dtype=torch.float64)
+        a_row_ptr, a_col, a_val, a_nnz, b_row_ptr, b_col, b_val,
+        e_cap=e_cap, out_cap=out_cap, m=m, k=k, n=n, val_dtype=torch.float64)
     return (row_ptr, col) + _split_dd(val) + (nnz,)
 
 
@@ -643,11 +569,10 @@ def spgemm_csr_compensated(A: CSR, B: CSR,
         plan = plan_spgemm(A, B)
     if plan.slabs is not None:
         raise ValueError(_NO_SLICING)
-    a_row = entry_rows(A.row_ptr, A.capacity)
     e_cap = (plan.expansion_capacity if plan.variant == "gather"
              else cfg.bucket_capacity(plan.flops))
     row_ptr, col, hi, lo, nnz = _esc_core_dd(
-        a_row, A.col_ind, A.values, A.nnz, B.row_ptr, B.col_ind, B.values,
+        A.row_ptr, A.col_ind, A.values, A.nnz, B.row_ptr, B.col_ind, B.values,
         e_cap=e_cap, out_cap=plan.out_capacity, m=A.nrows, k=A.ncols,
         n=B.ncols)
     return CSR(row_ptr=row_ptr, col_ind=col, values=hi, values_lo=lo,

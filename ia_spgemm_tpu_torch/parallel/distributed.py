@@ -3,8 +3,9 @@
 
 A and C are split into row blocks, one per shard; B is either replicated
 (small B, no communication) or row-sharded and all-gathered, then every
-shard runs the ESC engine (``ops/esc._esc_core``, plain torch as it is
-XLA in the JAX package) on its row block. C comes back row-sharded.
+shard runs the ESC engine (``ops/esc._esc_core``: kernel K14's
+expansion, then plain torch as it is XLA in the JAX package) on its row
+block. C comes back row-sharded.
 
 Layout: a ShardedCSR holds one tensor per shard of this process, each on
 its shard's device (the counterpart of JAX's ``addressable_shards``):
@@ -30,7 +31,6 @@ from ia_spgemm_tpu_torch import config as cfg
 from ia_spgemm_tpu_torch.formats.types import CSR
 from ia_spgemm_tpu_torch.ops import esc
 from ia_spgemm_tpu_torch.parallel.mesh import Mesh, gather_shards
-from ia_spgemm_tpu_torch.utils.scans import entry_rows
 
 
 @dataclasses.dataclass
@@ -241,10 +241,9 @@ def dist_spgemm(A: ShardedCSR, B, mesh: Mesh | None,
         if dev not in b_on:
             b_on[dev] = tuple(x.to(dev) for x in b_first)
         a_rp, a_col = A.row_ptr[i], A.col_ind[i]
-        res = esc._esc_core(entry_rows(a_rp, a_col.shape[0]), a_col,
-                            A.values[i], A.nnz[i], *b_on[dev],
-                            e_cap=int(e_cap), out_cap=int(out_cap),
-                            m=m_loc, k=k, n=n)
+        res = esc._esc_core(a_rp, a_col, A.values[i], A.nnz[i],
+                            *b_on[dev], e_cap=int(e_cap),
+                            out_cap=int(out_cap), m=m_loc, k=k, n=n)
         for lst, x in zip(out, res):
             lst.append(x)
     return ShardedCSR(row_ptr=out[0], col_ind=out[1], values=out[2],

@@ -3,8 +3,9 @@ ops/symbolic.py, utils/scans.py) against the JAX package: the scans and
 the symbolic pass, SpGEMMPlan field by field (gather, rowexpand and
 sliced), the global engine in float32 and float64, the cost model and
 its route choice, the tiled route through spgemm_csr_auto, the
-compensated global core against the float64 oracle, dd_sum, and the
-harness's csr / esc / compensated rows.
+expansion's plain path (K14's, ops/esc_kernels.py) against the products
+written out in numpy, the compensated global core against the float64
+oracle, dd_sum, and the harness's csr / esc / compensated rows.
 
 Tolerances: structure (row pointers, columns, nnz, padding) identical;
 float32 values within 1e-5 * max(1, max|C|) (duplicates summed in
@@ -34,14 +35,18 @@ from ia_spgemm_tpu_torch.bench import harness as tharness
 from ia_spgemm_tpu_torch.formats.types import CSR as TCSR
 from ia_spgemm_tpu_torch.formats.types import BlockCSR
 from ia_spgemm_tpu_torch.ops import esc as tesc
+from ia_spgemm_tpu_torch.ops import esc_kernels as tek
 from ia_spgemm_tpu_torch.ops import symbolic as tsym
 from ia_spgemm_tpu_torch.utils import scans as tscans
 from tests import fixtures
 from tests.test_route_dispatch import _skew_matrix
 from tests.test_slab_dd import _ill_conditioned
 from tests.test_spgemm import _pairs
-from tests.torch_parity import (DD_RTOL, assert_same, assert_values_close,
-                                host)
+from tests.torch_parity import (DD_RTOL, ESC_EXPAND_CASES,
+                                ESC_EXPAND_TYPES, assert_same,
+                                assert_same_bits, assert_values_close,
+                                esc_expand_case, esc_expand_reference,
+                                esc_expand_tensors, host)
 
 REPO = Path(__file__).resolve().parents[1]
 F64_RTOL = 1e-12
@@ -217,6 +222,53 @@ def test_sliced_mixed_dtype_matches_jax():
                                                      workspace_elems=150))
     assert T.values.dtype == torch.float64
     _assert_csr_matches(T, J, np.float64)
+
+
+# ------------------------------------------ the expansion (K14's plain path)
+
+@pytest.mark.parametrize("types", sorted(ESC_EXPAND_TYPES))
+@pytest.mark.parametrize("case", ESC_EXPAND_CASES)
+def test_esc_expand_plain_path_matches_the_definition(case, types):
+    """The wrapper on CPU tensors (the engine's expansion and key
+    formation, launching nothing) against the products written out in
+    numpy: keys and values bit for bit, float32 / float64 / float32 into
+    float64 / float32 x float64, int32 and int64 keys, empty A and B
+    rows, entries past nnz, e_cap past the products, a sliced slab."""
+    args, kw = esc_expand_case(case, ESC_EXPAND_TYPES[types])
+    before = tek.launch_counts()
+    key, val = tek.esc_expand(*esc_expand_tensors(args, "cpu"), **kw)
+    assert tek.launch_counts() == before
+    want_key, want_val = esc_expand_reference(args, **kw)
+    assert_same_bits(key, want_key, "key")
+    assert_same_bits(val, want_val, "value")
+
+
+def test_slab_row_pointer_is_non_decreasing():
+    """K14 finds an entry's row by a binary search of the row pointer:
+    the sliced engine's slab pointer stays non-decreasing over the rows
+    padded past m."""
+    args, kw = esc_expand_case("slab", ESC_EXPAND_TYPES["f32"])
+    rp = args[0]
+    assert rp.shape == (kw["m"] + 1,)
+    assert (np.diff(rp) >= 0).all() and rp[-1] == args[3]
+
+
+def test_esc_expand_checks_its_operands_and_has_no_fallback():
+    args, kw = esc_expand_case("empty_rows", ESC_EXPAND_TYPES["f32"])
+    t = esc_expand_tensors(args, "cpu")
+    with pytest.raises(ValueError, match="a_row_ptr"):
+        tek.esc_expand(t[0][:-1], *t[1:], **kw)
+    with pytest.raises(TypeError, match="a_col"):
+        tek.esc_expand(t[0], t[1].long(), *t[2:], **kw)
+    with pytest.raises(ValueError, match="b_val"):
+        tek.esc_expand(*t[:6], t[6][:-1], **kw)
+    meta = tuple(x.to("meta") if isinstance(x, torch.Tensor) else x
+                 for x in t)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tek.esc_expand(*meta, **kw)
+    with pytest.raises(TypeError, match="float64 operands"):
+        tek.esc_expand(*meta[:6], meta[6].double(),
+                       **dict(kw, val_dtype=torch.float32))
 
 
 # ---------------------------------------------------------------- routing

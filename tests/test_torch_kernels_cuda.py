@@ -1,4 +1,4 @@
-"""PyTorch port, the CUDA kernels K1-K13 (K3-K6 and K11 in float32 and
+"""PyTorch port, the CUDA kernels K1-K14 (K3-K6 and K11 in float32 and
 float64) against their plain PyTorch versions on the card, and the ring
 through K13, in one process and across two worker processes sharing the
 card (marked `cuda`; they skip without a GPU; the several-card K13 test
@@ -19,14 +19,18 @@ import torch
 from ia_spgemm_tpu_torch.bench.headline import build_matrix
 from ia_spgemm_tpu_torch.ops import bitonic_kernels as K
 from ia_spgemm_tpu_torch.ops import dense_row_kernels as DK
+from ia_spgemm_tpu_torch.ops import esc_kernels as EK
 from ia_spgemm_tpu_torch.ops import hash_kernels as HK
 from ia_spgemm_tpu_torch.ops import slab_kernels as SK
 from ia_spgemm_tpu_torch.parallel import rdma_ring as RR
-from tests.torch_parity import (GATHER_CASES, GATHER_RUNS, RUN,
+from tests.torch_parity import (ESC_EXPAND_CASES, ESC_EXPAND_TYPES,
+                                GATHER_CASES, GATHER_RUNS, RUN,
                                 assert_dd_outputs_match,
                                 assert_kernel_outputs_match,
                                 assert_tables_match, assert_values_close,
-                                check_oracle, cols_inputs, ell_pair,
+                                assert_same_bits, check_oracle,
+                                cols_inputs, ell_pair, esc_expand_case,
+                                esc_expand_reference, esc_expand_tensors,
                                 fragment_gather, gather_inputs,
                                 ill_conditioned,
                                 pack_fragments, packed_rows,
@@ -1378,6 +1382,130 @@ def test_k13_across_processes_kernels_never_wait(cuda_device):
     for bit."""
     outs = _xproc_workers("late")
     assert "LATE_OK" in outs[0], outs
+
+
+# ------------------------------------------------------------------ K14
+
+def _equal_bits(got, want):
+    """Same dtype and the same bits, on the card."""
+    bits = {4: torch.int32, 8: torch.int64}[want.element_size()]
+    return got.dtype == want.dtype and torch.equal(got.view(bits),
+                                                   want.view(bits))
+
+
+def _plain_expand(*args, val_dtype=None, **kw):
+    """esc_expand with its plain version on whatever device the operands
+    are on (the engine's expansion as it was, on the card)."""
+    if val_dtype is None:
+        val_dtype = torch.promote_types(args[2].dtype, args[6].dtype)
+    return EK.esc_expand_plain(*args, val_dtype=val_dtype, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", sorted(ESC_EXPAND_TYPES))
+@pytest.mark.parametrize("case", ESC_EXPAND_CASES)
+def test_k14_matches_plain(cuda_device, case, types):
+    """K14 against its plain version on the card and the products
+    written out in numpy, bit for bit (tests/test_torch_esc.py's cases:
+    int32 and int64 keys, four type combinations, empty rows, entries
+    past nnz, e_cap past the products, B rows longer than a tile, tiles
+    meeting more entries than a chunk, a sliced slab); one launch."""
+    args, kw = esc_expand_case(case, ESC_EXPAND_TYPES[types])
+    t = esc_expand_tensors(args, cuda_device)
+    n14 = EK.launch_counts()["K14"]
+    key, val = EK.esc_expand(*t, **kw)
+    assert EK.launch_counts()["K14"] == n14 + 1
+    pk, pv = EK.esc_expand_plain(*t, **kw)
+    assert _equal_bits(key, pk) and _equal_bits(val, pv)
+    want_key, want_val = esc_expand_reference(args, **kw)
+    assert_same_bits(key, want_key, "key")
+    assert_same_bits(val, want_val, "value")
+
+
+@pytest.mark.cuda
+def test_k14_at_the_cells_shapes(cuda_device):
+    """K14 bit for bit against its plain version at the benchmark's
+    global-engine shapes (``bench.kernels.esc_expand_cases``): cage12 in
+    float64 (41.9 M slots, int64 keys), webbase-1M's heavy rows (8.4 M
+    slots, float32, int64 keys)."""
+    from ia_spgemm_tpu_torch.bench.kernels import esc_expand_cases
+    labels = []
+    for label, args, kw in esc_expand_cases(cuda_device):
+        key, val = EK.esc_expand(*args, **kw)
+        pk, pv = EK.esc_expand_plain(*args, **kw)
+        assert _equal_bits(key, pk), label
+        assert _equal_bits(val, pv), label
+        labels.append(label)
+        del key, val, pk, pv
+    assert len(labels) == 2
+
+
+@pytest.mark.cuda
+def test_k14_hybrid_on_webbase_equals_the_plain_path(cuda_device,
+                                                     monkeypatch):
+    """The production entry on the benchmark's webbase-1M replica
+    (float32, the hybrid route): C's stored arrays, light and heavy,
+    bit for bit the same with K14 and with the plain expansion on the
+    card; one K14 launch a call."""
+    import dataclasses
+
+    from ia_spgemm_tpu_torch.bench.kernels import benchmark_replica
+    from ia_spgemm_tpu_torch.formats.types import CSR
+    from ia_spgemm_tpu_torch.ops import esc
+    W = CSR.from_scipy(benchmark_replica("webbase-1M"), device=cuda_device)
+    route, call = esc.plan_csr_auto(W, W)
+    assert route == "hybrid"
+    n14 = EK.launch_counts()["K14"]
+    got = call()
+    assert EK.launch_counts()["K14"] == n14 + 1
+    monkeypatch.setattr(EK, "esc_expand", _plain_expand)
+    want = call()
+    for part in ("light", "heavy"):
+        g, w = getattr(got, part), getattr(want, part)
+        for f in dataclasses.fields(g):
+            x, y = getattr(g, f.name), getattr(w, f.name)
+            if isinstance(x, torch.Tensor):
+                assert _equal_bits(x, y), (part, f.name)
+
+
+@pytest.mark.cuda
+def test_k14_launches_once_a_global_call_and_once_a_row_slab(cuda_device):
+    """launch.K14: 1 a call of the float64 cage12 replica's planned call
+    (route global) and of the global engine on the float64 headline, 1 a
+    row slab of a sliced plan; each C within 1e-12 of scipy's product."""
+    from ia_spgemm_tpu_torch.bench.kernels import benchmark_replica
+    from ia_spgemm_tpu_torch.formats.types import CSR
+    from ia_spgemm_tpu_torch.ops import esc
+
+    def launches(fn):
+        n = EK.launch_counts()["K14"]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, EK.launch_counts()["K14"] - n
+
+    c12 = benchmark_replica("cage12", np.float64)
+    A = CSR.from_scipy(c12, device=cuda_device)
+    route, call = esc.plan_csr_auto(A, A)
+    assert route == "global"
+    C, n = launches(call)
+    assert n == 1
+    want = (c12 @ c12).tocsr()
+    assert int(C.nnz) == want.nnz
+    d = abs(C.to_scipy() - want)
+    assert d.max() <= 1e-12 * max(1.0, abs(want).max())
+    del A, C, call
+    a = build_matrix(m=4096)
+    A = CSR.from_scipy(a, device=cuda_device)
+    want = (a @ a).tocsr()
+    plan = esc.plan_spgemm(A, A)
+    splan = esc.plan_spgemm(A, A, workspace_elems=plan.flops // 3)
+    assert plan.slabs is None and len(splan.slabs) - 1 >= 3
+    for p, slabs in ((plan, 1), (splan, len(splan.slabs) - 1)):
+        C, n = launches(lambda: esc.spgemm_csr(A, A, p))
+        assert n == slabs
+        assert int(C.nnz) == want.nnz
+        d = abs(C.to_scipy() - want)
+        assert d.max() <= 1e-12 * max(1.0, abs(want).max())
 
 
 @pytest.mark.cuda

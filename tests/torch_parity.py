@@ -453,3 +453,159 @@ def packed_rows(width, m=3, kind="random", seed=0):
                     TK._pack_colval(key.clamp(min=0), torch.from_numpy(val)),
                     TK.SENTINEL)
     return torch.sort(p, dim=1).values
+
+
+# K14 (ops/esc_kernels.esc_expand): the global engine's expansion. Each
+# case is A's and B's CSR arrays (numpy) and the sizes; ESC_EXPAND_TYPES
+# the (A values, B values, products) types.
+ESC_EXPAND_TYPES = {"f32": (np.float32, np.float32, torch.float32),
+                    "f64": (np.float64, np.float64, torch.float64),
+                    "f32_to_f64": (np.float32, np.float32, torch.float64),
+                    "f32_x_f64": (np.float32, np.float64, torch.float64)}
+
+
+def _sparse(m, n, density, seed, *, empty_rows=(), long_rows=(),
+            row_len=None):
+    """A scipy CSR (float64 normal values) with the given rows emptied;
+    `long_rows` {row: length} of distinct columns; `row_len` one entry
+    in each of that many rows (the rest empty)."""
+    rng = np.random.default_rng(seed)
+    a = sp.random(m, n, density=density, format="lil", random_state=rng,
+                  data_rvs=rng.standard_normal)
+    if row_len is not None:
+        a = sp.lil_matrix((m, n))
+        for r in range(row_len):
+            a[r, rng.integers(n)] = rng.standard_normal()
+    for r, length in dict(long_rows).items():
+        a[r, rng.choice(n, length, replace=False)] = rng.standard_normal(
+            length)
+    for r in empty_rows:
+        a[r, :] = 0
+    a = a.tocsr()
+    a.eliminate_zeros()
+    return a
+
+
+def _csr_arrays(a, dtype, pad=0, pad_val=np.nan):
+    """(row_ptr, col, val) int32 / int32 / dtype, `pad` entries past nnz
+    (column n, value pad_val), at least one entry, as the port's CSR."""
+    pad = max(pad, 1 - a.nnz)
+    col = np.concatenate([a.indices, np.full(pad, a.shape[1])])
+    val = np.concatenate([a.data, np.full(pad, pad_val)])
+    return (a.indptr.astype(np.int32), col.astype(np.int32),
+            val.astype(dtype))
+
+
+def _b_lengths(a, b):
+    c = np.clip(a.indices, 0, b.shape[0] - 1)
+    return int(np.diff(b.indptr)[c].sum())
+
+
+def esc_expand_case(name, types):
+    """((a_row_ptr, a_col, a_val, a_nnz, b_row_ptr, b_col, b_val) numpy,
+    dict(e_cap, m, k, n, val_dtype)) of one K14 case:
+
+    - "empty_rows": empty rows in A and B, 5 entries past nnz with NaN
+      values, e_cap 37 past the products;
+    - "e_cap_exact": the same, e_cap the products;
+    - "past_nnz_tensor": 100 entries past nnz, nnz given as a tensor;
+    - "no_products": A's entries meet only empty B rows;
+    - "long_b_rows": B rows of 5,000 and 4,097 entries, longer than a
+      kernel tile (4,096 slots);
+    - "short_b_rows": B rows of one entry or none, 6,000 A entries, so a
+      tile meets more entries than a chunk (1,024);
+    - "int64_keys": m = n = 50,000, (m+1)(n+1) >= 2^31;
+    - "slab": the last row slab of a sliced plan (rows past m padded),
+      its rebased row pointer and m = the plan's row capacity."""
+    ta, tb, vd = types
+    kw = dict(val_dtype=vd, pad=0)
+    if name in ("empty_rows", "e_cap_exact", "past_nnz_tensor"):
+        a = _sparse(40, 30, 0.15, 1, empty_rows=(0, 3, 7, 20, 39))
+        b = _sparse(30, 50, 0.2, 2, empty_rows=(0, 5, 11))
+        kw["pad"] = 100 if name == "past_nnz_tensor" else 5
+    elif name == "no_products":
+        a = _sparse(20, 30, 0.1, 3)
+        b = _sparse(30, 40, 0.0, 4)
+    elif name == "long_b_rows":
+        a = _sparse(24, 10, 0.3, 5, long_rows={3: 8})
+        b = _sparse(10, 6000, 0.001, 6, long_rows={2: 5000, 7: 4097})
+    elif name == "short_b_rows":
+        a = _sparse(200, 300, 0.1, 7)
+        b = _sparse(300, 300, 0.0, 8, row_len=250)
+    elif name == "int64_keys":
+        a = _sparse(50000, 50000, 4e-6, 9, long_rows={49999: 30})
+        b = _sparse(50000, 50000, 4e-6, 10, long_rows={0: 40})
+        hits = np.arange(0, 50000, 100)    # rows meeting B's long row 0
+        a = (a + sp.csr_matrix((np.ones(hits.size), (hits, 0 * hits)),
+                               shape=a.shape)).tocsr()
+    elif name == "slab":
+        from ia_spgemm_tpu_torch.ops import esc
+        a = _sparse(60, 60, 0.15, 11, empty_rows=(58,))
+        A = TCSR.from_scipy(a.astype(ta), device="cpu")
+        plan = esc.plan_spgemm(A, TCSR.from_scipy(a.astype(tb),
+                                                  device="cpu"),
+                               workspace_elems=150)
+        r0, r1 = plan.slabs[-2], plan.slabs[-1]
+        s0, s1 = int(a.indptr[r0]), int(a.indptr[r1])
+        rp, col, val = esc._slab_inputs(
+            A.row_ptr, A.col_ind, A.values, r0=r0, s0=s0, s1=s1,
+            rows_cap=plan.rows_capacity, nnza_cap=plan.nnza_capacity)
+        b_rp, b_col, b_val = _csr_arrays(a, tb)
+        return ((rp.numpy(), col.numpy(), val.numpy(), s1 - s0, b_rp, b_col,
+                 b_val),
+                dict(e_cap=plan.expansion_capacity,
+                     m=plan.rows_capacity, k=60, n=60, val_dtype=vd))
+    else:
+        raise KeyError(name)
+    a_rp, a_col, a_val = _csr_arrays(a, ta, kw["pad"])
+    E = _b_lengths(a, b)
+    e_cap = E if name == "e_cap_exact" else E + 37
+    nnz = np.array(a.nnz, np.int32) if name == "past_nnz_tensor" else a.nnz
+    return ((a_rp, a_col, a_val, nnz) + _csr_arrays(b, tb),
+            dict(e_cap=e_cap, m=a.shape[0], k=a.shape[1], n=b.shape[1],
+                 val_dtype=vd))
+
+
+ESC_EXPAND_CASES = ("empty_rows", "e_cap_exact", "past_nnz_tensor",
+                    "no_products", "long_b_rows", "short_b_rows",
+                    "int64_keys", "slab")
+
+
+def esc_expand_tensors(args, device):
+    """esc_expand_case's arrays as tensors on `device` (nnz a 0-d int32
+    tensor where the case gives an array)."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                 if isinstance(x, np.ndarray) else x for x in args)
+
+
+def esc_expand_reference(args, *, e_cap, m, k, n, val_dtype):
+    """K14's (key, value) from the definition, in numpy: A's first nnz
+    entries in order, each its B row in order, key row * n + col (int32
+    where (m+1)(n+1) < 2^31, else int64), value a * b rounded once in
+    the product type; then key m * n and value 0 up to e_cap."""
+    a_rp, a_col, a_val, nnz, b_rp, b_col, b_val = args
+    nnz = int(nnz)
+    kd = np.int32 if (m + 1) * (n + 1) < 2**31 else np.int64
+    vd = np.float32 if val_dtype == torch.float32 else np.float64
+    rows = np.searchsorted(a_rp, np.arange(nnz), side="right") - 1
+    c = np.clip(a_col[:nnz], 0, k - 1)
+    starts = b_rp[c].astype(np.int64)
+    lens = b_rp[c + 1].astype(np.int64) - starts
+    E = int(lens.sum())
+    t = np.repeat(np.arange(nnz), lens)
+    first = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    pos = np.repeat(starts - first, lens) + np.arange(E)
+    key = np.full(e_cap, m * n, kd)
+    val = np.zeros(e_cap, vd)
+    key[:E] = rows[t].astype(np.int64) * n + b_col[pos]
+    val[:E] = a_val[t].astype(vd) * b_val[pos].astype(vd)
+    return key, val
+
+
+def assert_same_bits(got, want, msg=""):
+    """Equal dtype and bits (values compared as their bit patterns, so
+    NaN payloads and signed zeros count)."""
+    got, want = host(got), np.asarray(want)
+    assert got.dtype == want.dtype, (msg, got.dtype, want.dtype)
+    bits = {4: np.int32, 8: np.int64}[want.dtype.itemsize]
+    assert np.array_equal(got.view(bits), want.view(bits)), msg
